@@ -6,14 +6,15 @@ loader, the seeded synthetic stand-in when ``$BDE_DATA_DIR`` holds no
 CIFAR-10, random crop (zero-pad 4) + horizontal flip as a batched tensor
 function, and the numpy shuffle the JAX package's loader uses. Arrays come
 back as numpy NHWC float32, bit-equal to the JAX package's; the experiment
-moves them to the device as NCHW. STL-10, CIFAR-10-C and the native batcher
-are not ported yet.
+moves them to the device as NCHW and gathers each batch there with the
+shuffle, so ``batch_iter`` has no counterpart. STL-10, CIFAR-10-C and the
+native batcher are not ported yet.
 """
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,28 +37,17 @@ def normalize(images_uint8_or_float: np.ndarray) -> np.ndarray:
     return (x - MEAN) / STD
 
 
-def _synthetic_cifar(n: int, seed: int, classes: int = 10, hard: Optional[bool] = None):
-    """Class-structured blobs, the same arrays as the JAX package's: class
-    prototypes from a FIXED rng shared by the splits, per-split noise from
-    ``seed``. ``hard`` (default: env ``BDE_SYNTH_HARD=1``) mixes in another
-    class's prototype and resamples 10% of the labels."""
-    if hard is None:
-        hard = os.environ.get("BDE_SYNTH_HARD", "0") == "1"
+def _synthetic_cifar(n: int, seed: int, classes: int = 10):
+    """Class-structured blobs, the same arrays as the JAX package's default
+    (not its ``hard`` variant, which is not ported yet): class prototypes
+    from a FIXED rng shared by the splits, per-split noise from ``seed``."""
     rng = np.random.RandomState(seed)
     y = rng.randint(0, classes, size=n)
     base = np.random.RandomState(1234).randn(classes, 4, 4, 3).astype(np.float32)
-    imgs = base[y]
-    if hard:
-        other = base[(y + 1 + rng.randint(0, classes - 1, size=n)) % classes]
-        mix = rng.uniform(0.45, 1.0, size=(n, 1, 1, 1)).astype(np.float32)
-        imgs = mix * imgs + (np.float32(1.0) - mix) * other
-    imgs = imgs.repeat(8, axis=1).repeat(8, axis=2)
+    imgs = base[y].repeat(8, axis=1).repeat(8, axis=2)
     noise = np.random.default_rng(seed + 1).standard_normal(size=(n, 32, 32, 3), dtype=np.float32)
     imgs = np.float32(0.5) + np.float32(0.15) * imgs + np.float32(0.1) * noise
     np.clip(imgs, 0, 1, out=imgs)
-    if hard:
-        flip = rng.rand(n) < 0.1
-        y = np.where(flip, rng.randint(0, classes, size=n), y)
     return imgs, y.astype(np.int64)
 
 
@@ -75,7 +65,6 @@ def _load_python_batches(root: str, train: bool):
 
 def load_cifar10(
     train: bool,
-    exclude_classes: Sequence[int] = (),
     subsample: Optional[int] = None,
     seed: int = 0,
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -89,9 +78,6 @@ def load_cifar10(
             n = min(n, max(subsample * 2, 512))
         x, y = _synthetic_cifar(n, seed + (0 if train else 1))
     x = normalize(x)
-    if exclude_classes:
-        keep = ~np.isin(y, list(exclude_classes))
-        x, y = x[keep], y[keep]
     if subsample is not None:
         x, y = x[:subsample], y[:subsample]
     return x, y
@@ -126,17 +112,3 @@ def shuffled_indices(n: int, seed: int) -> np.ndarray:
     """The JAX package's numpy shuffle (``data/native_loader.py``)."""
     return np.random.RandomState(seed).permutation(n).astype(np.int64)
 
-
-def batch_iter(
-    x: np.ndarray,
-    y: np.ndarray,
-    batch_size: int,
-    rng: Optional[np.random.RandomState] = None,
-    drop_remainder: bool = True,
-) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-    n = x.shape[0]
-    idx = np.arange(n) if rng is None else rng.permutation(n)
-    end = n - (n % batch_size) if drop_remainder else n
-    for start in range(0, end, batch_size):
-        sel = idx[start : start + batch_size]
-        yield x[sel], y[sel]

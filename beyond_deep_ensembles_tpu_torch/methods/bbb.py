@@ -2,7 +2,7 @@
 
 Counterpart of ``beyond_deep_ensembles_tpu/methods/bbb.py`` (reference
 BBBOptimizer, src/algos/bbb.py:43-99): ``mc_samples`` forwards per step, the
-closed-form Gaussian KL collected once, L2 on plain parameters,
+closed-form Gaussian KL collected once,
 loss = kl_rescaling/N * KL + data_loss/(mc_samples * components), and a
 non-finite loss skips the update of both the parameters and the optimizer
 state. Rank-1 mixtures (``components > 1``) are not ported yet.
@@ -22,7 +22,6 @@ from .api import (
     PosteriorMethod,
     collect_gaussian_kl,
     default_finalize_epoch,
-    l2_of_plain_params,
 )
 
 
@@ -34,7 +33,6 @@ def bbb_method(
     mc_samples: int = 1,
     kl_rescaling: float = 1.0,
     components: int = 1,
-    l2_scale: float = 0.0,
 ) -> PosteriorMethod:
     if components != 1:
         raise NotImplementedError("rank-1 mixtures (components > 1): not ported yet")
@@ -56,8 +54,6 @@ def bbb_method(
             sown_kl = out.kl
         # KL collected once (reference bbb.py:69-79)
         kl = collect_gaussian_kl(params, prior) + sown_kl
-        if l2_scale:
-            kl = kl + l2_scale * l2_of_plain_params(params)
         loss = kl_rescaling / dataset_size * kl + data_loss / (mc_samples * components)
         loss.backward()
         # NaN guard (reference bbb.py:81): a skipped step leaves parameters,

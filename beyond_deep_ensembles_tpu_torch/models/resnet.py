@@ -2,13 +2,12 @@
 
 Counterpart of ``beyond_deep_ensembles_tpu/models/resnet.py`` (``BasicBlock``,
 ``ResNet20``), in NCHW. Ported: ``conv_kind="bbb"`` with ``norm="frn"``
-(variational FRN for BBB) and relu/swish; the other norms, dropout and the
-other architectures are not ported yet. As in JAX: no norm after the stem,
-an 8x8 average pool for 32x32 inputs, a dense head of ``head_kind``.
+(variational FRN for BBB) and swish on 32x32 inputs; the other
+activations, norms, dropout, other head kinds, smaller inputs and the other
+architectures are not ported yet. As in JAX: no norm after the stem, an 8x8 average pool, a
+dense head of the conv kind.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,11 +19,9 @@ from .layers import call_layer, make_conv, make_dense
 
 
 def _activation(name: str):
-    if name == "relu":
-        return F.relu
     if name == "swish":
         return F.silu
-    raise ValueError(f"unknown activation {name!r}")
+    raise NotImplementedError(f"activation {name!r}: not ported yet")
 
 
 class _Norm(nn.Module):
@@ -61,10 +58,10 @@ class BasicBlock(nn.Module):
         self,
         in_features: int,
         features: int,
-        stride: int = 1,
-        activation: str = "relu",
-        norm: str = "batch_static",
-        conv_kind: str = "plain",
+        stride: int,
+        activation: str,
+        norm: str,
+        conv_kind: str,
         *,
         generator: torch.Generator,
     ):
@@ -99,18 +96,15 @@ class BasicBlock(nn.Module):
 
 class ResNet20(nn.Module):
     """Reference ResNet20 (resnet.py:122-148); with norm='frn',
-    activation='swish' the Wilson-HMC CIFAR architecture. ``in_size`` is
-    the input's height/width, which sets the head's width as the JAX
-    module's lazy shapes do."""
+    activation='swish' the Wilson-HMC CIFAR architecture, for 32x32
+    inputs."""
 
     def __init__(
         self,
         classes: int,
-        activation: str = "relu",
-        norm: str = "batch_static",
-        conv_kind: str = "plain",
-        head_kind: Optional[str] = None,
-        in_size: int = 32,
+        activation: str,
+        norm: str,
+        conv_kind: str,
         *,
         generator: torch.Generator,
     ):
@@ -126,13 +120,7 @@ class ResNet20(nn.Module):
                 BasicBlock(cin, features, stride, activation, norm, conv_kind, generator=generator),
             ))
             cin = features
-        self.pool = in_size >= 32
-        side = -(-in_size // 4)  # two stride-2 stages
-        if self.pool:
-            side //= 8
-        head = add_auto_named(
-            self, make_dense(head_kind or conv_kind, 64 * side * side, classes, generator=generator)
-        )
+        head = add_auto_named(self, make_dense(conv_kind, 64, classes, generator=generator))
         # a tuple keeps the references out of the state_dict (one key per parameter)
         self._layers = (stem, tuple(blocks), head)
 
@@ -141,8 +129,5 @@ class ResNet20(nn.Module):
         h = call_layer(stem, x, noise, train)
         for block in blocks:
             h = block(h, noise, train=train)
-        if self.pool:
-            h = F.avg_pool2d(h, 8)
-        # flatten in the JAX package's NHWC order
-        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        h = F.avg_pool2d(h, 8).flatten(1)  # [B, 64, 1, 1] -> [B, 64]
         return call_layer(head, h, noise, train)

@@ -8,13 +8,18 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
   1. the card's name and power limit, as nvidia-smi reports them;
   2. K1 (``ops/sampling.py``, Triton, built at first use into ``build/``)
      against its plain PyTorch version at the main path's layer shapes:
-     given noise, Philox moments, seeds, frozen rows, gradients; then its
-     time and the plain version's, replayed in CUDA graphs;
+     given noise, Philox moments, seeds, frozen rows, gradients (the
+     Philox mode's, whose backward recovers z from the output, against the
+     true draw given back, on layer planes at rho -3 and -6); then its time
+     and the plain version's, replayed in CUDA graphs, for one forward's 22
+     launches, and for the largest layer (Philox and given noise) and the
+     head alone;
   3. the slice: BBB ResNet-20 (the ``BBB`` variant of configs/cifar.yaml)
      through ``experiments/cifar.py`` ``build`` -> ``train`` (10 steps at
      batch 128 on synthetic CIFAR-10) -> ``eval_model`` (50 posterior
      samples, eval batch 500), with K1's launch count read around it; a
-     profile of steady train steps; the card's logits held against the CPU
+     profile of steady train steps (device busy share, top kernels, the
+     host's wait in the NaN guard's sync); the card's logits held against the CPU
      path's on a small input with the same weights and noise;
   4. one JSON line of kernel figures, then the result line
      ``{"ok": true, "device": {...}}``.
@@ -22,6 +27,7 @@ Exits non-zero and prints no result without CUDA or without the package
 beside this file.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -106,6 +112,47 @@ def graph_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def layer_planes(torch, gen, shape, bias, rho):
+    """The mean and variance planes (and bias mean and variance) a BBB layer
+    hands K1, as ``nn/bbb.py`` computes them, with every weight's
+    std = softplus(rho): a 3x3 conv from 16 channels for an output of 16
+    channels, a 1x1 stride-2 conv from 16 channels at 32x32 otherwise, and
+    the 64 -> 10 dense head for a rank-2 shape."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    var_w = max(F.softplus(torch.tensor(rho)).item() ** 2, 1e-4)  # the layer's clamp
+    if len(shape) == 2:
+        x = F.silu(torch.randn(shape[0], 64, device=dev, generator=gen))
+        w = 0.1 * torch.randn(shape[1], 64, device=dev, generator=gen)
+        act_mean = x @ w.T
+        act_var = torch.clamp(x * x, min=1e-4) @ torch.full_like(w, var_w).T
+    else:
+        kernel, stride = (3, 1) if shape[1] == 16 else (1, 2)
+        x = F.silu(torch.randn(shape[0], 16, 32, 32, device=dev, generator=gen))
+        w = 0.1 * torch.randn(shape[1], 16, kernel, kernel, device=dev, generator=gen)
+        act_mean = F.conv2d(x, w, stride=stride, padding=kernel // 2)
+        act_var = F.conv2d(torch.clamp(x * x, min=1e-4), torch.full_like(w, var_w), stride=stride, padding=kernel // 2)
+    if not bias:
+        return [act_mean, act_var]
+    b_var = F.softplus(torch.tensor(rho)).item() ** 2  # conv bias variance: not clamped
+    if len(shape) == 2:
+        b_var = max(b_var, 1e-4)
+    b_mean = 0.1 * torch.randn(shape[1], device=dev, generator=gen)
+    return [act_mean, act_var, b_mean, torch.full((shape[1],), b_var, device=dev)]
+
+
+def recovery_bound(out, mean, std, z, g):
+    """Per element, how far d act_var from the z that the Philox-mode
+    backward recovers as (out - mean) / std may lie from g*z/(2*std) at the
+    true z: the output, the subtraction and the division each round once
+    (2**-23 relative), and the gradient's product and quotient round on
+    each side."""
+    u = 2.0**-23
+    dz = u * (out.abs() + mean.abs() + (std * z).abs()) / std + u * z.abs()
+    return (g * dz / (2 * std)).abs() + 2 * u * (g * z / (2 * std)).abs()
+
+
 def kernel_phase(torch, sampling):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -139,26 +186,42 @@ def kernel_phase(torch, sampling):
     rows = sampling.gaussian_sample(zeros[:128], torch.ones_like(zeros[:128]), seed=13, frozen=True)
     check(bool((rows == rows[:1]).all()) and float(rows[0].std()) > 0.5, "K1 frozen mode: one row for the batch")
 
-    # gradients: given noise, and the Philox mode's z recovered from the output
-    for shape, bias in ((128, 16, 32, 32), True), ((128, 10), True), ((128, 32, 16, 16), False):
-        leaves = [t.requires_grad_(True) for t in planes(shape, bias) if t is not None]
-        args = leaves if bias else leaves + [None, None]
-        g = torch.randn(shape, device=dev, generator=gen)
-        eps = torch.randn(shape, device=dev, generator=gen)
-        for mode in ("given", "philox"):
-            if mode == "given":
-                out = sampling.gaussian_sample(*args, eps=eps)
-                z = eps
-            else:
-                out = sampling.gaussian_sample(*args, seed=21)
-                with torch.no_grad():
-                    z = (out - sampling._add_bias(args[0], args[2])) / torch.sqrt(sampling._add_bias(args[1], args[3]))
-            got = torch.autograd.grad((out * g).sum(), leaves)
+    # gradients: given noise against the plain version; the Philox mode,
+    # whose backward recovers z from the output, against given noise at the
+    # true draw, on planes a BBB layer computes at init (rho -3) and after
+    # rho has shrunk (rho -6, the weight variance then at the 1e-4 clamp)
+    for shape, bias in ((128, 16, 32, 32), True), ((128, 32, 16, 16), False), ((128, 10), True):
+        for rho in (-3.0, -6.0):
+            leaves = [t.requires_grad_(True) for t in layer_planes(torch, gen, shape, bias, rho)]
+            args = leaves if bias else leaves + [None, None]
+            g = torch.randn(shape, device=dev, generator=gen)
+            z = sampling.gaussian_sample(torch.zeros(shape, device=dev), torch.ones(shape, device=dev), seed=21)
+            given = sampling.gaussian_sample(*args, eps=z)
+            want = torch.autograd.grad((given * g).sum(), leaves)
             ref = sampling.gaussian_sample_plain(*args, z)
-            want = torch.autograd.grad((ref * g).sum(), leaves)
-            for a, b in zip(got, want):
+            plain = torch.autograd.grad((ref * g).sum(), leaves)
+            for a, b in zip(want, plain):
                 err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                check(err <= 1e-5, f"K1 {mode} gradient {tuple(a.shape)} = plain (rel err {err:.2e} <= 1e-5)")
+                check(err <= 1e-5, f"K1 given-noise gradient {tuple(a.shape)}, rho {rho:g} = plain (rel err {err:.2e} <= 1e-5)")
+            out = sampling.gaussian_sample(*args, seed=21)
+            check(torch.equal(out, given), f"K1 Philox draw at seed 21 = the same z given, {shape}")
+            got = torch.autograd.grad((out * g).sum(), leaves)
+            with torch.no_grad():
+                mean = sampling._add_bias(args[0], args[2])
+                std = torch.sqrt(sampling._add_bias(args[1], args[3]))
+                z_err = float(((out - mean) / std - z).abs().max())
+                bound = recovery_bound(out, mean, std, z, g)
+            check(torch.equal(got[0], want[0]) and (not bias or torch.equal(got[2], want[2])),
+                  f"K1 Philox d mean = given-noise d mean exactly, {shape}, rho {rho:g}")
+            ratio = float(((got[1] - want[1]).abs() / bound.clamp_min(1e-38)).max())  # 0/0 where g = 0
+            rel = float((got[1] - want[1]).abs().max()) / float(want[1].abs().max())
+            check(ratio <= 1.0, f"K1 Philox d var within the z-recovery rounding bound, {shape}, rho {rho:g} "
+                  f"(recovered z off by {z_err:.2e}; largest error {ratio:.2f} of the bound, {rel:.2e} of max |d var|)")
+            if bias:
+                terms = out.numel() // shape[1]
+                sum_bound = sampling._channel_sum(bound) + math.ceil(math.log2(terms)) * 2.0**-23 * sampling._channel_sum(want[1].abs())
+                check(bool(((got[3] - want[3]).abs() <= sum_bound).all()),
+                      f"K1 Philox d bias var within the channel sums of that bound, {shape}, rho {rho:g}")
 
     # time: the 22 launches of one train forward at batch 128, Philox mode
     layers = [planes(shape, bias) for shape, bias in bbb_shapes(128)]
@@ -181,6 +244,39 @@ def kernel_phase(torch, sampling):
     print(f"K1 one train forward at batch 128 ({len(layers)} launches, {n_elem} elements, {n_bytes} bytes): "
           f"kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} / {plain_ms2:.4f} ms, "
           f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, fp32 ops {ops_ms:.4f})")
+
+    # single layers, 20 launches in one graph, turn about over four copies
+    # of the inputs (over 50 MB, the card's L2, for the largest layer), so
+    # that each launch reads device memory: the largest layer (stem and
+    # stage 1) against its own bound parts the kernel body's rate from the
+    # fixed cost of a launch, which the 1280-element head shows alone; the
+    # largest layer with given noise (z read, 16 bytes per element, no
+    # Philox) parts the memory traffic from the in-kernel draw
+    def copies(layer, eps=None):
+        return [(*(t.clone() if t is not None else None for t in layer), eps if eps is None else eps.clone())
+                for _ in range(4)]
+
+    eps = torch.randn(layers[0][0].shape, device=dev, generator=gen)
+    singles = (
+        ("largest layer 128x16x32x32", copies(layers[0]), 12),
+        ("head 128x10", copies(layers[-1]), 12),
+        ("largest layer 128x16x32x32, given noise", copies(layers[0], eps), 16),
+    )
+    for label, inputs, per_element in singles:
+        def repeated():
+            for i in range(20):
+                m, v, bm, bv, z = inputs[i % 4]
+                if z is None:
+                    sampling.gaussian_sample(m, v, bm, bv, seed=5)
+                else:
+                    sampling.gaussian_sample(m, v, bm, bv, eps=z)
+
+        with torch.no_grad():
+            one_ms = graph_ms(torch, repeated) / 20
+        m = inputs[0][0]
+        one_bound = (per_element * m.numel() + 8 * m.shape[1]) / HBM_BYTES_PER_S * 1e3
+        print(f"K1 {label} alone: {one_ms * 1e3:.2f} us per launch, byte bound {one_bound * 1e3:.2f} us "
+              f"({100 * one_bound / one_ms:.0f}% of the bound)")
     return {
         "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -217,6 +313,11 @@ def profile_steps(torch, built, xd, yd, noise, steps=3):
     top += [e for e in kernels if "_sample_kernel" in e.key and e not in top]
     for e in top:
         print(f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms/step  {e.count // steps:5d} calls/step  {e.key[:90]}")
+    # the NaN guard's loss.item() is the step's one host sync: the host's
+    # time inside it is what a guard kept on the device could give back
+    item_us = sum(e.cpu_time_total for e in averages if e.key == "aten::item")
+    print(f"host blocked in the NaN guard's loss.item(): {item_us / 1e3 / steps:.3f} ms/step "
+          f"({100 * item_us / 1e3 / wall_ms:.1f}% of the window)")
 
 
 def small_input_check(torch, NoiseSource, ResNet20):

@@ -4,8 +4,11 @@ The JAX layers draw their noise through ``eval_noise``; :class:`NoiseFeed`
 stands in for it (installed with pytest's ``monkeypatch`` on the names that
 ``nn/bbb.py`` and ``nn/frn.py`` imported), draws each array from a seeded
 numpy generator and records it. ``torch_noise`` turns the record into the
-port's given-mode noise, NHWC -> NCHW.
+port's given-mode noise, NHWC -> NCHW. :func:`assert_close` prints the gap
+of each comparison before it asserts.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -89,3 +92,20 @@ def load_jax_params(module: torch.nn.Module, jax_params) -> torch.nn.Module:
 def flat_jax(tree):
     """Nested flax tree -> {dotted name: numpy array in the port's layout}."""
     return {k: v.numpy() for k, v in params_from_jax(to_numpy_tree(tree)).items()}
+
+
+def assert_close(actual, desired, rtol=1e-7, atol=0.0, err_msg=""):
+    """``np.testing.assert_allclose`` (same defaults) that first prints the
+    largest gap it sees, so a run lists what each port test measured
+    against the JAX package:
+
+        JAX_PLATFORMS=cpu python -m pytest -s -p no:xdist tests/test_torch_*.py | grep '^gap '
+
+    "rel" is the gap over the JAX value's magnitude."""
+    a, d = np.asarray(actual, np.float64), np.asarray(desired, np.float64)
+    diff = np.abs(a - d)
+    rel = diff / np.maximum(np.abs(d), 1e-30)
+    test = os.environ.get("PYTEST_CURRENT_TEST", "?").split(" ")[0].split("[")[0]
+    print(f"\ngap {test} {err_msg}: max abs {diff.max(initial=0.0):.3g}, "
+          f"max rel {rel.max(initial=0.0):.3g} (rtol {rtol:g}, atol {atol:g})")
+    np.testing.assert_allclose(actual, desired, rtol=rtol, atol=atol, err_msg=err_msg)

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import assert_close
 from beyond_deep_ensembles_tpu.methods import api as jax_api
 from beyond_deep_ensembles_tpu_torch.methods import api
 
@@ -49,9 +50,9 @@ def test_gaussian_prior_kl(prior):
     sig = np.abs(rng.standard_normal(64)).astype(np.float32) + 0.05
     ref = jax_api.GaussianPrior(*prior).kl_divergence(jnp.asarray(mu), jnp.asarray(sig))
     got = api.GaussianPrior(*prior).kl_divergence(torch.from_numpy(mu), torch.from_numpy(sig))
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL)
+    assert_close(got.numpy(), np.asarray(ref), rtol=RTOL)
     lp_ref = jax_api.GaussianPrior(*prior).log_prob(jnp.asarray(mu))
-    np.testing.assert_allclose(
+    assert_close(
         api.GaussianPrior(*prior).log_prob(torch.from_numpy(mu)).numpy(), np.asarray(lp_ref), rtol=RTOL
     )
 
@@ -61,27 +62,27 @@ def test_mixture_prior_clamps_and_kl():
     x = np.asarray([0.0, 1e-3, 0.05, 0.5, 3.0, -7.0, 40.0], np.float32)
     ref = jax_api.MixturePrior().log_prob(jnp.asarray(x))
     got = api.MixturePrior().log_prob(torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL, atol=1e-6)
+    assert_close(got.numpy(), np.asarray(ref), rtol=RTOL, atol=1e-6)
     kl_ref = jax_api.MixturePrior(0.25, 2.0, 0.1).kl_divergence(jnp.asarray(x), None)
     kl = api.MixturePrior(0.25, 2.0, 0.1).kl_divergence(torch.from_numpy(x), None)
-    np.testing.assert_allclose(kl.numpy(), np.asarray(kl_ref), rtol=RTOL)
+    assert_close(kl.numpy(), np.asarray(kl_ref), rtol=RTOL)
 
 
 def test_sigma_and_gaussian_kl():
     rng = np.random.RandomState(2)
     rho = rng.standard_normal(32).astype(np.float32) - 2.0
-    np.testing.assert_allclose(
+    assert_close(
         api.to_sigma(torch.from_numpy(rho)).numpy(), np.asarray(jax_api.to_sigma(jnp.asarray(rho))), rtol=RTOL
     )
     sig = np.abs(rho) + 0.1
-    np.testing.assert_allclose(
+    assert_close(
         api.softplus_inverse(torch.from_numpy(sig)).numpy(),
         np.asarray(jax_api.softplus_inverse(jnp.asarray(sig))), rtol=RTOL,
     )
     mq, mp = rho + 1.0, rho * 0.5
     ref = jax_api.gaussian_kl(*(jnp.asarray(v) for v in (mq, sig, mp, sig[::-1].copy())))
     got = api.gaussian_kl(*(torch.from_numpy(v) for v in (mq, sig, mp, sig[::-1].copy())))
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL)
+    assert_close(got.numpy(), np.asarray(ref), rtol=RTOL)
 
 
 def test_labels_and_mask():
@@ -99,7 +100,7 @@ def test_collect_gaussian_kl(prior):
     ref = jax_api.collect_gaussian_kl(tree, prior)
     port_prior = getattr(api, type(prior).__name__)(*vars(prior).values())
     got = api.collect_gaussian_kl(_torch(tree), port_prior)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL)
+    assert_close(got.numpy(), np.asarray(ref), rtol=RTOL)
 
 
 def test_collect_gaussian_kl_on_module():
@@ -110,7 +111,7 @@ def test_collect_gaussian_kl_on_module():
     ref = jax_api.collect_gaussian_kl(
         {"w__gmean": jnp.zeros(3), "w__grho": jnp.full((3,), -3.0)}, jax_api.GaussianPrior()
     )
-    np.testing.assert_allclose(kl.detach().numpy(), np.asarray(ref), rtol=RTOL)
+    assert_close(kl.detach().numpy(), np.asarray(ref), rtol=RTOL)
     kl.backward()
     assert module.w__grho.grad is not None
 
@@ -118,7 +119,7 @@ def test_collect_gaussian_kl_on_module():
 def test_l2_of_plain_params():
     tree = _tree(4)
     ref = jax_api.l2_of_plain_params(tree)
-    np.testing.assert_allclose(api.l2_of_plain_params(_torch(tree)).numpy(), np.asarray(ref), rtol=RTOL)
+    assert_close(api.l2_of_plain_params(_torch(tree)).numpy(), np.asarray(ref), rtol=RTOL)
 
 
 def test_method_contract_defaults():

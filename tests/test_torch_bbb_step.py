@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import flat_jax, install_feed, load_jax_params, nchw, random_jax_params, torch_noise
+from _torch_parity import assert_close, flat_jax, install_feed, load_jax_params, nchw, random_jax_params, torch_noise
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu.methods import GaussianPrior as JaxGaussianPrior
 from beyond_deep_ensembles_tpu.methods import bbb_method as jax_bbb_method
@@ -75,7 +75,7 @@ def test_three_bbb_steps_match_jax(monkeypatch):
     for (x, y), want in zip(batches, jax_metrics):
         built.state, m = built.method.update(built.state, noise, (nchw(x), torch.from_numpy(y)))
         for k in ("loss", "data_loss", "kl"):
-            np.testing.assert_allclose(float(m[k]), want[k], rtol=1e-5, err_msg=k)
+            assert_close(float(m[k]), want[k], rtol=1e-5, err_msg=k)
     assert noise.draws == len(feed.draws)
     assert built.state.step == 3
 
@@ -83,7 +83,7 @@ def test_three_bbb_steps_match_jax(monkeypatch):
     got = {k: p.detach().numpy() for k, p in built.state.params.named_parameters()}
     assert got.keys() == ref.keys()
     for k in ref:
-        np.testing.assert_allclose(got[k], ref[k], atol=2e-5, rtol=0, err_msg=k)
+        assert_close(got[k], ref[k], atol=2e-5, rtol=0, err_msg=k)
 
 
 def test_nonfinite_loss_skips_params_momentum_and_schedule():

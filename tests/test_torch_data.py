@@ -1,15 +1,15 @@
 """PyTorch port, data/cifar.py + utils/schedules.py + the optimizer of
 experiments/cifar.py::_base_tx, held against the JAX package: augment with
 the same crop offsets and flip bits, normalize, the synthetic data set
-bit-equal, batch_iter, the shuffle, the Wilson schedule and the lr each
-step runs at. Exact where the arithmetic is the same; schedule 1e-6."""
+bit-equal, the shuffle against the JAX batch_iter, the Wilson schedule and
+the lr each step runs at. Exact where the arithmetic is the same; schedule 1e-6."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import nchw
+from _torch_parity import assert_close, nchw
 from beyond_deep_ensembles_tpu.data import cifar as jax_data
 from beyond_deep_ensembles_tpu.utils.schedules import wilson_schedule as jax_wilson
 from beyond_deep_ensembles_tpu_torch.data import cifar as data
@@ -57,30 +57,28 @@ def test_synthetic_cifar_bit_equal(monkeypatch, tmp_path, train):
     np.testing.assert_array_equal(x, xr)
     np.testing.assert_array_equal(y, yr)
     assert x.dtype == np.float32 and y.dtype == np.int64 and x.shape == (300, 32, 32, 3)
-    xh, yh = data._synthetic_cifar(64, 3, hard=True)
-    xhr, yhr = jax_data._synthetic_cifar(64, 3, hard=True)
-    np.testing.assert_array_equal(xh, xhr)
-    np.testing.assert_array_equal(yh, yhr)
 
 
-def test_batch_iter_and_shuffle():
+def test_shuffle_matches_jax_batch_order():
+    """Each epoch's batches are the JAX loader's: ``batch_iter`` with the
+    epoch's RandomState, taken here as slices of ``shuffled_indices``."""
     x = np.arange(50, dtype=np.float32)[:, None]
     y = np.arange(50)
-    got = list(data.batch_iter(x, y, 16, np.random.RandomState(3)))
-    ref = list(jax_data.batch_iter(x, y, 16, np.random.RandomState(3)))
-    assert len(got) == len(ref) == 3
-    for (a, b), (c, d) in zip(got, ref):
-        np.testing.assert_array_equal(a, c)
-        np.testing.assert_array_equal(b, d)
-    idx = data.shuffled_indices(50, 5 * 1_000_003 + 2)
-    np.testing.assert_array_equal(idx, np.random.RandomState(5 * 1_000_003 + 2).permutation(50))
+    seed = 5 * 1_000_003 + 2
+    idx = data.shuffled_indices(50, seed)
+    ref = list(jax_data.batch_iter(x, y, 16, np.random.RandomState(seed)))
+    assert len(ref) == 50 // 16
+    for step, (xb, yb) in enumerate(ref):
+        sel = idx[step * 16 : (step + 1) * 16]
+        np.testing.assert_array_equal(x[sel], xb)
+        np.testing.assert_array_equal(y[sel], yb)
 
 
 @pytest.mark.parametrize("swag_lr", [None, 0.0005])
 def test_wilson_schedule_matches_jax(swag_lr):
     port, ref = wilson_schedule(20, 0.05, swag_lr), jax_wilson(20, 0.05, swag_lr)
     for epoch in range(25):
-        np.testing.assert_allclose(port(epoch), float(ref(epoch)), rtol=1e-6)
+        assert_close(port(epoch), float(ref(epoch)), rtol=1e-6)
 
 
 def test_base_tx_lr_per_step():
@@ -91,7 +89,7 @@ def test_base_tx_lr_per_step():
     factor = jax_wilson(config["epochs"], config["lr"], config["swag_lr"])
     for step in range(4 * spe):
         want = config["lr"] * float(factor(step // spe))
-        np.testing.assert_allclose(optimizer.param_groups[0]["lr"], want, rtol=1e-6)
+        assert_close(optimizer.param_groups[0]["lr"], want, rtol=1e-6)
         optimizer.step()
         scheduler.step()
     group = optimizer.param_groups[0]

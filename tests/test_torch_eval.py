@@ -12,6 +12,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_parity import assert_close
 from beyond_deep_ensembles_tpu.evals import calibration as jax_cal
 from beyond_deep_ensembles_tpu.evals import classification as jax_cls
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
@@ -35,7 +36,7 @@ def test_bma_and_analyze_output():
     lp = _log_probs()
     ref = jax_cls.bayesian_model_average(jnp.asarray(lp))
     got = cls.bayesian_model_average(torch.from_numpy(lp))
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    assert_close(got.numpy(), np.asarray(ref), **TOL)
 
     target = np.random.RandomState(1).randint(0, 10, lp.shape[1])
     base = cls.bayesian_model_average(torch.from_numpy(_log_probs(seed=2)))
@@ -43,7 +44,7 @@ def test_bma_and_analyze_output():
     port = cls.analyze_output(got, torch.from_numpy(target), base)
     np.testing.assert_array_equal(port[0].numpy(), np.asarray(jref[0]))
     for a, b in zip(port[1:], jref[1:]):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+        assert_close(a.numpy(), np.asarray(b), **TOL)
     assert cls.analyze_output(got, torch.from_numpy(target))[3] is None
 
 
@@ -63,11 +64,11 @@ def test_calibration_errors(bins, n):
     tc, tf = torch.from_numpy(correct), torch.from_numpy(conf)
     for name in ("calculate_ece", "calculate_mce", "calculate_ace"):
         ref = getattr(jax_cal, name)(bins, jc, jf)
-        np.testing.assert_allclose(getattr(cal, name)(bins, tc, tf).numpy(), np.asarray(ref), err_msg=name, **TOL)
+        assert_close(getattr(cal, name)(bins, tc, tf).numpy(), np.asarray(ref), err_msg=name, **TOL)
     ref = jax_cal.CalibrationResults.create(bins, jc, jf)
     got = cal.CalibrationResults.create(bins, tc, tf)
     for f in ("bin_counts", "bin_accuracys", "bin_confidences", "ece", "signed_ece"):
-        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), err_msg=f, **TOL)
+        assert_close(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), err_msg=f, **TOL)
 
 
 def test_eval_result():
@@ -78,7 +79,7 @@ def test_eval_result():
     a, b = got.as_dict(), ref.as_dict()
     assert a.keys() == b.keys()
     for k in a:
-        np.testing.assert_allclose(a[k], b[k], err_msg=k, **TOL)
+        assert_close(a[k], b[k], err_msg=k, **TOL)
 
 
 def test_eval_model_pads_and_trims_last_batch():
@@ -115,4 +116,4 @@ def test_eval_model_pads_and_trims_last_batch():
     assert seen == [3] * 6  # 3 batches x 2 samples, the last one padded to 3
     assert got.keys() == ref.keys()
     for k in got:
-        np.testing.assert_allclose(got[k], ref[k], err_msg=k, **TOL)
+        assert_close(got[k], ref[k], err_msg=k, **TOL)

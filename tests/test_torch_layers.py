@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import flat_jax, install_feed, load_jax_params, nchw, torch_noise
+from _torch_parity import assert_close, flat_jax, install_feed, load_jax_params, nchw, torch_noise
 from beyond_deep_ensembles_tpu.nn import bbb as jax_bbb
 from beyond_deep_ensembles_tpu.nn import frn as jax_frn
 from beyond_deep_ensembles_tpu_torch.nn import bbb, convops, frn
@@ -76,14 +76,14 @@ def test_layer_matches_jax(monkeypatch, name, train):
     noise = torch_noise(feed.draws)
     out = port(xt, noise, train=train)
     assert noise.draws == len(feed.draws)
-    np.testing.assert_allclose(out.detach().numpy(), nchw(np.asarray(ref)).numpy(), **TOL)
+    assert_close(out.detach().numpy(), nchw(np.asarray(ref)).numpy(), **TOL)
     (out * nchw(g)).sum().backward()
-    np.testing.assert_allclose(xt.grad.numpy(), nchw(np.asarray(gx)).numpy(), **TOL)
+    assert_close(xt.grad.numpy(), nchw(np.asarray(gx)).numpy(), **TOL)
     want = flat_jax(gp)
     grads = {k: p.grad.numpy() for k, p in port.named_parameters()}
     assert grads.keys() == want.keys()
     for k in want:
-        np.testing.assert_allclose(grads[k], want[k], err_msg=k, **TOL)
+        assert_close(grads[k], want[k], err_msg=k, **TOL)
 
 
 @pytest.mark.parametrize(
@@ -99,7 +99,7 @@ def test_conv2d_padding_forms(padding, strides):
     jpad = [(padding, padding)] * 2 if isinstance(padding, int) else padding
     ref = jax_conv2d(jnp.asarray(x), jnp.asarray(w), strides, jpad)
     got = convops.conv2d(nchw(x), torch.from_numpy(w.transpose(3, 2, 0, 1).copy()), strides, padding)
-    np.testing.assert_allclose(got.numpy(), nchw(np.asarray(ref)).numpy(), **TOL)
+    assert_close(got.numpy(), nchw(np.asarray(ref)).numpy(), **TOL)
 
 
 def test_sampling_parameters_mode_not_ported():
