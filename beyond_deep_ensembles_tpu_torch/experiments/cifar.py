@@ -1,11 +1,12 @@
-"""CIFAR-10 experiment: ResNet-20-FRN-swish under BBB.
+"""CIFAR-10 experiment: ResNet-20-FRN-swish under BBB or SVGD.
 
 Counterpart of ``beyond_deep_ensembles_tpu/experiments/cifar.py`` (reference
 experiments/cifar/{cifar.py,models.py,cifar.yaml}): SGD (momentum 0.9,
 nesterov) under the Wilson schedule stepped per epoch, crop + flip
-augmentation inside the loss, 50 posterior samples at eval. Only the
-``bbb`` variant with one member is ported; the others raise. No
-checkpointing, HMC baseline or corrupted splits yet.
+augmentation inside the loss, 50 posterior samples at eval. Ported: the
+``bbb`` variant and the ``svgd`` variant (``svgd_particles`` plain
+ResNet-20s), each with one member; the others raise. No checkpointing, HMC
+baseline or corrupted splits yet.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed. The data sets
 move to the device once, as NCHW float32; each step gathers its batch there.
@@ -19,12 +20,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..data import cifar as cifar_data
 from ..evals.classification import EvalResult, analyze_output, bayesian_model_average
 from ..methods.api import GaussianPrior, LossOutput, PosteriorMethod
 from ..methods.bbb import bbb_method
 from ..methods.ensemble import predict
+from ..methods.svgd import svgd_method
 from ..models.resnet import ResNet20
 from ..nn.base import Model
 from ..nn.gaussian import NoiseSource
@@ -46,11 +49,13 @@ DEFAULT_CONFIG = {
     "subsample": None,
     "test_subsample": None,
     "seed": 0,
-    # the bbb variant's knobs (cifar.yaml defaults); the other methods'
-    # keys come with their ports
+    # the bbb and svgd variants' knobs (cifar.yaml defaults); the other
+    # methods' keys come with their ports
     "prior_std": 1.0,
     "bbb_mc_samples": 2,
     "kl_rescaling": 0.2,
+    "svgd_particles": 5,
+    "svgd_reg_scale": 0.0003,
     "swag_lr": 0.0005,  # the Wilson schedule's final lr
     "dataset_size": 50_000,
 }
@@ -109,14 +114,14 @@ class BuiltExperiment:
     device: torch.device
 
 
-def _resnet(config, generator: torch.Generator, **kw) -> Model:
+def _resnet(config, generator: torch.Generator, conv_kind: str) -> ResNet20:
     if config.get("bf16"):
         raise NotImplementedError("bf16 compute: not ported yet")
-    return Model(ResNet20(classes=10, activation="swish", norm="frn", generator=generator, **kw))
+    return ResNet20(classes=10, activation="swish", norm="frn", conv_kind=conv_kind, generator=generator)
 
 
 def _not_ported(config: dict) -> None:
-    if config["model"] != "bbb":
+    if config["model"] not in ("bbb", "svgd"):
         raise NotImplementedError(f"model {config['model']!r}: not ported yet")
     if config.get("members", 1) != 1:
         raise NotImplementedError("members > 1: not ported yet")
@@ -131,20 +136,36 @@ def build(
     steps_per_epoch: int = 390,
     device=None,
 ) -> BuiltExperiment:
-    """The model (initialized from ``generator``) and its method state."""
+    """The model (initialized from ``generator``) and its method state. SVGD
+    initializes its ``svgd_particles`` particles from ``generator`` in turn."""
     device = resolve_device(device)
     _not_ported(config)
-    model = _resnet(config, generator, conv_kind="bbb")
-    model.module.to(device)
-    method = bbb_method(
-        _xent_loss_fn(model, augment=config.get("augment", True)),
-        _base_tx(config, steps_per_epoch),
-        GaussianPrior(0.0, config["prior_std"]),
-        dataset_size=config["dataset_size"],
-        mc_samples=config["bbb_mc_samples"],
-        kl_rescaling=config["kl_rescaling"],
-    )
-    state = method.init(model.module, {})
+    augment = config.get("augment", True)
+    tx = _base_tx(config, steps_per_epoch)
+    if config["model"] == "svgd":
+        particles = nn.ModuleList(
+            _resnet(config, generator, "plain") for _ in range(config["svgd_particles"])
+        ).to(device)
+        model = Model(particles[0])
+        method = svgd_method(
+            _xent_loss_fn(model, augment=augment),
+            tx,
+            particle_count=config["svgd_particles"],
+            dataset_size=config["dataset_size"],
+            l2_reg=config["svgd_reg_scale"],
+        )
+        state = method.init(particles, {})
+    else:
+        model = Model(_resnet(config, generator, "bbb").to(device))
+        method = bbb_method(
+            _xent_loss_fn(model, augment=augment),
+            tx,
+            GaussianPrior(0.0, config["prior_std"]),
+            dataset_size=config["dataset_size"],
+            mc_samples=config["bbb_mc_samples"],
+            kl_rescaling=config["kl_rescaling"],
+        )
+        state = method.init(model.module, {})
     return BuiltExperiment(model, method, state, _predict_fn(model), device)
 
 

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..tree import named as _named
+
 GMEAN_SUFFIX = "__gmean"
 GRHO_SUFFIX = "__grho"
 MLE_SUFFIX = "__mle"
@@ -161,12 +163,6 @@ def gaussian_kl(mu_q, sig_q, mu_p, sig_p):
 # ---------------------------------------------------------------------------
 # Parameter partitioning by naming convention
 # ---------------------------------------------------------------------------
-
-
-def _named(params: Params) -> dict:
-    if isinstance(params, nn.Module):
-        return dict(params.named_parameters())
-    return dict(params)
 
 
 def _label(name: str) -> str:

@@ -1,10 +1,13 @@
 """The posterior-predictive entry.
 
 Counterpart of ``beyond_deep_ensembles_tpu/methods/ensemble.py::predict``
-(reference DeepEnsemble.predict, ensemble.py:28-44), ``sample_is_identity``
-branch only: the model samples in its forward, so S predictions are S
-forwards of the live parameters, each drawing fresh noise. ``deep_ensemble``,
-multisample methods and rank-1 components are not ported yet.
+(reference DeepEnsemble.predict, ensemble.py:28-44). S predictions are S
+forwards: of the live parameters, each drawing fresh noise, for methods
+whose model samples in its forward (``sample_is_identity``, BBB); of the
+parameters ``method.sample`` returns for index i otherwise (SVGD: particle
+``i % n``). Nothing on these paths materializes sampled parameters, so the
+JAX ``chunk_size`` has no counterpart. ``deep_ensemble``, multisample
+methods and rank-1 components are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,7 +29,13 @@ def predict(
 ) -> torch.Tensor:
     """apply_fn(params, model_state, noise, x) -> output of one draw.
     Returns ``[n_samples, ...]`` stacked outputs."""
-    if method.multisample or not method.sample_is_identity or components > 1:
-        raise NotImplementedError("only sample_is_identity methods are ported yet")
-    params, model_state = method.sample(state, noise, 0)
-    return torch.stack([apply_fn(params, model_state, noise, x) for _ in range(n_samples)])
+    if method.multisample or components > 1:
+        raise NotImplementedError("multisample methods and rank-1 components: not ported yet")
+    if method.sample_is_identity:
+        params, model_state = method.sample(state, noise, 0)
+        return torch.stack([apply_fn(params, model_state, noise, x) for _ in range(n_samples)])
+    outs = []
+    for i in range(n_samples):
+        params, model_state = method.sample(state, noise, i)
+        outs.append(apply_fn(params, model_state, noise, x))
+    return torch.stack(outs)

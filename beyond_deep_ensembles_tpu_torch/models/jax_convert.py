@@ -4,7 +4,8 @@ The reverse of ``beyond_deep_ensembles_tpu/models/torch_convert.py``. The
 port registers its submodules under flax's names (``nn/base.py``), so a key
 is the flax path joined with dots and only layouts change: conv kernels
 HWIO -> OIHW, dense kernels ``[in, out]`` -> ``[out, in]``; ``__gmean``/
-``__grho`` leaves keep their names and FRN vectors pass as they are.
+``__grho`` leaves keep their names and FRN vectors pass as they are. Plain
+``Conv_k``/``Dense_k`` kernels follow the same rules.
 """
 from __future__ import annotations
 
@@ -39,3 +40,17 @@ def params_from_jax(params: Mapping) -> dict:
 
     walk((), params)
     return out
+
+
+def particles_from_jax(stacked: Mapping) -> list:
+    """Flax parameters stacked on a leading particle axis (the JAX SVGD
+    state's ``params``) -> one state_dict per particle."""
+
+    def index(node, i):
+        return {k: index(v, i) if isinstance(v, Mapping) else np.asarray(v)[i] for k, v in node.items()}
+
+    def count(node):
+        first = next(iter(node.values()))
+        return count(first) if isinstance(first, Mapping) else np.asarray(first).shape[0]
+
+    return [params_from_jax(index(stacked, i)) for i in range(count(stacked))]

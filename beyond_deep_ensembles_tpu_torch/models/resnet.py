@@ -1,11 +1,11 @@
 """CIFAR-style ResNet-20 with swappable layer kinds, norms and activations.
 
 Counterpart of ``beyond_deep_ensembles_tpu/models/resnet.py`` (``BasicBlock``,
-``ResNet20``), in NCHW. Ported: ``conv_kind="bbb"`` with ``norm="frn"``
-(variational FRN for BBB) and swish on 32x32 inputs; the other
-activations, norms, dropout, other head kinds, smaller inputs and the other
-architectures are not ported yet. As in JAX: no norm after the stem, an 8x8 average pool, a
-dense head of the conv kind.
+``ResNet20``), in NCHW. Ported: ``conv_kind`` ``"bbb"`` (variational FRN)
+and ``"plain"`` (FRN) with ``norm="frn"`` and swish on 32x32 inputs; the
+other activations, norms, dropout, other head kinds, smaller inputs and the
+other architectures are not ported yet. As in JAX: no norm after the stem,
+an 8x8 average pool, a dense head of the conv kind.
 """
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ def _norm_kind(norm: str, conv_kind: str) -> str:
 
 class BasicBlock(nn.Module):
     """Reference BasicBlock (resnet.py:56-84): conv-norm-act-conv-norm, a 1x1
-    stride-s projection skip without bias when the stride is not 1."""
+    stride-s projection skip of the conv kind, without bias, when the stride
+    is not 1."""
 
     def __init__(
         self,

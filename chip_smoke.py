@@ -14,14 +14,26 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      and the plain version's, replayed in CUDA graphs, for one forward's 22
      launches, and for the largest layer (Philox and given noise) and the
      head alone;
-  3. the slice: BBB ResNet-20 (the ``BBB`` variant of configs/cifar.yaml)
+  3. K2 (``ops/svgd_kernel.py`` over ``csrc/svgd_gram.cu``, CUDA C++, built
+     by nvcc at first use into ``build/kernels/``): its build time and
+     ptxas report; G against an fp64 product and against ``gram_plain`` at
+     (5, 273,610), (20, 25,000,000), (3, 1,000,003) and (1, 4097) within a
+     bound from sum |x_i||x_j| and the summation depth; repeat runs bit for
+     bit; its CUDA-graph time beside ``gram_plain``'s and ``torch.mm``'s at
+     the first two shapes, against the byte bound;
+  4. the BBB slice: BBB ResNet-20 (the ``BBB`` variant of configs/cifar.yaml)
      through ``experiments/cifar.py`` ``build`` -> ``train`` (10 steps at
      batch 128 on synthetic CIFAR-10) -> ``eval_model`` (50 posterior
-     samples, eval batch 500), with K1's launch count read around it; a
-     profile of steady train steps (device busy share, top kernels, the
-     host's wait in the NaN guard's sync); the card's logits held against the CPU
-     path's on a small input with the same weights and noise;
-  4. one JSON line of kernel figures, then the result line
+     samples, eval batch 500), with every kernel's launch count set to 0
+     before and read after; steady steps; a profile of steady train steps
+     (device busy share, top kernels, the host's wait in the NaN guard's
+     sync); the card's logits held against the CPU path's on a small input
+     with the same weights and noise;
+  5. the SVGD slice: the ``SVGD`` variant (5 plain ResNet-20 particles) the
+     same way, K2 launched once per train step and never in eval; steady
+     steps and a profile; one SVGD step of 3 particles at batch 4 on the card
+     held against the CPU path from the same weights;
+  6. one JSON line of kernel figures, then the result line
      ``{"ok": true, "device": {...}}``.
 Exits non-zero and prints no result without CUDA or without the package
 beside this file.
@@ -50,9 +62,15 @@ BBB_VARIANT = {
     "model": "bbb", "members": 1, "prior_std": 1.0, "weight_decay": 0.0,
     "bbb_mc_samples": 2, "kl_rescaling": 0.2,
 }
+# configs/cifar.yaml, variant "SVGD" (weight decay 3e-4 from its DEFAULT block)
+SVGD_VARIANT = {"model": "svgd", "members": 1, "svgd_particles": 5, "svgd_reg_scale": 0.0003}
 # cut to size: one epoch of 1280 synthetic images = 10 steps at batch 128
 SMOKE = {"epochs": 1, "subsample": 1280, "test_subsample": 1000, "seed": 0}
 TRAIN_STEPS = 10
+# K2's shapes: the SVGD slice's particle matrix (5 particles of ResNet-20's
+# 273,610 parameters), the JAX package's upper end (20 particles of 25 M),
+# ragged P, one row
+K2_SHAPES = [(5, 273_610), (20, 25_000_000), (3, 1_000_003), (1, 4097)]
 
 
 def block_widths():
@@ -284,9 +302,95 @@ def kernel_phase(torch, sampling):
     }
 
 
-def profile_steps(torch, built, xd, yd, noise, steps=3):
+def k2_check(torch, svgd_kernel, x):
+    """K2 on ``x`` against an fp64 product and against ``gram_plain``.
+    Bound per element: ``gram_error_bound`` (gamma_d * sum_p |x_ip||x_jp|,
+    d the kernel's summation depth) plus the fp64 product's own rounding, at
+    most P * 2^-53 of that sum; against the plain fp32 product, the kernel's
+    bound plus the plain product's own measured distance from fp64 and the
+    fp64 rounding on each side. Returns (max abs err vs plain, largest share
+    of the bound used)."""
+    out = svgd_kernel.gram(x)
+    torch.cuda.synchronize()
+    plain = svgd_kernel.gram_plain(x).double()
+    xd = x.double()
+    ref = xd @ xd.T
+    del xd
+    a = x.abs().double()
+    b64 = x.shape[1] * 2.0**-53 * (a @ a.T)
+    del a
+    bound = svgd_kernel.gram_error_bound(x)
+    share = float(((out.double() - ref).abs() / (bound + b64)).max())
+    plain_ok = bool(((out.double() - plain).abs() <= bound + (plain - ref).abs() + 2 * b64).all())
+    err = float((out.double() - plain).abs().max())
+    check(share <= 1.0 and plain_ok and torch.equal(out, out.T),
+          f"K2 {tuple(x.shape)} = fp64 product within its bound ({share:.3f} of it) and = gram_plain "
+          f"(max abs err {err:.3g}; plain's own max error vs fp64 {float((plain - ref).abs().max()):.3g})")
+    return err, share
+
+
+def k2_phase(torch, svgd_kernel, _cuda_build):
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    svgd_kernel._library()
+    print(f"K2 built and loaded in {time.perf_counter() - t0:.2f} s")
+    for line in _cuda_build.build_logs.get("svgd_gram.cu", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"  nvcc: {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    errs = {}
+    for n, p in K2_SHAPES:
+        # particles around a shared centre, as SVGD's are: G's off-diagonal is large
+        x = torch.randn(n, p, device=dev, generator=gen) + torch.randn(1, p, device=dev, generator=gen)
+        errs[(n, p)], _ = k2_check(torch, svgd_kernel, x)
+        first = svgd_kernel.gram(x)
+        check(all(torch.equal(svgd_kernel.gram(x), first) for _ in range(3)), f"K2 {(n, p)}: repeat runs equal bit for bit")
+        del x, first
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    timings = {}
+    for n, p in K2_SHAPES[:2]:
+        # enough copies that the turn over them exceeds the 50 MB L2, so each
+        # launch reads device memory
+        copies = max(1, -(-60_000_000 // (4 * n * p)))
+        xs = [torch.randn(n, p, device=dev, generator=gen) for _ in range(copies)]
+        reps = max(copies, 4)
+
+        def run(fn):
+            def repeated():
+                for i in range(reps):
+                    fn(xs[i % copies])
+            return graph_ms(torch, repeated, reps=5) / reps
+
+        with torch.no_grad():  # in turns: plain, kernel, kernel, plain, library
+            plain_ms = run(svgd_kernel.gram_plain)
+            ms = run(svgd_kernel.gram)
+            ms2 = run(svgd_kernel.gram)
+            plain_ms2 = run(svgd_kernel.gram_plain)
+            lib_ms = run(lambda x: torch.mm(x, x.T))
+        n_bytes = 4 * n * p + 4 * n * n
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * n * n * p / FP32_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        print(f"K2 ({n}, {p}), {copies} copies in turn: kernel {ms * 1e3:.2f} / {ms2 * 1e3:.2f} us, "
+              f"gram_plain {plain_ms * 1e3:.2f} / {plain_ms2 * 1e3:.2f} us, torch.mm {lib_ms * 1e3:.2f} us, "
+              f"bound {bound * 1e3:.2f} us (bytes {bytes_ms * 1e3:.2f}, fp32 ops {ops_ms * 1e3:.2f}); "
+              f"K2 at {100 * bound / min(ms, ms2):.0f}% of the bound")
+        timings[(n, p)] = {
+            "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2), "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+        del xs
+        torch.cuda.empty_cache()
+    main_shape = K2_SHAPES[0]
+    return {**timings[main_shape], "max_abs_err": errs[main_shape]}
+
+
+def profile_steps(torch, built, xd, yd, noise, ours, steps=3):
     """Device time by kernel over ``steps`` steady train steps; prints the
-    top entries and the device's busy share of the window."""
+    top entries (and every kernel whose name holds one of ``ours``) and the
+    device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     bs = 128
@@ -310,13 +414,13 @@ def profile_steps(torch, built, xd, yd, noise, steps=3):
           f"({100 * device_us / 1e3 / wall_ms:.1f}% of the window); per step "
           f"{sum(e.count for e in kernels) // steps} kernels, {ops // steps} aten ops (nested ops counted)")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    top += [e for e in kernels if "_sample_kernel" in e.key and e not in top]
+    top += [e for e in kernels if any(name in e.key for name in ours) and e not in top]
     for e in top:
         print(f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms/step  {e.count // steps:5d} calls/step  {e.key[:90]}")
-    # the NaN guard's loss.item() is the step's one host sync: the host's
-    # time inside it is what a guard kept on the device could give back
-    item_us = sum(e.cpu_time_total for e in averages if e.key == "aten::item")
-    print(f"host blocked in the NaN guard's loss.item(): {item_us / 1e3 / steps:.3f} ms/step "
+    # the NaN guard's host read is the step's one sync: the host's time
+    # inside it is what a guard kept on the device could give back
+    item_us = sum(e.cpu_time_total for e in averages if e.key == "aten::_local_scalar_dense")
+    print(f"host blocked in the NaN guard's read: {item_us / 1e3 / steps:.3f} ms/step "
           f"({100 * item_us / 1e3 / wall_ms:.1f}% of the window)")
 
 
@@ -338,6 +442,88 @@ def small_input_check(torch, NoiseSource, ResNet20):
               f"ResNet-20 logits on the card = CPU path ({'train' if train else 'eval'}, max abs err {err:.2e} <= 1e-4)")
 
 
+def svgd_step_check(torch, cifar, NoiseSource):
+    """One SVGD step of 3 particles at batch 4, augmentation off, on the card
+    (cuDNN without TF32, K2) against the CPU path (gram_plain) from the same
+    weights. Tolerance: loss 1e-5 relative; parameters 1e-5 absolute (the
+    gradients of the two paths sum in other orders and agree to about 1e-5
+    relative; the step moves a parameter by lr 0.05 x 1.9 x |phi|)."""
+    config = {**cifar.DEFAULT_CONFIG, **SVGD_VARIANT, "svgd_particles": 3, "augment": False,
+              "dataset_size": 1280, "epochs": 1}
+    cpu = cifar.build(config, torch.Generator().manual_seed(4), 10, device="cpu")
+    gpu = cifar.build(config, torch.Generator().manual_seed(4), 10)
+    gen = torch.Generator().manual_seed(5)
+    x, y = torch.randn(4, 3, 32, 32, generator=gen), torch.randint(0, 10, (4,), generator=gen)
+    before = [p.detach().clone() for p in cpu.state.params.parameters()]
+    cpu.state, m_cpu = cpu.method.update(cpu.state, NoiseSource.seeded(0), (x, y))
+    gpu.state, m_gpu = gpu.method.update(gpu.state, NoiseSource.seeded(0), (x.cuda(), y.cuda()))
+    err = max(float((a.detach().cpu() - b.detach()).abs().max())
+              for a, b in zip(gpu.state.params.parameters(), cpu.state.params.parameters()))
+    moved = max(float((b.detach() - p0).abs().max()) for b, p0 in zip(cpu.state.params.parameters(), before))
+    loss_err = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    check(err <= 1e-5 and loss_err <= 1e-5,
+          f"SVGD step on the card = CPU path (3 particles, batch 4: params max abs err {err:.2e} <= 1e-5 "
+          f"of a step moving them up to {moved:.3g}; loss rel err {loss_err:.1e} <= 1e-5)")
+
+
+def run_slice(torch, cifar, NoiseSource, kernels, variant, label):
+    """``variant``'s slice through the entry points: build -> train (10 steps)
+    -> eval_model, with every kernel's launch count set to 0 just before
+    train and read after train and after eval. Returns the built
+    experiment, the counts {name: (train, eval)} and the data on the card."""
+    from beyond_deep_ensembles_tpu_torch.data.cifar import load_cifar10
+
+    config = {**cifar.DEFAULT_CONFIG, **variant, **SMOKE}
+    x_train, y_train = load_cifar10(True, subsample=config["subsample"])
+    x_test, y_test = load_cifar10(False, subsample=config["test_subsample"])
+    config["dataset_size"] = x_train.shape[0]
+    steps = x_train.shape[0] // config["batch_size"]
+    check(steps == TRAIN_STEPS, f"{label}: {steps} train steps of batch {config['batch_size']}")
+    built = cifar.build(config, torch.Generator().manual_seed(config["seed"]), steps)
+    check(built.device.type == "cuda", f"{label}: build() defaults to the card")
+
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    for fn in kernels.values():
+        fn.launches = 0
+    start.record()
+    cifar.train(built, config, x_train, y_train, log=print)  # raises on a non-finite loss
+    mid.record()
+    trained = {name: fn.launches for name, fn in kernels.items()}
+    result = cifar.eval_model(built, config, x_test, y_test).as_dict()
+    end.record()
+    counts = {name: (trained[name], fn.launches - trained[name]) for name, fn in kernels.items()}
+    end.synchronize()
+    check(all(bool(torch.isfinite(p).all()) for p in built.state.params.parameters()),
+          f"{label}: parameters finite after training")
+    check(all(isinstance(v, float) and v == v and abs(v) != float("inf") for v in result.values()),
+          f"{label}: eval metrics finite: {json.dumps(result)}")
+    check(0.0 <= result["accuracy"] <= 1.0 and result["avg_log_likelihood"] < 0.0, f"{label}: eval metrics in range")
+    train_ms, eval_ms = start.elapsed_time(mid), mid.elapsed_time(end)
+    n_eval = x_test.shape[0] * config["eval_samples"]
+    print(f"{label} train: {TRAIN_STEPS} steps in {train_ms:.1f} ms = {train_ms / TRAIN_STEPS:.2f} ms/step (first steps included)")
+    print(f"{label} eval: {x_test.shape[0]} images x {config['eval_samples']} samples in {eval_ms:.1f} ms = "
+          f"{n_eval / eval_ms * 1e3:.0f} samples/s ({x_test.shape[0] / eval_ms * 1e3:.1f} images/s)")
+
+    # steady train steps on the trained state, outside the counted run
+    xd = torch.from_numpy(x_train).cuda().permute(0, 3, 1, 2).contiguous()
+    yd = torch.from_numpy(y_train).cuda()
+    noise = NoiseSource.seeded(1)
+    losses = []
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2 * TRAIN_STEPS + 1)]
+    marks[0].record()
+    for i in range(2 * TRAIN_STEPS):
+        idx = slice((i % TRAIN_STEPS) * 128, (i % TRAIN_STEPS + 1) * 128)
+        built.state, m = built.method.update(built.state, noise, (xd[idx], yd[idx]))
+        losses.append(m["loss"])
+        marks[i + 1].record()
+    marks[-1].synchronize()
+    check(all(bool(torch.isfinite(v)) for v in losses), f"{label} steady steps: every loss finite")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    print(f"{label} steady train step over {len(step_ms)} steps (batch 128): median "
+          f"{step_ms[len(step_ms) // 2]:.2f} ms, max {step_ms[-1]:.2f} ms, min {step_ms[0]:.2f} ms")
+    return built, counts, config, xd, yd, noise
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "beyond_deep_ensembles_tpu_torch")):
         print("chip_smoke: the beyond_deep_ensembles_tpu_torch package is not beside this file", file=sys.stderr)
@@ -353,11 +539,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from beyond_deep_ensembles_tpu_torch.data.cifar import load_cifar10
     from beyond_deep_ensembles_tpu_torch.experiments import cifar
     from beyond_deep_ensembles_tpu_torch.models.resnet import ResNet20
     from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
-    from beyond_deep_ensembles_tpu_torch.ops import sampling
+    from beyond_deep_ensembles_tpu_torch.ops import _cuda_build, sampling, svgd_kernel
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -369,77 +554,60 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {count} card(s): {name}")
 
     k1 = kernel_phase(torch, sampling)
+    k2 = k2_phase(torch, svgd_kernel, _cuda_build)
+    kernels = {"k1_gaussian_sample": sampling.gaussian_sample, "k2_svgd_gram": svgd_kernel.gram}
 
-    config = {**cifar.DEFAULT_CONFIG, **BBB_VARIANT, **SMOKE}
-    x_train, y_train = load_cifar10(True, subsample=config["subsample"])
-    x_test, y_test = load_cifar10(False, subsample=config["test_subsample"])
-    config["dataset_size"] = x_train.shape[0]
-    steps = x_train.shape[0] // config["batch_size"]
-    check(steps == TRAIN_STEPS, f"{steps} train steps of batch {config['batch_size']}")
-    built = cifar.build(config, torch.Generator().manual_seed(config["seed"]), steps)
-    check(built.device.type == "cuda", "build() defaults to the card")
-    losses = []
-
-    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    sampling.gaussian_sample.launches = 0
-    start.record()
-    cifar.train(built, config, x_train, y_train, log=print)  # raises on a non-finite loss
-    mid.record()
-    train_launches = sampling.gaussian_sample.launches
-    result = cifar.eval_model(built, config, x_test, y_test).as_dict()
-    end.record()
-    launches = sampling.gaussian_sample.launches
-    end.synchronize()
-    eval_batches = -(-x_test.shape[0] // config["eval_batch_size"])
+    built, bbb_counts, config, xd, yd, noise = run_slice(torch, cifar, NoiseSource, kernels, BBB_VARIANT, "BBB")
     per_forward = len(bbb_shapes(1))
-    check(train_launches == TRAIN_STEPS * config["bbb_mc_samples"] * per_forward,
-          f"K1 launched {train_launches} times in {TRAIN_STEPS} train steps ({per_forward} x mc {config['bbb_mc_samples']} per step)")
-    check(launches - train_launches == eval_batches * config["eval_samples"] * per_forward,
-          f"K1 launched {launches - train_launches} times in eval ({eval_batches} batches x {config['eval_samples']} samples x {per_forward})")
-    params_finite = all(bool(torch.isfinite(p).all()) for p in built.state.params.parameters())
-    check(params_finite, "parameters finite after training")
-    check(all(isinstance(v, float) and v == v and abs(v) != float("inf") for v in result.values()),
-          f"eval metrics finite: {json.dumps(result)}")
-    check(0.0 <= result["accuracy"] <= 1.0 and result["avg_log_likelihood"] < 0.0, "eval metrics in range")
-    train_ms, eval_ms = start.elapsed_time(mid), mid.elapsed_time(end)
-    n_eval = x_test.shape[0] * config["eval_samples"]
-    print(f"train: {TRAIN_STEPS} steps in {train_ms:.1f} ms = {train_ms / TRAIN_STEPS:.2f} ms/step (first steps included)")
-    print(f"eval: {x_test.shape[0]} images x {config['eval_samples']} samples in {eval_ms:.1f} ms = "
-          f"{n_eval / eval_ms * 1e3:.0f} samples/s ({x_test.shape[0] / eval_ms * 1e3:.1f} images/s)")
-
-    # steady train steps on the trained state, outside the counted run
-    xd = torch.from_numpy(x_train).cuda().permute(0, 3, 1, 2).contiguous()
-    yd = torch.from_numpy(y_train).cuda()
-    noise = NoiseSource.seeded(1)
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2 * TRAIN_STEPS + 1)]
-    marks[0].record()
-    for i in range(2 * TRAIN_STEPS):
-        idx = slice((i % TRAIN_STEPS) * 128, (i % TRAIN_STEPS + 1) * 128)
-        built.state, m = built.method.update(built.state, noise, (xd[idx], yd[idx]))
-        losses.append(m["loss"])
-        marks[i + 1].record()
-    marks[-1].synchronize()
-    check(all(bool(torch.isfinite(v)) for v in losses), "steady steps: every loss finite")
-    step_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
-    print(f"steady train step over {len(step_ms)} steps (batch 128, mc 2): median "
-          f"{step_ms[len(step_ms) // 2]:.2f} ms, max {step_ms[-1]:.2f} ms, min {step_ms[0]:.2f} ms")
-    profile_steps(torch, built, xd, yd, noise)
+    eval_batches = -(-SMOKE["test_subsample"] // config["eval_batch_size"])
+    k1_train, k1_eval = bbb_counts["k1_gaussian_sample"]
+    check(k1_train == TRAIN_STEPS * config["bbb_mc_samples"] * per_forward,
+          f"K1 launched {k1_train} times in {TRAIN_STEPS} BBB train steps ({per_forward} x mc {config['bbb_mc_samples']} per step)")
+    check(k1_eval == eval_batches * config["eval_samples"] * per_forward,
+          f"K1 launched {k1_eval} times in BBB eval ({eval_batches} batches x {config['eval_samples']} samples x {per_forward})")
+    check(bbb_counts["k2_svgd_gram"] == (0, 0), "K2 not launched on the BBB path")
+    profile_steps(torch, built, xd, yd, noise, ours=("_sample_kernel",))
     small_input_check(torch, NoiseSource, ResNet20)
+    del built, xd, yd
+
+    built, svgd_counts, config, xd, yd, noise = run_slice(torch, cifar, NoiseSource, kernels, SVGD_VARIANT, "SVGD")
+    check(svgd_counts["k2_svgd_gram"] == (TRAIN_STEPS, 0),
+          f"K2 launched {svgd_counts['k2_svgd_gram'][0]} times in {TRAIN_STEPS} SVGD train steps (one per step) "
+          f"and {svgd_counts['k2_svgd_gram'][1]} times in eval")
+    check(svgd_counts["k1_gaussian_sample"] == (0, 0), "K1 not launched on the SVGD path")
+    profile_steps(torch, built, xd, yd, noise, ours=("gram_partial", "gram_finish"))
+    svgd_step_check(torch, cifar, NoiseSource)
+    del built, xd, yd
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "k1_gaussian_sample",
-        "route": "triton",
-        "source": "beyond_deep_ensembles_tpu_torch/ops/sampling.py",
-        "replaces": "beyond_deep_ensembles_tpu/ops/sampling.py:46",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": None,
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "k1_gaussian_sample",
+            "route": "triton",
+            "source": "beyond_deep_ensembles_tpu_torch/ops/sampling.py",
+            "replaces": "beyond_deep_ensembles_tpu/ops/sampling.py:46",
+            "launches": sum(bbb_counts["k1_gaussian_sample"]),
+            "max_abs_err": k1["max_abs_err"],
+            "ms": k1["ms"],
+            "plain_ms": k1["plain_ms"],
+            "bound_ms": k1["bound_ms"],
+            "bound_by": k1["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "k2_svgd_gram",
+            "route": "cuda",
+            "source": "beyond_deep_ensembles_tpu_torch/csrc/svgd_gram.cu",
+            "replaces": "beyond_deep_ensembles_tpu/ops/svgd_kernel.py:37",
+            "launches": sum(svgd_counts["k2_svgd_gram"]),
+            "max_abs_err": k2["max_abs_err"],
+            "ms": k2["ms"],
+            "plain_ms": k2["plain_ms"],
+            "bound_ms": k2["bound_ms"],
+            "bound_by": k2["bound_by"],
+            "library_ms": k2["library_ms"],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0
 

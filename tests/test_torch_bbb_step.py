@@ -127,3 +127,9 @@ def test_run_single_on_cpu():
 def test_other_variants_not_ported(model):
     with pytest.raises(NotImplementedError):
         cifar.build({**CONFIG, "model": model}, torch.Generator(), device="cpu")
+
+
+@pytest.mark.parametrize("model", ["bbb", "svgd"])
+def test_members_not_ported(model):
+    with pytest.raises(NotImplementedError, match="members"):
+        cifar.build({**CONFIG, "model": model, "members": 2}, torch.Generator(), device="cpu")

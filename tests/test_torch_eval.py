@@ -1,7 +1,8 @@
 """PyTorch port, evals/classification.py + evals/calibration.py +
 experiments/cifar.py::eval_model: BMA, analyze_output, ECE/MCE/ACE/signed
-ECE on static and adaptive bins, and the eval loop's padded last batch, held
-against the JAX package on the same log-probs.
+ECE on static and adaptive bins, the eval loop's padded last batch, and
+``predict`` over SVGD particles (sample i evaluates particle i % n), held
+against the JAX package on the same log-probs and parameters.
 
 Tolerance: 1e-6 (fp32 sums over at most a few hundred points)."""
 import jax
@@ -18,11 +19,15 @@ from beyond_deep_ensembles_tpu.evals import classification as jax_cls
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu.methods import GaussianPrior as JaxGaussianPrior
 from beyond_deep_ensembles_tpu.methods import bbb_method as jax_bbb_method
+from beyond_deep_ensembles_tpu.methods import predict as jax_predict
+from beyond_deep_ensembles_tpu.methods import svgd_method as jax_svgd_method
 from beyond_deep_ensembles_tpu_torch.evals import calibration as cal
 from beyond_deep_ensembles_tpu_torch.evals import classification as cls
 from beyond_deep_ensembles_tpu_torch.experiments import cifar
 from beyond_deep_ensembles_tpu_torch.methods.api import GaussianPrior, MethodState
 from beyond_deep_ensembles_tpu_torch.methods.bbb import bbb_method
+from beyond_deep_ensembles_tpu_torch.methods.ensemble import predict
+from beyond_deep_ensembles_tpu_torch.methods.svgd import svgd_method
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -117,3 +122,36 @@ def test_eval_model_pads_and_trims_last_batch():
     assert got.keys() == ref.keys()
     for k in got:
         assert_close(got[k], ref[k], err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("n_samples", [3, 7])
+def test_predict_over_particles_matches_jax(n_samples):
+    """4 particles of a linear model, S = 3 (fewer than the particles) and
+    7 (cycling back): the stacked log-probs equal the JAX ``predict``'s."""
+    rng = np.random.RandomState(3)
+    w = rng.standard_normal((4, 48, 5)).astype(np.float32)
+    x = rng.standard_normal((6, 4, 4, 3)).astype(np.float32)
+
+    jmethod = jax_svgd_method(None, optax.sgd(0.1), particle_count=4, dataset_size=1)
+    jstate = jmethod.init(jax.random.key(0), {"w": jnp.asarray(w)})
+    ref = jax_predict(
+        jmethod, jstate, lambda p, s, k, xb: jax.nn.log_softmax(xb.reshape(xb.shape[0], -1) @ p["w"]),
+        jnp.asarray(x), n_samples=n_samples, key=jax.random.key(1),
+    )
+
+    particles = torch.nn.ModuleList(torch.nn.Module() for _ in range(4))
+    for i, m in enumerate(particles):
+        m.w = torch.nn.Parameter(torch.from_numpy(w[i].copy()))
+    method = svgd_method(None, lambda p: (torch.optim.SGD(p, lr=0.1), None), particle_count=4, dataset_size=1)
+    state = method.init(particles)
+    seen = []
+
+    def apply_fn(params, model_state, noise, xb):
+        seen.append(params)
+        return F.log_softmax(xb.permute(0, 2, 3, 1).reshape(xb.shape[0], -1) @ params.w, dim=-1)
+
+    with torch.no_grad():
+        got = predict(method, state, apply_fn, torch.from_numpy(x).permute(0, 3, 1, 2), n_samples, noise=None)
+    assert [list(particles).index(p) for p in seen] == [i % 4 for i in range(n_samples)]
+    assert got.shape == (n_samples, 6, 5)
+    assert_close(got.numpy(), np.asarray(ref), **TOL)

@@ -40,10 +40,11 @@ def test_port_imports_without_jax_or_the_jax_package():
 def test_entry_points_refuse_missing_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    config = {**cifar.DEFAULT_CONFIG, "model": "bbb"}
-    with pytest.raises(RuntimeError, match="CUDA"):
-        cifar.build(config, torch.Generator(), device="cuda")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        cifar.build(config, torch.Generator())
-    with pytest.raises(RuntimeError, match="CUDA"):
-        cifar.run_single({"model": "bbb", "subsample": 8})
+    for model in ("bbb", "svgd"):
+        config = {**cifar.DEFAULT_CONFIG, "model": model}
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cifar.build(config, torch.Generator(), device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cifar.build(config, torch.Generator())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cifar.run_single({"model": model, "subsample": 8})
