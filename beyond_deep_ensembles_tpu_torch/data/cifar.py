@@ -20,13 +20,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .uci import data_dir
+
 MEAN = np.asarray([0.49, 0.48, 0.44], np.float32)
 STD = np.asarray([0.2, 0.2, 0.2], np.float32)
-
-
-def data_dir() -> str:
-    """``$BDE_DATA_DIR``, else ``./data`` (JAX: ``data/uci.py::data_dir``)."""
-    return os.environ.get("BDE_DATA_DIR", os.path.join(os.getcwd(), "data"))
 
 
 def normalize(images_uint8_or_float: np.ndarray) -> np.ndarray:

@@ -5,7 +5,9 @@ port registers its submodules under flax's names (``nn/base.py``), so a key
 is the flax path joined with dots and only layouts change: conv kernels
 HWIO -> OIHW, dense kernels ``[in, out]`` -> ``[out, in]``; ``__gmean``/
 ``__grho`` leaves keep their names and FRN vectors pass as they are. Plain
-``Conv_k``/``Dense_k`` kernels follow the same rules.
+``Conv_k``/``Dense_k`` kernels follow the same rules. A DistilBERT tree has
+2-D leaves that are not kernels (the embeddings), so it has its own
+:func:`bert_from_jax`.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ def _leaf(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
-def params_from_jax(params: Mapping) -> dict:
-    """``flax_params_as_numpy`` (nested mappings of arrays) -> state_dict."""
+def _convert(params: Mapping, leaf) -> dict:
+    """Nested mappings of arrays -> {dotted path: ``leaf(name, array)``}."""
     out = {}
 
     def walk(prefix, node):
@@ -36,10 +38,24 @@ def params_from_jax(params: Mapping) -> dict:
             if isinstance(value, Mapping):
                 walk(path, value)
             else:
-                out[".".join(path)] = _leaf(value)
+                out[".".join(path)] = leaf(str(key), np.asarray(value))
 
     walk((), params)
     return out
+
+
+def params_from_jax(params: Mapping) -> dict:
+    """``flax_params_as_numpy`` (nested mappings of arrays) -> state_dict."""
+    return _convert(params, lambda name, a: _leaf(a))
+
+
+def bert_from_jax(params: Mapping) -> dict:
+    """A flax ``BertClassifier`` param tree (numpy) -> the port's state_dict:
+    dense ``kernel`` ``[in, out]`` -> ``[out, in]``; embeddings, LayerNorm
+    ``scale``/``bias`` and the dense biases as they are."""
+    return _convert(
+        params, lambda name, a: torch.from_numpy(np.array(a.T if name == "kernel" else a, np.float32, order="C"))
+    )
 
 
 def particles_from_jax(stacked: Mapping) -> list:

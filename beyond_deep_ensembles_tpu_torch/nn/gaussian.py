@@ -4,9 +4,11 @@ Counterpart of ``beyond_deep_ensembles_tpu/nn/gaussian.py``. A parameter
 ``w`` becomes two ``nn.Parameter``s ``w__gmean`` and ``w__grho`` with
 std = softplus(rho); methods discover them by suffix (``methods/api.py``).
 
-The JAX layers draw their noise from flax RNG streams (``eval_noise``). Here
-each forward takes one :class:`NoiseSource`, passed down to every
-``BBBConv``/``BBBDense``/``VariationalFilterResponseNorm``.
+The JAX layers draw their noise and dropout masks from flax RNG streams
+(``eval_noise``, ``make_rng("dropout")``). Here each forward takes one
+:class:`NoiseSource`, passed down to every
+``BBBConv``/``BBBDense``/``VariationalFilterResponseNorm``, every dropout
+layer and every attention with live dropout.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..methods.api import GMEAN_SUFFIX, GRHO_SUFFIX
+from ..ops.attention import fused_dropout_attention
 from ..ops.sampling import gaussian_sample
 
 RHO_INIT = -3.0  # Blundell init (reference util.py:161-163)
@@ -51,18 +54,20 @@ def gaussian_mean_std(module: nn.Module, name: str):
 
 
 class NoiseSource:
-    """The standard-normal noise of one or more forwards.
+    """The standard-normal noise and dropout masks of one or more forwards.
 
     Generator mode (``generator``, a CPU ``torch.Generator``): every BBB
-    epilogue takes a fresh 62-bit Philox seed from it. On CUDA the K1 kernel
-    draws its noise in-kernel from that seed; on the CPU the plain version
-    seeds ``torch.randn`` with it. The per-example draws of
-    ``VariationalFilterResponseNorm`` use ``torch.randn`` with a generator on
-    the layer's device, seeded once from ``generator``.
+    epilogue and every attention with live dropout takes a fresh 62-bit
+    Philox seed from it. On CUDA the K1 and K3 kernels draw in-kernel from
+    that seed; on the CPU their plain versions seed ``torch.randn`` or
+    ``torch.rand`` with it. The per-example draws of
+    ``VariationalFilterResponseNorm`` and the dropout layers' keep masks use a
+    generator on the layer's device, seeded once from ``generator``.
 
     Given mode (``given``, a sequence of tensors): draws are handed out in
-    call order, so a test can feed the JAX package's noise to the port. A
-    frozen-eval draw is one per-example tensor (the shape without batch).
+    call order, so a test can feed the JAX package's noise and masks to the
+    port. A frozen-eval draw is one per-example tensor (the shape without
+    batch); an attention's draw is its keep mask ``[B, H, L, L]``.
 
     At eval with ``freeze_on_eval`` one noise row is broadcast over the
     batch (reference bbb_layers.py:76-78), so one posterior sample behaves
@@ -133,3 +138,23 @@ class NoiseSource:
             return gaussian_sample(act_mean, act_var, b_mean, b_var, eps=eps.contiguous())
         self.draws += 1
         return gaussian_sample(act_mean, act_var, b_mean, b_var, seed=self.seed(), frozen=frozen)
+
+    def keep_mask(self, shape, device, rate: float) -> torch.Tensor:
+        """A dropout layer's keep mask of ``shape``: bool, each element kept
+        with probability 1 - ``rate`` (``u >= rate`` for u uniform on the
+        device's generator), or the next given mask."""
+        if self._given is not None:
+            return self._take(shape).to(device=device, dtype=torch.bool)
+        self.draws += 1
+        return torch.rand(tuple(shape), generator=self._device_generator(device), device=device) >= rate
+
+    def attention(self, q, k, v, key_mask, rate: float):
+        """Self-attention with dropout ``rate`` on the probabilities through
+        K3 (``ops/attention.py``): a fresh Philox seed, or the next given keep
+        mask ``[B, H, L, L]``."""
+        b, l, h, _ = q.shape
+        if self._given is not None:
+            keep = self._take((b, h, l, l)).to(device=q.device, dtype=torch.bool)
+            return fused_dropout_attention(q, k, v, key_mask, dropout_p=rate, keep=keep)
+        self.draws += 1
+        return fused_dropout_attention(q, k, v, key_mask, dropout_p=rate, seed=self.seed())

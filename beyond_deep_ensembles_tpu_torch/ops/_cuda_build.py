@@ -6,8 +6,9 @@ interface. At first use ``load`` compiles it with ``nvcc`` for Hopper
 checkout, named by a hash of the source and the flags, and loads it with
 ``ctypes``. The library is written under a temporary name and renamed, so a
 second process building the same source at the same time never loads a
-half-written file. A failed build raises; nothing falls back to the plain
-version.
+half-written file. ``build`` compiles several sources at once, one nvcc
+process each, as ``chip_smoke.py`` does before its first launch. A failed
+build raises; nothing falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -43,20 +44,40 @@ def _nvcc() -> str:
     return path
 
 
+def _library_path(source: str) -> Path:
+    src = SOURCES / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD / f"{src.stem}-{digest}.so"
+
+
+def build(*sources: str) -> None:
+    """Compile every source whose library is missing, one nvcc each, all at
+    once; raises if any fails."""
+    running = []
+    for source in sources:
+        lib = _library_path(source)
+        if lib.exists():
+            continue
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((source, lib, tmp, proc))
+    failed = []
+    for source, lib, tmp, proc in running:
+        log = proc.communicate()[0]
+        build_logs[source] = log
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {source} ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.cache
 def load(source: str) -> ctypes.CDLL:
     """The library built from ``csrc/<source>``, compiled on first use."""
-    src = SOURCES / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD / f"{src.stem}-{digest}.so"
-    if not lib.exists():
-        BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on {src.name} ({res.returncode}):\n{res.stdout}{res.stderr}")
-        os.replace(tmp, lib)
-        build_logs[source] = res.stdout + res.stderr
-    return ctypes.CDLL(str(lib))
+    build(source)
+    return ctypes.CDLL(str(_library_path(source)))

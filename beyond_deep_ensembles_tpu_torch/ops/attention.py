@@ -1,0 +1,243 @@
+"""Self-attention with dropout on the probabilities, with K3a (forward) and
+K3b (backward) as CUDA C++ kernels for Hopper.
+
+Counterpart of ``beyond_deep_ensembles_tpu/ops/attention.py``: the Pallas
+``_fwd_kernel`` (K3a) and ``_bwd_kernel`` (K3b) become ``attn_forward`` and
+``attn_backward_dq`` + ``attn_backward_dkdv`` in ``csrc/dropout_attention.cu``
+(tiles of 64 query rows by 64 keys, an online softmax, Philox dropout keyed
+by (seed, b, h, row, col), no ``[L, L]`` panel in device memory; the file's
+header has the design and the bound).
+
+Semantics, as the JAX package's: ``S = Q K^T / sqrt(D)`` plus a key-padding
+bias of -1e30, an fp32 softmax, dropout on the normalized probabilities (a
+probability is kept with probability 1 - p and then scaled by 1 / (1 - p)),
+``O = P_drop V``. The public layout is the JAX one, q/k/v ``[B, L, H, D]``
+and ``key_mask`` ``[B, L]`` (nonzero = attend); the kernels read that layout
+directly.
+
+The dropout mask comes from one of:
+
+  * ``seed``: on a card, Philox in the kernels, the panel (b, h) keyed by
+    ``seed + b H + h`` as the JAX kernel seeds its panels; the backward
+    regenerates the mask. On the CPU, ``torch.rand`` from a generator seeded
+    with ``seed`` (:func:`cpu_keep_mask`). The two streams differ, as the
+    TPU's hardware bits differ from ``jax.random``; both are iid.
+  * ``keep``: a given keep mask ``[B, H, L, L]`` (bool or uint8), read by the
+    kernels on a card, so that a card and the CPU can run one draw.
+
+A CUDA tensor goes through the kernels (each launch of K3a counts one in
+``attention_forward.launches``, each of K3b one in
+``attention_backward.launches``) and raises where they cannot take it: head
+dimension 64 and L a multiple of 64 (L = 300 of CivilComments waits for a
+ragged last tile). A CPU tensor goes through :func:`dropout_attention_plain`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from . import _cuda_build
+
+NEG = -1e30  # additive bias of a padded key; finite, so s - max is never NaN
+HEAD_DIM = 64  # the kernels' head dimension (distilbert-base: 768 / 12)
+TILE = 64  # the kernels' tile: L must be a multiple of it
+_MODE_NONE, _MODE_PHILOX, _MODE_GIVEN = 0, 1, 2
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _cuda_build.load("dropout_attention.cu")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.k3_forward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, f, f, p, p, p, i, i, i, i, p]
+    lib.k3_forward.restype = i
+    lib.k3_backward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, f, f, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.k3_backward.restype = i
+    lib.k3_error_string.argtypes = [i]
+    lib.k3_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
+    """``[B, L]`` fp32: 0 where a key is attended, -1e30 where it is padded."""
+    return torch.where(key_mask > 0, 0.0, NEG).to(torch.float32).contiguous()
+
+
+def cpu_keep_mask(shape, seed: int, dropout_p: float) -> torch.Tensor:
+    """The CPU path's keep mask: ``u >= p`` for ``u = torch.rand`` from a
+    generator seeded with ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.rand(tuple(shape), generator=gen) >= dropout_p
+
+
+def _plain_probs(q, k, key_mask, keep, dropout_p):
+    s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.where(key_mask[:, None, None, :] > 0, s, NEG), dim=-1)
+    return p if keep is None else torch.where(keep.bool(), p / (1.0 - dropout_p), 0.0)
+
+
+def dropout_attention_plain(q, k, v, key_mask, keep: Optional[torch.Tensor] = None, *, dropout_p: float = 0.0):
+    """The plain PyTorch version of K3a (and, by autograd, of K3b): the JAX
+    ``reference_dropout_attention`` with an explicit keep mask ``[B, H, L, L]``
+    (None: nothing dropped)."""
+    return torch.einsum("bhlm,bmhd->blhd", _plain_probs(q, k, key_mask, keep, dropout_p), v)
+
+
+def _mode(dropout_p, keep):
+    if dropout_p == 0.0:
+        return _MODE_NONE
+    return _MODE_GIVEN if keep is not None else _MODE_PHILOX
+
+
+def _check_kernel(q: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """What the kernels take beyond :func:`_check`: CUDA tensors, head
+    dimension 64, L a multiple of 64, and 16-byte aligned data (they read
+    float4s)."""
+    if not all(t is None or t.is_cuda for t in (q, *tensors)):
+        raise ValueError("K3 runs on CUDA tensors; a CPU tensor takes dropout_attention_plain")
+    b, l, h, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"K3 takes head dimension {HEAD_DIM}, got {d}")
+    if l % TILE != 0:
+        raise ValueError(f"K3 takes L a multiple of {TILE}, got {l}")
+    if any(t is not None and t.data_ptr() % 16 for t in (q, *tensors)):
+        raise ValueError("K3 takes 16-byte aligned tensors")
+
+
+def _err(lib, err: int, which: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{which} launch failed: {lib.k3_error_string(err).decode()} ({err})")
+
+
+def _keep_ptr(keep):
+    return keep.data_ptr() if keep is not None else None
+
+
+def attention_forward(q, k, v, bias, dropout_p: float, seed: Optional[int], keep: Optional[torch.Tensor],
+                      with_probs: bool = False):
+    """K3a on CUDA tensors: ``(o, lse, probs or None)``; ``lse`` ``[B, H, L]``
+    is the row's log-sum-exp, which K3b reads. ``keep``: uint8 ``[B, H, L, L]``."""
+    _check_kernel(q, k, v, bias, keep)
+    lib = _library()
+    b, l, h, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    probs = torch.empty((b, h, l, l), dtype=torch.float32, device=q.device) if with_probs else None
+    err = lib.k3_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep),
+        (seed or 0) & 0xFFFFFFFFFFFFFFFF, _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM),
+        o.data_ptr(), lse.data_ptr(), probs.data_ptr() if with_probs else None, b, l, h,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _err(lib, err, "K3a")
+    attention_forward.launches += 1
+    return o, lse, probs
+
+
+attention_forward.launches = 0
+
+
+def attention_backward(q, k, v, bias, dropout_p: float, seed: Optional[int], keep: Optional[torch.Tensor],
+                       o, lse, do):
+    """K3b on CUDA tensors: ``(dq, dk, dv)`` for the output gradient ``do``."""
+    _check_kernel(q, k, v, bias, keep, o, lse, do)
+    lib = _library()
+    b, l, h, _ = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    err = lib.k3_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep),
+        (seed or 0) & 0xFFFFFFFFFFFFFFFF, _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, l, h, q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _err(lib, err, "K3b")
+    attention_backward.launches += 1
+    return dq, dk, dv
+
+
+attention_backward.launches = 0
+
+
+class _Attend(torch.autograd.Function):
+    """K3a forward, K3b backward; the mask is held fixed between them (the
+    seed, or the given mask, is kept, never the drawn mask)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, keep, seed, dropout_p):
+        o, lse, _ = attention_forward(q, k, v, bias, dropout_p, seed, keep)
+        ctx.save_for_backward(q, k, v, bias, keep, o, lse)
+        ctx.seed, ctx.dropout_p = seed, dropout_p
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, keep, o, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, bias, ctx.dropout_p, ctx.seed, keep, o, lse, do.contiguous())
+        return dq, dk, dv, None, None, None, None
+
+
+def _check(q, k, v, key_mask, dropout_p, seed, keep) -> None:
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one [B, L, H, D] shape, got {q.shape}, {k.shape}, {v.shape}")
+    if not all(t.dtype == torch.float32 for t in (q, k, v)):
+        raise TypeError("q, k, v must be float32")
+    if not all(t.device == q.device for t in (k, v, key_mask)) or q.device.type not in ("cpu", "cuda"):
+        raise ValueError("q, k, v and key_mask must lie on one CPU or CUDA device")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("q, k, v must be contiguous")
+    b, l, h, _ = q.shape
+    if key_mask.shape != (b, l):
+        raise ValueError(f"key_mask must be [B, L] = {(b, l)}, got {tuple(key_mask.shape)}")
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must lie in [0, 1), got {dropout_p}")
+    if dropout_p == 0.0 and keep is not None:
+        raise ValueError("a keep mask was given with dropout_p 0")
+    if dropout_p > 0.0 and (seed is None) == (keep is None):
+        raise ValueError("with dropout_p > 0 pass exactly one of seed= and keep=")
+    if keep is not None and (
+        keep.shape != (b, h, l, l) or keep.dtype not in (torch.bool, torch.uint8) or keep.device != q.device
+    ):
+        raise ValueError(f"keep must be a bool or uint8 [B, H, L, L] = {(b, h, l, l)} mask on q's device")
+
+
+def _kernel_keep(keep):
+    return None if keep is None else keep.contiguous().view(torch.uint8)
+
+
+def _cpu_keep(q, dropout_p, seed, keep):
+    """The CPU path's mask: the given one, or one drawn from ``seed``."""
+    if dropout_p == 0.0 or keep is not None:
+        return keep
+    b, l, h, _ = q.shape
+    return cpu_keep_mask((b, h, l, l), seed, dropout_p)
+
+
+def fused_dropout_attention(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: Optional[int] = None,
+                            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention with dropout on the probabilities, differentiable in
+    q, k and v with the mask held fixed. q/k/v ``[B, L, H, D]`` fp32,
+    ``key_mask`` ``[B, L]``; with ``dropout_p > 0`` exactly one of ``seed``
+    (an int) and ``keep`` (a ``[B, H, L, L]`` mask). Returns ``[B, L, H, D]``."""
+    _check(q, k, v, key_mask, dropout_p, seed, keep)
+    if q.is_cuda:
+        return _Attend.apply(q, k, v, key_bias(key_mask), _kernel_keep(keep), seed, float(dropout_p))
+    return dropout_attention_plain(q, k, v, key_mask, _cpu_keep(q, dropout_p, seed, keep), dropout_p=dropout_p)
+
+
+def fused_dropout_attention_debug(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: Optional[int] = None,
+                                  keep: Optional[torch.Tensor] = None):
+    """Forward only, also returning the realized (dropped, normalized)
+    probabilities ``[B, H, L, L]``: test and debug use; the main path never
+    materializes them. On a card K3a writes them."""
+    _check(q, k, v, key_mask, dropout_p, seed, keep)
+    if q.is_cuda:
+        o, _, probs = attention_forward(
+            q, k, v, key_bias(key_mask), float(dropout_p), seed, _kernel_keep(keep), with_probs=True
+        )
+        return o, probs
+    probs = _plain_probs(q, k, key_mask, _cpu_keep(q, dropout_p, seed, keep), dropout_p)
+    return torch.einsum("bhlm,bmhd->blhd", probs, v), probs

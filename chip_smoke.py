@@ -6,7 +6,10 @@ CUDA card: the quickest proof that the port still starts on the GPU.
 
 Phases (any failed check raises and exits non-zero; nothing is caught):
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. K1 (``ops/sampling.py``, Triton, built at first use into ``build/``)
+  2. the CUDA C++ kernels K2 and K3 built at once (one nvcc each, by
+     ``ops/_cuda_build.py`` into ``build/kernels/``): build time and ptxas
+     report;
+  3. K1 (``ops/sampling.py``, Triton, built at first use into ``build/``)
      against its plain PyTorch version at the main path's layer shapes:
      given noise, Philox moments, seeds, frozen rows, gradients (the
      Philox mode's, whose backward recovers z from the output, against the
@@ -14,14 +17,21 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      and the plain version's, replayed in CUDA graphs, for one forward's 22
      launches, and for the largest layer (Philox and given noise) and the
      head alone;
-  3. K2 (``ops/svgd_kernel.py`` over ``csrc/svgd_gram.cu``, CUDA C++, built
-     by nvcc at first use into ``build/kernels/``): its build time and
-     ptxas report; G against an fp64 product and against ``gram_plain`` at
-     (5, 273,610), (20, 25,000,000), (3, 1,000,003) and (1, 4097) within a
-     bound from sum |x_i||x_j| and the summation depth; repeat runs bit for
-     bit; its CUDA-graph time beside ``gram_plain``'s and ``torch.mm``'s at
-     the first two shapes, against the byte bound;
-  4. the BBB slice: BBB ResNet-20 (the ``BBB`` variant of configs/cifar.yaml)
+  4. K2 (``ops/svgd_kernel.py`` over ``csrc/svgd_gram.cu``): G against an
+     fp64 product and against ``gram_plain`` at (5, 273,610), (20,
+     25,000,000), (3, 1,000,003) and (1, 4097) within a bound from sum
+     |x_i||x_j| and the summation depth; repeat runs bit for bit; its
+     CUDA-graph time beside ``gram_plain``'s and ``torch.mm``'s at the first
+     two shapes, against the byte bound;
+  5. K3a and K3b (``ops/attention.py`` over ``csrc/dropout_attention.cu``) at
+     the Amazon train and eval shapes (8 and 16, 12, 512, 64) with ragged key
+     padding on three rows: the output and dQ, dK, dV against the plain
+     version at p = 0 and with a given mask at p = 0.1; with Philox at p =
+     0.1 the keep rate, bit-identical repeats, another seed's mask, and the
+     output and gradients against the plain version fed the realized mask;
+     then the times of K3a, K3b, the plain version and SDPA against the
+     operation bound;
+  6. the BBB slice: BBB ResNet-20 (the ``BBB`` variant of configs/cifar.yaml)
      through ``experiments/cifar.py`` ``build`` -> ``train`` (10 steps at
      batch 128 on synthetic CIFAR-10) -> ``eval_model`` (50 posterior
      samples, eval batch 500), with every kernel's launch count set to 0
@@ -29,11 +39,19 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      (device busy share, top kernels, the host's wait in the NaN guard's
      sync); the card's logits held against the CPU path's on a small input
      with the same weights and noise;
-  5. the SVGD slice: the ``SVGD`` variant (5 plain ResNet-20 particles) the
+  7. the SVGD slice: the ``SVGD`` variant (5 plain ResNet-20 particles) the
      same way, K2 launched once per train step and never in eval; steady
      steps and a profile; one SVGD step of 3 particles at batch 4 on the card
      held against the CPU path from the same weights;
-  6. one JSON line of kernel figures, then the result line
+  8. the DistilBERT slice: the ``MCD`` variant of configs/amazon.yaml
+     (distilbert-base, full-model MC-Dropout, L = 512, random weights from a
+     seed) through ``experiments/wilds_task.py`` ``build`` -> ``train`` (10
+     steps at batch 8 on synthetic Amazon) -> ``eval_task`` (32 reviews, eval
+     batch 16, 10 samples), K3a launched 6 times per forward and K3b 6 times
+     per step, exactly; 20 steady steps and a profile of 3; then the ``MAP``
+     variant the same way; the card's MCD logits and one Adam step held
+     against the CPU path with the same weights and masks;
+  9. one JSON line of kernel figures (K1, K2, K3a, K3b), then the result line
      ``{"ok": true, "device": {...}}``.
 Exits non-zero and prints no result without CUDA or without the package
 beside this file.
@@ -71,6 +89,22 @@ TRAIN_STEPS = 10
 # 273,610 parameters), the JAX package's upper end (20 particles of 25 M),
 # ragged P, one row
 K2_SHAPES = [(5, 273_610), (20, 25_000_000), (3, 1_000_003), (1, 4097)]
+
+
+# K3's shapes: the Amazon train batch and eval batch of distilbert-base (B, H,
+# L, D), at the attention dropout of configs/amazon.yaml's DistilBERT (0.1)
+K3_SHAPES = [(8, 12, 512, 64), (16, 12, 512, 64)]
+K3_P = 0.1
+# configs/amazon.yaml: its DEFAULT block, and the variants "MCD" and "MAP"
+AMAZON_DEFAULT = {
+    "batch_size": 8, "eval_batch_size": 16, "epochs": 5, "eval_samples": 10,
+    "optimizer_kind": "adam", "lr": 1e-5, "weight_decay": 0.01, "train_all_layers": True,
+}
+MCD_VARIANT = {"model": "mcd", "dropout_p": 0.2}
+MAP_VARIANT = {"model": "map"}
+# cut to size: one epoch of 80 synthetic reviews = 10 steps at batch 8; 32
+# test reviews = 2 eval batches of 16
+BERT_SMOKE = {"epochs": 1, "subsample": 80, "test_subsample": 32, "seed": 0}
 
 
 def block_widths():
@@ -329,14 +363,8 @@ def k2_check(torch, svgd_kernel, x):
     return err, share
 
 
-def k2_phase(torch, svgd_kernel, _cuda_build):
+def k2_phase(torch, svgd_kernel):
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    svgd_kernel._library()
-    print(f"K2 built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in _cuda_build.build_logs.get("svgd_gram.cu", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  nvcc: {line.strip()}")
     gen = torch.Generator(device=dev).manual_seed(7)
     errs = {}
     for n, p in K2_SHAPES:
@@ -387,24 +415,25 @@ def k2_phase(torch, svgd_kernel, _cuda_build):
     return {**timings[main_shape], "max_abs_err": errs[main_shape]}
 
 
-def profile_steps(torch, built, xd, yd, noise, ours, steps=3):
-    """Device time by kernel over ``steps`` steady train steps; prints the
-    top entries (and every kernel whose name holds one of ``ours``) and the
-    device's busy share of the window."""
+def profile_steps(torch, step, ours, steps=3):
+    """Device time by kernel over ``steps`` steady train steps (``step(i)``
+    runs step i); prints the top entries (and every kernel whose name holds
+    one of ``ours``), the device's busy share of the window and the host's
+    wait in ``aten::_local_scalar_dense`` (a NaN guard's or a loss's read)."""
     from torch.profiler import ProfilerActivity, profile
 
-    bs = 128
-    method = built.method
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            idx = slice(i * bs, (i + 1) * bs)
-            built.state, _ = method.update(built.state, noise, (xd[idx], yd[idx]))
+            step(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    kernels = [e for e in averages if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+    # kernels only: a record_function range (the optimizer's step) also
+    # carries device time, that of the kernels inside it
+    kernels = [e for e in averages if "CUDA" in str(e.device_type) and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.self_device_time_total for e in kernels)
     if device_us <= 0:
         print("profile: no device time in the trace (not measured)")
@@ -417,11 +446,25 @@ def profile_steps(torch, built, xd, yd, noise, ours, steps=3):
     top += [e for e in kernels if any(name in e.key for name in ours) and e not in top]
     for e in top:
         print(f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms/step  {e.count // steps:5d} calls/step  {e.key[:90]}")
-    # the NaN guard's host read is the step's one sync: the host's time
-    # inside it is what a guard kept on the device could give back
     item_us = sum(e.cpu_time_total for e in averages if e.key == "aten::_local_scalar_dense")
-    print(f"host blocked in the NaN guard's read: {item_us / 1e3 / steps:.3f} ms/step "
+    print(f"host blocked in scalar reads: {item_us / 1e3 / steps:.3f} ms/step "
           f"({100 * item_us / 1e3 / wall_ms:.1f}% of the window)")
+
+
+def steady_steps(torch, step, label, batch, count=2 * TRAIN_STEPS):
+    """``count`` steady train steps (``step(i)`` runs step i and returns its
+    loss), timed one by one with CUDA events."""
+    losses = []
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(count + 1)]
+    marks[0].record()
+    for i in range(count):
+        losses.append(step(i))
+        marks[i + 1].record()
+    marks[-1].synchronize()
+    check(all(bool(torch.isfinite(v)) for v in losses), f"{label} steady steps: every loss finite")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    print(f"{label} steady train step over {count} steps (batch {batch}): median "
+          f"{step_ms[len(step_ms) // 2]:.2f} ms, max {step_ms[-1]:.2f} ms, min {step_ms[0]:.2f} ms")
 
 
 def small_input_check(torch, NoiseSource, ResNet20):
@@ -508,20 +551,315 @@ def run_slice(torch, cifar, NoiseSource, kernels, variant, label):
     xd = torch.from_numpy(x_train).cuda().permute(0, 3, 1, 2).contiguous()
     yd = torch.from_numpy(y_train).cuda()
     noise = NoiseSource.seeded(1)
-    losses = []
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2 * TRAIN_STEPS + 1)]
-    marks[0].record()
-    for i in range(2 * TRAIN_STEPS):
+
+    def step(i):
         idx = slice((i % TRAIN_STEPS) * 128, (i % TRAIN_STEPS + 1) * 128)
         built.state, m = built.method.update(built.state, noise, (xd[idx], yd[idx]))
-        losses.append(m["loss"])
-        marks[i + 1].record()
-    marks[-1].synchronize()
-    check(all(bool(torch.isfinite(v)) for v in losses), f"{label} steady steps: every loss finite")
-    step_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
-    print(f"{label} steady train step over {len(step_ms)} steps (batch 128): median "
-          f"{step_ms[len(step_ms) // 2]:.2f} ms, max {step_ms[-1]:.2f} ms, min {step_ms[0]:.2f} ms")
-    return built, counts, config, xd, yd, noise
+        return m["loss"]
+
+    steady_steps(torch, step, label, 128)
+    return built, counts, config, step
+
+
+def build_phase(torch, _cuda_build):
+    """Both CUDA C++ sources compiled at once, one nvcc each; their build time
+    and ptxas report (registers, spills). Triton compiles K1 at first launch."""
+    t0 = time.perf_counter()
+    _cuda_build.build("svgd_gram.cu", "dropout_attention.cu")
+    print(f"K2 and K3 built in {time.perf_counter() - t0:.2f} s (two nvcc processes at once)")
+    for source, log in sorted(_cuda_build.build_logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  nvcc {source}: {line.strip()}")
+
+
+def events_ms(torch, fn, reps=10):
+    """Device time of one call of ``fn`` between CUDA events, for calls that
+    a CUDA graph cannot capture (autograd's backward); each call is
+    milliseconds of work, so its launch cost does not show."""
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k3_inputs(torch, shape, seed):
+    """q, k, v, dO ``[B, L, H, D]`` and a key mask with ragged padding on
+    three rows: inside a tile (row 0 from 300, row 1 from 77) and of whole
+    tiles (row 2 from 64)."""
+    b, h, l, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, l, h, d, device="cuda", generator=gen) for _ in range(4))
+    mask = torch.ones(b, l, dtype=torch.int32, device="cuda")
+    mask[0, 300:] = 0
+    mask[1, 77:] = 0
+    mask[2, 64:] = 0
+    return q, k, v, do, mask
+
+
+def with_grads(torch, fn, q, k, v, do):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    return out.detach(), grads
+
+
+def k3_hold(torch, label, out, ref, grads, ref_grads):
+    """Outputs within 1e-5 absolute; gradients within 3e-5 + 3e-4 |ref| (the
+    JAX kernel test's gradient tolerance). Returns the max abs errors of the
+    output and of the gradients."""
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(err <= 1e-5, f"K3a {label} = plain (max abs err {err:.3g} <= 1e-5)")
+    worst = max(float(((g - r).abs() - 3e-4 * r.abs()).max()) for g, r in zip(grads, ref_grads))
+    gerr = max(float((g - r).abs().max()) for g, r in zip(grads, ref_grads))
+    check(worst <= 3e-5, f"K3b {label}: dQ, dK, dV = plain autograd (max abs err {gerr:.3g}, within 3e-5 + 3e-4 |ref|)")
+    return err, gerr
+
+
+def k3_phase(torch, att):
+    """K3a and K3b against the plain version at the Amazon shapes, the Philox
+    mask's statistics and regeneration, then the times of K3a, K3b, the plain
+    version and SDPA (``library_ms`` only) at each shape, p = 0.1."""
+    import torch.nn.functional as F
+
+    errs, timings = {}, {}
+    for shape in K3_SHAPES:
+        b, h, l, d = shape
+        q, k, v, do, mask = k3_inputs(torch, shape, seed=b)
+        given = torch.rand(b, h, l, l, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3)) >= K3_P
+        worst = (0.0, 0.0)
+        for p, keep, label in ((0.0, None, f"{shape} p = 0"), (K3_P, given, f"{shape} given mask, p = {K3_P}")):
+            out, grads = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, keep=keep),
+                                    q, k, v, do)
+            ref, ref_grads = with_grads(torch, lambda *t: att.dropout_attention_plain(*t, mask, keep, dropout_p=p),
+                                        q, k, v, do)
+            worst = tuple(map(max, worst, k3_hold(torch, label, out, ref, grads, ref_grads)))
+            del out, grads, ref, ref_grads
+        del given
+
+        # Philox: the keep rate over unpadded keys, bit-identical repeats,
+        # another seed another mask, and the output and gradients equal to
+        # the plain version fed the realized mask (a kept probability that
+        # underflows to 0 counts nothing either way)
+        out, probs = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=1234)
+        out2, probs2 = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=1234)
+        check(torch.equal(out, out2) and torch.equal(probs, probs2), f"K3a {shape} Philox: repeat runs equal bit for bit")
+        del out2, probs2
+        _, other = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=1235)
+        changed = float(((probs > 0) != (other > 0)).float().mean())
+        check(changed > 0.05, f"K3a {shape} Philox: seed 1235 draws another mask ({changed:.3f} of the elements differ)")
+        del other
+        unpadded = (mask > 0)[:, None, None, :].expand(b, h, l, l)
+        kept = int(((probs > 0) & unpadded).sum())
+        n = int(unpadded.sum())
+        rate, sigma = kept / n, (K3_P * (1 - K3_P) / n) ** 0.5
+        check(abs(rate - (1 - K3_P)) < 6 * sigma,
+              f"K3a {shape} Philox: keep rate {rate:.6f} over {n} unpadded elements, within 6 sigma ({sigma:.2e}) of {1 - K3_P}")
+        realized = probs > 0
+        del unpadded
+        main, grads = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=K3_P, seed=1234),
+                                 q, k, v, do)
+        check(torch.equal(main, out), f"K3a {shape}: the main entry draws the debug entry's mask")
+        ref, ref_grads = with_grads(torch, lambda *t: att.dropout_attention_plain(*t, mask, realized, dropout_p=K3_P),
+                                    q, k, v, do)
+        worst = tuple(map(max, worst, k3_hold(torch, f"{shape} Philox, realized mask", out, ref, grads, ref_grads)))
+        errs[shape] = worst
+        del out, probs, realized, main, grads, ref, ref_grads
+        torch.cuda.empty_cache()
+
+        # times at p = 0.1, Philox: K3a and K3b through the wrappers that
+        # count launches, replayed in CUDA graphs; the plain version with its
+        # mask drawn (torch.rand) in a graph, its backward (autograd) and
+        # SDPA's backward between events
+        bias = att.key_bias(mask)
+        o, lse, _ = att.attention_forward(q, k, v, bias, K3_P, 5, None)
+        drop_mask = (mask > 0)[:, None, None, :]
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, D] views, no copy
+        with torch.no_grad():
+            plain_ms = graph_ms(torch, lambda: att.dropout_attention_plain(
+                q, k, v, mask, torch.rand(b, h, l, l, device="cuda") >= K3_P, dropout_p=K3_P), reps=10)
+            ms = graph_ms(torch, lambda: att.attention_forward(q, k, v, bias, K3_P, 5, None), reps=10)
+            bwd_ms = graph_ms(torch, lambda: att.attention_backward(q, k, v, bias, K3_P, 5, None, o, lse, do), reps=10)
+            ms2 = graph_ms(torch, lambda: att.attention_forward(q, k, v, bias, K3_P, 5, None), reps=10)
+            sdpa_p = K3_P
+            try:
+                sdpa_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=drop_mask, dropout_p=sdpa_p), reps=10)
+            except RuntimeError as exc:
+                print(f"SDPA with dropout refused CUDA graph capture ({str(exc).splitlines()[0][:120]}); timed at p = 0")
+                sdpa_p = 0.0
+                sdpa_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=drop_mask), reps=10)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        keep = torch.rand(b, h, l, l, device="cuda") >= K3_P
+        plain_out = att.dropout_attention_plain(*leaves, mask, keep, dropout_p=K3_P)
+        plain_bwd_ms = events_ms(torch, lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True))
+        del plain_out, keep
+        sdpa_out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves), attn_mask=drop_mask,
+                                                  dropout_p=K3_P).transpose(1, 2)
+        sdpa_bwd_ms = events_ms(torch, lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True))
+        del sdpa_out, leaves
+
+        panel = 4 * b * l * h * d
+        fwd_bytes = 4 * panel + 4 * b * l + 4 * b * h * l  # q, k, v, bias in; o, lse out
+        bwd_bytes = 8 * panel + 4 * b * l + 4 * b * h * l  # q, k, v, o, dO, bias, lse in; dq, dk, dv out
+        fwd_ops, bwd_ops = 4 * b * h * l * l * d, 10 * b * h * l * l * d
+        rows = {}
+        for label, t, plain_t, lib_t, lib_p, n_bytes, ops in (
+            ("K3a", min(ms, ms2), plain_ms, sdpa_ms, sdpa_p, fwd_bytes, fwd_ops),
+            ("K3b", bwd_ms, plain_bwd_ms, sdpa_bwd_ms, K3_P, bwd_bytes, bwd_ops),
+        ):
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+            bound = max(bytes_ms, ops_ms)
+            # library_p: the dropout rate SDPA was timed at (0 where graph
+            # capture refused its dropout)
+            rows[label] = {"ms": t, "plain_ms": plain_t, "library_ms": lib_t, "library_p": lib_p,
+                           "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            print(f"{label} {shape}, p = {K3_P}: kernel {t:.4f} ms, plain {plain_t:.4f} ms, "
+                  f"SDPA at p = {lib_p} {lib_t:.4f} ms, bound {bound:.4f} ms "
+                  f"(fp32 ops {ops_ms:.4f}, bytes {bytes_ms:.4f}); kernel at {100 * bound / t:.0f}% of the bound")
+        print(f"K3a {shape}: {ms:.4f} / {ms2:.4f} ms in two turns")
+        timings[shape] = rows
+        del q, k, v, do, o, lse, bias
+        torch.cuda.empty_cache()
+    main_shape = K3_SHAPES[0]
+    return {name: {**timings[main_shape][name], "max_abs_err": errs[main_shape][i]} for i, name in enumerate(("K3a", "K3b"))}
+
+
+def bert_masks(gen, batch, cfg, seq=512):
+    """Given keep masks for one full-model MC-Dropout forward of the
+    DistilBERT classifier, in the order it draws them: the embedding
+    dropout; per layer, the attention's ``[B, H, L, L]`` and the FFN's; the
+    head's."""
+    import torch
+
+    def draw(shape, rate):
+        return torch.rand(shape, generator=gen) >= rate
+
+    masks = [draw((batch, seq, cfg.dim), cfg.dropout)]
+    for _ in range(cfg.n_layers):
+        masks += [draw((batch, cfg.n_heads, seq, seq), cfg.attention_dropout), draw((batch, seq, cfg.dim), cfg.dropout)]
+    return masks + [draw((batch, cfg.dim), MCD_VARIANT["dropout_p"])]
+
+
+def bert_card_vs_cpu(torch, wilds_task, NoiseSource):
+    """The MCD DistilBERT (full width, 6 layers) built twice from one seed, on
+    the card and on the CPU, held together on 2 synthetic reviews (one padded
+    from token 400) with the same given masks: the logits of a sampling eval
+    forward (<= 1e-4), and one Adam step: the loss (1e-5 relative), every
+    gradient (1e-4 of its tensor's largest, plus 1e-6: the k_lin biases'
+    gradient is 0 in exact arithmetic, the softmax being blind to a per-row
+    shift, so only rounding is left there) and the step of every element
+    whose gradient with weight decay exceeds 1e-5 (1e-3 lr, plus the two
+    roundings of p + step, 2^-22 |p|; Adam's first step is lr g / (|g| +
+    1e-8), which rounding sets where g is near 0)."""
+    from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
+
+    config = {**wilds_task.DEFAULT_CONFIG, **AMAZON_DEFAULT, **MCD_VARIANT}
+    cpu = wilds_task.build("amazon", config, torch.Generator().manual_seed(11), device="cpu")
+    gpu = wilds_task.build("amazon", config, torch.Generator().manual_seed(11))
+    sd_cpu, sd_gpu = cpu.state.params.state_dict(), gpu.state.params.state_dict()
+    check(all(torch.equal(sd_cpu[key], sd_gpu[key].cpu()) for key in sd_cpu),
+          "DistilBERT built on the card and on the CPU from one seed: equal weights")
+    x, y, _ = load_wilds("amazon", "test", subsample=2)
+    x = torch.from_numpy(x)
+    x[1, 400:, 1] = 0
+    y = torch.from_numpy(y)
+    cfg = cpu.state.params.bert.config
+    gen = torch.Generator().manual_seed(12)
+
+    masks = bert_masks(gen, 2, cfg)
+    with torch.no_grad():
+        ref = cpu.state.params(x, NoiseSource(given=masks), train=False)
+        out = gpu.state.params(x.cuda(), NoiseSource(given=[m.cuda() for m in masks]), train=False).cpu()
+    err = float((out - ref).abs().max())
+    check(out.shape == (2, 5) and bool(torch.isfinite(out).all()) and err <= 1e-4,
+          f"DistilBERT MCD logits on the card = CPU path (given masks, max abs err {err:.2e} <= 1e-4)")
+
+    masks = bert_masks(gen, 2, cfg)
+    before = {k: p.detach().clone() for k, p in cpu.state.params.named_parameters()}
+    cpu.state, m_cpu = cpu.method.update(cpu.state, NoiseSource(given=masks), (x, y))
+    gpu.state, m_gpu = gpu.method.update(gpu.state, NoiseSource(given=[m.cuda() for m in masks]), (x.cuda(), y.cuda()))
+    loss_err = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    lr, wd = config["lr"], config["weight_decay"]
+    grad_share, step_share, step_err, excluded = 0.0, 0.0, 0.0, 0
+    gpu_params = dict(gpu.state.params.named_parameters())
+    for key, p in cpu.state.params.named_parameters():
+        g, gg = p.grad, gpu_params[key].grad.cpu()
+        grad_share = max(grad_share, float((gg - g).abs().max()) / (1e-4 * float(g.abs().max()) + 1e-6))
+        sure = (g + wd * before[key]).abs() > 1e-5
+        excluded += int((~sure).sum())
+        if sure.any():
+            gap = (gpu_params[key].detach().cpu() - p.detach())[sure].abs()
+            step_err = max(step_err, float(gap.max()))
+            step_share = max(step_share, float((gap / (1e-3 * lr + 2.0**-22 * before[key][sure].abs())).max()))
+    check(loss_err <= 1e-5 and grad_share <= 1.0 and step_share <= 1.0,
+          f"DistilBERT MCD Adam step on the card = CPU path (loss rel err {loss_err:.1e} <= 1e-5; gradients at "
+          f"{grad_share:.3f} of their bound; parameters after the step max abs err {step_err:.2e}, at "
+          f"{step_share:.3f} of 1e-3 lr plus two roundings of the parameter, over the elements whose gradient "
+          f"exceeds 1e-5; {excluded} elements below it)")
+
+
+def run_bert_slice(torch, wilds_task, kernels, variant, label):
+    """``variant`` of configs/amazon.yaml through the entry points: build ->
+    train (10 steps at batch 8) -> eval_task (32 reviews, eval batch 16, 10
+    samples), every kernel's count set to 0 just before train and read after
+    train and after eval. Returns the built experiment, the counts {name:
+    (train, eval)} and a closure that runs one steady train step."""
+    from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+
+    config = {**wilds_task.DEFAULT_CONFIG, **AMAZON_DEFAULT, **variant, **BERT_SMOKE}
+    x, y, xt, yt, mt = wilds_task._load_task_data("amazon", config)
+    steps = x.shape[0] // config["batch_size"]
+    check(steps == TRAIN_STEPS and x.shape[1:] == (512, 2),
+          f"{label}: {steps} train steps of batch {config['batch_size']} at L = {x.shape[1]}")
+    t0 = time.perf_counter()
+    built = wilds_task.build("amazon", config, torch.Generator().manual_seed(config["seed"]))
+    n_params = sum(p.numel() for p in built.state.params.parameters())
+    check(built.device.type == "cuda" and 66_000_000 < n_params < 68_000_000,
+          f"{label}: build() defaults to the card; distilbert-base + head: {n_params} parameters "
+          f"(built in {time.perf_counter() - t0:.2f} s)")
+
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    for fn in kernels.values():
+        fn.launches = 0
+    start.record()
+    wilds_task.train(built, config, x, y, log=print)  # raises on a non-finite loss
+    mid.record()
+    trained = {name: fn.launches for name, fn in kernels.items()}
+    result = wilds_task.eval_task(built, "amazon", config, xt, yt, mt)
+    end.record()
+    counts = {name: (trained[name], fn.launches - trained[name]) for name, fn in kernels.items()}
+    end.synchronize()
+    check(all(bool(torch.isfinite(p).all()) for p in built.state.params.parameters()),
+          f"{label}: parameters finite after training")
+    check(all(isinstance(v, (int, float)) and v == v and abs(v) != float("inf") for v in result.values()),
+          f"{label}: eval metrics finite: {json.dumps(result)}")
+    check(all(0.0 <= result[key] <= 1.0 for key in ("accuracy", "10th_percentile_acc", "worst_user_acc", "ece"))
+          and result["avg_log_likelihood"] < 0.0 and result["n_users"] > 0, f"{label}: eval metrics in range")
+    train_ms, eval_ms = start.elapsed_time(mid), mid.elapsed_time(end)
+    n_eval = xt.shape[0] * config["eval_samples"]
+    print(f"{label} train: {TRAIN_STEPS} steps in {train_ms:.1f} ms = {train_ms / TRAIN_STEPS:.2f} ms/step (first steps included)")
+    print(f"{label} eval: {xt.shape[0]} reviews x {config['eval_samples']} samples in {eval_ms:.1f} ms = "
+          f"{n_eval / eval_ms * 1e3:.1f} samples/s")
+
+    xd = torch.from_numpy(x).cuda()
+    yd = torch.from_numpy(y).cuda()
+    noise = NoiseSource.seeded(1)
+    bs = config["batch_size"]
+
+    def step(i):
+        idx = slice((i % TRAIN_STEPS) * bs, (i % TRAIN_STEPS + 1) * bs)
+        built.state, m = built.method.update(built.state, noise, (xd[idx], yd[idx]))
+        return m["loss"]
+
+    return built, counts, config, step
 
 
 def main() -> int:
@@ -539,10 +877,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from beyond_deep_ensembles_tpu_torch.experiments import cifar
+    from beyond_deep_ensembles_tpu_torch.experiments import cifar, wilds_task
     from beyond_deep_ensembles_tpu_torch.models.resnet import ResNet20
     from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
     from beyond_deep_ensembles_tpu_torch.ops import _cuda_build, sampling, svgd_kernel
+    from beyond_deep_ensembles_tpu_torch.ops import attention as att
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -553,11 +892,17 @@ def main() -> int:
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {count} card(s): {name}")
 
+    build_phase(torch, _cuda_build)
     k1 = kernel_phase(torch, sampling)
-    k2 = k2_phase(torch, svgd_kernel, _cuda_build)
-    kernels = {"k1_gaussian_sample": sampling.gaussian_sample, "k2_svgd_gram": svgd_kernel.gram}
+    k2 = k2_phase(torch, svgd_kernel)
+    k3 = k3_phase(torch, att)
+    kernels = {
+        "k1_gaussian_sample": sampling.gaussian_sample, "k2_svgd_gram": svgd_kernel.gram,
+        "k3a_attention_forward": att.attention_forward, "k3b_attention_backward": att.attention_backward,
+    }
+    no_k3 = {"k3a_attention_forward": (0, 0), "k3b_attention_backward": (0, 0)}
 
-    built, bbb_counts, config, xd, yd, noise = run_slice(torch, cifar, NoiseSource, kernels, BBB_VARIANT, "BBB")
+    built, bbb_counts, config, step = run_slice(torch, cifar, NoiseSource, kernels, BBB_VARIANT, "BBB")
     per_forward = len(bbb_shapes(1))
     eval_batches = -(-SMOKE["test_subsample"] // config["eval_batch_size"])
     k1_train, k1_eval = bbb_counts["k1_gaussian_sample"]
@@ -566,18 +911,43 @@ def main() -> int:
     check(k1_eval == eval_batches * config["eval_samples"] * per_forward,
           f"K1 launched {k1_eval} times in BBB eval ({eval_batches} batches x {config['eval_samples']} samples x {per_forward})")
     check(bbb_counts["k2_svgd_gram"] == (0, 0), "K2 not launched on the BBB path")
-    profile_steps(torch, built, xd, yd, noise, ours=("_sample_kernel",))
+    check(all(bbb_counts[name] == c for name, c in no_k3.items()), "K3a and K3b not launched on the BBB path")
+    profile_steps(torch, step, ours=("_sample_kernel",))
     small_input_check(torch, NoiseSource, ResNet20)
-    del built, xd, yd
+    del built, step
 
-    built, svgd_counts, config, xd, yd, noise = run_slice(torch, cifar, NoiseSource, kernels, SVGD_VARIANT, "SVGD")
+    built, svgd_counts, config, step = run_slice(torch, cifar, NoiseSource, kernels, SVGD_VARIANT, "SVGD")
     check(svgd_counts["k2_svgd_gram"] == (TRAIN_STEPS, 0),
           f"K2 launched {svgd_counts['k2_svgd_gram'][0]} times in {TRAIN_STEPS} SVGD train steps (one per step) "
           f"and {svgd_counts['k2_svgd_gram'][1]} times in eval")
     check(svgd_counts["k1_gaussian_sample"] == (0, 0), "K1 not launched on the SVGD path")
-    profile_steps(torch, built, xd, yd, noise, ours=("gram_partial", "gram_finish"))
+    check(all(svgd_counts[name] == c for name, c in no_k3.items()), "K3a and K3b not launched on the SVGD path")
+    profile_steps(torch, step, ours=("gram_partial", "gram_finish"))
     svgd_step_check(torch, cifar, NoiseSource)
-    del built, xd, yd
+    del built, step
+    torch.cuda.empty_cache()
+
+    # the DistilBERT slice: MCD (its main path), then MAP
+    layers = wilds_task._bert_config({}).n_layers
+    eval_forwards = -(-BERT_SMOKE["test_subsample"] // AMAZON_DEFAULT["eval_batch_size"]) * AMAZON_DEFAULT["eval_samples"]
+    bert_counts = {}
+    for variant, label in ((MCD_VARIANT, "DistilBERT MCD"), (MAP_VARIANT, "DistilBERT MAP")):
+        built, counts, config, step = run_bert_slice(torch, wilds_task, kernels, variant, label)
+        bert_counts[label] = counts
+        check(counts["k3a_attention_forward"] == (TRAIN_STEPS * layers, eval_forwards * layers),
+              f"{label}: K3a launched {counts['k3a_attention_forward'][0]} times in {TRAIN_STEPS} train steps and "
+              f"{counts['k3a_attention_forward'][1]} times in eval ({eval_forwards} forwards x {layers} layers)")
+        check(counts["k3b_attention_backward"] == (TRAIN_STEPS * layers, 0),
+              f"{label}: K3b launched {counts['k3b_attention_backward'][0]} times in {TRAIN_STEPS} train steps and "
+              f"{counts['k3b_attention_backward'][1]} times in eval")
+        check(counts["k1_gaussian_sample"] == (0, 0) and counts["k2_svgd_gram"] == (0, 0),
+              f"{label}: K1 and K2 not launched")
+        if variant is MCD_VARIANT:
+            steady_steps(torch, step, label, config["batch_size"])
+            profile_steps(torch, step, ours=("attn_forward", "attn_backward"))
+        del built, step
+        torch.cuda.empty_cache()
+    bert_card_vs_cpu(torch, wilds_task, NoiseSource)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -607,6 +977,26 @@ def main() -> int:
             "bound_by": k2["bound_by"],
             "library_ms": k2["library_ms"],
         },
+        *(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "beyond_deep_ensembles_tpu_torch/csrc/dropout_attention.cu",
+                "replaces": replaces,
+                "launches": sum(bert_counts["DistilBERT MCD"][name]),
+                "max_abs_err": k3[key]["max_abs_err"],
+                "ms": k3[key]["ms"],
+                "plain_ms": k3[key]["plain_ms"],
+                "bound_ms": k3[key]["bound_ms"],
+                "bound_by": k3[key]["bound_by"],
+                "library_ms": k3[key]["library_ms"],
+                "library_p": k3[key]["library_p"],
+            }
+            for name, key, replaces in (
+                ("k3a_attention_forward", "K3a", "beyond_deep_ensembles_tpu/ops/attention.py:84"),
+                ("k3b_attention_backward", "K3b", "beyond_deep_ensembles_tpu/ops/attention.py:101"),
+            )
+        ),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -1,0 +1,262 @@
+"""PyTorch port, ops/attention.py (K3a and K3b, the fused dropout attention):
+the plain version against the JAX Pallas kernel run by the TPU interpreter,
+against the JAX explicit-mask math with a given mask, the CPU seed path, the
+wrapper's input checks, and (on a card only) the CUDA kernels against the
+plain version.
+
+The interpreter models the TPU's random bits as all zero, i.e. u = 0.5: at
+p = 0.4 it keeps every probability (scaled by 1 / 0.6), at p = 0.6 it drops
+every one. The port's plain version is fed the matching all-ones or
+all-zeros keep mask; at p = 0 it takes no mask.
+
+Tolerances: against the interpreted kernel the JAX test's own (outputs 2e-5;
+gradients atol 3e-5, rtol 3e-4); against the JAX explicit-mask math, the same
+fp32 operations in another library, 1e-5. On the card, K3a and K3b against
+the plain version at (2, 128, 3, 64): outputs 1e-5 and gradients atol 3e-5,
+rtol 3e-4: the kernels sum over 64-wide tiles in another order, rescale
+with an online softmax and take rowsum(dP * P) as rowsum(dO * O), each
+rounding about 1e-7 relative per step.
+
+The kernel cases (marker ``cuda``) run on a card with
+``python -m pytest --noconftest -m cuda tests/test_torch_attention.py``; JAX
+is imported only inside the tests that compare with it."""
+import numpy as np
+import pytest
+import torch
+
+from beyond_deep_ensembles_tpu_torch.ops import attention as att
+
+SHAPE = (2, 8, 2, 4)  # the JAX test's interpreted shape: B, L, H, D
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, for kernel cases; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(shape=SHAPE, seed=0, pad_from=None):
+    """q, k, v, a cotangent, and a key mask whose row 0 pads the keys from
+    ``pad_from`` (3L/4 by default, as the JAX test pads)."""
+    b, l, h, d = shape
+    rng = np.random.RandomState(seed)
+    q, k, v, cot = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
+    mask = np.ones((b, l), np.int32)
+    mask[0, (3 * l // 4 if pad_from is None else pad_from):] = 0
+    return q, k, v, cot, mask
+
+
+def _port(q, k, v, cot, mask, **kw):
+    """The port's output and its q, k, v gradients under the cotangent."""
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = att.fused_dropout_attention(*leaves, torch.from_numpy(mask), **kw)
+    (out * torch.from_numpy(cot)).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in leaves]
+
+
+@pytest.mark.parametrize(
+    "dropout_p,regime", [(0.0, "none"), (0.4, "keep_all"), (0.6, "drop_all")]
+)
+def test_plain_matches_interpreted_pallas_kernel(dropout_p, regime):
+    import jax
+    import jax.numpy as jnp
+    from _torch_parity import assert_close
+    from jax.experimental.pallas import tpu as pltpu
+
+    from beyond_deep_ensembles_tpu.ops.attention import fused_dropout_attention
+
+    q, k, v, cot, mask = _inputs()
+
+    def jax_fn(q, k, v):
+        return fused_dropout_attention(
+            q, k, v, jnp.asarray(mask), jnp.array([7], jnp.int32), dropout_p=dropout_p,
+            interpret=pltpu.InterpretParams(),
+        )
+
+    want, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(cot))
+    keep = None
+    if regime != "none":
+        b, l, h, _ = SHAPE
+        keep = torch.full((b, h, l, l), regime == "keep_all")
+    got, grads = _port(q, k, v, cot, mask, dropout_p=dropout_p, keep=keep)
+    assert_close(got, np.asarray(want), rtol=2e-5, atol=2e-5, err_msg=f"output, {regime}")
+    if regime == "drop_all":
+        assert not got.any()
+    for name, g, w in zip("qkv", grads, want_grads):
+        assert_close(g, np.asarray(w), rtol=3e-4, atol=3e-5, err_msg=f"d{name}, {regime}")
+
+
+def test_given_mask_matches_jax_explicit_mask_math():
+    """The explicit realized-mask math of tests/test_fused_attention.py, with
+    a random keep mask, for the output and dQ, dK, dV."""
+    import jax
+    import jax.numpy as jnp
+    from _torch_parity import assert_close
+
+    shape = (2, 16, 3, 8)
+    q, k, v, cot, mask = _inputs(shape, seed=1)
+    b, l, h, _ = shape
+    p_drop = 0.3
+    keep = np.random.RandomState(2).rand(b, h, l, l) >= p_drop
+
+    def explicit(q, k, v):
+        s = jnp.einsum("blhd,bmhd->bhlm", q, k, preferred_element_type=jnp.float32) / jnp.sqrt(
+            jnp.float32(q.shape[-1])
+        )
+        s = jnp.where(jnp.asarray(mask)[:, None, None, :] > 0, s, -1e30)
+        pr = jax.nn.softmax(s, axis=-1) * jnp.asarray(keep, jnp.float32) / (1.0 - p_drop)
+        return jnp.einsum("bhlm,bmhd->blhd", pr, v)
+
+    want, vjp = jax.vjp(explicit, *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(cot))
+    got, grads = _port(q, k, v, cot, mask, dropout_p=p_drop, keep=torch.from_numpy(keep))
+    assert_close(got, np.asarray(want), rtol=1e-5, atol=1e-5, err_msg="output")
+    for name, g, w in zip("qkv", grads, want_grads):
+        assert_close(g, np.asarray(w), rtol=1e-5, atol=1e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.25])
+def test_padded_keys_get_zero_probability(dropout_p):
+    q, k, v, _, mask = _inputs((2, 16, 2, 4))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    seed = 3 if dropout_p else None
+    out, probs = att.fused_dropout_attention_debug(tq, tk, tv, torch.from_numpy(mask), dropout_p=dropout_p, seed=seed)
+    assert probs.shape == (2, 2, 16, 16)
+    assert not probs[0, :, :, 12:].any()
+    if dropout_p == 0.0:
+        torch.testing.assert_close(probs.sum(-1), torch.ones(2, 2, 16), rtol=0, atol=1e-6)
+    # the output is the realized probabilities applied to V
+    torch.testing.assert_close(out, torch.einsum("bhlm,bmhd->blhd", probs, tv), rtol=0, atol=1e-6)
+    again = att.fused_dropout_attention(tq, tk, tv, torch.from_numpy(mask), dropout_p=dropout_p, seed=seed)
+    assert torch.equal(again, out)
+
+
+def test_cpu_seed_stream():
+    """The CPU path's mask: the same seed draws the same mask, another seed
+    another, at the keep rate 1 - p (6 sigma)."""
+    q, k, v, _, mask = _inputs((2, 64, 4, 4))
+    args = [torch.from_numpy(a) for a in (q, k, v, mask)]
+    p = 0.1
+    _, p1 = att.fused_dropout_attention_debug(*args, dropout_p=p, seed=11)
+    _, p2 = att.fused_dropout_attention_debug(*args, dropout_p=p, seed=11)
+    _, p3 = att.fused_dropout_attention_debug(*args, dropout_p=p, seed=12)
+    assert torch.equal(p1, p2) and not torch.equal(p1 > 0, p3 > 0)
+    kept = (p1[:, :, :, :48] > 0).float()  # keys unpadded on every row
+    sigma = (p * (1 - p) / kept.numel()) ** 0.5
+    assert abs(float(kept.mean()) - (1 - p)) < 6 * sigma
+    _, undropped = att.fused_dropout_attention_debug(*args)
+    assert torch.equal(p1 > 0, att.cpu_keep_mask(p1.shape, 11, p) & (undropped > 0))
+
+
+def test_input_checks():
+    q, k, v, _, mask = _inputs()
+    tq, tk, tv, tm = (torch.from_numpy(a) for a in (q, k, v, mask))
+    b, l, h, _ = SHAPE
+    with pytest.raises(ValueError):
+        att.fused_dropout_attention(tq, tk[:, :4], tv, tm)
+    with pytest.raises(TypeError):
+        att.fused_dropout_attention(tq.double(), tk.double(), tv.double(), tm)
+    with pytest.raises(ValueError):
+        att.fused_dropout_attention(tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2), tm)
+    with pytest.raises(ValueError):
+        att.fused_dropout_attention(tq, tk, tv, tm[:, :4])
+    with pytest.raises(ValueError):
+        att.fused_dropout_attention(tq, tk, tv, tm, dropout_p=1.0, seed=1)
+    with pytest.raises(ValueError):  # neither a seed nor a mask
+        att.fused_dropout_attention(tq, tk, tv, tm, dropout_p=0.1)
+    with pytest.raises(ValueError):  # both
+        att.fused_dropout_attention(tq, tk, tv, tm, dropout_p=0.1, seed=1, keep=torch.ones(b, h, l, l, dtype=torch.bool))
+    with pytest.raises(ValueError):  # a mask with nothing to drop
+        att.fused_dropout_attention(tq, tk, tv, tm, keep=torch.ones(b, h, l, l, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        att.fused_dropout_attention(tq, tk, tv, tm, dropout_p=0.1, keep=torch.ones(b, h, l, l - 1, dtype=torch.bool))
+    with pytest.raises(ValueError):  # the kernel wrappers take CUDA tensors only
+        att.attention_forward(tq, tk, tv, att.key_bias(tm), 0.0, None, None)
+    launches = att.attention_forward.launches, att.attention_backward.launches
+    _port(q, k, v, np.ones_like(q), mask, dropout_p=0.2, seed=5)
+    assert (att.attention_forward.launches, att.attention_backward.launches) == launches  # the CPU launches nothing
+
+
+# --------------------------------------------------------------------------
+# On the card: K3a and K3b against the plain version
+# --------------------------------------------------------------------------
+
+CARD_SHAPE = (2, 128, 3, 64)
+
+
+def _card_inputs(device, shape=CARD_SHAPE, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, cot = (torch.randn(shape, device=device, generator=gen) for _ in range(4))
+    mask = torch.ones(shape[:2], dtype=torch.int32, device=device)
+    mask[0, 77:] = 0  # ragged, inside the second key tile
+    mask[1, 64:] = 0  # a whole key tile padded
+    return q, k, v, cot, mask
+
+
+def _grads(fn, q, k, v, cot):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    grads = torch.autograd.grad((out * cot).sum(), leaves)
+    return out.detach(), grads
+
+
+def _hold(got, want, atol, rtol):
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    assert bool((err <= atol + rtol * want.abs()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "given"])
+def test_kernel_matches_plain(cuda_device, mode):
+    q, k, v, cot, mask = _card_inputs(cuda_device)
+    b, l, h, _ = q.shape
+    p = 0.1 if mode == "given" else 0.0
+    keep = None
+    if mode == "given":
+        keep = torch.rand(b, h, l, l, device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(9)) >= p
+    before = att.attention_forward.launches, att.attention_backward.launches
+    out, grads = _grads(lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, keep=keep), q, k, v, cot)
+    assert (att.attention_forward.launches, att.attention_backward.launches) == (before[0] + 1, before[1] + 1)
+    ref, ref_grads = _grads(lambda *t: att.dropout_attention_plain(*t, mask, keep, dropout_p=p), q, k, v, cot)
+    _hold(out, ref, 1e-5, 1e-5)
+    for g, r in zip(grads, ref_grads):
+        _hold(g, r, 3e-5, 3e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_philox_mask(cuda_device):
+    """Keep rate within 6 sigma of 1 - p over the unpadded keys; repeats equal
+    bit for bit; another seed another mask; the output and gradients equal the
+    plain version fed the realized mask."""
+    q, k, v, cot, mask = _card_inputs(cuda_device, seed=1)
+    p = 0.1
+    out, probs = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=p, seed=123)
+    again, probs2 = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=p, seed=123)
+    _, other = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=p, seed=124)
+    assert torch.equal(out, again) and torch.equal(probs, probs2)
+    assert not torch.equal(probs > 0, other > 0)
+    kept = (probs[:, :, :, :64] > 0).float()  # keys 0..63 are unpadded on both rows
+    sigma = (p * (1 - p) / kept.numel()) ** 0.5
+    assert abs(float(kept.mean()) - (1 - p)) < 6 * sigma
+    realized = probs > 0  # a kept probability that underflows to 0 counts nothing either way
+    main, grads = _grads(lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, seed=123), q, k, v, cot)
+    assert torch.equal(main, out)
+    ref, ref_grads = _grads(lambda *t: att.dropout_attention_plain(*t, mask, realized, dropout_p=p), q, k, v, cot)
+    _hold(out, ref, 1e-5, 1e-5)
+    _hold(probs, att._plain_probs(q, k, mask, realized, p), 1e-6, 1e-5)
+    for g, r in zip(grads, ref_grads):
+        _hold(g, r, 3e-5, 3e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_raises_instead_of_falling_back(cuda_device):
+    q, k, v, _, mask = _card_inputs(cuda_device, shape=(2, 96, 2, 64))
+    with pytest.raises(ValueError):  # L not a multiple of 64
+        att.fused_dropout_attention(q, k, v, mask)
+    q, k, v, _, mask = _card_inputs(cuda_device, shape=(2, 64, 2, 32))
+    with pytest.raises(ValueError):  # head dimension 32
+        att.fused_dropout_attention(q, k, v, mask)

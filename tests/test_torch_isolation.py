@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from beyond_deep_ensembles_tpu_torch.experiments import cifar
+from beyond_deep_ensembles_tpu_torch.experiments import cifar, wilds_task
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -34,7 +34,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         [sys.executable, "-c", PROBE], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20  # every module of the slice was imported
+    assert int(res.stdout.strip()) >= 38  # every module of the three slices was imported
 
 
 def test_entry_points_refuse_missing_cuda():
@@ -48,3 +48,16 @@ def test_entry_points_refuse_missing_cuda():
             cifar.build(config, torch.Generator())
         with pytest.raises(RuntimeError, match="CUDA"):
             cifar.run_single({"model": model, "subsample": 8})
+
+
+def test_wilds_entry_points_refuse_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for model in ("map", "mcd"):
+        config = {**wilds_task.DEFAULT_CONFIG, "model": model, "tiny": True}
+        with pytest.raises(RuntimeError, match="CUDA"):
+            wilds_task.build("amazon", config, torch.Generator(), device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            wilds_task.build("amazon", config, torch.Generator())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            wilds_task.run_single("amazon", {"model": model, "tiny": True, "subsample": 8})
