@@ -2,11 +2,24 @@
 K3b (backward) as CUDA C++ kernels for Hopper.
 
 Counterpart of ``beyond_deep_ensembles_tpu/ops/attention.py``: the Pallas
-``_fwd_kernel`` (K3a) and ``_bwd_kernel`` (K3b) become ``attn_forward`` and
-``attn_backward_dq`` + ``attn_backward_dkdv`` in ``csrc/dropout_attention.cu``
-(tiles of 64 query rows by 64 keys, an online softmax, Philox dropout keyed
-by (seed, b, h, row, col), no ``[L, L]`` panel in device memory; the file's
-header has the design and the bound).
+``_fwd_kernel`` (K3a, ``:84``) and ``_bwd_kernel`` (K3b, ``:101``) become
+``attn_forward`` and ``attn_backward_dq`` + ``attn_backward_dkdv`` in
+``csrc/dropout_attention.cu`` (tiles of 64 query rows by 64 keys, an online
+softmax, Philox dropout keyed by (seed, b, h, row, col), no ``[L, L]`` panel
+in device memory).
+
+Bound: operations, ``4 B H L^2 D`` forward and ``10 B H L^2 D`` backward,
+far above the bytes (q, k, v, o once each). What the design does about it
+(the source's header has the detail): every product runs on the tensor
+cores as split TF32, three ``wgmma.mma_async`` TF32 products of the fp32
+operands' high and low parts accumulated in fp32, so fp32 accuracy stays
+while the products leave the CUDA cores; a block of two warpgroups takes 128
+rows, keeps its own operand (Q, dO, or K and V) split in registers, and
+splits each 64-wide tile that streams past once, into operand tiles in
+shared memory laid out so that the probabilities stay in registers between
+``Q K^T`` and ``P V``; the next raw tiles arrive by the copy engine (TMA,
+an mbarrier counting the bytes) while the block computes; scores are kept in base 2. K3b stays two launches without
+atomics, so repeat runs agree bit for bit.
 
 Semantics, as the JAX package's: ``S = Q K^T / sqrt(D)`` plus a key-padding
 bias of -1e30, an fp32 softmax, dropout on the normalized probabilities (a
@@ -18,8 +31,8 @@ directly.
 The dropout mask comes from one of:
 
   * ``seed``: on a card, Philox in the kernels, the panel (b, h) keyed by
-    ``seed + b H + h`` as the JAX kernel seeds its panels; the backward
-    regenerates the mask. On the CPU, ``torch.rand`` from a generator seeded
+    ``seed + b H + h`` as the JAX kernel seeds its panels, a 16-bit uniform
+    per element; the backward regenerates the mask. On the CPU, ``torch.rand`` from a generator seeded
     with ``seed`` (:func:`cpu_keep_mask`). The two streams differ, as the
     TPU's hardware bits differ from ``jax.random``; both are iid.
   * ``keep``: a given keep mask ``[B, H, L, L]`` (bool or uint8), read by the
@@ -27,9 +40,10 @@ The dropout mask comes from one of:
 
 A CUDA tensor goes through the kernels (each launch of K3a counts one in
 ``attention_forward.launches``, each of K3b one in
-``attention_backward.launches``) and raises where they cannot take it: head
-dimension 64 and L a multiple of 64 (L = 300 of CivilComments waits for a
-ragged last tile). A CPU tensor goes through :func:`dropout_attention_plain`.
+``attention_backward.launches``) and raises where they cannot take it: a
+head dimension other than 64 or misaligned data. Any L >= 1 runs (the last
+query and key tiles are ragged). A CPU tensor goes through
+:func:`dropout_attention_plain`.
 """
 from __future__ import annotations
 
@@ -44,7 +58,6 @@ from . import _cuda_build
 
 NEG = -1e30  # additive bias of a padded key; finite, so s - max is never NaN
 HEAD_DIM = 64  # the kernels' head dimension (distilbert-base: 768 / 12)
-TILE = 64  # the kernels' tile: L must be a multiple of it
 _MODE_NONE, _MODE_PHILOX, _MODE_GIVEN = 0, 1, 2
 
 
@@ -94,15 +107,14 @@ def _mode(dropout_p, keep):
 
 def _check_kernel(q: torch.Tensor, *tensors: torch.Tensor) -> None:
     """What the kernels take beyond :func:`_check`: CUDA tensors, head
-    dimension 64, L a multiple of 64, and 16-byte aligned data (they read
-    float4s)."""
+    dimension 64 and 16-byte aligned data (they read float4s); any L >= 1."""
     if not all(t is None or t.is_cuda for t in (q, *tensors)):
         raise ValueError("K3 runs on CUDA tensors; a CPU tensor takes dropout_attention_plain")
     b, l, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"K3 takes head dimension {HEAD_DIM}, got {d}")
-    if l % TILE != 0:
-        raise ValueError(f"K3 takes L a multiple of {TILE}, got {l}")
+    if l < 1:
+        raise ValueError("K3 takes L >= 1")
     if any(t is not None and t.data_ptr() % 16 for t in (q, *tensors)):
         raise ValueError("K3 takes 16-byte aligned tensors")
 
@@ -119,7 +131,8 @@ def _keep_ptr(keep):
 def attention_forward(q, k, v, bias, dropout_p: float, seed: Optional[int], keep: Optional[torch.Tensor],
                       with_probs: bool = False):
     """K3a on CUDA tensors: ``(o, lse, probs or None)``; ``lse`` ``[B, H, L]``
-    is the row's log-sum-exp, which K3b reads. ``keep``: uint8 ``[B, H, L, L]``."""
+    is the row's log-sum-exp in base 2 of the scores times log2(e), which K3b
+    reads. ``keep``: uint8 ``[B, H, L, L]``."""
     _check_kernel(q, k, v, bias, keep)
     lib = _library()
     b, l, h, _ = q.shape

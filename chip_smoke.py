@@ -24,13 +24,16 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      CUDA-graph time beside ``gram_plain``'s and ``torch.mm``'s at the first
      two shapes, against the byte bound;
   5. K3a and K3b (``ops/attention.py`` over ``csrc/dropout_attention.cu``) at
-     the Amazon train and eval shapes (8 and 16, 12, 512, 64) with ragged key
-     padding on three rows: the output and dQ, dK, dV against the plain
-     version at p = 0 and with a given mask at p = 0.1; with Philox at p =
-     0.1 the keep rate, bit-identical repeats, another seed's mask, and the
-     output and gradients against the plain version fed the realized mask;
-     then the times of K3a, K3b, the plain version and SDPA against the
-     operation bound;
+     the Amazon train and eval shapes (8 and 16, 12, 512, 64) and at a ragged
+     length (8, 12, 300, 64), with ragged key padding on three rows: the
+     output and dQ, dK, dV against the plain version at p = 0 and with a
+     given mask at p = 0.1; with Philox at p = 0.1 the keep rate,
+     bit-identical repeats (the output, and dQ, dK, dV), another seed's mask,
+     and the output and gradients against the plain version fed the realized
+     mask; then, at the Amazon shapes, the times of K3a, K3b, the plain
+     version and SDPA in turns (minimum and spread of each) against the
+     operation bounds of the tensor cores (three TF32 products per
+     operation) and of the CUDA cores;
   6. the BBB slice: BBB ResNet-20 (the ``BBB`` variant of configs/cifar.yaml)
      through ``experiments/cifar.py`` ``build`` -> ``train`` (10 steps at
      batch 128 on synthetic CIFAR-10) -> ``eval_model`` (50 posterior
@@ -69,6 +72,7 @@ BUILD = os.path.join(ROOT, "build")
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # tensor cores, dense
 # fp32 operations K1 does per element: two bias adds, sqrt, multiply, add,
 # and Box-Muller's log, sqrt, cos and four multiplies/conversions. Philox's
 # integer rounds are left out: the peak table has no rate for them.
@@ -94,6 +98,9 @@ K2_SHAPES = [(5, 273_610), (20, 25_000_000), (3, 1_000_003), (1, 4097)]
 # K3's shapes: the Amazon train batch and eval batch of distilbert-base (B, H,
 # L, D), at the attention dropout of configs/amazon.yaml's DistilBERT (0.1)
 K3_SHAPES = [(8, 12, 512, 64), (16, 12, 512, 64)]
+# held to the plain version only, not timed: CivilComments' length, which ends
+# inside a 64-wide tile (300 = 4 x 64 + 44)
+K3_RAGGED_SHAPE = (8, 12, 300, 64)
 K3_P = 0.1
 # configs/amazon.yaml: its DEFAULT block, and the variants "MCD" and "MAP"
 AMAZON_DEFAULT = {
@@ -573,12 +580,13 @@ def build_phase(torch, _cuda_build):
                 print(f"  nvcc {source}: {line.strip()}")
 
 
-def events_ms(torch, fn, reps=10):
-    """Device time of one call of ``fn`` between CUDA events, for calls that
-    a CUDA graph cannot capture (autograd's backward); each call is
-    milliseconds of work, so its launch cost does not show."""
-    for _ in range(2):
+def events_ms(torch, fn, reps=30):
+    """Device time of one call of ``fn`` between CUDA events after a warm-up,
+    for calls that a CUDA graph cannot capture (autograd's backward); each
+    call is about a millisecond of work, so its launch cost does not show."""
+    for _ in range(5):
         fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -591,7 +599,7 @@ def events_ms(torch, fn, reps=10):
 def k3_inputs(torch, shape, seed):
     """q, k, v, dO ``[B, L, H, D]`` and a key mask with ragged padding on
     three rows: inside a tile (row 0 from 300, row 1 from 77) and of whole
-    tiles (row 2 from 64)."""
+    tiles (row 2 from 64). At L = 300 row 0 keeps all its keys."""
     b, h, l, d = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b, l, h, d, device="cuda", generator=gen) for _ in range(4))
@@ -622,112 +630,154 @@ def k3_hold(torch, label, out, ref, grads, ref_grads):
     return err, gerr
 
 
-def k3_phase(torch, att):
-    """K3a and K3b against the plain version at the Amazon shapes, the Philox
-    mask's statistics and regeneration, then the times of K3a, K3b, the plain
-    version and SDPA (``library_ms`` only) at each shape, p = 0.1."""
+def in_turns(timers, rounds=2):
+    """Each of ``timers`` (name -> a function that returns one time in ms)
+    run in turns, first to last and then last to first (kernel, library,
+    library, kernel), ``rounds`` times over: {name: its times, sorted}."""
+    times = {name: [] for name in timers}
+    for _ in range(rounds):
+        for order in (list(timers), list(reversed(timers))):
+            for name in order:
+                times[name].append(timers[name]())
+    return {name: sorted(v) for name, v in times.items()}
+
+
+def k3_checks(torch, att, shape):
+    """K3a and K3b against the plain version at ``shape``: p = 0, a given
+    mask, and Philox (keep rate, bit-identical repeats of the output and of
+    dQ, dK, dV, another seed's mask, the realized mask fed to the plain
+    version). Returns the max abs errors (output, gradients)."""
+    b, h, l, d = shape
+    q, k, v, do, mask = k3_inputs(torch, shape, seed=b + l)
+    given = torch.rand(b, h, l, l, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3)) >= K3_P
+    worst = (0.0, 0.0)
+    for p, keep, label in ((0.0, None, f"{shape} p = 0"), (K3_P, given, f"{shape} given mask, p = {K3_P}")):
+        out, grads = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, keep=keep),
+                                q, k, v, do)
+        ref, ref_grads = with_grads(torch, lambda *t: att.dropout_attention_plain(*t, mask, keep, dropout_p=p),
+                                    q, k, v, do)
+        worst = tuple(map(max, worst, k3_hold(torch, label, out, ref, grads, ref_grads)))
+        del out, grads, ref, ref_grads
+    del given
+
+    # Philox: the keep rate over unpadded keys, bit-identical repeats,
+    # another seed another mask, and the output and gradients equal to
+    # the plain version fed the realized mask (a kept probability that
+    # underflows to 0 counts nothing either way)
+    out, probs = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=1234)
+    out2, probs2 = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=1234)
+    check(torch.equal(out, out2) and torch.equal(probs, probs2), f"K3a {shape} Philox: repeat runs equal bit for bit")
+    del out2, probs2
+    _, other = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=1235)
+    changed = float(((probs > 0) != (other > 0)).float().mean())
+    check(changed > 0.05, f"K3a {shape} Philox: seed 1235 draws another mask ({changed:.3f} of the elements differ)")
+    del other
+    unpadded = (mask > 0)[:, None, None, :].expand(b, h, l, l)
+    kept = int(((probs > 0) & unpadded).sum())
+    n = int(unpadded.sum())
+    rate, sigma = kept / n, (K3_P * (1 - K3_P) / n) ** 0.5
+    check(abs(rate - (1 - K3_P)) < 6 * sigma,
+          f"K3a {shape} Philox: keep rate {rate:.6f} over {n} unpadded elements, within 6 sigma ({sigma:.2e}) of {1 - K3_P}")
+    realized = probs > 0
+    del unpadded
+    main, grads = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=K3_P, seed=1234),
+                             q, k, v, do)
+    check(torch.equal(main, out), f"K3a {shape}: the main entry draws the debug entry's mask")
+    _, grads2 = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=K3_P, seed=1234),
+                           q, k, v, do)
+    check(all(torch.equal(g, g2) for g, g2 in zip(grads, grads2)),
+          f"K3b {shape} Philox: dQ, dK, dV of repeat runs equal bit for bit")
+    del grads2
+    ref, ref_grads = with_grads(torch, lambda *t: att.dropout_attention_plain(*t, mask, realized, dropout_p=K3_P),
+                                q, k, v, do)
+    worst = tuple(map(max, worst, k3_hold(torch, f"{shape} Philox, realized mask", out, ref, grads, ref_grads)))
+    del out, probs, realized, main, grads, ref, ref_grads, q, k, v, do
+    torch.cuda.empty_cache()
+    return worst
+
+
+def k3_times(torch, att, shape):
+    """Times at p = 0.1, Philox, at ``shape``: K3a and K3b through the
+    wrappers that count launches, replayed in CUDA graphs; the plain version
+    with its mask drawn (torch.rand) and SDPA in graphs; the plain version's
+    backward (autograd) and SDPA's backward between events after a warm-up.
+    Kernel and yardsticks run in turns (kernel, SDPA, plain, plain, SDPA,
+    kernel, twice over); each row keeps the minimum and prints the spread."""
     import torch.nn.functional as F
 
-    errs, timings = {}, {}
-    for shape in K3_SHAPES:
-        b, h, l, d = shape
-        q, k, v, do, mask = k3_inputs(torch, shape, seed=b)
-        given = torch.rand(b, h, l, l, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3)) >= K3_P
-        worst = (0.0, 0.0)
-        for p, keep, label in ((0.0, None, f"{shape} p = 0"), (K3_P, given, f"{shape} given mask, p = {K3_P}")):
-            out, grads = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, keep=keep),
-                                    q, k, v, do)
-            ref, ref_grads = with_grads(torch, lambda *t: att.dropout_attention_plain(*t, mask, keep, dropout_p=p),
-                                        q, k, v, do)
-            worst = tuple(map(max, worst, k3_hold(torch, label, out, ref, grads, ref_grads)))
-            del out, grads, ref, ref_grads
-        del given
+    b, h, l, d = shape
+    q, k, v, do, mask = k3_inputs(torch, shape, seed=b)
+    bias = att.key_bias(mask)
+    o, lse, _ = att.attention_forward(q, k, v, bias, K3_P, 5, None)
+    drop_mask = (mask > 0)[:, None, None, :]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, D] views, no copy
 
-        # Philox: the keep rate over unpadded keys, bit-identical repeats,
-        # another seed another mask, and the output and gradients equal to
-        # the plain version fed the realized mask (a kept probability that
-        # underflows to 0 counts nothing either way)
-        out, probs = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=1234)
-        out2, probs2 = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=1234)
-        check(torch.equal(out, out2) and torch.equal(probs, probs2), f"K3a {shape} Philox: repeat runs equal bit for bit")
-        del out2, probs2
-        _, other = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=1235)
-        changed = float(((probs > 0) != (other > 0)).float().mean())
-        check(changed > 0.05, f"K3a {shape} Philox: seed 1235 draws another mask ({changed:.3f} of the elements differ)")
-        del other
-        unpadded = (mask > 0)[:, None, None, :].expand(b, h, l, l)
-        kept = int(((probs > 0) & unpadded).sum())
-        n = int(unpadded.sum())
-        rate, sigma = kept / n, (K3_P * (1 - K3_P) / n) ** 0.5
-        check(abs(rate - (1 - K3_P)) < 6 * sigma,
-              f"K3a {shape} Philox: keep rate {rate:.6f} over {n} unpadded elements, within 6 sigma ({sigma:.2e}) of {1 - K3_P}")
-        realized = probs > 0
-        del unpadded
-        main, grads = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=K3_P, seed=1234),
-                                 q, k, v, do)
-        check(torch.equal(main, out), f"K3a {shape}: the main entry draws the debug entry's mask")
-        ref, ref_grads = with_grads(torch, lambda *t: att.dropout_attention_plain(*t, mask, realized, dropout_p=K3_P),
-                                    q, k, v, do)
-        worst = tuple(map(max, worst, k3_hold(torch, f"{shape} Philox, realized mask", out, ref, grads, ref_grads)))
-        errs[shape] = worst
-        del out, probs, realized, main, grads, ref, ref_grads
-        torch.cuda.empty_cache()
+    def sdpa(p):
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=drop_mask, dropout_p=p)
 
-        # times at p = 0.1, Philox: K3a and K3b through the wrappers that
-        # count launches, replayed in CUDA graphs; the plain version with its
-        # mask drawn (torch.rand) in a graph, its backward (autograd) and
-        # SDPA's backward between events
-        bias = att.key_bias(mask)
-        o, lse, _ = att.attention_forward(q, k, v, bias, K3_P, 5, None)
-        drop_mask = (mask > 0)[:, None, None, :]
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, D] views, no copy
-        with torch.no_grad():
-            plain_ms = graph_ms(torch, lambda: att.dropout_attention_plain(
-                q, k, v, mask, torch.rand(b, h, l, l, device="cuda") >= K3_P, dropout_p=K3_P), reps=10)
-            ms = graph_ms(torch, lambda: att.attention_forward(q, k, v, bias, K3_P, 5, None), reps=10)
-            bwd_ms = graph_ms(torch, lambda: att.attention_backward(q, k, v, bias, K3_P, 5, None, o, lse, do), reps=10)
-            ms2 = graph_ms(torch, lambda: att.attention_forward(q, k, v, bias, K3_P, 5, None), reps=10)
-            sdpa_p = K3_P
-            try:
-                sdpa_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=drop_mask, dropout_p=sdpa_p), reps=10)
-            except RuntimeError as exc:
-                print(f"SDPA with dropout refused CUDA graph capture ({str(exc).splitlines()[0][:120]}); timed at p = 0")
-                sdpa_p = 0.0
-                sdpa_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=drop_mask), reps=10)
-        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        keep = torch.rand(b, h, l, l, device="cuda") >= K3_P
-        plain_out = att.dropout_attention_plain(*leaves, mask, keep, dropout_p=K3_P)
-        plain_bwd_ms = events_ms(torch, lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True))
-        del plain_out, keep
-        sdpa_out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves), attn_mask=drop_mask,
-                                                  dropout_p=K3_P).transpose(1, 2)
-        sdpa_bwd_ms = events_ms(torch, lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True))
-        del sdpa_out, leaves
+    sdpa_p = K3_P
+    with torch.no_grad():
+        try:
+            graph_ms(torch, sdpa(sdpa_p), reps=2)
+        except RuntimeError as exc:
+            print(f"SDPA with dropout refused CUDA graph capture ({str(exc).splitlines()[0][:120]}); timed at p = 0")
+            sdpa_p = 0.0
+        forward = in_turns({
+            "kernel": lambda: graph_ms(torch, lambda: att.attention_forward(q, k, v, bias, K3_P, 5, None), reps=20),
+            "library": lambda: graph_ms(torch, sdpa(sdpa_p), reps=20),
+            "plain": lambda: graph_ms(torch, lambda: att.dropout_attention_plain(
+                q, k, v, mask, torch.rand(b, h, l, l, device="cuda") >= K3_P, dropout_p=K3_P), reps=10),
+        })
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    keep = torch.rand(b, h, l, l, device="cuda") >= K3_P
+    plain_out = att.dropout_attention_plain(*leaves, mask, keep, dropout_p=K3_P)
+    sdpa_out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves), attn_mask=drop_mask,
+                                              dropout_p=K3_P).transpose(1, 2)
+    backward = in_turns({
+        "kernel": lambda: graph_ms(
+            torch, lambda: att.attention_backward(q, k, v, bias, K3_P, 5, None, o, lse, do), reps=20),
+        "library": lambda: events_ms(torch, lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True)),
+        "plain": lambda: events_ms(torch, lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True)),
+    })
+    del plain_out, sdpa_out, keep, leaves
 
-        panel = 4 * b * l * h * d
-        fwd_bytes = 4 * panel + 4 * b * l + 4 * b * h * l  # q, k, v, bias in; o, lse out
-        bwd_bytes = 8 * panel + 4 * b * l + 4 * b * h * l  # q, k, v, o, dO, bias, lse in; dq, dk, dv out
-        fwd_ops, bwd_ops = 4 * b * h * l * l * d, 10 * b * h * l * l * d
-        rows = {}
-        for label, t, plain_t, lib_t, lib_p, n_bytes, ops in (
-            ("K3a", min(ms, ms2), plain_ms, sdpa_ms, sdpa_p, fwd_bytes, fwd_ops),
-            ("K3b", bwd_ms, plain_bwd_ms, sdpa_bwd_ms, K3_P, bwd_bytes, bwd_ops),
-        ):
-            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-            bound = max(bytes_ms, ops_ms)
-            # library_p: the dropout rate SDPA was timed at (0 where graph
-            # capture refused its dropout)
-            rows[label] = {"ms": t, "plain_ms": plain_t, "library_ms": lib_t, "library_p": lib_p,
-                           "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-            print(f"{label} {shape}, p = {K3_P}: kernel {t:.4f} ms, plain {plain_t:.4f} ms, "
-                  f"SDPA at p = {lib_p} {lib_t:.4f} ms, bound {bound:.4f} ms "
-                  f"(fp32 ops {ops_ms:.4f}, bytes {bytes_ms:.4f}); kernel at {100 * bound / t:.0f}% of the bound")
-        print(f"K3a {shape}: {ms:.4f} / {ms2:.4f} ms in two turns")
-        timings[shape] = rows
-        del q, k, v, do, o, lse, bias
-        torch.cuda.empty_cache()
+    panel = 4 * b * l * h * d
+    fwd_bytes = 4 * panel + 4 * b * l + 4 * b * h * l  # q, k, v, bias in; o, lse out
+    bwd_bytes = 8 * panel + 4 * b * l + 4 * b * h * l  # q, k, v, o, dO, bias, lse in; dq, dk, dv out
+    rows = {}
+    for label, times, lib_p, n_bytes, ops in (
+        ("K3a", forward, sdpa_p, fwd_bytes, 4 * b * h * l * l * d),
+        ("K3b", backward, K3_P, bwd_bytes, 10 * b * h * l * l * d),
+    ):
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        fp32_ms = ops / FP32_FLOPS_PER_S * 1e3
+        # the unit the kernels use: three TF32 tensor-core products per fp32-accurate operation
+        tf32x3_ms = 3 * ops / TF32_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, tf32x3_ms)
+        t = times["kernel"][0]
+        # library_p: the dropout rate SDPA was timed at (0 where graph
+        # capture refused its dropout)
+        rows[label] = {"ms": t, "plain_ms": times["plain"][0], "library_ms": times["library"][0], "library_p": lib_p,
+                       "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= tf32x3_ms else "operations (3xTF32)",
+                       "bound_fp32_cores_ms": max(bytes_ms, fp32_ms)}
+        spread = "; ".join(f"{name} min {v[0]:.4f}, max {v[-1]:.4f} over {len(v)} turns" for name, v in times.items())
+        print(f"{label} {shape}, p = {K3_P} (SDPA, the library call, at p = {lib_p}): {spread} (ms)")
+        print(f"{label} {shape}: kernel {t:.4f} ms; bound {bound:.4f} ms by 3xTF32 operations at 495 TFLOP/s "
+              f"(kernel at {100 * bound / t:.0f}% of it), {fp32_ms:.4f} ms by fp32 operations at 67 TFLOP/s on the "
+              f"CUDA cores ({100 * min(fp32_ms / t, 1.0):.0f}%), bytes {bytes_ms:.4f} ms; "
+              f"kernel / SDPA {t / times['library'][0]:.2f}")
+    del q, k, v, do, o, lse, bias
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k3_phase(torch, att):
+    """K3a and K3b against the plain version at the Amazon shapes and at a
+    ragged length, the Philox mask's statistics and regeneration, then the
+    times of K3a, K3b, the plain version and SDPA (``library_ms`` only) at
+    the Amazon shapes, p = 0.1."""
+    errs = {shape: k3_checks(torch, att, shape) for shape in K3_SHAPES + [K3_RAGGED_SHAPE]}
+    timings = {shape: k3_times(torch, att, shape) for shape in K3_SHAPES}
     main_shape = K3_SHAPES[0]
     return {name: {**timings[main_shape][name], "max_abs_err": errs[main_shape][i]} for i, name in enumerate(("K3a", "K3b"))}
 
@@ -989,6 +1039,7 @@ def main() -> int:
                 "plain_ms": k3[key]["plain_ms"],
                 "bound_ms": k3[key]["bound_ms"],
                 "bound_by": k3[key]["bound_by"],
+                "bound_fp32_cores_ms": k3[key]["bound_fp32_cores_ms"],
                 "library_ms": k3[key]["library_ms"],
                 "library_p": k3[key]["library_p"],
             }

@@ -12,10 +12,14 @@ all-zeros keep mask; at p = 0 it takes no mask.
 Tolerances: against the interpreted kernel the JAX test's own (outputs 2e-5;
 gradients atol 3e-5, rtol 3e-4); against the JAX explicit-mask math, the same
 fp32 operations in another library, 1e-5. On the card, K3a and K3b against
-the plain version at (2, 128, 3, 64): outputs 1e-5 and gradients atol 3e-5,
-rtol 3e-4: the kernels sum over 64-wide tiles in another order, rescale
-with an online softmax and take rowsum(dP * P) as rowsum(dO * O), each
-rounding about 1e-7 relative per step.
+the plain version at (2, 128, 3, 64) and at the ragged lengths 300, 65, 5
+and 96: outputs 1e-5 and gradients atol 3e-5, rtol 3e-4: the kernels sum over
+64-wide tiles in another order, rescale with an online softmax, take
+rowsum(dP * P) as rowsum(dO * O), each rounding about 1e-7 relative per
+step, and take every product as split TF32 on the tensor cores (three
+products of the operands' high and low parts, about 2^-22 relative each;
+the emulation below settles that this holds the tolerances and that a
+single TF32 product does not).
 
 The kernel cases (marker ``cuda``) run on a card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_attention.py``; JAX
@@ -89,18 +93,17 @@ def test_plain_matches_interpreted_pallas_kernel(dropout_p, regime):
         assert_close(g, np.asarray(w), rtol=3e-4, atol=3e-5, err_msg=f"d{name}, {regime}")
 
 
-def test_given_mask_matches_jax_explicit_mask_math():
-    """The explicit realized-mask math of tests/test_fused_attention.py, with
-    a random keep mask, for the output and dQ, dK, dV."""
+def _against_jax_explicit_mask_math(shape, seed, p_drop=0.3):
+    """The port's plain version against the explicit realized-mask math of
+    tests/test_fused_attention.py, with a random keep mask, for the output
+    and dQ, dK, dV."""
     import jax
     import jax.numpy as jnp
     from _torch_parity import assert_close
 
-    shape = (2, 16, 3, 8)
-    q, k, v, cot, mask = _inputs(shape, seed=1)
+    q, k, v, cot, mask = _inputs(shape, seed=seed)
     b, l, h, _ = shape
-    p_drop = 0.3
-    keep = np.random.RandomState(2).rand(b, h, l, l) >= p_drop
+    keep = np.random.RandomState(seed + 1).rand(b, h, l, l) >= p_drop
 
     def explicit(q, k, v):
         s = jnp.einsum("blhd,bmhd->bhlm", q, k, preferred_element_type=jnp.float32) / jnp.sqrt(
@@ -116,6 +119,92 @@ def test_given_mask_matches_jax_explicit_mask_math():
     assert_close(got, np.asarray(want), rtol=1e-5, atol=1e-5, err_msg="output")
     for name, g, w in zip("qkv", grads, want_grads):
         assert_close(g, np.asarray(w), rtol=1e-5, atol=1e-5, err_msg=f"d{name}")
+
+
+def test_given_mask_matches_jax_explicit_mask_math():
+    _against_jax_explicit_mask_math((2, 16, 3, 8), seed=1)
+
+
+@pytest.mark.parametrize("length", [44, 300])
+def test_ragged_lengths_match_jax_explicit_mask_math(length):
+    """Lengths that are no multiple of the kernels' 64-wide tile (300 is
+    CivilComments'), at the kernels' head dimension."""
+    _against_jax_explicit_mask_math((2, length, 2, 64), seed=length)
+
+
+# --------------------------------------------------------------------------
+# Split TF32: the kernels' arithmetic emulated in plain torch
+# --------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """fp32 rounded to TF32's 10-bit mantissa, to nearest with ties away from
+    zero (``cvt.rna.tf32.f32``), by integer arithmetic on the bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tensor_core_product(a, b, passes):
+    """``a @ b`` as the tensor cores take it: TF32 operands, fp32
+    accumulation. ``passes`` 3: split TF32, each operand hi = tf32(x) and
+    lo = tf32(x - hi), the small terms first; 1: the high parts alone."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _emulated_kernels(q, k, v, cot, mask, keep, p_drop, passes):
+    """The forward and backward math of K3a and K3b (scores in base 2, delta
+    = rowsum(dO * O), the three gradients) with every product through
+    ``_tensor_core_product``; q, k, v, cot ``[B, L, H, D]``."""
+    qh, kh, vh, do = (t.permute(0, 2, 1, 3) for t in (q, k, v, cot))  # [B, H, L, D]
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    log2e = 1.4426950408889634
+    bias = att.key_bias(mask)[:, None, None, :]
+    s2 = _tensor_core_product(qh * np.float32(scale * log2e), kh.transpose(-1, -2), passes) + bias
+    m = s2.max(-1, keepdim=True).values
+    ex = torch.exp2(s2 - m)
+    lse = m + torch.log2(ex.sum(-1, keepdim=True))
+    prob = torch.exp2(s2 - lse)
+    kept = keep.to(torch.float32) / (1.0 - p_drop) if keep is not None else torch.ones_like(prob)
+    out = _tensor_core_product(ex * (kept > 0), vh, passes) / (ex.sum(-1, keepdim=True) * (1.0 - p_drop))
+    delta = (do * out).sum(-1, keepdim=True)
+    dp = _tensor_core_product(do, vh.transpose(-1, -2), passes) * kept
+    ds = prob * (dp - delta)
+    dq = _tensor_core_product(ds, kh, passes) * np.float32(scale)
+    dk = _tensor_core_product(ds.transpose(-1, -2), qh, passes) * np.float32(scale)
+    dv = _tensor_core_product((prob * kept).transpose(-1, -2), do, passes)
+    return tuple(t.permute(0, 2, 1, 3) for t in (out, dq, dk, dv))
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 3, 16), (1, 512, 2, 64)])
+def test_split_tf32_holds_the_fp32_tolerances_and_single_tf32_misses(shape):
+    """The tolerances the card's kernels are held to against the plain
+    version (output 1e-5; gradients 3e-5 + 3e-4 |ref|): the split-TF32
+    emulation stays inside them, the single-pass TF32 emulation does not."""
+    q, k, v, cot, mask = (torch.from_numpy(a) for a in _inputs(shape, seed=4))
+    b, l, h, _ = shape
+    p_drop = 0.1
+    keep = torch.from_numpy(np.random.RandomState(5).rand(b, h, l, l) >= p_drop)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = att.dropout_attention_plain(*leaves, mask, keep, dropout_p=p_drop)
+    ref_grads = torch.autograd.grad(ref, leaves, cot)
+    ref = ref.detach()
+
+    def worst(passes):
+        out, *grads = _emulated_kernels(q, k, v, cot, mask, keep, p_drop, passes)
+        out_err = float((out - ref).abs().max())
+        grad_excess = max(float(((g - r).abs() - 3e-4 * r.abs()).max()) for g, r in zip(grads, ref_grads))
+        return out_err, grad_excess
+
+    out_err, grad_excess = worst(3)
+    print(f"gap split TF32 {shape}: output {out_err:.3g}, gradients beyond 3e-4 |ref| {grad_excess:.3g}")
+    assert out_err <= 1e-5 and grad_excess <= 3e-5
+    out_err, grad_excess = worst(1)
+    print(f"gap single TF32 {shape}: output {out_err:.3g}, gradients beyond 3e-4 |ref| {grad_excess:.3g}")
+    assert out_err > 1e-5 and grad_excess > 3e-5
 
 
 @pytest.mark.parametrize("dropout_p", [0.0, 0.25])
@@ -209,15 +298,15 @@ def _hold(got, want, atol, rtol):
     assert bool((err <= atol + rtol * want.abs()).all()), float(err.max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["none", "given"])
-def test_kernel_matches_plain(cuda_device, mode):
-    q, k, v, cot, mask = _card_inputs(cuda_device)
+def _check_kernel_against_plain(device, shape, mode, seed=0):
+    """K3a's output and K3b's dQ, dK, dV against the plain version, with one
+    launch of each counted."""
+    q, k, v, cot, mask = _card_inputs(device, shape, seed)
     b, l, h, _ = q.shape
     p = 0.1 if mode == "given" else 0.0
     keep = None
     if mode == "given":
-        keep = torch.rand(b, h, l, l, device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(9)) >= p
+        keep = torch.rand(b, h, l, l, device=device, generator=torch.Generator(device=device).manual_seed(9)) >= p
     before = att.attention_forward.launches, att.attention_backward.launches
     out, grads = _grads(lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, keep=keep), q, k, v, cot)
     assert (att.attention_forward.launches, att.attention_backward.launches) == (before[0] + 1, before[1] + 1)
@@ -227,24 +316,27 @@ def test_kernel_matches_plain(cuda_device, mode):
         _hold(g, r, 3e-5, 3e-4)
 
 
-@pytest.mark.cuda
-def test_kernel_philox_mask(cuda_device):
-    """Keep rate within 6 sigma of 1 - p over the unpadded keys; repeats equal
-    bit for bit; another seed another mask; the output and gradients equal the
-    plain version fed the realized mask."""
-    q, k, v, cot, mask = _card_inputs(cuda_device, seed=1)
+def _check_kernel_philox(device, shape, seed=1):
+    """Keep rate within 6 sigma of 1 - p over the keys unpadded on every row;
+    repeats equal bit for bit (output, probabilities, gradients); another
+    seed another mask; nothing at a padded key; the output and gradients
+    equal the plain version fed the realized mask."""
+    q, k, v, cot, mask = _card_inputs(device, shape, seed)
     p = 0.1
     out, probs = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=p, seed=123)
     again, probs2 = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=p, seed=123)
     _, other = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=p, seed=124)
     assert torch.equal(out, again) and torch.equal(probs, probs2)
     assert not torch.equal(probs > 0, other > 0)
+    assert not bool(probs[0, :, :, 77:].any()) and not bool(probs[1, :, :, 64:].any())
     kept = (probs[:, :, :, :64] > 0).float()  # keys 0..63 are unpadded on both rows
     sigma = (p * (1 - p) / kept.numel()) ** 0.5
     assert abs(float(kept.mean()) - (1 - p)) < 6 * sigma
     realized = probs > 0  # a kept probability that underflows to 0 counts nothing either way
     main, grads = _grads(lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, seed=123), q, k, v, cot)
+    _, grads2 = _grads(lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, seed=123), q, k, v, cot)
     assert torch.equal(main, out)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
     ref, ref_grads = _grads(lambda *t: att.dropout_attention_plain(*t, mask, realized, dropout_p=p), q, k, v, cot)
     _hold(out, ref, 1e-5, 1e-5)
     _hold(probs, att._plain_probs(q, k, mask, realized, p), 1e-6, 1e-5)
@@ -253,10 +345,36 @@ def test_kernel_philox_mask(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "given"])
+def test_kernel_matches_plain(cuda_device, mode):
+    _check_kernel_against_plain(cuda_device, CARD_SHAPE, mode)
+
+
+@pytest.mark.cuda
+def test_kernel_philox_mask(cuda_device):
+    _check_kernel_philox(cuda_device, CARD_SHAPE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [300, 65, 5])
+@pytest.mark.parametrize("mode", ["none", "given", "philox"])
+def test_kernel_ragged_length(cuda_device, length, mode):
+    """L not a multiple of the 64-wide tile (300 is CivilComments' length; 65
+    leaves one row and one key in the last tile, and a mask whose rows are
+    not 4-byte aligned; 5 is less than one tile)."""
+    shape = (2, length, 3, 64)
+    if mode == "philox":
+        _check_kernel_philox(cuda_device, shape)
+    else:
+        _check_kernel_against_plain(cuda_device, shape, mode)
+
+
+@pytest.mark.cuda
 def test_kernel_raises_instead_of_falling_back(cuda_device):
-    q, k, v, _, mask = _card_inputs(cuda_device, shape=(2, 96, 2, 64))
-    with pytest.raises(ValueError):  # L not a multiple of 64
-        att.fused_dropout_attention(q, k, v, mask)
+    _check_kernel_against_plain(cuda_device, (2, 96, 2, 64), "none")  # L = 96 runs: one and a half tiles
     q, k, v, _, mask = _card_inputs(cuda_device, shape=(2, 64, 2, 32))
     with pytest.raises(ValueError):  # head dimension 32
         att.fused_dropout_attention(q, k, v, mask)
+    q, k, v, _, mask = _card_inputs(cuda_device, shape=(2, 64, 2, 64))
+    with pytest.raises(ValueError):  # the kernel wrappers never take a CPU tensor
+        att.attention_forward(q.cpu(), k.cpu(), v.cpu(), att.key_bias(mask).cpu(), 0.0, None, None)
