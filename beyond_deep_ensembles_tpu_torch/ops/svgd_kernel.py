@@ -23,64 +23,93 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _cuda_build
 
 MAX_N = 32
-# K2's launch shape, as csrc/svgd_gram.cu has it: pass 1 blocks of 256
-# threads over chunks of about 512 columns (two per thread), at most 2048
-# chunks; pass 2 blocks of 128 threads
-_THREADS = 256
-_COLUMNS_PER_CHUNK = 512
-_MAX_CHUNKS = 2048
-_FINISH_THREADS = 128
+# K2's launch plan, which csrc/svgd_gram.cu takes as given: column tiles of a
+# multiple of 128 columns, staged (every row, plus a zero row) in a ring of
+# tiles in shared memory, one block per SM. n <= 8: 8 warps, a ring of 3 in
+# 108 KB; n > 8: tile pairs of 8 rows x ceil(8 / pairs) slices (64 sums a
+# thread), a ring of 2 in 200 KB, which makes the tiles wide (1152 columns
+# at n = 20). The ring depths are the kernel's kSmallStages and kPairStages.
+_TILE = 8
+_QUANTUM = 128
+_H100_SMS = 132
+_SMALL_STAGES, _SMALL_SMEM_FLOATS = 3, 27_648
+_PAIR_STAGES, _PAIR_SMEM_FLOATS = 2, 51_200
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _cuda_build.load("svgd_gram.cu")
-    lib.svgd_gram.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.svgd_gram.restype = ctypes.c_int
-    lib.svgd_gram_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.svgd_gram_scratch_floats.restype = ctypes.c_longlong
-    lib.svgd_gram_error_string.argtypes = [ctypes.c_int]
-    lib.svgd_gram_error_string.restype = ctypes.c_char_p
-    return lib
+class LaunchPlan(NamedTuple):
+    pairs: int  # row-tile pairs (1 for n <= 8)
+    slices: int  # warps per pair, each every slices-th run of 32 columns
+    cols: int  # columns of a tile
+    tiles: int  # column tiles
+    blocks: int  # block b takes tiles [tiles * b // blocks, tiles * (b + 1) // blocks)
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _chunks(p: int) -> int:
-    return min(_ceil_div(p, _COLUMNS_PER_CHUNK), _MAX_CHUNKS)
+def launch_plan(n: int, p: int, sms: int = _H100_SMS) -> LaunchPlan:
+    """K2's launch for ``[n, p]`` on a card of ``sms`` SMs."""
+    if n <= _TILE:
+        pairs, slices = 1, 8
+        stages, smem_floats = _SMALL_STAGES, _SMALL_SMEM_FLOATS
+    else:
+        row_tiles = _ceil_div(n, _TILE)
+        pairs = row_tiles * (row_tiles + 1) // 2
+        slices = _ceil_div(8, pairs)
+        stages, smem_floats = _PAIR_STAGES, _PAIR_SMEM_FLOATS
+    widest = (smem_floats // (stages * n + 1) - 4) // _QUANTUM * _QUANTUM
+    cols = min(widest, _ceil_div(_ceil_div(p, sms), _QUANTUM) * _QUANTUM)
+    tiles = _ceil_div(p, cols)
+    return LaunchPlan(pairs, slices, cols, tiles, min(tiles, sms))
 
 
-def summation_depth(p: int) -> int:
-    """The most roundings any element of K2's G passes through: the FMAs of
-    one thread's columns, the 5-level warp tree and the 8 warps of pass 1;
-    one thread's share of the chunks, the warp tree and the 4 warps of
-    pass 2."""
-    chunks = _chunks(p)
-    pass1 = _ceil_div(_ceil_div(p, chunks), _THREADS) + 5 + _THREADS // 32 - 1
-    pass2 = _ceil_div(chunks, _FINISH_THREADS) + 5 + _FINISH_THREADS // 32 - 1
-    return pass1 + pass2
+def _sm_count(device: torch.device) -> int:
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return _H100_SMS
+
+
+def summation_depth(n: int, p: int, sms: int = _H100_SMS) -> int:
+    """The most roundings any element of K2's G passes through: one thread's
+    FMAs over its columns of its block's tiles, the 5-level warp tree, the
+    block's slices, then the last block's lane sum over the blocks and its
+    warp tree."""
+    plan = launch_plan(n, p, sms)
+    per_thread = _ceil_div(plan.tiles, plan.blocks) * _ceil_div(plan.cols, 32 * plan.slices)
+    return per_thread + 5 + plan.slices - 1 + _ceil_div(plan.blocks, 32) + 5
 
 
 def gram_error_bound(x: torch.Tensor) -> torch.Tensor:
-    """Per element of K2's G, a bound on its distance from the exact X X^T:
+    """Per element, a bound on the distance of K2's G for ``x`` (on ``x``'s
+    card; an H100's 132 SMs for a CPU tensor) from the exact X X^T:
     ``gamma_d * sum_p |x_ip| |x_jp|`` with d = :func:`summation_depth` and
     gamma_d = d u / (1 - d u), u = 2^-24 (fp32, round to nearest), in fp64."""
-    d = summation_depth(x.shape[1])
+    n, p = x.shape
+    d = summation_depth(n, p, _sm_count(x.device))
     u = 2.0**-24
     a = x.detach().abs().double()
     return (d * u / (1.0 - d * u)) * (a @ a.T)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _cuda_build.load("svgd_gram.cu")
+    lib.svgd_gram.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.svgd_gram.restype = ctypes.c_int
+    lib.svgd_gram_error_string.argtypes = [ctypes.c_int]
+    lib.svgd_gram_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def gram_plain(x: torch.Tensor) -> torch.Tensor:
@@ -104,16 +133,39 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError("gram takes at least one column")
 
 
+# K2's ticket counter: one zeroed 32-bit word per device, which the kernel
+# leaves at 0. Two K2 launches in flight at once would take each other's
+# tickets, so K2 runs on one stream at a time: launches on two streams that
+# may overlap, and concurrent replays of CUDA graphs that hold a K2 launch,
+# are unsupported. Every path of the port launches K2 on one stream.
+_counters: dict = {}
+
+
+def _counter(device: torch.device) -> int:
+    """The address of the ticket counter on ``device``. It is zeroed when
+    the device's first K2 call allocates it, which therefore may not happen
+    inside CUDA-graph capture (nothing would zero it before the graph's
+    first replay)."""
+    word = _counters.get(device.index)
+    if word is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K2: call gram once outside CUDA-graph capture first, to zero its counter")
+        word = torch.zeros(1, dtype=torch.int32, device=device)
+        torch.cuda.synchronize(device)
+        _counters[device.index] = word
+    return word.data_ptr()
+
+
 def _launch(x: torch.Tensor) -> torch.Tensor:
     lib = _library()
     n, p = x.shape
-    chunks = _chunks(p)
-    scratch_floats = lib.svgd_gram_scratch_floats(n, chunks)
-    partial = torch.empty(scratch_floats, dtype=torch.float32, device=x.device)
+    plan = launch_plan(n, p, _sm_count(x.device))
+    counter = _counter(x.device)
+    partial = torch.empty(plan.blocks * n * (n + 1) // 2, dtype=torch.float32, device=x.device)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     err = lib.svgd_gram(
-        x.data_ptr(), n, p, chunks, partial.data_ptr(), scratch_floats, out.data_ptr(),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), n, p, plan.pairs, plan.slices, plan.cols, plan.tiles, plan.blocks, partial.data_ptr(),
+        partial.numel(), counter, out.data_ptr(), x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"K2 launch failed: {lib.svgd_gram_error_string(err).decode()} ({err})")

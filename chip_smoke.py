@@ -11,18 +11,25 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      report;
   3. K1 (``ops/sampling.py``, Triton, built at first use into ``build/``)
      against its plain PyTorch version at the main path's layer shapes:
-     given noise, Philox moments, seeds, frozen rows, gradients (the
-     Philox mode's, whose backward recovers z from the output, against the
-     true draw given back, on layer planes at rho -3 and -6); then its time
-     and the plain version's, replayed in CUDA graphs, for one forward's 22
-     launches, and for the largest layer (Philox and given noise) and the
-     head alone;
-  4. K2 (``ops/svgd_kernel.py`` over ``csrc/svgd_gram.cu``): G against an
-     fp64 product and against ``gram_plain`` at (5, 273,610), (20,
-     25,000,000), (3, 1,000,003) and (1, 4097) within a bound from sum
-     |x_i||x_j| and the summation depth; repeat runs bit for bit; its
-     CUDA-graph time beside ``gram_plain``'s and ``torch.mm``'s at the first
-     two shapes, against the byte bound;
+     given noise, Philox moments, seeds, frozen rows (the train mode's draw
+     of one example, also at every eval-path shape at batch 500), gradients
+     (given noise against the plain autograd;
+     the Philox mode's, whose backward kernel draws z again, equal to the
+     true draw given back bit for bit, train and frozen, on layer planes at
+     rho -3 and -6, one backward launch each); then its time and the plain
+     version's, replayed in CUDA graphs, for one train forward's 22
+     launches, the largest layer (Philox and given noise) and the head
+     alone, the backward's 22 launches (and the whole autograd backward
+     against the plain version's, between events), the frozen-eval
+     forward's 22 launches at batch 500, and the host time of an eager
+     launch;
+  4. K2 (``ops/svgd_kernel.py`` over ``csrc/svgd_gram.cu``, one launch): G
+     against an fp64 product and against ``gram_plain`` at (5, 273,610),
+     (20, 25,000,000), (3, 1,000,003) and (1, 4097) within a bound from sum
+     |x_i||x_j| and the summation depth; repeat runs and CUDA-graph replays
+     bit for bit; its CUDA-graph time beside ``gram_plain``'s and
+     ``torch.mm``'s at the first two shapes, against the byte bound; the
+     host time of an eager launch;
   5. K3a and K3b (``ops/attention.py`` over ``csrc/dropout_attention.cu``) at
      the Amazon train and eval shapes (8 and 16, 12, 512, 64) and at a ragged
      length (8, 12, 300, 64), with ragged key padding on three rows: the
@@ -38,7 +45,8 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      through ``experiments/cifar.py`` ``build`` -> ``train`` (10 steps at
      batch 128 on synthetic CIFAR-10) -> ``eval_model`` (50 posterior
      samples, eval batch 500), with every kernel's launch count set to 0
-     before and read after; steady steps; a profile of steady train steps
+     before and read after (K1's backward 44 a step, none at eval); steady
+     steps; a profile of steady train steps (kernels per step)
      (device busy share, top kernels, the host's wait in the NaN guard's
      sync); the card's logits held against the CPU path's on a small input
      with the same weights and noise;
@@ -201,17 +209,6 @@ def layer_planes(torch, gen, shape, bias, rho):
     return [act_mean, act_var, b_mean, torch.full((shape[1],), b_var, device=dev)]
 
 
-def recovery_bound(out, mean, std, z, g):
-    """Per element, how far d act_var from the z that the Philox-mode
-    backward recovers as (out - mean) / std may lie from g*z/(2*std) at the
-    true z: the output, the subtraction and the division each round once
-    (2**-23 relative), and the gradient's product and quotient round on
-    each side."""
-    u = 2.0**-23
-    dz = u * (out.abs() + mean.abs() + (std * z).abs()) / std + u * z.abs()
-    return (g * dz / (2 * std)).abs() + 2 * u * (g * z / (2 * std)).abs()
-
-
 def kernel_phase(torch, sampling):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -235,6 +232,25 @@ def kernel_phase(torch, sampling):
     torch.cuda.synchronize()
     check(worst <= 1e-6, f"K1 given noise = plain at the main path's shapes (max abs err {worst:.3g} <= 1e-6)")
 
+    # frozen eval at the eval path's 22 shapes (batch 500, where a program
+    # of the largest layers loops over several examples and the last batch
+    # chunk holds fewer): equal, bit for bit, to the train mode's draw of
+    # one example given as the row, and to the plain version within 1e-6
+    same, frozen_worst = True, 0.0
+    for shape, bias in bbb_shapes(500):
+        args = planes(shape, bias)
+        one = torch.zeros((1,) + shape[1:], device=dev)
+        row = sampling.gaussian_sample(one, torch.ones_like(one), seed=17)[0].contiguous()
+        out = sampling.gaussian_sample(*args, seed=17, frozen=True)
+        same = same and torch.equal(out, sampling.gaussian_sample(*args, eps=row))
+        frozen_worst = max(frozen_worst, float((out - sampling.gaussian_sample_plain(*args, row)).abs().max()))
+    _, _, _, per_program, chunks = sampling.frozen_plan(500, 16 * 32 * 32)
+    check(same and frozen_worst <= 1e-6,
+          f"K1 frozen eval at batch 500 (largest layers: {per_program} examples a program, {500 - (chunks - 1) * per_program} "
+          f"in the last chunk) = the train mode's row given, bit for bit, and = plain (max abs err "
+          f"{frozen_worst:.3g} <= 1e-6)")
+    worst = max(worst, frozen_worst)
+
     zeros = torch.zeros(1024, 16, 32, 32, device=dev)
     z = sampling.gaussian_sample(zeros, torch.ones_like(zeros), seed=11)
     mean, std = float(z.mean()), float(z.std())
@@ -244,43 +260,40 @@ def kernel_phase(torch, sampling):
     check(float((z == other).float().mean()) < 1e-3, "K1 seeds 11 and 12 draw different noise")
     rows = sampling.gaussian_sample(zeros[:128], torch.ones_like(zeros[:128]), seed=13, frozen=True)
     check(bool((rows == rows[:1]).all()) and float(rows[0].std()) > 0.5, "K1 frozen mode: one row for the batch")
+    one = sampling.gaussian_sample(zeros[:1], torch.ones_like(zeros[:1]), seed=13)
+    check(torch.equal(rows[:1], one), "K1 frozen row = the train mode's draw of one example at the same seed")
 
     # gradients: given noise against the plain version; the Philox mode,
-    # whose backward recovers z from the output, against given noise at the
-    # true draw, on planes a BBB layer computes at init (rho -3) and after
-    # rho has shrunk (rho -6, the weight variance then at the 1e-4 clamp)
+    # whose backward kernel draws z again, equal to given noise at the true
+    # draw bit for bit, train and frozen, on planes a BBB layer computes at
+    # init (rho -3) and after rho has shrunk (rho -6, the weight variance
+    # then at the 1e-4 clamp)
     for shape, bias in ((128, 16, 32, 32), True), ((128, 32, 16, 16), False), ((128, 10), True):
         for rho in (-3.0, -6.0):
             leaves = [t.requires_grad_(True) for t in layer_planes(torch, gen, shape, bias, rho)]
             args = leaves if bias else leaves + [None, None]
             g = torch.randn(shape, device=dev, generator=gen)
-            z = sampling.gaussian_sample(torch.zeros(shape, device=dev), torch.ones(shape, device=dev), seed=21)
-            given = sampling.gaussian_sample(*args, eps=z)
-            want = torch.autograd.grad((given * g).sum(), leaves)
-            ref = sampling.gaussian_sample_plain(*args, z)
-            plain = torch.autograd.grad((ref * g).sum(), leaves)
-            for a, b in zip(want, plain):
-                err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                check(err <= 1e-5, f"K1 given-noise gradient {tuple(a.shape)}, rho {rho:g} = plain (rel err {err:.2e} <= 1e-5)")
-            out = sampling.gaussian_sample(*args, seed=21)
-            check(torch.equal(out, given), f"K1 Philox draw at seed 21 = the same z given, {shape}")
-            got = torch.autograd.grad((out * g).sum(), leaves)
-            with torch.no_grad():
-                mean = sampling._add_bias(args[0], args[2])
-                std = torch.sqrt(sampling._add_bias(args[1], args[3]))
-                z_err = float(((out - mean) / std - z).abs().max())
-                bound = recovery_bound(out, mean, std, z, g)
-            check(torch.equal(got[0], want[0]) and (not bias or torch.equal(got[2], want[2])),
-                  f"K1 Philox d mean = given-noise d mean exactly, {shape}, rho {rho:g}")
-            ratio = float(((got[1] - want[1]).abs() / bound.clamp_min(1e-38)).max())  # 0/0 where g = 0
-            rel = float((got[1] - want[1]).abs().max()) / float(want[1].abs().max())
-            check(ratio <= 1.0, f"K1 Philox d var within the z-recovery rounding bound, {shape}, rho {rho:g} "
-                  f"(recovered z off by {z_err:.2e}; largest error {ratio:.2f} of the bound, {rel:.2e} of max |d var|)")
-            if bias:
-                terms = out.numel() // shape[1]
-                sum_bound = sampling._channel_sum(bound) + math.ceil(math.log2(terms)) * 2.0**-23 * sampling._channel_sum(want[1].abs())
-                check(bool(((got[3] - want[3]).abs() <= sum_bound).all()),
-                      f"K1 Philox d bias var within the channel sums of that bound, {shape}, rho {rho:g}")
+            for frozen in (False, True):
+                mode = "frozen" if frozen else "train"
+                z = sampling.gaussian_sample(torch.zeros(shape, device=dev), torch.ones(shape, device=dev),
+                                             seed=21, frozen=frozen)
+                z = z[0].contiguous() if frozen else z
+                given = sampling.gaussian_sample(*args, eps=z)
+                want = torch.autograd.grad((given * g).sum(), leaves)
+                ref = sampling.gaussian_sample_plain(*args, z)
+                plain = torch.autograd.grad((ref * g).sum(), leaves)
+                for a, b in zip(want, plain):
+                    err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    check(err <= 1e-5, f"K1 given-noise gradient {tuple(a.shape)}, {mode}, rho {rho:g} = plain "
+                          f"autograd (rel err {err:.2e} <= 1e-5)")
+                out = sampling.gaussian_sample(*args, seed=21, frozen=frozen)
+                check(torch.equal(out, given), f"K1 Philox draw at seed 21 = the same z given, {shape}, {mode}")
+                backwards = sampling.gaussian_sample_backward.launches
+                got = torch.autograd.grad((out * g).sum(), leaves)
+                check(sampling.gaussian_sample_backward.launches == backwards + 1,
+                      f"K1 backward: one launch for one backward, {shape}, {mode}")
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"K1 Philox gradients = given-noise gradients bit for bit, {shape}, {mode}, rho {rho:g}")
 
     # time: the 22 launches of one train forward at batch 128, Philox mode
     layers = [planes(shape, bias) for shape, bias in bbb_shapes(128)]
@@ -336,11 +349,102 @@ def kernel_phase(torch, sampling):
         one_bound = (per_element * m.numel() + 8 * m.shape[1]) / HBM_BYTES_PER_S * 1e3
         print(f"K1 {label} alone: {one_ms * 1e3:.2f} us per launch, byte bound {one_bound * 1e3:.2f} us "
               f"({100 * one_bound / one_ms:.0f}% of the bound)")
+    backward = k1_backward_times(torch, sampling, layers, n_elem, n_bytes)
+    del layers
+    frozen = k1_frozen_times(torch, sampling, [planes(shape, bias) for shape, bias in bbb_shapes(500)])
+    torch.cuda.empty_cache()
     return {
         "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "max_abs_err": worst,
+        "max_abs_err": worst, **backward, **frozen,
     }
+
+
+def k1_bound_ms(n_elem, n_bytes):
+    return max(n_bytes / HBM_BYTES_PER_S, n_elem * K1_FLOPS_PER_ELEMENT / FP32_FLOPS_PER_S) * 1e3
+
+
+def host_us(torch, fn, reps=200):
+    """Host time of one eager call of ``fn`` (enqueue only, no sync), on
+    calls small enough that the device keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def k1_backward_times(torch, sampling, layers, n_elem, n_bytes):
+    """K1's backward for one train forward at batch 128 (22 launches, Philox
+    mode): the kernels alone in a CUDA graph against their bound (g and
+    act_var read, d act_var written: the forward's bytes), and the whole
+    autograd backward through ``gaussian_sample`` (kernels, channel sums)
+    against autograd through the plain version, between events, in turns;
+    then the host time of one eager forward (autograd recording, as in
+    training) and one eager backward launch on the head."""
+    dev = torch.device("cuda")
+    gs = [torch.randn_like(m) for m, _, _, _ in layers]
+
+    def kernel_backward():
+        for (_, v, _, bv), g in zip(layers, gs):
+            sampling.gaussian_sample_backward(g, v, bv, seed=5)
+
+    with torch.no_grad():
+        times = in_turns({"kernel": lambda: graph_ms(torch, kernel_backward)})
+    leaves = [[t.detach().clone().requires_grad_(True) if t is not None else None for t in layer] for layer in layers]
+    flat = [t for layer in leaves for t in layer if t is not None]
+    ours = [sampling.gaussian_sample(*layer, seed=5) for layer in leaves]
+    plain = [sampling.gaussian_sample_plain(*layer, torch.randn(layer[0].shape, device=dev)) for layer in leaves]
+    full = in_turns({
+        "ours": lambda: events_ms(torch, lambda: torch.autograd.grad(ours, flat, gs, retain_graph=True)),
+        "plain": lambda: events_ms(torch, lambda: torch.autograd.grad(plain, flat, gs, retain_graph=True)),
+    })
+    del ours, plain
+    bound = k1_bound_ms(n_elem, n_bytes)
+    ms = times["kernel"][0]
+    print(f"K1 backward kernels of one train backward at batch 128 ({len(layers)} launches): {ms:.4f} ms "
+          f"(max {times['kernel'][-1]:.4f}), bound {bound:.4f} ms ({100 * bound / ms:.0f}% of it); whole autograd "
+          f"backward: through gaussian_sample {full['ours'][0]:.4f} ms, through the plain version "
+          f"{full['plain'][0]:.4f} ms (minimum of {len(full['ours'])} turns each)")
+
+    head = leaves[-1]
+    g_head = gs[-1]
+    fwd_us = host_us(torch, lambda: sampling.gaussian_sample(*head, seed=5))
+    bwd_us = host_us(torch, lambda: sampling.gaussian_sample_backward(g_head, head[1].detach(), head[3].detach(), seed=5))
+    print(f"K1 host time per eager launch (head 128x10, no sync): forward {fwd_us:.2f} us (autograd recording), "
+          f"backward {bwd_us:.2f} us")
+    return {"backward_ms": ms, "backward_bound_ms": bound, "backward_autograd_ms": full["ours"][0],
+            "backward_plain_autograd_ms": full["plain"][0], "host_us": fwd_us, "backward_host_us": bwd_us}
+
+
+def k1_frozen_times(torch, sampling, layers):
+    """The frozen-eval forward at eval batch 500 (22 launches, one noise row
+    per layer for the whole batch) in a CUDA graph, against its byte bound
+    and the plain version (one row of torch.randn broadcast), in turns."""
+    dev = torch.device("cuda")
+    n_elem = sum(m.numel() for m, _, _, _ in layers)
+    n_bytes = sum(12 * m.numel() + (8 * m.shape[1] if bm is not None else 0) for m, _, bm, _ in layers)
+
+    def kernel_forward():
+        for m, v, bm, bv in layers:
+            sampling.gaussian_sample(m, v, bm, bv, seed=5, frozen=True)
+
+    def plain_forward():
+        for m, v, bm, bv in layers:
+            sampling.gaussian_sample_plain(m, v, bm, bv, torch.randn(m.shape[1:], device=dev))
+
+    with torch.no_grad():
+        times = in_turns({"kernel": lambda: graph_ms(torch, kernel_forward, reps=10),
+                          "plain": lambda: graph_ms(torch, plain_forward, reps=10)}, rounds=1)
+    bound = k1_bound_ms(n_elem, n_bytes)
+    ms = times["kernel"][0]
+    print(f"K1 one frozen-eval forward at batch 500 ({len(layers)} launches, {n_elem} elements, {n_bytes} bytes): "
+          f"kernel {ms:.4f} ms (max {times['kernel'][-1]:.4f}), plain {times['plain'][0]:.4f} ms, bound {bound:.4f} ms "
+          f"({100 * bound / ms:.0f}% of it)")
+    return {"frozen_eval_ms": ms, "frozen_eval_plain_ms": times["plain"][0], "frozen_eval_bound_ms": bound}
 
 
 def k2_check(torch, svgd_kernel, x):
@@ -380,7 +484,18 @@ def k2_phase(torch, svgd_kernel):
         errs[(n, p)], _ = k2_check(torch, svgd_kernel, x)
         first = svgd_kernel.gram(x)
         check(all(torch.equal(svgd_kernel.gram(x), first) for _ in range(3)), f"K2 {(n, p)}: repeat runs equal bit for bit")
-        del x, first
+        before = svgd_kernel.gram.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = svgd_kernel.gram(x)
+        check(svgd_kernel.gram.launches == before + 1, f"K2 {(n, p)}: one launch per call")
+        same = []
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            same.append(torch.equal(captured, first))
+        check(all(same), f"K2 {(n, p)}: three CUDA-graph replays equal the eager result bit for bit")
+        del x, first, graph, captured
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -418,15 +533,19 @@ def k2_phase(torch, svgd_kernel):
         }
         del xs
         torch.cuda.empty_cache()
-    main_shape = K2_SHAPES[0]
-    return {**timings[main_shape], "max_abs_err": errs[main_shape]}
+    n, p = K2_SHAPES[0]
+    x = torch.randn(n, p, device=dev, generator=gen)
+    k2_host_us = host_us(torch, lambda: svgd_kernel.gram(x))
+    print(f"K2 host time per eager launch ({n}, {p}), no sync: {k2_host_us:.2f} us")
+    return {**timings[(n, p)], "max_abs_err": errs[(n, p)], "host_us": k2_host_us}
 
 
 def profile_steps(torch, step, ours, steps=3):
     """Device time by kernel over ``steps`` steady train steps (``step(i)``
     runs step i); prints the top entries (and every kernel whose name holds
     one of ``ours``), the device's busy share of the window and the host's
-    wait in ``aten::_local_scalar_dense`` (a NaN guard's or a loss's read)."""
+    wait in ``aten::_local_scalar_dense`` (a NaN guard's or a loss's read).
+    Returns the kernels per step (None where the trace has no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -444,7 +563,7 @@ def profile_steps(torch, step, ours, steps=3):
     device_us = sum(e.self_device_time_total for e in kernels)
     if device_us <= 0:
         print("profile: no device time in the trace (not measured)")
-        return
+        return None
     ops = sum(e.count for e in averages if e.key.startswith("aten::"))
     print(f"profile of {steps} train steps: wall {wall_ms:.2f} ms, device busy {device_us / 1e3:.2f} ms "
           f"({100 * device_us / 1e3 / wall_ms:.1f}% of the window); per step "
@@ -456,6 +575,7 @@ def profile_steps(torch, step, ours, steps=3):
     item_us = sum(e.cpu_time_total for e in averages if e.key == "aten::_local_scalar_dense")
     print(f"host blocked in scalar reads: {item_us / 1e3 / steps:.3f} ms/step "
           f"({100 * item_us / 1e3 / wall_ms:.1f}% of the window)")
+    return sum(e.count for e in kernels) // steps
 
 
 def steady_steps(torch, step, label, batch, count=2 * TRAIN_STEPS):
@@ -947,10 +1067,12 @@ def main() -> int:
     k2 = k2_phase(torch, svgd_kernel)
     k3 = k3_phase(torch, att)
     kernels = {
-        "k1_gaussian_sample": sampling.gaussian_sample, "k2_svgd_gram": svgd_kernel.gram,
+        "k1_gaussian_sample": sampling.gaussian_sample, "k1_gaussian_sample_backward": sampling.gaussian_sample_backward,
+        "k2_svgd_gram": svgd_kernel.gram,
         "k3a_attention_forward": att.attention_forward, "k3b_attention_backward": att.attention_backward,
     }
     no_k3 = {"k3a_attention_forward": (0, 0), "k3b_attention_backward": (0, 0)}
+    no_k1 = {"k1_gaussian_sample": (0, 0), "k1_gaussian_sample_backward": (0, 0)}
 
     built, bbb_counts, config, step = run_slice(torch, cifar, NoiseSource, kernels, BBB_VARIANT, "BBB")
     per_forward = len(bbb_shapes(1))
@@ -960,9 +1082,14 @@ def main() -> int:
           f"K1 launched {k1_train} times in {TRAIN_STEPS} BBB train steps ({per_forward} x mc {config['bbb_mc_samples']} per step)")
     check(k1_eval == eval_batches * config["eval_samples"] * per_forward,
           f"K1 launched {k1_eval} times in BBB eval ({eval_batches} batches x {config['eval_samples']} samples x {per_forward})")
+    k1b_train, k1b_eval = bbb_counts["k1_gaussian_sample_backward"]
+    check(k1b_train == TRAIN_STEPS * config["bbb_mc_samples"] * per_forward and k1b_eval == 0,
+          f"K1 backward launched {k1b_train} times in {TRAIN_STEPS} BBB train steps ({per_forward} x mc "
+          f"{config['bbb_mc_samples']} per step) and {k1b_eval} times in eval")
     check(bbb_counts["k2_svgd_gram"] == (0, 0), "K2 not launched on the BBB path")
     check(all(bbb_counts[name] == c for name, c in no_k3.items()), "K3a and K3b not launched on the BBB path")
-    profile_steps(torch, step, ours=("_sample_kernel",))
+    bbb_kernels = profile_steps(torch, step, ours=("_flat_kernel", "_frozen_kernel"))
+    print(f"BBB train step: {bbb_kernels} kernels per step (8270 before K1's backward kernel)")
     small_input_check(torch, NoiseSource, ResNet20)
     del built, step
 
@@ -970,9 +1097,9 @@ def main() -> int:
     check(svgd_counts["k2_svgd_gram"] == (TRAIN_STEPS, 0),
           f"K2 launched {svgd_counts['k2_svgd_gram'][0]} times in {TRAIN_STEPS} SVGD train steps (one per step) "
           f"and {svgd_counts['k2_svgd_gram'][1]} times in eval")
-    check(svgd_counts["k1_gaussian_sample"] == (0, 0), "K1 not launched on the SVGD path")
+    check(all(svgd_counts[name] == c for name, c in no_k1.items()), "K1 not launched on the SVGD path")
     check(all(svgd_counts[name] == c for name, c in no_k3.items()), "K3a and K3b not launched on the SVGD path")
-    profile_steps(torch, step, ours=("gram_partial", "gram_finish"))
+    profile_steps(torch, step, ours=("gram_kernel",))
     svgd_step_check(torch, cifar, NoiseSource)
     del built, step
     torch.cuda.empty_cache()
@@ -990,7 +1117,7 @@ def main() -> int:
         check(counts["k3b_attention_backward"] == (TRAIN_STEPS * layers, 0),
               f"{label}: K3b launched {counts['k3b_attention_backward'][0]} times in {TRAIN_STEPS} train steps and "
               f"{counts['k3b_attention_backward'][1]} times in eval")
-        check(counts["k1_gaussian_sample"] == (0, 0) and counts["k2_svgd_gram"] == (0, 0),
+        check(all(counts[name] == c for name, c in no_k1.items()) and counts["k2_svgd_gram"] == (0, 0),
               f"{label}: K1 and K2 not launched")
         if variant is MCD_VARIANT:
             steady_steps(torch, step, label, config["batch_size"])
@@ -1013,6 +1140,18 @@ def main() -> int:
             "bound_ms": k1["bound_ms"],
             "bound_by": k1["bound_by"],
             "library_ms": None,
+            # the backward kernel (22 launches of one train backward) and
+            # the frozen-eval forward (22 launches at eval batch 500)
+            "backward_launches": sum(bbb_counts["k1_gaussian_sample_backward"]),
+            "backward_ms": k1["backward_ms"],
+            "backward_bound_ms": k1["backward_bound_ms"],
+            "backward_autograd_ms": k1["backward_autograd_ms"],
+            "backward_plain_autograd_ms": k1["backward_plain_autograd_ms"],
+            "frozen_eval_ms": k1["frozen_eval_ms"],
+            "frozen_eval_plain_ms": k1["frozen_eval_plain_ms"],
+            "frozen_eval_bound_ms": k1["frozen_eval_bound_ms"],
+            "host_us": k1["host_us"],
+            "backward_host_us": k1["backward_host_us"],
         },
         {
             "name": "k2_svgd_gram",
@@ -1026,6 +1165,7 @@ def main() -> int:
             "bound_ms": k2["bound_ms"],
             "bound_by": k2["bound_by"],
             "library_ms": k2["library_ms"],
+            "host_us": k2["host_us"],
         },
         *(
             {

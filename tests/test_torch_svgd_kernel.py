@@ -129,13 +129,65 @@ def test_gram_rejects_bad_inputs():
 
 
 def test_summation_depth_follows_the_launch_shape():
-    # 2 columns per thread over 535 chunks, then 5 chunks per pass-2 thread
-    assert sk.summation_depth(273_610) == (2 + 5 + 7) + (5 + 5 + 3)
-    # capped at 2048 chunks: 12,208 columns a chunk, 48 per thread
-    assert sk.summation_depth(25_000_000) == (48 + 5 + 7) + (16 + 5 + 3)
+    # 1664 columns a tile, 165 tiles over 132 blocks (1 per SM): 2 tiles of 7
+    # columns a thread, the warp tree, 8 warps, 5 blocks a lane, the tree
+    assert sk.summation_depth(5, 273_610) == 2 * 7 + 5 + 7 + 5 + 5
+    # 1152 columns a tile (a ring of 2), 21,702 tiles over 132 blocks: 165
+    # tiles of 18 columns a thread, the tree, 2 slices, 5 blocks a lane, the
+    # tree
+    assert sk.summation_depth(20, 25_000_000) == 165 * 18 + 5 + 1 + 5 + 5
     x = torch.from_numpy(_particles(3, 4097))
     bound = sk.gram_error_bound(x)
     assert bound.dtype == torch.float64 and bound.shape == (3, 3) and bool((bound > 0).all())
+
+
+def _warp_work(n, plan, warp):
+    """What warp ``warp`` of a K2 block accumulates, as csrc/svgd_gram.cu
+    assigns it: the entries (i, j <= i) of G, and the tile's columns its
+    lanes take (q, q + step, ...)."""
+    pair, slice_ = warp % plan.pairs, warp // plan.pairs
+    if n <= 8:
+        entries = [(i, j) for i in range(n) for j in range(i + 1)]
+    else:
+        ta = 0
+        while (ta + 1) * (ta + 2) // 2 <= pair:
+            ta += 1
+        tb = pair - ta * (ta + 1) // 2
+        entries = [(8 * ta + u, 8 * tb + v) for u in range(8) for v in range(8)
+                   if 8 * ta + u < n and 8 * tb + v < n and (ta > tb or v <= u)]
+    return entries, [slice_ * 32 + lane for lane in range(32)], 32 * plan.slices
+
+
+@pytest.mark.parametrize("p", [1, 127, 129, 4097, 273_610, 1_000_003])
+def test_launch_plan_covers_columns_and_triangle(p):
+    """For n = 1..32: the blocks' tiles cover [0, P) once; in a tile, the
+    warps of each pair take every column once; over the pairs, every (i, j
+    <= i) is summed once; the staged ring fits the shared memory of the
+    kernel's path."""
+    for n in range(1, sk.MAX_N + 1):
+        plan = sk.launch_plan(n, p)
+        assert plan.cols % 128 == 0 and (plan.tiles - 1) * plan.cols < p <= plan.tiles * plan.cols
+        owned = [range(plan.tiles * b // plan.blocks, plan.tiles * (b + 1) // plan.blocks) for b in range(plan.blocks)]
+        assert [t for r in owned for t in r] == list(range(plan.tiles)) and all(len(r) for r in owned)
+        warps = plan.pairs * plan.slices
+        if n <= 8:
+            stages, smem_floats = sk._SMALL_STAGES, sk._SMALL_SMEM_FLOATS
+        else:
+            stages, smem_floats = sk._PAIR_STAGES, sk._PAIR_SMEM_FLOATS
+        assert warps <= 12 and (stages * n + 1) * (plan.cols + 4) <= smem_floats
+        # the SM's 228 KB hold the block, with 3 KB of static shared memory and 1 KB the system keeps
+        assert 4 * smem_floats + 4096 <= 228 * 1024
+        entries = {}
+        columns = {}
+        for w in range(warps):
+            mine, firsts, step = _warp_work(n, plan, w)
+            for e in mine:
+                entries.setdefault(e, set()).add(w % plan.pairs)
+            taken = columns.setdefault(w % plan.pairs, [])
+            taken += [c for q in firsts for c in range(q, plan.cols, step)]
+        assert sorted(entries) == [(i, j) for i in range(n) for j in range(i + 1)]
+        assert all(len(pairs) == 1 for pairs in entries.values())
+        assert all(sorted(cols) == list(range(plan.cols)) for cols in columns.values())
 
 
 def _hold_kernel(x):
@@ -158,12 +210,44 @@ def _hold_kernel(x):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n,p",
-    [(5, 273_610), (1, 4097), (32, 4097), (17, 100_003), (3, 1_000_003), (8, 1), (2, 513)],
+    [(5, 273_610), (1, 4097), (32, 4097), (17, 100_003), (3, 1_000_003), (8, 1), (2, 513),
+     (9, 50_001), (20, 300_007), (8, 200_003), (32, 1_000_001)],
 )
 def test_kernel_matches_plain(cuda_device, n, p):
     gen = torch.Generator(device=cuda_device).manual_seed(n * p)
     x = torch.randn(n, p, device=cuda_device, generator=gen) + torch.randn(1, p, device=cuda_device, generator=gen)
     _hold_kernel(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_kernel_takes_rows_off_16_byte_boundaries(cuda_device, offset):
+    """X starting 4, 8 or 12 bytes past a 16-byte boundary, odd P: every
+    row's copies start before its first column."""
+    gen = torch.Generator(device=cuda_device).manual_seed(offset)
+    n, p = 7, 30_001
+    x = torch.randn(n * p + offset, device=cuda_device, generator=gen)[offset:].view(n, p)
+    assert x.data_ptr() % 16 == 4 * offset
+    _hold_kernel(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 8, 9, 17, 20, 32])
+def test_kernel_repeats_inside_a_cuda_graph(cuda_device, n):
+    """One launch per call, within its bound, and the same bits eagerly and
+    over replays of a CUDA graph (the ticket counter is back at 0 after
+    every launch)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(n, 200_003, device=cuda_device, generator=gen) + 1.0
+    first = _hold_kernel(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sk.gram(x)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+        assert torch.equal(sk.gram(x), first)
 
 
 @pytest.mark.cuda
