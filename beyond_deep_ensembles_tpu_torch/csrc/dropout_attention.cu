@@ -357,6 +357,21 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// A row whose every key is padded (its batch row's key mask all zero) scores
+// the bias, -1e30, at every key: its maximum m is -1e30, l is L, and its lse,
+// m + log2(L), rounds back to -1e30 (log2(L) is far below half an ulp of
+// 1e30). P = exp2(s - lse) would then be 1 at every key, where the softmax of
+// L equal scores is 1 / L, as the JAX kernel and the plain version give. So P
+// is taken as exp2((s - lse) - shift): shift is log2(L) on such a row, whose
+// s - lse is 0 at every key of the panel, and 0 on every other row, where the
+// arithmetic is that of exp2(s - lse) bit for bit. An attended key scores far
+// above kPaddedRow, so any row with one has its lse above it.
+constexpr float kPaddedRow = -5e29f;
+
+__device__ __forceinline__ float padded_row_shift(float row_lse, float log2_len) {
+  return row_lse <= kPaddedRow ? log2_len : 0.f;
+}
+
 // ---- operand tiles in shared memory -----------------------------------------
 //
 // A wgmma B operand is a tile [64 rows n][64 depth k] of TF32 values, depth
@@ -786,13 +801,14 @@ attn_forward(const float* __restrict__ q, const __grid_constant__ CUtensorMap k_
     K3_PHASE(0, 9);
   }
 
-  float inv[2], row_lse[2];
+  float inv[2], row_lse[2], row_shift[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     inv[r] = 1.f / (l_run[r] * (1.f - drop.p));
     row_lse[r] = m_run[r] + log2f(l_run[r]);
+    row_shift[r] = padded_row_shift(row_lse[r], log2f(static_cast<float>(L)));
     if (t == 0 && row + 8 * r < L) lse[(static_cast<long long>(b) * H + h) * L + row + 8 * r] = row_lse[r];
   }
   store_rows(o, acc, inv, b, h, row, L, H, t);
@@ -826,7 +842,7 @@ attn_forward(const float* __restrict__ q, const __grid_constant__ CUtensorMap k_
         float out[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          out[c] = kept[r][c] ? fast_exp2(s[2 * m + (c >> 1)][2 * r + (c & 1)] - row_lse[r]) * drop.inv_keep : 0.f;
+          out[c] = kept[r][c] ? fast_exp2((s[2 * m + (c >> 1)][2 * r + (c & 1)] - row_lse[r]) - row_shift[r]) * drop.inv_keep : 0.f;
         float* dst = probs + ((static_cast<long long>(b) * H + h) * L + row + 8 * r) * L + col;
         if ((L & 3) == 0) {
           if (col < L) *reinterpret_cast<float4*>(dst) = make_float4(out[0], out[1], out[2], out[3]);
@@ -869,7 +885,7 @@ attn_backward_dq(const float* __restrict__ q, const __grid_constant__ CUtensorMa
   commit_copies();
   Fragments qf, dof;
   load_fragments<false>(qf, q, nullptr, b, h, row, L, H, t, scale * kLog2e, nullptr);
-  float row_delta[2] = {0.f, 0.f}, row_lse[2];
+  float row_delta[2] = {0.f, 0.f}, row_lse[2], row_shift[2];
   load_fragments<true>(dof, dout, o, b, h, row, L, H, t, 1.f, row_delta);  // delta = rowsum(dO * O)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -877,6 +893,7 @@ attn_backward_dq(const float* __restrict__ q, const __grid_constant__ CUtensorMa
     row_delta[r] += __shfl_xor_sync(0xffffffffu, row_delta[r], 2);
     const bool inside = row + 8 * r < L;
     row_lse[r] = inside ? lse[stat + row + 8 * r] : 0.f;
+    row_shift[r] = padded_row_shift(row_lse[r], log2f(static_cast<float>(L)));
     if (inside && t == 0) delta[stat + row + 8 * r] = row_delta[r];
   }
   float acc[8][4];
@@ -921,7 +938,7 @@ attn_backward_dq(const float* __restrict__ q, const __grid_constant__ CUtensorMa
           for (int r = 0; r < 2; ++r)
 #pragma unroll
             for (int c = 0; c < 2; ++c) {
-              const float p = fast_exp2(s[2 * mm + e][2 * r + c] - row_lse[r]);
+              const float p = fast_exp2((s[2 * mm + e][2 * r + c] - row_lse[r]) - row_shift[r]);
               const float dpk = kept[r][2 * e + c] ? dp[2 * mm + e][2 * r + c] * drop.inv_keep : 0.f;
               s[2 * mm + e][2 * r + c] = p * (dpk - row_delta[r]);  // dS
             }
@@ -965,6 +982,7 @@ attn_backward_dkdv(const __grid_constant__ CUtensorMap q_map, const float* __res
   const int key = j0 + 16 * (threadIdx.x >> 5) + g;  // the lane's keys: key and key + 8
   const int tiles = (L + kTile - 1) / kTile;
   const long long stat = (static_cast<long long>(b) * H + h) * L;
+  const float log2_len = log2f(static_cast<float>(L));
 
   // query tile `it` of Q and dO into the raw tiles, lse and delta into turn it % 2
   auto load_queries_async = [&](int it) {
@@ -1016,6 +1034,8 @@ attn_backward_dkdv(const __grid_constant__ CUtensorMap q_map, const float* __res
       const float4 lse4 = *reinterpret_cast<const float4*>(tile_stats + 16 * m + 4 * t);
       const float4 delta4 = *reinterpret_cast<const float4*>(tile_stats + kTile + 16 * m + 4 * t);
       const float query_lse[4] = {lse4.x, lse4.y, lse4.z, lse4.w};
+      const float query_shift[4] = {padded_row_shift(lse4.x, log2_len), padded_row_shift(lse4.y, log2_len),
+                                    padded_row_shift(lse4.z, log2_len), padded_row_shift(lse4.w, log2_len)};
       const float query_delta[4] = {delta4.x, delta4.y, delta4.z, delta4.w};
       bool kept[2][4];
       keep_pair_transposed<kMode>(drop, b, h, H, L, query, key, lane, kept);
@@ -1027,7 +1047,7 @@ attn_backward_dkdv(const __grid_constant__ CUtensorMap q_map, const float* __res
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int i = 2 * e + c;  // query + i
-            const float p = fast_exp2(st[e][2 * r + c] + key_bias[r] - query_lse[i]);
+            const float p = fast_exp2((st[e][2 * r + c] + key_bias[r] - query_lse[i]) - query_shift[i]);
             const float dpk = kept[r][i] ? dpt[e][2 * r + c] * drop.inv_keep : 0.f;
             pd[e][2 * r + c] = kept[r][i] ? p * drop.inv_keep : 0.f;  // P_drop^T
             st[e][2 * r + c] = p * (dpk - query_delta[i]);          // dS^T

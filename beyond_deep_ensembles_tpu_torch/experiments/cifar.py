@@ -1,15 +1,23 @@
-"""CIFAR-10 experiment: ResNet-20-FRN-swish under BBB or SVGD.
+"""CIFAR-10 (+CIFAR-10-C) experiment: ResNet-20-FRN-swish under BBB or SVGD.
 
 Counterpart of ``beyond_deep_ensembles_tpu/experiments/cifar.py`` (reference
 experiments/cifar/{cifar.py,models.py,cifar.yaml}): SGD (momentum 0.9,
-nesterov) under the Wilson schedule stepped per epoch, crop + flip
-augmentation inside the loss, 50 posterior samples at eval. Ported: the
-``bbb`` variant and the ``svgd`` variant (``svgd_particles`` plain
-ResNet-20s), each with one member; the others raise. No checkpointing, HMC
-baseline or corrupted splits yet.
+nesterov) under the Wilson schedule stepped per epoch (``utils/optim.py``,
+state and lr on the device), crop + flip augmentation, 50 posterior samples
+at eval, the clean test split and the corrupted splits of every intensity in
+``corrupted_intensities``. Ported: the ``bbb`` variant and the ``svgd``
+variant (``svgd_particles`` plain ResNet-20s), each with one member; the
+others raise, as do checkpoints and the HMC baseline.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed. The data sets
-move to the device once, as NCHW float32; each step gathers its batch there.
+move to the device once, as NCHW float32. ``train`` runs, as in JAX, the
+device-resident epoch runner under ``device_data`` (one bulk augmentation
+pass per epoch), K steps per call under ``scan_steps`` > 1, or one update
+per host call; ``eval_model`` runs the whole test set through the eval
+runner under ``device_eval`` (the default on a card), or a host loop. The
+runners replay CUDA graphs on a card (``parallel/multistep.py``). Every
+path draws its noise in key mode from ``keys.fold_in`` of the seed: per
+step (``fold_in(seed, step)``), per epoch, per eval batch.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import keys
 from ..data import cifar as cifar_data
 from ..evals.classification import EvalResult, analyze_output, bayesian_model_average
 from ..methods.api import GaussianPrior, LossOutput, PosteriorMethod
@@ -31,7 +40,9 @@ from ..methods.svgd import svgd_method
 from ..models.resnet import ResNet20
 from ..nn.base import Model
 from ..nn.gaussian import NoiseSource
+from ..parallel.multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches
 from ..utils.device import resolve_device
+from ..utils.optim import SGD
 from ..utils.schedules import wilson_schedule
 
 DEFAULT_CONFIG = {
@@ -65,7 +76,8 @@ def _xent_loss_fn(model: Model, augment: bool = True):
     def loss_fn(params, model_state, noise, batch):
         x, y = batch
         if augment:
-            x = cifar_data.augment(x, generator=noise.generator)
+            offsets, flips = noise.crops(x.shape[0], x.device)
+            x = cifar_data.augment(x, offsets=offsets, flips=flips)
         out, kl, new_state = model.apply(params, model_state, noise, x, train=True)
         logp = F.log_softmax(out, dim=-1)
         loss = -torch.mean(torch.gather(logp, 1, y[:, None]))
@@ -84,23 +96,20 @@ def _predict_fn(model: Model):
 
 
 def _base_tx(config, steps_per_epoch: int):
-    """SGD (optax ``add_decayed_weights`` then ``sgd``: torch's
-    ``weight_decay`` adds ``wd * p`` to the gradient before momentum, as
-    optax does) with lr ``lr * factor(step // steps_per_epoch)``."""
+    """optax ``add_decayed_weights`` then ``sgd`` as the port's ``SGD``, with
+    lr ``lr * factor(count // steps_per_epoch)`` on the device (constant
+    without ``lr_schedule``). Returns ``tx(params) -> (SGD, None)``."""
     lr = config["lr"]
 
     def tx(params):
-        optimizer = torch.optim.SGD(
-            params, lr=lr, momentum=config["momentum"], nesterov=config["nesterov"],
-            weight_decay=config.get("weight_decay", 0.0),
+        schedule = None
+        if config.get("lr_schedule", True):
+            schedule = wilson_schedule(config["epochs"], lr, config.get("swag_lr"))
+        optimizer = SGD(
+            params, lr, momentum=config["momentum"], nesterov=config["nesterov"],
+            weight_decay=config.get("weight_decay", 0.0), schedule=schedule, steps_per_epoch=steps_per_epoch,
         )
-        if not config.get("lr_schedule", True):
-            return optimizer, None
-        factor = wilson_schedule(config["epochs"], lr, config.get("swag_lr"))
-        scheduler = torch.optim.lr_scheduler.LambdaLR(
-            optimizer, lambda step: factor(step // steps_per_epoch)
-        )
-        return optimizer, scheduler
+        return optimizer, None
 
     return tx
 
@@ -112,6 +121,9 @@ class BuiltExperiment:
     state: object
     apply_fn: Callable
     device: torch.device
+    # eval runners by (test points, eval batch, samples), so that the clean
+    # and corrupted splits capture their graph once (JAX cifar.py:509-516)
+    eval_runners: dict = dataclasses.field(default_factory=dict)
 
 
 def _resnet(config, generator: torch.Generator, conv_kind: str) -> ResNet20:
@@ -125,9 +137,17 @@ def _not_ported(config: dict) -> None:
         raise NotImplementedError(f"model {config['model']!r}: not ported yet")
     if config.get("members", 1) != 1:
         raise NotImplementedError("members > 1: not ported yet")
-    for key in ("corrupted_intensities", "use_hmc_baseline", "checkpoint_dir"):
+    for key in ("use_hmc_baseline", "checkpoint_dir", "data_parallel"):
         if config.get(key):
             raise NotImplementedError(f"{key}: not ported yet")
+
+
+def _uses_epoch_runner(config: dict) -> bool:
+    """True when ``train`` takes the device-resident epoch runner, which
+    augments the whole epoch in one bulk pass: the loss must not augment
+    again (JAX ``_uses_epoch_runner``; the data-parallel path that could
+    claim the run first there is not ported)."""
+    return bool(config.get("device_data"))
 
 
 def build(
@@ -140,7 +160,7 @@ def build(
     initializes its ``svgd_particles`` particles from ``generator`` in turn."""
     device = resolve_device(device)
     _not_ported(config)
-    augment = config.get("augment", True)
+    augment = config.get("augment", True) and not _uses_epoch_runner(config)
     tx = _base_tx(config, steps_per_epoch)
     if config["model"] == "svgd":
         particles = nn.ModuleList(
@@ -174,6 +194,23 @@ def _to_device(built: BuiltExperiment, x: np.ndarray, y: np.ndarray):
     return xd, torch.from_numpy(np.asarray(y, np.int64)).to(built.device)
 
 
+def _bulk_augment(key: int, data):
+    """The epoch runner's transform: one crop + flip pass over the whole
+    shuffled epoch, its draws from ``key`` on the device."""
+    x, y = data
+    offsets, flips = NoiseSource(key=keys.as_key(key, x.device)).crops(x.shape[0], x.device)
+    return cifar_data.augment(x, offsets=offsets, flips=flips), y
+
+
+def _end_epoch(state, method, epoch: int, epoch_loss: float, log):
+    if not math.isfinite(epoch_loss):
+        raise RuntimeError("Diverged")  # reference poverty.py:137-141
+    state = method.finalize_epoch(state)
+    if log:
+        log(f"epoch {epoch}: loss {epoch_loss:.4f}")
+    return state
+
+
 def train(
     built: BuiltExperiment,
     config: dict,
@@ -181,30 +218,56 @@ def train(
     y: np.ndarray,
     log: Optional[Callable[[str], None]] = None,
 ) -> BuiltExperiment:
-    """Epoch loop, one update per minibatch (reference cifar.py:131-186).
-    Each epoch walks ``shuffled_indices(n, seed * 1_000_003 + epoch)`` and
-    drops the last partial batch; the noise (and augmentation) stream is
-    seeded by ``config["seed"]``."""
+    """Epoch loop (reference cifar.py:131-186), as JAX ``train`` runs it:
+
+      * ``device_data``: the epoch runner, epoch e under ``fold_in(seed, e)``
+        (its own device permutation, one bulk augmentation pass, the
+        remainder dropped);
+      * otherwise each epoch walks ``shuffled_indices(n, seed * 1_000_003 +
+        epoch)`` and drops the last partial batch, step s (counted over the
+        run from 1) under ``fold_in(seed, s)``: with ``scan_steps`` > 1, every
+        ``scan_steps`` batches go through the multi-step runner (under the key
+        of the last) and the rest of an epoch through single updates.
+
+    One host read per epoch, the divergence check."""
     method, state = built.method, built.state
     xd, yd = _to_device(built, x, y)
-    noise = NoiseSource.seeded(config["seed"])
-    bs = config["batch_size"]
-    n = xd.shape[0]
+    seed, bs, n = config["seed"], config["batch_size"], xd.shape[0]
+    if _uses_epoch_runner(config):
+        transform = _bulk_augment if config.get("augment", True) else None
+        runner = make_epoch_runner(method.update, n, bs, epoch_transform=transform)
+        for epoch in range(config["epochs"]):
+            state, metrics = runner(state, keys.fold_in(seed, epoch), (xd, yd))
+            state = _end_epoch(state, method, epoch, float(metrics["loss"]), log)
+        built.state = state
+        return built
+
+    scan_steps = config.get("scan_steps", 1)
+    multi = make_multi_step(method.update, scan_steps) if scan_steps > 1 else None
+    step = 0
     for epoch in range(config["epochs"]):
-        order = torch.from_numpy(
-            cifar_data.shuffled_indices(n, config["seed"] * 1_000_003 + epoch)
-        ).to(built.device)
-        losses = []
-        for step in range(n // bs):
-            idx = order[step * bs : (step + 1) * bs]
-            state, metrics = method.update(state, noise, (xd[idx], yd[idx]))
+        order = torch.from_numpy(cifar_data.shuffled_indices(n, seed * 1_000_003 + epoch)).to(built.device)
+        losses, pending = [], []
+        for s in range(n // bs):
+            idx = order[s * bs : (s + 1) * bs]
+            batch = (xd[idx], yd[idx])
+            step += 1
+            if multi is not None:
+                pending.append(batch)
+                if len(pending) == scan_steps:
+                    state, metrics = multi(state, keys.fold_in(seed, step), stack_batches(pending))
+                    pending = []
+                    losses.append(metrics["loss"])
+                continue
+            noise = NoiseSource(key=keys.as_key(keys.fold_in(seed, step), built.device))
+            state, metrics = method.update(state, noise, batch)
             losses.append(metrics["loss"])
-        epoch_loss = float(torch.mean(torch.stack(losses)))
-        if not math.isfinite(epoch_loss):
-            raise RuntimeError("Diverged")  # reference poverty.py:137-141
-        state = method.finalize_epoch(state)
-        if log:
-            log(f"epoch {epoch}: loss {epoch_loss:.4f}")
+        for batch in pending:  # fewer than scan_steps left: single updates
+            step += 1
+            noise = NoiseSource(key=keys.as_key(keys.fold_in(seed, step), built.device))
+            state, metrics = method.update(state, noise, batch)
+            losses.append(metrics["loss"])
+        state = _end_epoch(state, method, epoch, float(torch.mean(torch.stack(losses))), log)
     built.state = state
     return built
 
@@ -217,30 +280,46 @@ def eval_model(
     seed: int = 42,
 ) -> EvalResult:
     """Posterior-predictive eval over the test set (reference
-    cifar.py:26-69): S samples -> log-space BMA -> EvalResult. The last
-    partial batch is padded with copies of its last image and trimmed, so
-    every point counts once."""
+    cifar.py:26-69): S samples -> log-space BMA -> EvalResult, batch i under
+    ``fold_in(seed, i)``. With ``device_eval`` (the default on a card, or
+    under ``device_data``) the whole set goes through the eval runner,
+    cached on ``built`` per (points, eval batch, S); else a host loop over
+    the same batches and keys. Either way the last partial batch is padded
+    with copies of its last image and trimmed, so every point counts once."""
     method, state = built.method, built.state
-    bs = config["eval_batch_size"]
+    bs, n_samples = config["eval_batch_size"], config["eval_samples"]
     xd, yd = _to_device(built, x, y)
-    noise = NoiseSource.seeded(seed)
-    outs = []
+    n = xd.shape[0]
+
+    def predict_batch(state, key, xb):
+        log_probs = predict(method, state, built.apply_fn, xb, n_samples=n_samples, noise=NoiseSource(key=key))
+        return bayesian_model_average(log_probs)
+
+    device_eval = config.get("device_eval", bool(config.get("device_data")) or built.device.type == "cuda")
     with torch.no_grad():
-        for start in range(0, xd.shape[0], bs):
-            xb = xd[start : start + bs]
-            valid = xb.shape[0]
-            if valid < bs:
-                xb = torch.cat([xb, xb[-1:].expand(bs - valid, *xb.shape[1:])])
-            log_probs = predict(
-                method, state, built.apply_fn, xb, n_samples=config["eval_samples"], noise=noise
-            )
-            outs.append(bayesian_model_average(log_probs)[:valid])
-    correct, conf, ll, _, _ = analyze_output(torch.cat(outs), yd)
+        if device_eval:
+            runner = built.eval_runners.get((n, bs, n_samples))
+            if runner is None:
+                runner = built.eval_runners[(n, bs, n_samples)] = make_eval_runner(predict_batch, n, bs)
+            log_marginal = runner(state, seed, xd)
+        else:
+            outs = []
+            for i, start in enumerate(range(0, n, bs)):
+                xb = xd[start : start + bs]
+                valid = xb.shape[0]
+                if valid < bs:
+                    xb = torch.cat([xb, xb[-1:].expand(bs - valid, *xb.shape[1:])])
+                key = keys.as_key(keys.fold_in(seed, i), built.device)
+                outs.append(predict_batch(state, key, xb)[:valid])
+            log_marginal = torch.cat(outs)
+    correct, conf, ll, _, _ = analyze_output(log_marginal, yd)
     return EvalResult.create(correct, conf, ll, bin_count=config["ece_bins"])
 
 
 def run_single(config: dict, log=None, device=None) -> dict:
-    """Train + eval on the clean test split; returns the metric dict."""
+    """Train + eval on the clean test split and on the corrupted split of
+    every intensity in ``corrupted_intensities``; returns the metric dicts
+    by split (``test``, ``corrupted{i}``)."""
     config = {**DEFAULT_CONFIG, **config}
     _not_ported(config)
     device = resolve_device(device)
@@ -251,4 +330,8 @@ def run_single(config: dict, log=None, device=None) -> dict:
     generator = torch.Generator().manual_seed(config["seed"])
     built = build(config, generator, steps_per_epoch, device=device)
     built = train(built, config, x_train, y_train, log=log)
-    return {"test": eval_model(built, config, x_test, y_test).as_dict()}
+    results = {"test": eval_model(built, config, x_test, y_test).as_dict()}
+    for intensity in config.get("corrupted_intensities") or []:
+        xc, yc = cifar_data.load_cifar10_corrupted(intensity, subsample=config["test_subsample"])
+        results[f"corrupted{intensity}"] = eval_model(built, config, xc, yc).as_dict()
+    return results

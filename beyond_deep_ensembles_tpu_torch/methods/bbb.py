@@ -5,16 +5,20 @@ BBBOptimizer, src/algos/bbb.py:43-99): ``mc_samples`` forwards per step, the
 closed-form Gaussian KL collected once,
 loss = kl_rescaling/N * KL + data_loss/(mc_samples * components), and a
 non-finite loss skips the update of both the parameters and the optimizer
-state. Rank-1 mixtures (``components > 1``) are not ported yet.
+state, its update count included, by a select on the device
+(``utils/optim.py::SGD.step``; JAX ``methods/bbb.py:97-107``), so the step
+reads nothing on the host and a CUDA graph can capture it. Rank-1 mixtures
+(``components > 1``) are not ported yet.
 
-``tx(params) -> (optimizer, scheduler or None)`` builds the optimizer; the
-scheduler steps once per applied update, as optax's schedule counts the
-updates it applied.
+``tx(params) -> (optimizer, None)`` builds the optimizer: the port's
+``SGD`` (``experiments/cifar.py::_base_tx``), whose schedule counts the
+updates it applied, as optax's does, and whose ``step(ok)`` takes the guard.
 """
 from __future__ import annotations
 
-import math
 from typing import Callable
+
+import torch
 
 from .api import (
     LossFn,
@@ -44,7 +48,7 @@ def bbb_method(
 
     def update(state: MethodState, noise, batch):
         params = state.params
-        optimizer, scheduler = state.opt_state
+        optimizer, _ = state.opt_state
         optimizer.zero_grad(set_to_none=True)
         model_state, data_loss, sown_kl = state.model_state, 0.0, 0.0
         for _ in range(mc_samples):
@@ -57,11 +61,8 @@ def bbb_method(
         loss = kl_rescaling / dataset_size * kl + data_loss / (mc_samples * components)
         loss.backward()
         # NaN guard (reference bbb.py:81): a skipped step leaves parameters,
-        # momentum and the schedule's count as they were. Reads one scalar.
-        if math.isfinite(loss.item()):
-            optimizer.step()
-            if scheduler is not None:
-                scheduler.step()
+        # momentum and the schedule's count as they were
+        optimizer.step(torch.isfinite(loss))
         state.model_state = model_state
         state.step += 1
         metrics = {"loss": loss.detach(), "data_loss": data_loss.detach() / mc_samples, "kl": kl.detach()}

@@ -11,13 +11,16 @@ Gram matrix is the K2 kernel on a card) and writes ``-phi`` as every
 parameter's gradient. Parameters whose names carry ``__mle`` keep their raw
 gradient (reference util.py:188-189 ``non_mle_params``).
 
-One ``tx`` optimizer steps every particle's parameters. SGD with weight
+One ``tx`` optimizer (the port's ``SGD``, whose ``step(ok)`` takes the
+guard) steps every particle's parameters. SGD with weight
 decay, momentum and one learning-rate schedule acts per element, so this
 equals the JAX package's ``vmap(tx.update)`` over particles; the weight
 decay it adds to ``-phi`` comes on top of the L2 term inside phi, as in JAX.
 A non-finite gradient skips the parameters and the optimizer state,
-momentum and the schedule's count included (one host read per step, as in
-``methods/bbb.py``).
+momentum and the schedule's count included, by a select on the device
+(``utils/optim.py::SGD.step``; JAX ``methods/svgd.py:158-165``), so the
+step reads nothing on the host and a CUDA graph can capture it (K2's counter
+is zeroed by a first call outside capture, which a runner's warm-up makes).
 
 Only an empty model state is ported (FRN keeps none); a stacked per-particle
 state raises.
@@ -70,7 +73,7 @@ def svgd_method(
 
     def update(state: MethodState, noise, batch):
         particles = state.params
-        optimizer, scheduler = state.opt_state
+        optimizer, _ = state.opt_state
         optimizer.zero_grad(set_to_none=True)
         losses = []
         for particle in particles:
@@ -94,11 +97,8 @@ def svgd_method(
                     if mask[name]:
                         p.grad = stein[name]
             # skip the whole update on a non-finite gradient (reference
-            # svgd.py:78-79, GradScaler's inf check). Reads one scalar.
-            if bool(torch.isfinite(grad_mat).all()):
-                optimizer.step()
-                if scheduler is not None:
-                    scheduler.step()
+            # svgd.py:78-79, GradScaler's inf check)
+            optimizer.step(torch.isfinite(grad_mat).all())
         state.step += 1
         # ``backbone_loss`` is the SUM over particles: under a last-layer
         # composition the reference's shared backbone accumulates every

@@ -12,18 +12,24 @@ layer and every attention with live dropout.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import keys
 from ..methods.api import GMEAN_SUFFIX, GRHO_SUFFIX
 from ..ops.attention import fused_dropout_attention
-from ..ops.sampling import gaussian_sample
+from ..ops.sampling import DeviceSeed, gaussian_sample
 
 RHO_INIT = -3.0  # Blundell init (reference util.py:161-163)
 MEAN_STD_INIT = 0.1
+# key mode: per-example and frozen-row normals come from chunks of this many
+# counter-hash normals per step, on the key's stream _POOL_STREAM + chunk
+_POOL = 1 << 20
+_POOL_STREAM = 1 << 31
 
 
 def gaussian_param(
@@ -69,6 +75,19 @@ class NoiseSource:
     port. A frozen-eval draw is one per-example tensor (the shape without
     batch); an attention's draw is its keep mask ``[B, H, L, L]``.
 
+    Key mode (``key``, a 0-dim int64 tensor on the device; see ``keys.py``):
+    every draw is a function of the key's value and the draw's index within
+    the forwards, both read by the kernels or computed on the device, so a
+    CUDA graph that captured the step draws afresh at each replay once the
+    key has advanced, and an eager run from the same key gives the same
+    bits. A BBB epilogue passes K1 the seed ``key + index``
+    (:class:`DeviceSeed`); the per-example draws of
+    ``VariationalFilterResponseNorm`` and frozen rows are taken in turn from
+    chunks of :data:`_POOL` counter-hash normals (``keys.normal``, one chunk
+    drawn per 2^20 values); :meth:`crops` gives augmentation draws. Dropout
+    masks and attention seeds have no key mode yet (the WILDS path keeps its
+    host seeds) and raise.
+
     At eval with ``freeze_on_eval`` one noise row is broadcast over the
     batch (reference bbb_layers.py:76-78), so one posterior sample behaves
     like one fixed network.
@@ -78,13 +97,18 @@ class NoiseSource:
         self,
         generator: Optional[torch.Generator] = None,
         given: Optional[Sequence[torch.Tensor]] = None,
+        key: Optional[torch.Tensor] = None,
     ):
-        if (generator is None) == (given is None):
-            raise ValueError("pass exactly one of generator= and given=")
+        if sum(x is not None for x in (generator, given, key)) != 1:
+            raise ValueError("pass exactly one of generator=, given= and key=")
+        if key is not None and (key.dtype != torch.int64 or key.numel() != 1):
+            raise ValueError("a key is a one-element int64 tensor")
         self.generator = generator
         self._given = None if given is None else list(given)
+        self.key = key
         self.draws = 0
         self._device_generators = {}
+        self._pool, self._pool_used, self._chunks = None, 0, 0
 
     @classmethod
     def seeded(cls, seed: int) -> "NoiseSource":
@@ -106,6 +130,33 @@ class NoiseSource:
         """A fresh Philox seed for one kernel launch."""
         return int(torch.randint(0, 2**62, (1,), generator=self.generator))
 
+    def _refuse_key_mode(self, what: str) -> None:
+        if self.key is not None:
+            raise NotImplementedError(f"{what} in key mode: not ported yet (the WILDS path keeps host seeds)")
+
+    def _pooled(self, numel: int) -> torch.Tensor:
+        """The next ``numel`` normals of the key's pool (key mode)."""
+        if numel > _POOL:
+            raise ValueError(f"a key-mode normal draw takes at most {_POOL} values, got {numel}")
+        if self._pool is None or self._pool_used + numel > _POOL:
+            self._pool = keys.normal(self.key.reshape(()), _POOL_STREAM + self._chunks, _POOL)
+            self._pool_used, self._chunks = 0, self._chunks + 1
+        out = self._pool[self._pool_used : self._pool_used + numel]
+        self._pool_used += numel
+        return out
+
+    def crops(self, batch: int, device) -> tuple:
+        """Random-crop offsets ``[batch, 2]`` in [0, 8] and flip bits
+        ``[batch]`` for ``data/cifar.py::augment``: from the generator (on the
+        CPU, as the generator mode always drew them), or, in key mode, from
+        ``keys.bits`` on the key's stream of this draw's index."""
+        if self.key is None:
+            offsets = torch.randint(0, 9, (batch, 2), generator=self.generator)
+            return offsets, torch.rand(batch, generator=self.generator) < 0.5
+        h = keys.bits(self.key.reshape(()), self.draws, 3 * batch)
+        self.draws += 1
+        return (h[: 2 * batch] % 9).reshape(batch, 2), (h[2 * batch :] & 1) == 1
+
     def _device_generator(self, device: torch.device) -> torch.Generator:
         key = str(device)
         gen = self._device_generators.get(key)
@@ -121,6 +172,9 @@ class NoiseSource:
         draw_shape = tuple(shape[1:]) if frozen else tuple(shape)
         if self._given is not None:
             eps = self._take(draw_shape).to(device)
+        elif self.key is not None:
+            eps = self._pooled(math.prod(draw_shape)).reshape(draw_shape)
+            self.draws += 1
         else:
             eps = torch.randn(
                 draw_shape, generator=self._device_generator(device), device=device
@@ -136,8 +190,9 @@ class NoiseSource:
             shape = act_mean.shape[1:] if frozen else act_mean.shape
             eps = self._take(shape).to(device=act_mean.device, dtype=act_mean.dtype)
             return gaussian_sample(act_mean, act_var, b_mean, b_var, eps=eps.contiguous())
+        seed = DeviceSeed(self.key, self.draws) if self.key is not None else self.seed()
         self.draws += 1
-        return gaussian_sample(act_mean, act_var, b_mean, b_var, seed=self.seed(), frozen=frozen)
+        return gaussian_sample(act_mean, act_var, b_mean, b_var, seed=seed, frozen=frozen)
 
     def keep_mask(self, shape, device, rate: float) -> torch.Tensor:
         """A dropout layer's keep mask of ``shape``: bool, each element kept
@@ -145,6 +200,7 @@ class NoiseSource:
         device's generator), or the next given mask."""
         if self._given is not None:
             return self._take(shape).to(device=device, dtype=torch.bool)
+        self._refuse_key_mode("dropout masks")
         self.draws += 1
         return torch.rand(tuple(shape), generator=self._device_generator(device), device=device) >= rate
 
@@ -156,5 +212,6 @@ class NoiseSource:
         if self._given is not None:
             keep = self._take((b, h, l, l)).to(device=q.device, dtype=torch.bool)
             return fused_dropout_attention(q, k, v, key_mask, dropout_p=rate, keep=keep)
+        self._refuse_key_mode("attention dropout")
         self.draws += 1
         return fused_dropout_attention(q, k, v, key_mask, dropout_p=rate, seed=self.seed())

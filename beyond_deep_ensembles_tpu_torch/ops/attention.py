@@ -87,8 +87,11 @@ def cpu_keep_mask(shape, seed: int, dropout_p: float) -> torch.Tensor:
 
 
 def _plain_probs(q, k, key_mask, keep, dropout_p):
+    # the bias is added, as the JAX kernel adds it: a batch row with every key
+    # padded then scores -1e30 at every key, so its softmax is uniform and
+    # its gradient reaches the scores
     s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(q.shape[-1])
-    p = torch.softmax(torch.where(key_mask[:, None, None, :] > 0, s, NEG), dim=-1)
+    p = torch.softmax(s + key_bias(key_mask)[:, None, None, :], dim=-1)
     return p if keep is None else torch.where(keep.bool(), p / (1.0 - dropout_p), 0.0)
 
 

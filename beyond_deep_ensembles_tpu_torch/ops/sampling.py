@@ -20,6 +20,13 @@ along dim 1, and z ~ N(0, 1) in one of three modes:
     shared by the whole batch (JAX ``nn/gaussian.py:74-76``);
   * given: z read from a tensor of the full shape or of one row.
 
+The seed of a draw is a host int, or a :class:`DeviceSeed`: an int64 key in
+device memory plus the draw's static index, which the kernel loads and adds
+(the TPU kernel reads its seed from SMEM too). A CUDA graph that captures a
+launch then draws afresh at every replay after the key has moved on, where
+a host int would be frozen into the graph. Both forms give the same z for
+the same value, key + index.
+
 The draw. One Philox-4x32-10 call gives four normals (``tl.randn4x``: two
 Box-Muller pairs, cos and sin). z_i is output ``lane`` of the call at
 ``counter``, by the map of :func:`philox_slot`: a function of (seed, i)
@@ -54,7 +61,7 @@ both are iid N(0, 1), which is all the algorithms need.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -77,6 +84,20 @@ _MAX_ELEMENTS = 2**31 - 4 * _GROUP  # int32 offsets, ragged program included
 # it. The helpers ``_bias``, ``_load`` and ``_store`` are rebound to their
 # jitted versions there.
 tl = None
+
+
+class DeviceSeed(NamedTuple):
+    """The seed ``key + index`` of one draw: ``key`` a 0-dim (or one-element)
+    int64 tensor on the planes' device, read when the kernel runs; ``index``
+    the draw's static index within a step (< 2^31). The key must not change
+    between a forward and its backward (autograd saves it and raises if it
+    was written in place)."""
+
+    key: torch.Tensor
+    index: int
+
+
+Seed = Union[int, DeviceSeed]
 
 
 def philox_slot(i):
@@ -140,10 +161,20 @@ def _store(out_ptr, offs, mask, a, std, z, BACKWARD: tl.constexpr):
     tl.store(out_ptr + offs, res, mask=mask)
 
 
+def _seed(seed_ptr, seed, DEVICE_SEED: tl.constexpr):
+    """The draw's seed: the key in device memory plus the index ``seed``, or
+    the host int ``seed``."""
+    if DEVICE_SEED:
+        return tl.load(seed_ptr) + seed
+    else:
+        return seed
+
+
 def _flat_kernel(
-    a_ptr, var_ptr, bmean_ptr, bvar_ptr, eps_ptr, out_ptr,
+    a_ptr, var_ptr, bmean_ptr, bvar_ptr, eps_ptr, out_ptr, seed_ptr,
     n, hw, channels, eps_n, seed,
     HAS_BIAS: tl.constexpr, GIVEN: tl.constexpr, BACKWARD: tl.constexpr, GROUP: tl.constexpr,
+    DEVICE_SEED: tl.constexpr,
 ):
     """Train and given modes: program p covers elements [4Gp, 4G(p+1)),
     lane l the sub-block 4Gp + lG + [0, G), drawn at counters Gp + [0, G).
@@ -173,7 +204,7 @@ def _flat_kernel(
         z2 = tl.load(eps_ptr + o2 % eps_n, mask=m2, other=0.0)
         z3 = tl.load(eps_ptr + o3 % eps_n, mask=m3, other=0.0)
     else:
-        z0, z1, z2, z3 = tl.randn4x(seed, pid * GROUP + cols)
+        z0, z1, z2, z3 = tl.randn4x(_seed(seed_ptr, seed, DEVICE_SEED), pid * GROUP + cols)
     _store(out_ptr, o0, m0, a0, s0, z0, BACKWARD)
     _store(out_ptr, o1, m1, a1, s1, z1, BACKWARD)
     _store(out_ptr, o2, m2, a2, s2, z2, BACKWARD)
@@ -181,17 +212,17 @@ def _flat_kernel(
 
 
 def _frozen_kernel(
-    a_ptr, var_ptr, bmean_ptr, bvar_ptr, out_ptr,
+    a_ptr, var_ptr, bmean_ptr, bvar_ptr, out_ptr, seed_ptr,
     row, hw, channels, batch, per_program, seed,
     HAS_BIAS: tl.constexpr, BACKWARD: tl.constexpr, WIDTH: tl.constexpr, LANES: tl.constexpr,
-    GROUP: tl.constexpr,
+    GROUP: tl.constexpr, DEVICE_SEED: tl.constexpr,
 ):
     """Frozen eval: program (r, b) draws its row positions once (i = the
     position, the train mode's map) and loops over its examples with z, the
     bias and the masks in registers, one sub-block at a time."""
     pid_r = tl.program_id(0)
     cols = tl.arange(0, WIDTH)
-    z0, z1, z2, z3 = tl.randn4x(seed, pid_r * GROUP + cols)
+    z0, z1, z2, z3 = tl.randn4x(_seed(seed_ptr, seed, DEVICE_SEED), pid_r * GROUP + cols)
     r0 = pid_r * (4 * GROUP) + cols
     m0 = r0 < row
     bm0, bv0 = _bias(bmean_ptr, bvar_ptr, r0, m0, hw, channels, HAS_BIAS, BACKWARD)
@@ -222,12 +253,12 @@ def _frozen_kernel(
 
 @functools.cache
 def _build():
-    global tl, _bias, _load, _store
+    global tl, _bias, _load, _store, _seed
     import triton
     import triton.language
 
     tl = triton.language
-    _bias, _load, _store = (triton.jit(f) for f in (_bias, _load, _store))
+    _bias, _load, _store, _seed = (triton.jit(f) for f in (_bias, _load, _store, _seed))
     flat = triton.jit(do_not_specialize=["seed"])(_flat_kernel)
     frozen = triton.jit(do_not_specialize=["seed", "batch", "per_program"])(_frozen_kernel)
     return flat, frozen
@@ -257,6 +288,8 @@ def _launch(a, act_var, b_mean, b_var, eps, seed, frozen, backward):
     """One launch of the forward (``a`` = act_mean) or the backward (``a`` =
     g, no bias mean) kernel; returns the output plane."""
     flat, frozen_kernel = _build()
+    device_seed = isinstance(seed, DeviceSeed)
+    seed_ptr, seed = (seed.key, seed.index) if device_seed else (a, seed)
     out = torch.empty_like(a)
     n = a.numel()
     batch, channels = a.shape[0], a.shape[1]
@@ -267,21 +300,26 @@ def _launch(a, act_var, b_mean, b_var, eps, seed, frozen, backward):
     if eps is None and frozen:
         width, lanes, row_chunks, per_program, batch_chunks = frozen_plan(batch, row)
         frozen_kernel[(row_chunks, batch_chunks)](
-            a, act_var, bm, bv, out, row, row // channels, channels, batch, per_program, seed,
+            a, act_var, bm, bv, out, seed_ptr, row, row // channels, channels, batch, per_program, seed,
             HAS_BIAS=has_bias, BACKWARD=backward, WIDTH=width, LANES=lanes, GROUP=_GROUP,
-            num_warps=_FROZEN_WARPS,
+            DEVICE_SEED=device_seed, num_warps=_FROZEN_WARPS,
         )
     else:
         flat[(-(-n // (4 * _GROUP)),)](
-            a, act_var, bm, bv, eps if eps is not None else a, out,
+            a, act_var, bm, bv, eps if eps is not None else a, out, seed_ptr,
             n, row // channels, channels, eps.numel() if eps is not None else 1,
             seed if seed is not None else 0,
-            HAS_BIAS=has_bias, GIVEN=eps is not None, BACKWARD=backward, GROUP=_GROUP, num_warps=_FLAT_WARPS,
+            HAS_BIAS=has_bias, GIVEN=eps is not None, BACKWARD=backward, GROUP=_GROUP,
+            DEVICE_SEED=device_seed, num_warps=_FLAT_WARPS,
         )
     return out
 
 
 def _cpu_noise(like, seed, frozen):
+    """The CPU path's z: ``torch.randn`` from a generator seeded with the
+    seed's value (a device seed's key is read: it lies on the CPU here)."""
+    if isinstance(seed, DeviceSeed):
+        seed = int(seed.key) + seed.index
     shape = like.shape[1:] if frozen else like.shape
     gen = torch.Generator().manual_seed(seed)
     return torch.randn(shape, generator=gen, dtype=like.dtype)
@@ -293,7 +331,7 @@ def gaussian_sample_backward(
     b_var: Optional[torch.Tensor] = None,
     *,
     eps: Optional[torch.Tensor] = None,
-    seed: Optional[int] = None,
+    seed: Optional[Seed] = None,
     frozen: bool = False,
 ) -> torch.Tensor:
     """``d act_var = g * z * 0.5 / sqrt(act_var + b_var[c])``, the gradient
@@ -325,16 +363,21 @@ class _GaussianSample(torch.autograd.Function):
         else:
             z = eps if eps is not None else _cpu_noise(act_mean, seed, frozen)
             out = gaussian_sample_plain(act_mean, act_var, b_mean, b_var, z)
-        ctx.seed, ctx.frozen = seed, frozen
-        ctx.save_for_backward(act_var, b_var, eps)
+        # a device seed's key is saved as a tensor, so that the backward reads
+        # the same key and autograd raises if it was written in between
+        key = seed.key if isinstance(seed, DeviceSeed) else None
+        ctx.seed = seed.index if key is not None else seed
+        ctx.frozen = frozen
+        ctx.save_for_backward(act_var, b_var, eps, key)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         # a kernel's gradient carries no graph: a second derivative raises
-        act_var, b_var, eps = ctx.saved_tensors
-        d_var = gaussian_sample_backward(g, act_var, b_var, eps=eps, seed=ctx.seed, frozen=ctx.frozen)
+        act_var, b_var, eps, key = ctx.saved_tensors
+        seed = DeviceSeed(key, ctx.seed) if key is not None else ctx.seed
+        d_var = gaussian_sample_backward(g, act_var, b_var, eps=eps, seed=seed, frozen=ctx.frozen)
         d_bmean = _channel_sum(g) if ctx.needs_input_grad[2] else None
         d_bvar = _channel_sum(d_var) if ctx.needs_input_grad[3] else None
         return g, d_var, d_bmean, d_bvar, None, None, None
@@ -363,6 +406,13 @@ def _check(act_mean, act_var, b_mean, b_var, eps, seed):
             or not b.is_contiguous()
         ):
             raise ValueError(f"bias must be a contiguous float32 [{act_mean.shape[1]}] vector")
+    if isinstance(seed, DeviceSeed) and (
+        seed.key.dtype != torch.int64
+        or seed.key.numel() != 1
+        or seed.key.device != act_mean.device
+        or not 0 <= seed.index < 2**31
+    ):
+        raise ValueError("a device seed is a one-element int64 key on the planes' device and an index below 2^31")
     if eps is not None and (
         eps.shape not in (act_mean.shape, act_mean.shape[1:])
         or eps.dtype != torch.float32
@@ -379,15 +429,15 @@ def gaussian_sample(
     b_var: Optional[torch.Tensor] = None,
     *,
     eps: Optional[torch.Tensor] = None,
-    seed: Optional[int] = None,
+    seed: Optional[Seed] = None,
     frozen: bool = False,
 ) -> torch.Tensor:
     """``(act_mean + b_mean[c]) + sqrt(act_var + b_var[c]) * z``,
     differentiable in all four tensors.
 
     z is ``eps`` when given (full shape, or one row broadcast over the
-    batch), else drawn from the Philox stream ``seed``; ``frozen`` then
-    draws one row for the whole batch. CUDA tensors go through the K1 kernel
+    batch), else drawn from the Philox stream ``seed`` (a host int or a
+    :class:`DeviceSeed`); ``frozen`` then draws one row for the whole batch. CUDA tensors go through the K1 kernel
     and count one launch in ``gaussian_sample.launches`` (the backward
     counts in ``gaussian_sample_backward.launches``); CPU tensors go
     through :func:`gaussian_sample_plain`.

@@ -15,8 +15,8 @@ passes over the ``[n, P]`` particle matrix are the JAX package's:
 K2 replaces the TPU kernel for every P on a card (the JAX package takes its
 Pallas kernel from P >= 32,768 on a TPU and an XLA product below). The
 wrapper launches it on a CUDA tensor and raises where it cannot; a CPU tensor
-takes :func:`gram_plain`. K2 takes n <= 32 particles; the configurations use
-at most 20.
+takes :func:`gram_plain`, which takes any n. K2 takes n <= 32 particles (a
+CUDA tensor with more raises); the configurations use at most 20.
 """
 from __future__ import annotations
 
@@ -127,10 +127,10 @@ def _check(x: torch.Tensor) -> None:
     if not x.is_contiguous():
         raise ValueError("gram takes a contiguous [n, P] tensor")
     n, p = x.shape
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"K2 takes 1 to {MAX_N} rows, got {n}")
-    if p < 1:
-        raise ValueError("gram takes at least one column")
+    if n < 1 or p < 1:
+        raise ValueError(f"gram takes at least one row and one column, got shape {tuple(x.shape)}")
+    if x.is_cuda and n > MAX_N:
+        raise ValueError(f"K2 takes 1 to {MAX_N} rows, got {n}; the CPU path takes any n")
 
 
 # K2's ticket counter: one zeroed 32-bit word per device, which the kernel
@@ -174,9 +174,10 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
 
 
 def gram(x: torch.Tensor) -> torch.Tensor:
-    """``G = x @ x.T`` for fp32 ``x`` of shape ``[n, P]``, n <= 32. A CUDA
-    tensor goes through K2 and counts one launch in ``gram.launches``; a CPU
-    tensor goes through :func:`gram_plain`. Not differentiable: SVGD takes
+    """``G = x @ x.T`` for fp32 ``x`` of shape ``[n, P]``. A CUDA tensor goes
+    through K2, which takes n <= 32 and raises beyond, and counts one launch
+    in ``gram.launches``; a CPU tensor, of any n, goes through
+    :func:`gram_plain`. Not differentiable: SVGD takes
     the Stein direction on detached particles."""
     _check(x)
     x = x.detach()

@@ -1,7 +1,7 @@
 """Flat-vector helpers over named parameters.
 
 Counterpart of ``beyond_deep_ensembles_tpu/tree.py`` (``ravel``,
-``make_unravel``, ``tree_stack``). A tree here is an ``nn.Module`` (its
+``make_unravel``, ``tree_where``, ``tree_stack``). A tree here is an ``nn.Module`` (its
 ``named_parameters()``) or a mapping from dotted names to tensors.
 
 The flat order is the tree's own order (a module's registration order), not
@@ -47,6 +47,18 @@ def make_unravel(template: Tree) -> Callable[[torch.Tensor], Dict[str, torch.Ten
         return {name: part.reshape(shapes[name]).to(dtypes[name]) for name, part in zip(shapes, parts)}
 
     return unravel
+
+
+def tree_where(pred: torch.Tensor, a, b):
+    """Select a whole tree by a 0-dim bool tensor on the device (the NaN
+    guards: a skipped step keeps the old parameters and optimizer buffers).
+    ``a`` and ``b``: trees with the same names, or sequences of tensors; the
+    result has ``a``'s form, a dict or a list. The predicate is never read
+    on the host, so a CUDA graph can capture the select."""
+    if isinstance(a, (nn.Module, Mapping)):
+        a, b = named(a), named(b)
+        return {name: torch.where(pred, leaf, b[name]) for name, leaf in a.items()}
+    return [torch.where(pred, x, y) for x, y in zip(a, b, strict=True)]
 
 
 def tree_stack(trees: Sequence[Tree]) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,95 @@
+"""The CIFAR optimizer, with its state, its schedule and the posterior
+methods' NaN guard on the device.
+
+Counterpart of the JAX package's optax chain ``add_decayed_weights(wd)`` then
+``sgd(schedule, momentum, nesterov)`` (``experiments/cifar.py::_base_tx``)
+and of its guards (``tree.tree_where`` over the parameters and ``opt_state``,
+``methods/bbb.py:97-107``, ``methods/svgd.py:158-165``).
+
+:class:`SGD` rebinds its parameters as views into one flat buffer and keeps
+the momentum (optax's ``trace``, zeros at the start, so the first step is
+the steady formula) in another and the update count in an int64 tensor,
+all on the parameters' device. The learning rate is computed there from the
+count, ``lr * factor(count // steps_per_epoch)``, never read on the host. A
+step is a few elementwise passes over the flat buffers whatever the number
+of parameter tensors, and :meth:`SGD.step` with a predicate keeps the old
+parameters, momentum and count where it is false (``tree_where``), so a CUDA
+graph can capture the whole step, guard included.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterable, Optional
+
+import torch
+
+from ..tree import tree_where
+
+
+class SGD:
+    """optax ``add_decayed_weights(weight_decay)`` then ``sgd`` over one flat
+    buffer, per element:
+
+        g = grad + weight_decay * p
+        trace = g + momentum * trace
+        p = p - lr * (g + momentum * trace if nesterov else trace)
+
+    with lr = ``lr * schedule(count // steps_per_epoch)`` at the count before
+    the step (constant without a schedule). A parameter without a gradient
+    takes a zero one, as JAX's ``grad`` gives. Parameters are rebound as
+    views of :attr:`flat`, in the order given, so build the optimizer after
+    the module has moved to its device."""
+
+    def __init__(
+        self,
+        params: Iterable[torch.nn.Parameter],
+        lr: float,
+        momentum: float = 0.0,
+        nesterov: bool = False,
+        weight_decay: float = 0.0,
+        schedule: Optional[Callable] = None,
+        steps_per_epoch: int = 1,
+    ):
+        self.params = list(params)
+        if not self.params:
+            raise ValueError("SGD got no parameters")
+        self.lr0, self.momentum, self.nesterov = lr, momentum, nesterov
+        self.weight_decay, self.schedule, self.steps_per_epoch = weight_decay, schedule, steps_per_epoch
+        with torch.no_grad():
+            self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+            start = 0
+            for p in self.params:
+                p.data = self.flat[start : start + p.numel()].view_as(p)
+                start += p.numel()
+        self.trace = torch.zeros_like(self.flat)
+        self.count = torch.zeros((), dtype=torch.int64, device=self.flat.device)
+
+    def tensors(self):
+        """Every tensor a step writes: parameters, momentum, count."""
+        return [self.flat, self.trace, self.count]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        del set_to_none  # gradients are always dropped: the step gathers them
+        for p in self.params:
+            p.grad = None
+
+    def lr(self) -> torch.Tensor:
+        """The learning rate of the next step, an fp32 tensor on the device."""
+        if self.schedule is None:
+            return torch.full((), self.lr0, dtype=torch.float32, device=self.flat.device)
+        return self.lr0 * self.schedule(self.count // self.steps_per_epoch)
+
+    @torch.no_grad()
+    def step(self, ok: Optional[torch.Tensor] = None) -> None:
+        """One update; with ``ok`` (a 0-dim bool tensor) only where it holds,
+        the parameters, momentum and count otherwise left as they were."""
+        grad = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in self.params])
+        if self.weight_decay:
+            grad = grad + self.weight_decay * self.flat
+        trace = grad + self.momentum * self.trace
+        update = grad + self.momentum * trace if self.nesterov else trace
+        new = [self.flat - self.lr() * update, trace, self.count + 1]
+        if ok is not None:
+            new = tree_where(ok, new, self.tensors())
+        for old, value in zip(self.tensors(), new):
+            old.copy_(value)
+

@@ -43,8 +43,9 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      operation) and of the CUDA cores;
   6. the BBB slice: BBB ResNet-20 (the ``BBB`` variant of configs/cifar.yaml)
      through ``experiments/cifar.py`` ``build`` -> ``train`` (10 steps at
-     batch 128 on synthetic CIFAR-10) -> ``eval_model`` (50 posterior
-     samples, eval batch 500), with every kernel's launch count set to 0
+     batch 128 on synthetic CIFAR-10, one update per call) -> ``eval_model``
+     (50 posterior samples, eval batch 500, the host loop), with every
+     kernel's launch count set to 0
      before and read after (K1's backward 44 a step, none at eval); steady
      steps; a profile of steady train steps (kernels per step)
      (device busy share, top kernels, the host's wait in the NaN guard's
@@ -54,6 +55,19 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      same way, K2 launched once per train step and never in eval; steady
      steps and a profile; one SVGD step of 3 particles at batch 4 on the card
      held against the CPU path from the same weights;
+  7b. the CUDA-graph runners (``parallel/multistep.py``), for BBB and for
+     SVGD: ``run_single`` as configs/cifar.yaml writes it (DEFAULT's
+     corrupted intensities 0-4) with ``device_data``, one epoch of 300 steps
+     replayed from one captured graph and the test split and five corrupted
+     splits (1000 images each, S = 50) through the eval runner, every count
+     set to 0 before and read after (warm-ups and captures count, replays
+     do not); then 4 captured steps against 4 eager ones from one key and
+     state (cuDNN deterministic), a captured loss forward replayed under two
+     keys (different noise, each equal to the eager forward), steady steps
+     eager against captured with the device's busy share and, from a
+     profile, the kernels a replay launches (K1: 88 a BBB step; K2: 1 an
+     SVGD step), and the eval runner against the host loop, warm, beside the
+     card's name and power limit;
   8. the DistilBERT slice: the ``MCD`` variant of configs/amazon.yaml
      (distilbert-base, full-model MC-Dropout, L = 512, random weights from a
      seed) through ``experiments/wilds_task.py`` ``build`` -> ``train`` (10
@@ -62,8 +76,9 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      per step, exactly; 20 steady steps and a profile of 3; then the ``MAP``
      variant the same way; the card's MCD logits and one Adam step held
      against the CPU path with the same weights and masks;
-  9. one JSON line of kernel figures (K1, K2, K3a, K3b), then the result line
-     ``{"ok": true, "device": {...}}``.
+  9. the runner figures as one JSON line, the card's name and power limit,
+     one JSON line of kernel figures (K1, K2, K3a, K3b), then the result
+     line ``{"ok": true, "device": {...}}``.
 Exits non-zero and prints no result without CUDA or without the package
 beside this file.
 """
@@ -76,6 +91,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(ROOT, "build")
+CARD = ""  # "name, power limit" as nvidia-smi gives them, printed beside every phase's times
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -94,9 +110,20 @@ BBB_VARIANT = {
 }
 # configs/cifar.yaml, variant "SVGD" (weight decay 3e-4 from its DEFAULT block)
 SVGD_VARIANT = {"model": "svgd", "members": 1, "svgd_particles": 5, "svgd_reg_scale": 0.0003}
-# cut to size: one epoch of 1280 synthetic images = 10 steps at batch 128
-SMOKE = {"epochs": 1, "subsample": 1280, "test_subsample": 1000, "seed": 0}
+# cut to size: one epoch of 1280 synthetic images = 10 steps at batch 128;
+# these phases drive the one-update-per-call loop and the host eval loop
+# (device_eval off), the runner phase the CUDA-graph runners
+SMOKE = {"epochs": 1, "subsample": 1280, "test_subsample": 1000, "seed": 0, "device_eval": False}
 TRAIN_STEPS = 10
+# configs/cifar.yaml's DEFAULT block beyond the port's DEFAULT_CONFIG
+YAML_DEFAULT = {"corrupted_intensities": [0, 1, 2, 3, 4]}
+# the runner phase: device_data (the epoch runner, the eval runner), one
+# epoch of 300 steps at batch 128 on synthetic images, 1000 test images per
+# split at S = 50, eval batch 500; then COMPARE_STEPS captured steps against
+# eager ones and TIMED_STEPS of each timed
+RUNNER = {"epochs": 1, "subsample": 300 * 128, "test_subsample": 1000, "seed": 0, "device_data": True}
+COMPARE_STEPS = 4
+TIMED_STEPS = 20
 # K2's shapes: the SVGD slice's particle matrix (5 particles of ResNet-20's
 # 273,610 parameters), the JAX package's upper end (20 particles of 25 M),
 # ragged P, one row
@@ -148,6 +175,11 @@ def noise_shapes(batch, train):
             shapes.append((batch, features, side, side))
     shapes.append((batch, 10))
     return shapes if train else [s[1:] for s in shapes]
+
+
+def phase(title):
+    """A phase's heading: every time printed under it was taken on this card."""
+    print(f"== {title} [{CARD}]")
 
 
 def check(cond, what):
@@ -540,12 +572,14 @@ def k2_phase(torch, svgd_kernel):
     return {**timings[(n, p)], "max_abs_err": errs[(n, p)], "host_us": k2_host_us}
 
 
-def profile_steps(torch, step, ours, steps=3):
+def profile_steps(torch, step, ours, steps=3, label="train steps"):
     """Device time by kernel over ``steps`` steady train steps (``step(i)``
     runs step i); prints the top entries (and every kernel whose name holds
     one of ``ours``), the device's busy share of the window and the host's
     wait in ``aten::_local_scalar_dense`` (a NaN guard's or a loss's read).
-    Returns the kernels per step (None where the trace has no device time)."""
+    Returns {"kernels": kernels per step, "launches": {name in ``ours``:
+    launches per step}, "busy": the device's busy share}, or None where the
+    trace has no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -565,7 +599,7 @@ def profile_steps(torch, step, ours, steps=3):
         print("profile: no device time in the trace (not measured)")
         return None
     ops = sum(e.count for e in averages if e.key.startswith("aten::"))
-    print(f"profile of {steps} train steps: wall {wall_ms:.2f} ms, device busy {device_us / 1e3:.2f} ms "
+    print(f"profile of {steps} {label}: wall {wall_ms:.2f} ms, device busy {device_us / 1e3:.2f} ms "
           f"({100 * device_us / 1e3 / wall_ms:.1f}% of the window); per step "
           f"{sum(e.count for e in kernels) // steps} kernels, {ops // steps} aten ops (nested ops counted)")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
@@ -575,7 +609,9 @@ def profile_steps(torch, step, ours, steps=3):
     item_us = sum(e.cpu_time_total for e in averages if e.key == "aten::_local_scalar_dense")
     print(f"host blocked in scalar reads: {item_us / 1e3 / steps:.3f} ms/step "
           f"({100 * item_us / 1e3 / wall_ms:.1f}% of the window)")
-    return sum(e.count for e in kernels) // steps
+    per_name = {name: sum(e.count for e in kernels if name in e.key) / steps for name in ours}
+    return {"kernels": sum(e.count for e in kernels) // steps, "launches": per_name,
+            "busy": device_us / 1e3 / wall_ms}
 
 
 def steady_steps(torch, step, label, batch, count=2 * TRAIN_STEPS):
@@ -591,7 +627,8 @@ def steady_steps(torch, step, label, batch, count=2 * TRAIN_STEPS):
     check(all(bool(torch.isfinite(v)) for v in losses), f"{label} steady steps: every loss finite")
     step_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
     print(f"{label} steady train step over {count} steps (batch {batch}): median "
-          f"{step_ms[len(step_ms) // 2]:.2f} ms, max {step_ms[-1]:.2f} ms, min {step_ms[0]:.2f} ms")
+          f"{step_ms[len(step_ms) // 2]:.2f} ms, max {step_ms[-1]:.2f} ms, min {step_ms[0]:.2f} ms [{CARD}]")
+    return {"median_ms": step_ms[len(step_ms) // 2], "min_ms": step_ms[0], "max_ms": step_ms[-1]}
 
 
 def small_input_check(torch, NoiseSource, ResNet20):
@@ -674,18 +711,198 @@ def run_slice(torch, cifar, NoiseSource, kernels, variant, label):
     print(f"{label} eval: {x_test.shape[0]} images x {config['eval_samples']} samples in {eval_ms:.1f} ms = "
           f"{n_eval / eval_ms * 1e3:.0f} samples/s ({x_test.shape[0] / eval_ms * 1e3:.1f} images/s)")
 
-    # steady train steps on the trained state, outside the counted run
+    # steady train steps on the trained state, outside the counted run, each
+    # under its own key, as train's one-update-per-call loop draws
+    from beyond_deep_ensembles_tpu_torch import keys
+
     xd = torch.from_numpy(x_train).cuda().permute(0, 3, 1, 2).contiguous()
     yd = torch.from_numpy(y_train).cuda()
-    noise = NoiseSource.seeded(1)
 
     def step(i):
         idx = slice((i % TRAIN_STEPS) * 128, (i % TRAIN_STEPS + 1) * 128)
+        noise = NoiseSource(key=keys.as_key(keys.fold_in(1, i), xd.device))
         built.state, m = built.method.update(built.state, noise, (xd[idx], yd[idx]))
         return m["loss"]
 
     steady_steps(torch, step, label, 128)
     return built, counts, config, step
+
+
+def runner_counts_check(label, counts, config):
+    """Host launch counts of the runner phase's run_single: the runners'
+    warm-ups and captures launch through the wrappers (two warm-ups and one
+    capture of the step, the same of the eval batch), replays never."""
+    per_capture = 1 + 2  # multistep._WARMUP updates, then the capture
+    forward = len(bbb_shapes(1))
+    if config["model"] == "bbb":
+        want = {"k1_gaussian_sample": per_capture * (config["bbb_mc_samples"] + config["eval_samples"]) * forward,
+                "k1_gaussian_sample_backward": per_capture * config["bbb_mc_samples"] * forward, "k2_svgd_gram": 0}
+    else:
+        want = {"k1_gaussian_sample": 0, "k1_gaussian_sample_backward": 0, "k2_svgd_gram": per_capture}
+    want.update({"k3a_attention_forward": 0, "k3b_attention_backward": 0})
+    check(counts == want, f"{label} runner path: host launch counts {counts} (warm-ups and captures; replays "
+          f"launch no wrapper)")
+
+
+def runner_phase(torch, cifar, kernels, variant, label, ours):
+    """``variant`` through ``run_single`` as configs/cifar.yaml writes it
+    (DEFAULT's corrupted intensities) with ``device_data``: the epoch runner
+    (one epoch of 300 replayed steps) and the eval runner (the test split and
+    five corrupted splits, one capture), every count set to 0 just before and
+    read just after. Then, on a model built afresh (the loss augmenting per
+    step, as the scan_steps path runs it): COMPARE_STEPS captured steps
+    against eager ones from one key and state and a captured loss forward
+    under two keys (fresh noise per replay, each equal to the eager forward
+    under its key), both on cuDNN's deterministic algorithms; then, on its
+    default ones, steady steps eager and captured (CUDA events), a profile of
+    each (kernels per step, the device's busy share, the ``ours`` kernels
+    per step: K1's forward and backward both appear as ``_flat_kernel``);
+    the eval runner against the host eval loop, warm, metrics and
+    samples/s. Returns the figures."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.data.cifar import load_cifar10
+    from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    config = {**cifar.DEFAULT_CONFIG, **YAML_DEFAULT, **variant, **RUNNER}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = cifar.run_single(config, log=print)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    splits = ["test"] + [f"corrupted{i}" for i in YAML_DEFAULT["corrupted_intensities"]]
+    check(list(results) == splits, f"{label} run_single (device_data, DEFAULT corrupted intensities): splits {list(results)}")
+    for split, m in results.items():
+        check(all(math.isfinite(v) for v in m.values()) and 0.0 <= m["accuracy"] <= 1.0 and m["avg_log_likelihood"] < 0.0,
+              f"{label} {split}: metrics finite and in range: {json.dumps(m)}")
+    runner_counts_check(label, counts, config)
+    print(f"{label} run_single: 300 replayed steps + 6 splits x 1000 images x S {config['eval_samples']} in {wall:.1f} s "
+          f"(data made, kernels compiled and graphs captured in it) [{CARD}]")
+
+    dev = torch.device("cuda")
+    bs, k = config["batch_size"], COMPARE_STEPS
+    x, y = load_cifar10(True, subsample=config["subsample"])
+    x_test, y_test = load_cifar10(False, subsample=config["test_subsample"])
+    step_config = {**config, "device_data": False, "dataset_size": x.shape[0]}
+    built = cifar.build(step_config, torch.Generator().manual_seed(1), x.shape[0] // bs)
+    xd, yd = cifar._to_device(built, x, y)
+    method, state = built.method, built.state
+    batches = [(xd[i * bs : (i + 1) * bs].clone(), yd[i * bs : (i + 1) * bs].clone()) for i in range(TIMED_STEPS)]
+
+    # captured against eager, from one state and one key, on cuDNN's
+    # deterministic algorithms (so that the two can agree bit for bit; the
+    # timings below run on its default ones, as training does)
+    torch.backends.cudnn.deterministic = True
+    written = multistep._written_tensors(state)
+    with torch.no_grad():
+        saved = [t.clone() for t in written]
+    key = keys.fold_in(7, 0)
+    state, sums = multistep.eager_steps(method.update, state, key, batches[:k])
+    eager = [t.clone() for t in written]
+    eager_metrics = {name: float(v) / k for name, v in sums.items()}
+    with torch.no_grad():
+        for t, v in zip(written, saved):
+            t.copy_(v)
+    state.step -= k
+    multi = multistep.make_multi_step(method.update, k)
+    state, metrics = multi(state, key, multistep.stack_batches(batches[:k]))
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(written, eager))
+    param_err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(written, eager))
+    metric_err = max(abs(float(metrics[n]) - v) / max(abs(v), 1e-30) for n, v in eager_metrics.items())
+    check(param_err <= 1e-5 and metric_err <= 1e-5 and int(written[-1]) == int(eager[-1]) == k,
+          f"{label}: {k} captured steps (one graph, {k} replays) = {k} eager steps from one key and state: parameters, "
+          f"momentum and count max abs err {param_err:.3g} <= 1e-5, metrics rel err {metric_err:.2g} <= 1e-5; "
+          f"bit for bit: {bitwise} (cuDNN deterministic algorithms; K1 and K2 deterministic)")
+
+    # a captured loss forward replayed under two keys: fresh noise per replay
+    particle = state.params if config["model"] == "bbb" else state.params[0]
+    loss_fn = cifar._xent_loss_fn(built.model, augment=config["model"] != "bbb")  # BBB: K1's noise alone
+    key_buf = keys.as_key(0, dev)
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            loss_fn(particle, {}, NoiseSource(key=key_buf), batches[0])
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured_loss = loss_fn(particle, {}, NoiseSource(key=key_buf), batches[0]).loss
+        replayed, same = [], True
+        for value in (keys.fold_in(9, 1), keys.fold_in(9, 2)):
+            key_buf.fill_(value)
+            graph.replay()
+            replayed.append(captured_loss.clone())
+            eager_loss = loss_fn(particle, {}, NoiseSource(key=keys.as_key(value, dev)), batches[0]).loss
+            same = same and torch.equal(replayed[-1], eager_loss)
+    del graph
+    what = "K1's noise" if config["model"] == "bbb" else "the crops"
+    check(same and not torch.equal(replayed[0], replayed[1]),
+          f"{label}: a captured loss forward replayed under two keys draws two different samples of {what} "
+          f"(losses {float(replayed[0]):.6f}, {float(replayed[1]):.6f}), each = the eager forward under its key")
+    torch.backends.cudnn.deterministic = False
+
+    single = multistep.make_multi_step(method.update, 1)
+    stacked = [multistep.stack_batches([b]) for b in batches]
+
+    def captured_step(i):
+        nonlocal state
+        state, m = single(state, keys.fold_in(11, i), stacked[i % TIMED_STEPS])
+        return m["loss"]
+
+    def eager_step(i):
+        nonlocal state
+        state, m = method.update(state, NoiseSource(key=keys.as_key(keys.fold_in(11, i), dev)), batches[i % TIMED_STEPS])
+        return m["loss"]
+
+    captured_step(0)  # the capture
+    times = {"eager": steady_steps(torch, eager_step, f"{label} eager", bs, count=TIMED_STEPS),
+             "captured": steady_steps(torch, captured_step, f"{label} captured", bs, count=TIMED_STEPS)}
+    profiles = {"eager": profile_steps(torch, eager_step, ours, label="eager steps"),
+                "captured": profile_steps(torch, captured_step, ours, label="captured steps (graph replays)")}
+    per_replay = profiles["captured"] and profiles["captured"]["launches"]
+    if config["model"] == "bbb":
+        want = 2 * config["bbb_mc_samples"] * len(bbb_shapes(1))
+        check(per_replay is not None and per_replay["_flat_kernel"] == want,
+              f"{label}: K1 launches per replayed step, from the profile: {per_replay and per_replay['_flat_kernel']} "
+              f"= {want} ({config['bbb_mc_samples'] * len(bbb_shapes(1))} forward + as many backward)")
+    else:
+        check(per_replay is not None and per_replay["gram_kernel"] == 1,
+              f"{label}: K2 launches per replayed step, from the profile: {per_replay and per_replay['gram_kernel']} = 1")
+
+    # eval: the runner against the host loop, warm, on the same keys
+    evals, figures = {}, {}
+    n_samples = x_test.shape[0] * config["eval_samples"]
+    for mode, device_eval in (("runner", True), ("host loop", False), ("host loop", False), ("runner", True)):
+        eval_config = {**config, "device_eval": device_eval}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = cifar.eval_model(built, eval_config, x_test, y_test).as_dict()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if mode in evals:  # the second of each: warm
+            figures[mode] = n_samples / seconds
+        evals[mode] = result
+    diff = max(abs(evals["runner"][m] - evals["host loop"][m]) / max(abs(evals["host loop"][m]), 1e-30)
+               for m in evals["runner"])
+    check(diff <= 1e-5, f"{label}: eval runner = host eval loop on the same keys (metrics max rel diff {diff:.2g} "
+          f"<= 1e-5; equal: {evals['runner'] == evals['host loop']})")
+    print(f"{label} eval of {x_test.shape[0]} images x S {config['eval_samples']}, warm: runner "
+          f"{figures['runner']:.0f} samples/s, host loop {figures['host loop']:.0f} samples/s [{CARD}]")
+    eval_profile = profile_steps(torch, lambda i: cifar.eval_model(built, {**config, "device_eval": True}, x_test, y_test),
+                                 ours, steps=1, label="runner evals")
+    if config["model"] == "bbb":
+        want = -(-x_test.shape[0] // config["eval_batch_size"]) * config["eval_samples"] * len(bbb_shapes(1))
+        got = eval_profile and eval_profile["launches"]["_frozen_kernel"]
+        check(got == want, f"{label}: K1 frozen launches in one runner eval, from the profile: {got} = {want}")
+    del built, state, batches, stacked, single, multi, xd, yd
+    torch.cuda.empty_cache()
+    return {"run_single_s": wall, "steps": times, "profiles": profiles, "eval_samples_per_s": figures,
+            "eval_busy": eval_profile and eval_profile["busy"], "captured_equals_eager_bitwise": bitwise,
+            "captured_vs_eager_param_err": param_err, "host_counts": counts}
 
 
 def build_phase(torch, _cuda_build):
@@ -1059,12 +1276,18 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi)
+    global CARD
+    CARD = smi
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {count} card(s): {name}")
 
+    phase("build")
     build_phase(torch, _cuda_build)
+    phase("K1")
     k1 = kernel_phase(torch, sampling)
+    phase("K2")
     k2 = k2_phase(torch, svgd_kernel)
+    phase("K3a, K3b")
     k3 = k3_phase(torch, att)
     kernels = {
         "k1_gaussian_sample": sampling.gaussian_sample, "k1_gaussian_sample_backward": sampling.gaussian_sample_backward,
@@ -1074,6 +1297,7 @@ def main() -> int:
     no_k3 = {"k3a_attention_forward": (0, 0), "k3b_attention_backward": (0, 0)}
     no_k1 = {"k1_gaussian_sample": (0, 0), "k1_gaussian_sample_backward": (0, 0)}
 
+    phase("BBB slice, one update per call")
     built, bbb_counts, config, step = run_slice(torch, cifar, NoiseSource, kernels, BBB_VARIANT, "BBB")
     per_forward = len(bbb_shapes(1))
     eval_batches = -(-SMOKE["test_subsample"] // config["eval_batch_size"])
@@ -1088,11 +1312,12 @@ def main() -> int:
           f"{config['bbb_mc_samples']} per step) and {k1b_eval} times in eval")
     check(bbb_counts["k2_svgd_gram"] == (0, 0), "K2 not launched on the BBB path")
     check(all(bbb_counts[name] == c for name, c in no_k3.items()), "K3a and K3b not launched on the BBB path")
-    bbb_kernels = profile_steps(torch, step, ours=("_flat_kernel", "_frozen_kernel"))
-    print(f"BBB train step: {bbb_kernels} kernels per step (8270 before K1's backward kernel)")
+    bbb_profile = profile_steps(torch, step, ours=("_flat_kernel", "_frozen_kernel"))
+    print(f"BBB train step: {bbb_profile and bbb_profile['kernels']} kernels per step (8270 before K1's backward kernel)")
     small_input_check(torch, NoiseSource, ResNet20)
     del built, step
 
+    phase("SVGD slice, one update per call")
     built, svgd_counts, config, step = run_slice(torch, cifar, NoiseSource, kernels, SVGD_VARIANT, "SVGD")
     check(svgd_counts["k2_svgd_gram"] == (TRAIN_STEPS, 0),
           f"K2 launched {svgd_counts['k2_svgd_gram'][0]} times in {TRAIN_STEPS} SVGD train steps (one per step) "
@@ -1104,7 +1329,15 @@ def main() -> int:
     del built, step
     torch.cuda.empty_cache()
 
+    phase("CIFAR runners (CUDA graphs)")
+    runners = {
+        "BBB": runner_phase(torch, cifar, kernels, BBB_VARIANT, "BBB", ours=("_flat_kernel", "_frozen_kernel")),
+        "SVGD": runner_phase(torch, cifar, kernels, SVGD_VARIANT, "SVGD", ours=("gram_kernel",)),
+    }
+    print(json.dumps({"card": CARD, "cifar_runners": runners}))
+
     # the DistilBERT slice: MCD (its main path), then MAP
+    phase("DistilBERT slice")
     layers = wilds_task._bert_config({}).n_layers
     eval_forwards = -(-BERT_SMOKE["test_subsample"] // AMAZON_DEFAULT["eval_batch_size"]) * AMAZON_DEFAULT["eval_samples"]
     bert_counts = {}
@@ -1127,6 +1360,7 @@ def main() -> int:
     bert_card_vs_cpu(torch, wilds_task, NoiseSource)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print(CARD)
     print(json.dumps({"kernels": [
         {
             "name": "k1_gaussian_sample",
@@ -1152,6 +1386,10 @@ def main() -> int:
             "frozen_eval_bound_ms": k1["frozen_eval_bound_ms"],
             "host_us": k1["host_us"],
             "backward_host_us": k1["backward_host_us"],
+            # the runner phase: host counts (warm-ups and captures) and, from
+            # a profile, K1 launches per replayed BBB step (forward and backward)
+            "runner_launches": runners["BBB"]["host_counts"]["k1_gaussian_sample"],
+            "replay_launches_per_step": runners["BBB"]["profiles"]["captured"]["launches"]["_flat_kernel"],
         },
         {
             "name": "k2_svgd_gram",
@@ -1166,6 +1404,8 @@ def main() -> int:
             "bound_by": k2["bound_by"],
             "library_ms": k2["library_ms"],
             "host_us": k2["host_us"],
+            "runner_launches": runners["SVGD"]["host_counts"]["k2_svgd_gram"],
+            "replay_launches_per_step": runners["SVGD"]["profiles"]["captured"]["launches"]["gram_kernel"],
         },
         *(
             {

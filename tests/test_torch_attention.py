@@ -93,6 +93,40 @@ def test_plain_matches_interpreted_pallas_kernel(dropout_p, regime):
         assert_close(g, np.asarray(w), rtol=3e-4, atol=3e-5, err_msg=f"d{name}, {regime}")
 
 
+@pytest.mark.parametrize("dropout_p,regime", [(0.0, "none"), (0.4, "keep_all")])
+def test_fully_padded_key_row_matches_interpreted_pallas_kernel(dropout_p, regime):
+    """Batch row 0 with every key padded: the JAX kernel's -1e30 bias on every
+    key makes that row's softmax uniform, 1 / L. The plain version gives the
+    interpreted Pallas kernel's output and dQ, dK, dV there (the tolerances of
+    the test above) and probabilities of exactly 1 / L."""
+    import jax
+    import jax.numpy as jnp
+    from _torch_parity import assert_close
+    from jax.experimental.pallas import tpu as pltpu
+
+    from beyond_deep_ensembles_tpu.ops.attention import fused_dropout_attention
+
+    q, k, v, cot, mask = _inputs(pad_from=0)
+    assert not mask[0].any() and mask[1:].all()
+
+    def jax_fn(q, k, v):
+        return fused_dropout_attention(
+            q, k, v, jnp.asarray(mask), jnp.array([7], jnp.int32), dropout_p=dropout_p,
+            interpret=pltpu.InterpretParams(),
+        )
+
+    want, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(cot))
+    b, l, h, _ = SHAPE
+    keep = None if regime == "none" else torch.ones((b, h, l, l), dtype=torch.bool)
+    got, grads = _port(q, k, v, cot, mask, dropout_p=dropout_p, keep=keep)
+    assert_close(got, np.asarray(want), rtol=2e-5, atol=2e-5, err_msg=f"output, {regime}")
+    for name, g, w in zip("qkv", grads, want_grads):
+        assert_close(g, np.asarray(w), rtol=3e-4, atol=3e-5, err_msg=f"d{name}, {regime}")
+    probs = att._plain_probs(*(torch.from_numpy(a) for a in (q, k)), torch.from_numpy(mask), None, 0.0)
+    assert torch.equal(probs[0], torch.full_like(probs[0], 1.0 / l))
+
+
 def _against_jax_explicit_mask_math(shape, seed, p_drop=0.3):
     """The port's plain version against the explicit realized-mask math of
     tests/test_fused_attention.py, with a random keep mask, for the output
@@ -367,6 +401,36 @@ def test_kernel_ragged_length(cuda_device, length, mode):
         _check_kernel_philox(cuda_device, shape)
     else:
         _check_kernel_against_plain(cuda_device, shape, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [512, 300])
+@pytest.mark.parametrize("mode", ["none", "given", "philox"])
+def test_kernel_fully_padded_key_row(cuda_device, length, mode):
+    """Batch row 0 with every key padded (row 1 ragged): K3a's output and
+    K3b's dQ, dK, dV against the plain version, whose probabilities on that
+    row are 1 / L (kept ones scaled by 1 / (1 - p)); with Philox, against the
+    plain version fed the realized mask, and the debug probabilities too."""
+    q, k, v, cot, mask = _card_inputs(cuda_device, (2, length, 3, 64))
+    mask[0] = 0
+    b, l, h, _ = q.shape
+    p = 0.0 if mode == "none" else 0.1
+    if mode == "philox":
+        out, probs = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=p, seed=321)
+        keep = probs > 0
+        assert float(keep[0].float().mean()) > 0.8
+        _hold(probs, att._plain_probs(q, k, mask, keep, p), 1e-6, 1e-5)
+        kw = {"seed": 321}
+    else:
+        gen = torch.Generator(device=cuda_device).manual_seed(9)
+        keep = torch.rand(b, h, l, l, device=cuda_device, generator=gen) >= p if mode == "given" else None
+        kw = {"keep": keep}
+    got, grads = _grads(lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, **kw), q, k, v, cot)
+    ref, ref_grads = _grads(lambda *t: att.dropout_attention_plain(*t, mask, keep, dropout_p=p), q, k, v, cot)
+    _hold(got, ref, 1e-5, 1e-5)
+    for g, r in zip(grads, ref_grads):
+        _hold(g, r, 3e-5, 3e-4)
+    assert float(grads[0][0].abs().max()) > 0  # dQ of the padded row is not trivially 0
 
 
 @pytest.mark.cuda

@@ -93,20 +93,22 @@ def test_nonfinite_loss_skips_params_momentum_and_schedule():
     noise = NoiseSource.seeded(0)
     built.state, m = built.method.update(built.state, noise, (xt, yt))
     assert math.isfinite(float(m["loss"]))
-    optimizer, scheduler = built.state.opt_state
+    # the port's SGD: momentum in one flat buffer, the schedule's count on the device
+    optimizer, _ = built.state.opt_state
     params = {k: p.detach().clone() for k, p in built.state.params.named_parameters()}
-    momentum = {k: optimizer.state[p]["momentum_buffer"].clone() for k, p in built.state.params.named_parameters()}
-    count = scheduler.last_epoch
+    momentum = optimizer.trace.clone()
+    count = int(optimizer.count)
+    assert count == 1 and bool(momentum.abs().sum() > 0)
 
     bad = xt.clone()
     bad[0, 0, 0, 0] = float("nan")
     built.state, m = built.method.update(built.state, noise, (bad, yt))
     assert not math.isfinite(float(m["loss"]))
     assert built.state.step == 2
-    assert scheduler.last_epoch == count
+    assert int(optimizer.count) == count
+    assert torch.equal(optimizer.trace, momentum)
     for k, p in built.state.params.named_parameters():
         assert torch.equal(p.detach(), params[k]), k
-        assert torch.equal(optimizer.state[p]["momentum_buffer"], momentum[k]), k
 
 
 def test_run_single_on_cpu():

@@ -14,6 +14,7 @@ from beyond_deep_ensembles_tpu.data import cifar as jax_data
 from beyond_deep_ensembles_tpu.utils.schedules import wilson_schedule as jax_wilson
 from beyond_deep_ensembles_tpu_torch.data import cifar as data
 from beyond_deep_ensembles_tpu_torch.experiments import cifar
+from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 from beyond_deep_ensembles_tpu_torch.utils.schedules import wilson_schedule
 
 
@@ -30,10 +31,22 @@ def test_augment_matches_jax_with_same_draws():
     np.testing.assert_array_equal(got.numpy(), nchw(np.asarray(ref)).numpy())
 
 
+def test_wilson_schedule_on_device_counts_matches_jax():
+    """The factor of an integer tensor (the port's SGD passes count //
+    steps_per_epoch) equals the JAX schedule's at the same epochs, 1e-6."""
+    port, ref = wilson_schedule(20, 0.05, 0.0005), jax_wilson(20, 0.05, 0.0005)
+    epochs = torch.arange(25)
+    got = port(epochs)
+    assert got.dtype == torch.float32
+    assert_close(got.numpy(), np.asarray(ref(jnp.arange(25))), rtol=1e-6)
+
+
 def test_augment_draws_from_generator():
+    """The draws come from the caller's ``NoiseSource.crops`` (here in
+    generator mode); the same generator seed gives the same crops."""
     images = torch.arange(2 * 3 * 32 * 32, dtype=torch.float32).reshape(2, 3, 32, 32)
-    a = data.augment(images, generator=torch.Generator().manual_seed(1))
-    b = data.augment(images, generator=torch.Generator().manual_seed(1))
+    a = data.augment(images, *NoiseSource.seeded(1).crops(2, images.device))
+    b = data.augment(images, *NoiseSource.seeded(1).crops(2, images.device))
     assert a.shape == images.shape and torch.equal(a, b)
     offsets = torch.full((2, 2), 4)
     centred = data.augment(images, offsets=offsets, flips=torch.tensor([False, True]))
@@ -82,17 +95,18 @@ def test_wilson_schedule_matches_jax(swag_lr):
 
 
 def test_base_tx_lr_per_step():
-    """optax reads the schedule at its update count before each update."""
+    """optax reads the schedule at its update count before each update; the
+    port's SGD computes it on the device from its count."""
     config = {**cifar.DEFAULT_CONFIG, "epochs": 4}
     spe = 3
     optimizer, scheduler = cifar._base_tx(config, spe)([torch.nn.Parameter(torch.zeros(1))])
+    assert scheduler is None
     factor = jax_wilson(config["epochs"], config["lr"], config["swag_lr"])
     for step in range(4 * spe):
         want = config["lr"] * float(factor(step // spe))
-        assert_close(optimizer.param_groups[0]["lr"], want, rtol=1e-6)
+        assert_close(float(optimizer.lr()), want, rtol=1e-6)
         optimizer.step()
-        scheduler.step()
-    group = optimizer.param_groups[0]
-    assert group["nesterov"] and group["momentum"] == 0.9 and group["weight_decay"] == 0.0003
+    assert int(optimizer.count) == 4 * spe
+    assert optimizer.nesterov and optimizer.momentum == 0.9 and optimizer.weight_decay == 0.0003
     no_schedule = cifar._base_tx({**config, "lr_schedule": False}, spe)([torch.nn.Parameter(torch.zeros(1))])
-    assert no_schedule[1] is None
+    assert no_schedule[0].schedule is None and float(no_schedule[0].lr()) == np.float32(config["lr"])

@@ -304,3 +304,77 @@ def test_frozen_plan_loops_over_examples(batch, per_program, last):
     _, _, row_chunks, got, chunks = sampling.frozen_plan(batch, 16 * 32 * 32)
     assert (row_chunks, got, batch - (chunks - 1) * got) == (8, per_program, last)
 
+
+
+@pytest.mark.parametrize("frozen", [False, True], ids=["train", "frozen"])
+def test_device_seed_equals_the_integer_seed_on_the_cpu(frozen):
+    """A device seed (an int64 key in memory plus a draw index) is the seed
+    key + index: the plain version draws the same z, the same output and the
+    same gradients as through that integer, bit for bit; the autograd
+    context keeps the key tensor, so writing it between the forward and the
+    backward raises."""
+    mean, var, b_mean, b_var = (_to_port(a) for a in _inputs((4, 3, 5, 5), True))
+    leaves = [t.requires_grad_(True) for t in (mean, var, b_mean, b_var)]
+    g = torch.randn(mean.shape, generator=torch.Generator().manual_seed(2))
+    key = torch.tensor(2**40 + 17)
+    outs, grads = [], []
+    for seed in (sampling.DeviceSeed(key, 5), 2**40 + 22):
+        out = sampling.gaussian_sample(*leaves, seed=seed, frozen=frozen)
+        outs.append(out)
+        grads.append(torch.autograd.grad((out * g).sum(), leaves))
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    other = sampling.gaussian_sample(*leaves, seed=sampling.DeviceSeed(key, 6), frozen=frozen)
+    assert not torch.equal(other, outs[0])
+    out = sampling.gaussian_sample(*leaves, seed=sampling.DeviceSeed(key, 5), frozen=frozen)
+    key.add_(1)
+    with pytest.raises(RuntimeError, match="modified by an inplace operation"):
+        out.sum().backward()
+    with pytest.raises(ValueError):
+        sampling.gaussian_sample(mean, var, seed=sampling.DeviceSeed(torch.tensor(1.0), 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [False, True], ids=["train", "frozen"])
+@pytest.mark.parametrize("shape,bias", [((128, 16, 32, 32), True), ((500, 64, 8, 8), True), ((128, 10), True)])
+def test_kernel_device_seed(cuda_device, shape, bias, frozen):
+    """K1 with its seed in device memory: the output and the gradients equal
+    the host seed key + index bit for bit; a CUDA graph that captured the
+    forward and backward draws afresh at each replay once the key moves,
+    equal to the host seed of the key's new value."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    leaves = [0.5 * torch.randn(shape, device=cuda_device, generator=gen),
+              0.25 * torch.rand(shape, device=cuda_device, generator=gen) + 1e-4,
+              torch.randn(shape[1], device=cuda_device, generator=gen),
+              torch.rand(shape[1], device=cuda_device, generator=gen)]
+    leaves = [t.requires_grad_(True) for t in leaves]
+    g = torch.randn(shape, device=cuda_device, generator=gen)
+    key = torch.tensor(2**45 + 3, device=cuda_device)
+
+    def run(seed):
+        out = sampling.gaussian_sample(*leaves, seed=seed, frozen=frozen)
+        return out, torch.autograd.grad((out * g).sum(), leaves)
+
+    out, grads = run(sampling.DeviceSeed(key, 7))
+    ref, ref_grads = run(2**45 + 10)
+    assert torch.equal(out, ref) and all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
+
+    static = [t.detach().clone().requires_grad_(True) for t in leaves]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sampling.gaussian_sample(*static, seed=sampling.DeviceSeed(key, 7), frozen=frozen).sum().backward()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sampling.gaussian_sample(*static, seed=sampling.DeviceSeed(key, 7), frozen=frozen)
+        captured_grads = torch.autograd.grad((captured * g).sum(), static)
+    replays = []
+    for value in (2**45 + 100, 2**45 + 200):
+        key.fill_(value)
+        graph.replay()
+        torch.cuda.synchronize()
+        want, want_grads = run(value + 7)
+        assert torch.equal(captured, want) and all(torch.equal(a, b) for a, b in zip(captured_grads, want_grads))
+        replays.append(captured.clone())
+    assert not torch.equal(replays[0], replays[1])

@@ -120,12 +120,32 @@ def test_gram_rejects_bad_inputs():
     with pytest.raises(ValueError):
         sk.gram(torch.zeros(10, 4).T)  # not contiguous
     with pytest.raises(ValueError):
-        sk.gram(torch.zeros(sk.MAX_N + 1, 10))  # more rows than K2 takes
-    with pytest.raises(ValueError):
         sk.gram(torch.zeros(4, 0))
     with pytest.raises(ValueError):
         sk.gram(torch.zeros(4, 10, device="meta"))
     assert sk.gram(torch.ones(sk.MAX_N, 3)).shape == (sk.MAX_N, sk.MAX_N)
+    # K2's row bound is the card's: the CPU path takes any n
+    assert sk.gram(torch.ones(sk.MAX_N + 1, 3)).shape == (sk.MAX_N + 1, sk.MAX_N + 1)
+
+
+def test_more_than_32_particles_on_the_cpu_match_jax():
+    """n = 40 (beyond K2's 32 rows) on the CPU: d^2 and phi against the JAX
+    functions (``use_pallas=False``), at the tolerances above."""
+    import jax.numpy as jnp
+    from _torch_parity import assert_close
+    from beyond_deep_ensembles_tpu.ops.svgd_kernel import pairwise_sq_dists as jax_d2
+    from beyond_deep_ensembles_tpu.ops.svgd_kernel import rbf_phi as jax_phi
+
+    x = _particles(40, 700, seed=40)
+    g = np.random.RandomState(41).standard_normal(x.shape).astype(np.float32)
+    ref = np.asarray(jax_d2(jnp.asarray(x), use_pallas=False))
+    got = sk.pairwise_sq_dists(torch.from_numpy(x)).numpy()
+    top = float(np.max(np.sum(x.astype(np.float64) ** 2, axis=1)))
+    assert_close(got / top, ref / top, rtol=0, atol=1e-5, err_msg="d^2 / max diag G, n = 40")
+    ref = np.asarray(jax_phi(jnp.asarray(x), jnp.asarray(g), 1.0, 1000, use_pallas=False))
+    got = sk.rbf_phi(torch.from_numpy(x), torch.from_numpy(g), 1.0, 1000).numpy()
+    top = float(np.abs(ref).max())
+    assert_close(got / top, ref / top, rtol=0, atol=1e-5, err_msg="phi / max|phi|, n = 40")
 
 
 def test_summation_depth_follows_the_launch_shape():
@@ -257,6 +277,16 @@ def test_kernel_repeats_bit_for_bit(cuda_device):
     first = sk.gram(x)
     for _ in range(3):
         assert torch.equal(sk.gram(x), first)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_33_rows(cuda_device):
+    """K2 takes at most 32 rows; a CUDA tensor of 33 raises rather than
+    taking the plain product."""
+    launches = sk.gram.launches
+    with pytest.raises(ValueError, match="32"):
+        sk.gram(torch.ones(33, 4097, device=cuda_device))
+    assert sk.gram.launches == launches
 
 
 @pytest.mark.cuda

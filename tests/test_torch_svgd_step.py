@@ -42,6 +42,7 @@ from beyond_deep_ensembles_tpu_torch.methods.api import LossOutput
 from beyond_deep_ensembles_tpu_torch.methods.svgd import rbf, svgd_method
 from beyond_deep_ensembles_tpu_torch.models.jax_convert import particles_from_jax
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+from beyond_deep_ensembles_tpu_torch.utils.optim import SGD
 
 PARTICLES = 3
 CONFIG = {
@@ -144,10 +145,8 @@ def test_mle_parameters_bypass_the_stein_step():
     for i, (t, _) in enumerate(targets):
         state, _ = method.update(state, jax.random.key(i), (jnp.asarray(t), None))
 
-    port = svgd_method(
-        _tiny_port_loss, lambda params: (torch.optim.SGD(params, lr=lr), None), PARTICLES,
-        dataset_size=10, l2_reg=l2,
-    )
+    # the port's SGD without momentum or decay: optax.sgd(lr)
+    port = svgd_method(_tiny_port_loss, lambda params: (SGD(params, lr), None), PARTICLES, dataset_size=10, l2_reg=l2)
     pstate = port.init(torch.nn.ModuleList(_tiny_particle(w[i], rho[i]) for i in range(PARTICLES)))
     noise = NoiseSource.seeded(0)
     t0 = torch.from_numpy(targets[0][0])
@@ -168,20 +167,22 @@ def test_nonfinite_gradient_skips_params_momentum_and_schedule():
     noise = NoiseSource.seeded(0)
     built.state, m = built.method.update(built.state, noise, (xt, yt))
     assert math.isfinite(float(m["loss"]))
-    optimizer, scheduler = built.state.opt_state
+    # the port's SGD: momentum in one flat buffer, the schedule's count on the device
+    optimizer, _ = built.state.opt_state
     params = {k: p.detach().clone() for k, p in built.state.params.named_parameters()}
-    momentum = {k: optimizer.state[p]["momentum_buffer"].clone() for k, p in built.state.params.named_parameters()}
-    count = scheduler.last_epoch
+    momentum = optimizer.trace.clone()
+    count = int(optimizer.count)
+    assert count == 1 and bool(momentum.abs().sum() > 0)
 
     bad = xt.clone()
     bad[0] = float("nan")  # the whole image, so no crop misses it
     built.state, m = built.method.update(built.state, noise, (bad, yt))
     assert not math.isfinite(float(m["loss"]))
     assert built.state.step == 2
-    assert scheduler.last_epoch == count
+    assert int(optimizer.count) == count
+    assert torch.equal(optimizer.trace, momentum)
     for k, p in built.state.params.named_parameters():
         assert torch.equal(p.detach(), params[k]), k
-        assert torch.equal(optimizer.state[p]["momentum_buffer"], momentum[k]), k
 
 
 @pytest.mark.parametrize("h_override", [None, 5.0], ids=["median", "h_override"])
