@@ -1,13 +1,18 @@
-"""CIFAR-10 (+CIFAR-10-C) experiment: ResNet-20-FRN-swish under BBB or SVGD.
+"""CIFAR-10 (+CIFAR-10-C) experiment: ResNet-20-FRN-swish under MAP, MCD,
+SWAG, BBB or SVGD, and their Multi-X ensembles.
 
 Counterpart of ``beyond_deep_ensembles_tpu/experiments/cifar.py`` (reference
 experiments/cifar/{cifar.py,models.py,cifar.yaml}): SGD (momentum 0.9,
 nesterov) under the Wilson schedule stepped per epoch (``utils/optim.py``,
 state and lr on the device), crop + flip augmentation, 50 posterior samples
 at eval, the clean test split and the corrupted splits of every intensity in
-``corrupted_intensities``. Ported: the ``bbb`` variant and the ``svgd``
-variant (``svgd_particles`` plain ResNet-20s), each with one member; the
-others raise, as do checkpoints and the HMC baseline.
+``corrupted_intensities``. Ported: the ``map``, ``mcd`` (``p``), ``swag``
+(``swag_*``), ``bbb`` and ``svgd`` variants, each with ``members`` > 1 as a
+``deep_ensemble`` (``svgd`` with one member: its particles are its
+ensemble), periodic checkpoints with auto-resume and the ``{model}_final``
+artifact (``checkpoint_dir``, ``checkpoint_interval``), and
+``multix_phase``. ``laplace`` (and ``fit_laplace_phase``), ``ivon``,
+``rank1``, ``sngp``, the HMC baseline and data parallelism raise.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed. The data sets
 move to the device once, as NCHW float32. ``train`` runs, as in JAX, the
@@ -17,7 +22,8 @@ per host call; ``eval_model`` runs the whole test set through the eval
 runner under ``device_eval`` (the default on a card), or a host loop. The
 runners replay CUDA graphs on a card (``parallel/multistep.py``). Every
 path draws its noise in key mode from ``keys.fold_in`` of the seed: per
-step (``fold_in(seed, step)``), per epoch, per eval batch.
+step (``fold_in(seed, step)``), per epoch, per eval batch; an ensemble's
+members fold the step key with their index.
 """
 from __future__ import annotations
 
@@ -32,18 +38,23 @@ from torch import nn
 
 from .. import keys
 from ..data import cifar as cifar_data
+from ..data.native_loader import shuffled_indices
 from ..evals.classification import EvalResult, analyze_output, bayesian_model_average
 from ..methods.api import GaussianPrior, LossOutput, PosteriorMethod
 from ..methods.bbb import bbb_method
-from ..methods.ensemble import predict
+from ..methods.ensemble import deep_ensemble, predict
+from ..methods.map import map_method
 from ..methods.svgd import svgd_method
+from ..methods.swag import swag_method
 from ..models.resnet import ResNet20
 from ..nn.base import Model
 from ..nn.gaussian import NoiseSource
 from ..parallel.multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches
+from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.optim import SGD
 from ..utils.schedules import wilson_schedule
+from . import phases
 
 DEFAULT_CONFIG = {
     "batch_size": 128,
@@ -60,14 +71,18 @@ DEFAULT_CONFIG = {
     "subsample": None,
     "test_subsample": None,
     "seed": 0,
-    # the bbb and svgd variants' knobs (cifar.yaml defaults); the other
-    # methods' keys come with their ports
+    # the ported variants' knobs (cifar.yaml defaults); the other methods'
+    # keys come with their ports
+    "p": 0.1,  # MCD dropout
     "prior_std": 1.0,
     "bbb_mc_samples": 2,
     "kl_rescaling": 0.2,
+    "swag_deviation_samples": 30,
+    "swag_start_epoch": 250,
+    "swag_lr": 0.0005,  # also the Wilson schedule's final lr
     "svgd_particles": 5,
     "svgd_reg_scale": 0.0003,
-    "swag_lr": 0.0005,  # the Wilson schedule's final lr
+    "checkpoint_interval": 20,  # epochs between periodic saves (reference cifar.py:175-176)
     "dataset_size": 50_000,
 }
 
@@ -126,18 +141,25 @@ class BuiltExperiment:
     eval_runners: dict = dataclasses.field(default_factory=dict)
 
 
-def _resnet(config, generator: torch.Generator, conv_kind: str) -> ResNet20:
+def _resnet(config, generator: torch.Generator, conv_kind: str, dropout_p=None) -> ResNet20:
     if config.get("bf16"):
         raise NotImplementedError("bf16 compute: not ported yet")
-    return ResNet20(classes=10, activation="swish", norm="frn", conv_kind=conv_kind, generator=generator)
+    return ResNet20(classes=10, activation="swish", norm="frn", conv_kind=conv_kind, dropout_p=dropout_p,
+                    generator=generator)
+
+
+_PORTED = ("map", "mcd", "swag", "bbb", "svgd")
 
 
 def _not_ported(config: dict) -> None:
-    if config["model"] not in ("bbb", "svgd"):
+    if config["model"] in ("laplace", "ivon", "rank1", "sngp"):
         raise NotImplementedError(f"model {config['model']!r}: not ported yet")
-    if config.get("members", 1) != 1:
-        raise NotImplementedError("members > 1: not ported yet")
-    for key in ("use_hmc_baseline", "checkpoint_dir", "data_parallel"):
+    if config["model"] not in _PORTED:
+        raise ValueError(f"unknown model {config['model']!r}")
+    if config["model"] == "svgd" and config.get("members", 1) != 1:
+        # the JAX build ignores members for svgd; the port refuses
+        raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
+    for key in ("use_hmc_baseline", "data_parallel"):
         if config.get(key):
             raise NotImplementedError(f"{key}: not ported yet")
 
@@ -156,13 +178,20 @@ def build(
     steps_per_epoch: int = 390,
     device=None,
 ) -> BuiltExperiment:
-    """The model (initialized from ``generator``) and its method state. SVGD
-    initializes its ``svgd_particles`` particles from ``generator`` in turn."""
+    """The model(s), initialized from ``generator``, and the method state
+    (JAX ``build``, :202-333): ``map`` a plain ResNet-20 under
+    ``map_method``, ``mcd`` the same with ``dropout_p = p``, ``swag`` under
+    ``swag_method`` (a collection every ``max(1, steps_per_epoch *
+    max(1, epochs - swag_start_epoch) // 50)`` steps), ``bbb`` the BBB
+    ResNet-20, ``svgd`` its ``svgd_particles`` plain particles. With
+    ``members`` > 1, M models are initialized from ``generator`` in turn
+    and trained as a ``deep_ensemble``."""
     device = resolve_device(device)
     _not_ported(config)
+    name, members = config["model"], config.get("members", 1)
     augment = config.get("augment", True) and not _uses_epoch_runner(config)
     tx = _base_tx(config, steps_per_epoch)
-    if config["model"] == "svgd":
+    if name == "svgd":
         particles = nn.ModuleList(
             _resnet(config, generator, "plain") for _ in range(config["svgd_particles"])
         ).to(device)
@@ -175,17 +204,39 @@ def build(
             l2_reg=config["svgd_reg_scale"],
         )
         state = method.init(particles, {})
+        return BuiltExperiment(model, method, state, _predict_fn(model), device)
+
+    conv_kind = "bbb" if name == "bbb" else "plain"
+    dropout_p = config["p"] if name == "mcd" else None
+    modules = [_resnet(config, generator, conv_kind, dropout_p).to(device) for _ in range(members)]
+    model = Model(modules[0])
+    loss_fn = _xent_loss_fn(model, augment=augment)
+    if name in ("map", "mcd"):
+        method = map_method(loss_fn, tx)
+    elif name == "swag":
+        # mean_samples = 50 collected over the SWA epochs (cifar.yaml)
+        swag_epochs = max(1, config["epochs"] - config["swag_start_epoch"])
+        method = swag_method(
+            loss_fn,
+            tx,
+            update_interval=max(1, steps_per_epoch * swag_epochs // 50),
+            start_epoch=config["swag_start_epoch"],
+            deviation_samples=config["swag_deviation_samples"],
+        )
     else:
-        model = Model(_resnet(config, generator, "bbb").to(device))
         method = bbb_method(
-            _xent_loss_fn(model, augment=augment),
+            loss_fn,
             tx,
             GaussianPrior(0.0, config["prior_std"]),
             dataset_size=config["dataset_size"],
             mc_samples=config["bbb_mc_samples"],
             kl_rescaling=config["kl_rescaling"],
         )
-        state = method.init(model.module, {})
+    if members > 1:
+        method = deep_ensemble(method, members)
+        state = method.init(modules)
+    else:
+        state = method.init(modules[0], {})
     return BuiltExperiment(model, method, state, _predict_fn(model), device)
 
 
@@ -224,50 +275,76 @@ def train(
         (its own device permutation, one bulk augmentation pass, the
         remainder dropped);
       * otherwise each epoch walks ``shuffled_indices(n, seed * 1_000_003 +
-        epoch)`` and drops the last partial batch, step s (counted over the
+        epoch)`` (the JAX loader's SplitMix64 shuffle, ``data/native_loader.py``)
+        and drops the last partial batch, step s (counted over the
         run from 1) under ``fold_in(seed, s)``: with ``scan_steps`` > 1, every
         ``scan_steps`` batches go through the multi-step runner (under the key
         of the last) and the rest of an epoch through single updates.
 
-    One host read per epoch, the divergence check."""
+    With ``checkpoint_dir``, both paths resume from the latest
+    ``checkpoint_<epoch>`` there (the host loop's step count at ``start *
+    (n // batch_size)``, so the step keys go on as in JAX :421) and save one
+    every ``checkpoint_interval`` epochs, the file written behind the next
+    epoch and waited for when the loop ends, however it ends. One host read
+    per epoch, the divergence check."""
     method, state = built.method, built.state
     xd, yd = _to_device(built, x, y)
     seed, bs, n = config["seed"], config["batch_size"], xd.shape[0]
+    ckpt_dir = config.get("checkpoint_dir")
+    start = 0
+    if ckpt_dir:
+        state, resumed = ckpt.restore_checkpoint(ckpt_dir, state)
+        if resumed is not None:
+            start = resumed + 1
+            if log:
+                log(f"resumed from epoch {resumed}")
+
     if _uses_epoch_runner(config):
         transform = _bulk_augment if config.get("augment", True) else None
         runner = make_epoch_runner(method.update, n, bs, epoch_transform=transform)
-        for epoch in range(config["epochs"]):
-            state, metrics = runner(state, keys.fold_in(seed, epoch), (xd, yd))
-            state = _end_epoch(state, method, epoch, float(metrics["loss"]), log)
-        built.state = state
-        return built
 
-    scan_steps = config.get("scan_steps", 1)
-    multi = make_multi_step(method.update, scan_steps) if scan_steps > 1 else None
-    step = 0
-    for epoch in range(config["epochs"]):
-        order = torch.from_numpy(cifar_data.shuffled_indices(n, seed * 1_000_003 + epoch)).to(built.device)
-        losses, pending = [], []
-        for s in range(n // bs):
-            idx = order[s * bs : (s + 1) * bs]
-            batch = (xd[idx], yd[idx])
-            step += 1
-            if multi is not None:
-                pending.append(batch)
-                if len(pending) == scan_steps:
-                    state, metrics = multi(state, keys.fold_in(seed, step), stack_batches(pending))
-                    pending = []
-                    losses.append(metrics["loss"])
-                continue
+        def run_epoch(epoch, state):
+            state, metrics = runner(state, keys.fold_in(seed, epoch), (xd, yd))
+            return state, metrics["loss"]
+    else:
+        scan_steps = config.get("scan_steps", 1)
+        multi = make_multi_step(method.update, scan_steps) if scan_steps > 1 else None
+
+        def single(state, step, batch):
             noise = NoiseSource(key=keys.as_key(keys.fold_in(seed, step), built.device))
-            state, metrics = method.update(state, noise, batch)
-            losses.append(metrics["loss"])
-        for batch in pending:  # fewer than scan_steps left: single updates
-            step += 1
-            noise = NoiseSource(key=keys.as_key(keys.fold_in(seed, step), built.device))
-            state, metrics = method.update(state, noise, batch)
-            losses.append(metrics["loss"])
-        state = _end_epoch(state, method, epoch, float(torch.mean(torch.stack(losses))), log)
+            return method.update(state, noise, batch)
+
+        def run_epoch(epoch, state):
+            order = torch.from_numpy(shuffled_indices(n, seed * 1_000_003 + epoch)).to(built.device)
+            step, losses, pending = epoch * (n // bs), [], []
+            for s in range(n // bs):
+                idx = order[s * bs : (s + 1) * bs]
+                batch = (xd[idx], yd[idx])
+                step += 1
+                if multi is not None:
+                    pending.append(batch)
+                    if len(pending) == scan_steps:
+                        state, metrics = multi(state, keys.fold_in(seed, step), stack_batches(pending))
+                        pending = []
+                        losses.append(metrics["loss"])
+                    continue
+                state, metrics = single(state, step, batch)
+                losses.append(metrics["loss"])
+            for batch in pending:  # fewer than scan_steps left: single updates
+                step += 1
+                state, metrics = single(state, step, batch)
+                losses.append(metrics["loss"])
+            return state, torch.mean(torch.stack(losses))
+
+    try:
+        for epoch in range(start, config["epochs"]):
+            state, loss = run_epoch(epoch, state)
+            state = _end_epoch(state, method, epoch, float(loss), log)
+            if ckpt_dir and (epoch + 1) % config.get("checkpoint_interval", 20) == 0:
+                ckpt.save_checkpoint(ckpt_dir, epoch, state, async_save=True)
+    finally:
+        if ckpt_dir:
+            ckpt.wait_for_async_saves(ckpt_dir)
     built.state = state
     return built
 
@@ -316,22 +393,64 @@ def eval_model(
     return EvalResult.create(correct, conf, ll, bin_count=config["ece_bins"])
 
 
+def _load_data(config: dict):
+    """The run's splits and its config with ``dataset_size`` set."""
+    x_train, y_train = cifar_data.load_cifar10(True, subsample=config["subsample"])
+    x_test, y_test = cifar_data.load_cifar10(False, subsample=config["test_subsample"])
+    return {**config, "dataset_size": x_train.shape[0]}, (x_train, y_train), (x_test, y_test)
+
+
+def _build_for(config: dict, device) -> BuiltExperiment:
+    """``build`` as ``run_single`` calls it: the seed's generator, the
+    steps an epoch of ``dataset_size`` images takes."""
+    steps_per_epoch = max(1, config["dataset_size"] // config["batch_size"])
+    return build(config, torch.Generator().manual_seed(config["seed"]), steps_per_epoch, device=device)
+
+
 def run_single(config: dict, log=None, device=None) -> dict:
     """Train + eval on the clean test split and on the corrupted split of
     every intensity in ``corrupted_intensities``; returns the metric dicts
-    by split (``test``, ``corrupted{i}``)."""
+    by split (``test``, ``corrupted{i}``). With ``checkpoint_dir`` the
+    trained state is saved there as ``{model}_final`` (reference
+    cifar.py:98)."""
     config = {**DEFAULT_CONFIG, **config}
     _not_ported(config)
     device = resolve_device(device)
-    x_train, y_train = cifar_data.load_cifar10(True, subsample=config["subsample"])
-    x_test, y_test = cifar_data.load_cifar10(False, subsample=config["test_subsample"])
-    config["dataset_size"] = x_train.shape[0]
-    steps_per_epoch = max(1, x_train.shape[0] // config["batch_size"])
-    generator = torch.Generator().manual_seed(config["seed"])
-    built = build(config, generator, steps_per_epoch, device=device)
-    built = train(built, config, x_train, y_train, log=log)
+    config, (x_train, y_train), (x_test, y_test) = _load_data(config)
+    built = train(_build_for(config, device), config, x_train, y_train, log=log)
+    if config.get("checkpoint_dir"):
+        ckpt.save_final(config["checkpoint_dir"], config["model"], built.state)
     results = {"test": eval_model(built, config, x_test, y_test).as_dict()}
     for intensity in config.get("corrupted_intensities") or []:
         xc, yc = cifar_data.load_cifar10_corrupted(intensity, subsample=config["test_subsample"])
         results[f"corrupted{intensity}"] = eval_model(built, config, xc, yc).as_dict()
     return results
+
+
+def _rebuild(config: dict, device=None):
+    """A run's experiment built afresh, untrained, with its splits (JAX
+    ``_rebuild``, :643-650)."""
+    config = {**DEFAULT_CONFIG, **config}
+    _not_ported(config)
+    device = resolve_device(device)
+    config, train_split, test_split = _load_data(config)
+    return config, _build_for(config, device), train_split, test_split
+
+
+def fit_laplace_phase(config: dict, run_dir: str, log=None, device=None) -> dict:
+    """Post-hoc Laplace on a saved ``{model}_final`` (JAX :653-669): waits
+    for ``methods/laplace.py``."""
+    raise NotImplementedError("fit_laplace_phase: methods/laplace.py is not ported yet")
+
+
+def multix_phase(config: dict, run_dirs, leave_out: Optional[int] = None, log=None, device=None) -> dict:
+    """Multi-X from independently trained ``{model}_final`` states, one per
+    run directory, ``leave_out`` (an index into ``run_dirs``) left out
+    (reference eval_ensembles' leave-one-out; JAX :672-685): the test
+    split's metrics."""
+    config, built, _, (x_test, y_test) = _rebuild(dict(config), device)
+    states = phases.load_members(run_dirs, config["model"], lambda: _build_for(config, built.device).state)
+    built.method, built.state = phases.multix_from_checkpoints(built.method, states, leave_out=leave_out)
+    if log:
+        log(f"multix: {len(run_dirs)} members, leave_out={leave_out}")
+    return {"test": eval_model(built, config, x_test, y_test).as_dict()}

@@ -5,8 +5,9 @@ A key is an integer in [0, 2^62): a Python int on the host (a run's seed,
 folded with an epoch or a step), or a 0-dim int64 tensor on the device
 inside a step, where a captured graph reads it from memory at every replay.
 
-  * :func:`fold_in` (host ints) derives a key from a key and an integer, as
-    ``jax.random.fold_in`` does;
+  * :func:`fold_in` derives a key from a key and an integer, as
+    ``jax.random.fold_in`` does: on host ints, or on a device key inside a
+    step (an ensemble's member keys, ``methods/ensemble.py``);
   * :func:`advance` steps a key to the next, on ints and on tensors alike
     (a 62-bit xorshift: a bijection, so distinct keys stay distinct); a
     runner advances its device key once per step, inside the graph, where
@@ -40,10 +41,12 @@ def advance(key: Key) -> Key:
     return key ^ ((key & (MASK >> 17)) << 17)
 
 
-def fold_in(key: int, data: int) -> int:
-    """A host key derived from ``key`` and ``data`` in [0, 2^32) (an epoch,
-    a step, a batch index)."""
-    if not 0 <= key <= MASK or not 0 <= data <= _M32:
+def fold_in(key: Key, data: int) -> Key:
+    """A key derived from ``key`` and ``data`` in [0, 2^32) (an epoch, a
+    step, a batch index, a member): a host int from a host int, a new
+    device tensor from a 0-dim int64 tensor (computed on the device, so a
+    captured graph derives it afresh from the key it reads)."""
+    if not 0 <= data <= _M32 or (not isinstance(key, torch.Tensor) and not 0 <= key <= MASK):
         raise ValueError(f"fold_in takes a key in [0, 2^62) and data in [0, 2^32), got {key}, {data}")
     return advance(advance(key ^ (_mix32(data) << 30)))
 

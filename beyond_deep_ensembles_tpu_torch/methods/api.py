@@ -53,13 +53,58 @@ LossFn = Callable[..., LossOutput]  # (params, model_state, noise, batch) -> Los
 class MethodState:
     """Common chassis for posterior-method state. Unlike the JAX package's
     immutable pytree, it is updated in place: ``params`` is the live model
-    module and the optimizer steps it."""
+    module and the optimizer steps it.
+
+    Every state says which tensors its update writes
+    (:meth:`written_tensors`: the runners save and restore them around a
+    capture's warm-up) and has a flat ``state_dict`` of tensors that
+    :meth:`load_state_dict` copies back in place (the checkpoints). Methods
+    that keep more state extend both."""
 
     params: nn.Module
     model_state: dict
     opt_state: Any
     step: int = 0
     epoch: int = 0
+
+    def written_tensors(self) -> list:
+        """Every tensor an update writes in place: the parameters and the
+        optimizer's buffers and count."""
+        optimizer = self.opt_state[0]
+        if not hasattr(optimizer, "tensors"):
+            raise TypeError(
+                f"capturing a step needs an optimizer whose state exists before its first step "
+                f"(utils.optim.SGD), not {type(optimizer).__name__}"
+            )
+        return [p.detach() for p in self.params.parameters()] + list(optimizer.tensors())
+
+    def state_dict(self) -> dict:
+        """``params.*`` (the module's), ``opt.*`` (the optimizer's), ``step``
+        and ``epoch``: the live tensors, not copies."""
+        if self.model_state:
+            raise NotImplementedError("checkpoints of a non-empty model state: not ported yet")
+        out = {f"params.{k}": v for k, v in self.params.state_dict().items()}
+        out.update({f"opt.{k}": v for k, v in self.opt_state[0].state_dict().items()})
+        out["step"] = torch.tensor(self.step, dtype=torch.int64)
+        out["epoch"] = torch.as_tensor(self.epoch).to(torch.int64)
+        return out
+
+    def load_state_dict(self, state: dict) -> None:
+        """Copies ``state`` (a :meth:`state_dict`, on any device) into this
+        state's tensors in place, so that the optimizer's views and a
+        captured graph's addresses stay valid; the keys must match."""
+        mine = self.state_dict()
+        if mine.keys() != state.keys():
+            raise KeyError(f"state keys differ: {sorted(mine.keys() ^ state.keys())}")
+        self.params.load_state_dict(
+            {k[len("params."):]: v for k, v in state.items() if k.startswith("params.")}, strict=True)
+        self.opt_state[0].load_state_dict({k[len("opt."):]: v for k, v in state.items() if k.startswith("opt.")})
+        self.step = int(state["step"])
+        if isinstance(self.epoch, torch.Tensor):
+            with torch.no_grad():
+                self.epoch.copy_(state["epoch"])
+        else:
+            self.epoch = int(state["epoch"])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,10 +2,12 @@
 
 Counterpart of ``beyond_deep_ensembles_tpu/models/resnet.py`` (``BasicBlock``,
 ``ResNet20``), in NCHW. Ported: ``conv_kind`` ``"bbb"`` (variational FRN)
-and ``"plain"`` (FRN) with ``norm="frn"`` and swish on 32x32 inputs; the
-other activations, norms, dropout, other head kinds, smaller inputs and the
-other architectures are not ported yet. As in JAX: no norm after the stem,
-an 8x8 average pool, a dense head of the conv kind.
+and ``"plain"`` (FRN) with ``norm="frn"`` and swish on 32x32 inputs, and
+``dropout_p`` (MC-Dropout: a ``FixableDropout(p)`` after the stem and after
+each conv of each block, the skip's included); the other activations,
+norms, other head kinds, smaller inputs and the other architectures are not
+ported yet. As in JAX: no norm after the stem, an 8x8 average pool, a dense
+head of the conv kind.
 """
 from __future__ import annotations
 
@@ -13,7 +15,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from typing import Optional
+
 from ..nn.base import add_auto_named
+from ..nn.dropout import FixableDropout
 from ..nn.frn import FilterResponseNorm, VariationalFilterResponseNorm
 from .layers import call_layer, make_conv, make_dense
 
@@ -51,9 +56,9 @@ def _norm_kind(norm: str, conv_kind: str) -> str:
 
 
 class BasicBlock(nn.Module):
-    """Reference BasicBlock (resnet.py:56-84): conv-norm-act-conv-norm, a 1x1
-    stride-s projection skip of the conv kind, without bias, when the stride
-    is not 1."""
+    """Reference BasicBlock (resnet.py:56-84): conv-(dropout)-norm-act-conv-
+    (dropout)-norm, a 1x1 stride-s projection skip of the conv kind, without
+    bias and followed by its own dropout, when the stride is not 1."""
 
     def __init__(
         self,
@@ -63,6 +68,7 @@ class BasicBlock(nn.Module):
         activation: str,
         norm: str,
         conv_kind: str,
+        dropout_p: Optional[float] = None,
         *,
         generator: torch.Generator,
     ):
@@ -77,22 +83,31 @@ class BasicBlock(nn.Module):
             )
             return add_auto_named(self, layer)
 
-        conv1 = conv(in_features, 3, stride, 1)
+        def drop():
+            return None if dropout_p is None else add_auto_named(self, FixableDropout(dropout_p))
+
+        conv1, drop1 = conv(in_features, 3, stride, 1), drop()
         norm1 = add_auto_named(self, _Norm(nk, features, generator=generator))
-        conv2 = conv(features, 3, 1, 1)
+        conv2, drop2 = conv(features, 3, 1, 1), drop()
         norm2 = add_auto_named(self, _Norm(nk, features, generator=generator))
-        skip = conv(in_features, 1, stride, 0, use_bias=False) if stride != 1 else None
+        skip = drop3 = None
+        if stride != 1:
+            skip, drop3 = conv(in_features, 1, stride, 0, use_bias=False), drop()
         # a tuple keeps the references out of the state_dict (one key per parameter)
-        self._layers = (conv1, norm1, conv2, norm2, skip)
+        self._layers = (conv1, drop1, norm1, conv2, drop2, norm2, skip, drop3)
 
     def forward(self, x, noise, train: bool = True):
-        conv1, norm1, conv2, norm2, skip = self._layers
-        h = call_layer(conv1, x, noise, train)
+        conv1, drop1, norm1, conv2, drop2, norm2, skip, drop3 = self._layers
+        h = _drop(drop1, call_layer(conv1, x, noise, train), noise, train)
         h = self.act(norm1(h, noise, train=train))
-        h = call_layer(conv2, h, noise, train)
+        h = _drop(drop2, call_layer(conv2, h, noise, train), noise, train)
         h = norm2(h, noise, train=train)
-        skip = x if skip is None else call_layer(skip, x, noise, train)
+        skip = x if skip is None else _drop(drop3, call_layer(skip, x, noise, train), noise, train)
         return self.act(h + skip)
+
+
+def _drop(layer, h, noise, train: bool):
+    return h if layer is None else layer(h, noise, train=train)
 
 
 class ResNet20(nn.Module):
@@ -106,6 +121,7 @@ class ResNet20(nn.Module):
         activation: str,
         norm: str,
         conv_kind: str,
+        dropout_p: Optional[float] = None,
         *,
         generator: torch.Generator,
     ):
@@ -113,21 +129,22 @@ class ResNet20(nn.Module):
         stem = add_auto_named(
             self, make_conv(conv_kind, 3, 16, (3, 3), strides=1, padding=1, generator=generator)
         )
+        drop = None if dropout_p is None else add_auto_named(self, FixableDropout(dropout_p))
         widths = [(16, 1), (16, 1), (16, 1), (32, 2), (32, 1), (32, 1), (64, 2), (64, 1), (64, 1)]
         blocks, cin = [], 16
         for features, stride in widths:
             blocks.append(add_auto_named(
                 self,
-                BasicBlock(cin, features, stride, activation, norm, conv_kind, generator=generator),
+                BasicBlock(cin, features, stride, activation, norm, conv_kind, dropout_p, generator=generator),
             ))
             cin = features
         head = add_auto_named(self, make_dense(conv_kind, 64, classes, generator=generator))
         # a tuple keeps the references out of the state_dict (one key per parameter)
-        self._layers = (stem, tuple(blocks), head)
+        self._layers = (stem, drop, tuple(blocks), head)
 
     def forward(self, x, noise, train: bool = True):
-        stem, blocks, head = self._layers
-        h = call_layer(stem, x, noise, train)
+        stem, drop, blocks, head = self._layers
+        h = _drop(drop, call_layer(stem, x, noise, train), noise, train)
         for block in blocks:
             h = block(h, noise, train=train)
         h = F.avg_pool2d(h, 8).flatten(1)  # [B, 64, 1, 1] -> [B, 64]

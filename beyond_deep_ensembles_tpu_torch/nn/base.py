@@ -8,6 +8,8 @@ state_dict key is the flax parameter path joined with dots.
 """
 from __future__ import annotations
 
+from typing import Mapping
+
 import torch
 from torch import nn
 
@@ -29,7 +31,9 @@ class Model:
 
     apply(params, model_state, noise, *inputs, train) -> (out, kl, new_model_state)
 
-    ``params`` is the module to run (a method's live parameters). ``noise``
+    ``params`` is the module to run (a method's live parameters), or a
+    mapping from parameter names to tensors (a SWAG draw), which runs
+    through :attr:`module` by ``torch.func.functional_call``. ``noise``
     feeds every stochastic layer. No layer on the ported path computes its
     own KL, so ``kl`` is zero; the methods collect the Gaussian KL from the
     parameters.
@@ -38,7 +42,10 @@ class Model:
     def __init__(self, module: nn.Module):
         self.module = module
 
-    def apply(self, params: nn.Module, model_state, noise: NoiseSource, *inputs, train: bool = True):
-        out = params(*inputs, noise=noise, train=train)
+    def apply(self, params, model_state, noise: NoiseSource, *inputs, train: bool = True):
+        if isinstance(params, Mapping):
+            out = torch.func.functional_call(self.module, dict(params), inputs, {"noise": noise, "train": train})
+        else:
+            out = params(*inputs, noise=noise, train=train)
         kl = torch.zeros((), dtype=torch.float32, device=out.device)
         return out, kl, model_state or {}

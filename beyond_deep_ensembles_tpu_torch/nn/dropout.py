@@ -8,8 +8,9 @@ reference, is NOT rescaled by 1/(1-p) (dropout.py:18-20); otherwise every
 element draws its own mask and the kept ones are rescaled, in train and eval.
 
 The masks come from the forward's :class:`~.gaussian.NoiseSource`
-(``keep_mask``): drawn on the device from its generator, or handed in, in
-call order, by a test.
+(``keep_mask``): drawn on the device from its generator or, in key mode,
+from counter-hash bits of the device key (so a captured step draws afresh
+at each replay), or handed in, in call order, by a test.
 """
 from __future__ import annotations
 

@@ -84,9 +84,12 @@ class NoiseSource:
     (:class:`DeviceSeed`); the per-example draws of
     ``VariationalFilterResponseNorm`` and frozen rows are taken in turn from
     chunks of :data:`_POOL` counter-hash normals (``keys.normal``, one chunk
-    drawn per 2^20 values); :meth:`crops` gives augmentation draws. Dropout
-    masks and attention seeds have no key mode yet (the WILDS path keeps its
-    host seeds) and raise.
+    drawn per 2^20 values); :meth:`crops` gives augmentation draws and
+    :meth:`keep_mask` dropout masks, each from ``keys.bits`` on the key's
+    stream of the draw's index (uniform bits, for any size). Attention seeds
+    have no key mode yet (the WILDS path keeps its host seeds) and raise.
+    :meth:`member` gives an ensemble member its own source: in key mode one
+    of the key ``fold_in(key, m)``, so no two members draw the same noise.
 
     At eval with ``freeze_on_eval`` one noise row is broadcast over the
     batch (reference bbb_layers.py:76-78), so one posterior sample behaves
@@ -129,6 +132,15 @@ class NoiseSource:
     def seed(self) -> int:
         """A fresh Philox seed for one kernel launch."""
         return int(torch.randint(0, 2**62, (1,), generator=self.generator))
+
+    def member(self, index: int) -> "NoiseSource":
+        """The source of ensemble member ``index``: in key mode a new source
+        on the device key ``fold_in(key, index)`` (the JAX ensemble splits
+        its step key per member); in generator and given mode this source,
+        whose draws the members then take in turn."""
+        if self.key is None:
+            return self
+        return NoiseSource(key=keys.fold_in(self.key.reshape(()), index))
 
     def _refuse_key_mode(self, what: str) -> None:
         if self.key is not None:
@@ -196,11 +208,15 @@ class NoiseSource:
 
     def keep_mask(self, shape, device, rate: float) -> torch.Tensor:
         """A dropout layer's keep mask of ``shape``: bool, each element kept
-        with probability 1 - ``rate`` (``u >= rate`` for u uniform on the
-        device's generator), or the next given mask."""
+        with probability 1 - ``rate`` (``u >= rate`` for u uniform: on the
+        device's generator, or, in key mode, the top 24 of ``keys.bits``
+        on the key's stream of this draw's index), or the next given mask."""
         if self._given is not None:
             return self._take(shape).to(device=device, dtype=torch.bool)
-        self._refuse_key_mode("dropout masks")
+        if self.key is not None:
+            h = keys.bits(self.key.reshape(()), self.draws, math.prod(shape))
+            self.draws += 1
+            return ((h >> 8).to(torch.float32) * 2.0**-24 >= rate).reshape(tuple(shape))
         self.draws += 1
         return torch.rand(tuple(shape), generator=self._device_generator(device), device=device) >= rate
 

@@ -16,9 +16,10 @@ Capture, on a card:
   * warm-up: two updates on a side stream, so that cuDNN and cuBLAS have
     chosen their algorithms and workspaces, Triton has compiled K1 and K2's
     counter is zeroed (``ops/svgd_kernel.py``) before capture; the warm-up
-    changes the state, so every tensor the update writes (the parameters,
-    the optimizer's buffers and count) is saved before and written back
-    after, with ``state.step``;
+    changes the state, so every tensor the update writes, as the state
+    lists them (``written_tensors``: the parameters, the optimizer's
+    buffers and count, SWAG's moments, ring and counters, every ensemble
+    member's), is saved before and written back after, with ``state.step``;
   * one update captured, its metrics added into device sums and the key
     advanced (``keys.advance``) inside the graph, as ``make_multi_step``
     splits its key into one per step;
@@ -65,15 +66,33 @@ def eager_steps(update: Callable, state, key: int, batches):
 
 
 def _written_tensors(state):
-    """Every tensor an update writes in place: the parameters and the
-    optimizer's buffers and count."""
-    optimizer = state.opt_state[0]
-    if not hasattr(optimizer, "tensors"):
-        raise TypeError(
-            f"capturing a step needs an optimizer whose state exists before its first step "
-            f"(utils.optim.SGD), not {type(optimizer).__name__}"
-        )
-    return [p.detach() for p in state.params.parameters()] + list(optimizer.tensors())
+    """Every tensor an update writes in place, as the state itself lists
+    them (``MethodState.written_tensors``: the parameters and the
+    optimizer's buffers; SWAG's moments, ring and counters besides; an
+    ensemble's, every member's)."""
+    written = getattr(state, "written_tensors", None)
+    if written is None:
+        raise TypeError(f"a {type(state).__name__} does not list the tensors its update writes")
+    return written()
+
+
+def _warm_up(update: Callable, state, key: torch.Tensor, batch: Tuple[torch.Tensor, ...]) -> dict:
+    """``_WARMUP`` updates, after which every tensor the update writes
+    (:func:`_written_tensors`) and ``state.step`` are as they were: so that
+    cuDNN, cuBLAS and the kernels have made their first calls before a
+    capture, on the state the capture will hold. Returns the last
+    metrics."""
+    written = _written_tensors(state)
+    with torch.no_grad():
+        saved = [t.clone() for t in written]
+    step = state.step
+    for _ in range(_WARMUP):
+        _, metrics = update(state, NoiseSource(key=key), batch)
+    with torch.no_grad():
+        for t, s in zip(written, saved):
+            t.copy_(s)
+    state.step = step
+    return metrics
 
 
 class _StepGraph:
@@ -84,26 +103,19 @@ class _StepGraph:
         self.state = state
         self.batch = tuple(t.clone() for t in batch)
         self.key = torch.zeros((), dtype=torch.int64, device=device)
-        written = _written_tensors(state)
-        with torch.no_grad():
-            saved = [t.clone() for t in written]
-        step = state.step
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            for _ in range(_WARMUP):
-                _, metrics = update(state, NoiseSource(key=self.key), self.batch)
+            metrics = _warm_up(update, state, self.key, self.batch)
         torch.cuda.current_stream(device).wait_stream(side)
         self.sums = {name: torch.zeros_like(value) for name, value in metrics.items()}
+        step = state.step
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph):  # records the writes; runs none of them
             _, metrics = update(state, NoiseSource(key=self.key), self.batch)
             for name, value in metrics.items():
                 self.sums[name].add_(value)
             self.key.copy_(keys.advance(self.key))
-        with torch.no_grad():
-            for t, s in zip(written, saved):
-                t.copy_(s)
         state.step = step
 
     def run(self, key: int, batches) -> dict:

@@ -67,6 +67,28 @@ class SGD:
         """Every tensor a step writes: parameters, momentum, count."""
         return [self.flat, self.trace, self.count]
 
+    def state_dict(self) -> dict:
+        """The flat parameter and momentum buffers, the count and the lr
+        (the live tensors, not copies)."""
+        return {"flat": self.flat, "trace": self.trace, "count": self.count,
+                "lr": torch.tensor(self.lr0, dtype=torch.float64)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copies a :meth:`state_dict` into the buffers in place: the
+        parameters are views of :attr:`flat`, and a captured graph holds the
+        buffers' addresses. The lr is a host number that a graph captured
+        before the load keeps."""
+        if state.keys() != {"flat", "trace", "count", "lr"}:
+            raise KeyError(f"an SGD state has flat, trace, count and lr, got {sorted(state)}")
+        for name in ("flat", "trace", "count"):
+            mine, theirs = getattr(self, name), state[name]
+            if mine.shape != theirs.shape or mine.dtype != theirs.dtype:
+                raise ValueError(f"SGD {name}: {tuple(theirs.shape)} {theirs.dtype} does not fit "
+                                 f"{tuple(mine.shape)} {mine.dtype}")
+            mine.copy_(theirs)
+        self.lr0 = float(state["lr"])
+
     def zero_grad(self, set_to_none: bool = True) -> None:
         del set_to_none  # gradients are always dropped: the step gathers them
         for p in self.params:

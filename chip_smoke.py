@@ -57,7 +57,7 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      held against the CPU path from the same weights;
   7b. the CUDA-graph runners (``parallel/multistep.py``), for BBB and for
      SVGD: ``run_single`` as configs/cifar.yaml writes it (DEFAULT's
-     corrupted intensities 0-4) with ``device_data``, one epoch of 300 steps
+     corrupted intensities 0-4) with ``device_data``, one epoch of 100 steps
      replayed from one captured graph and the test split and five corrupted
      splits (1000 images each, S = 50) through the eval runner, every count
      set to 0 before and read after (warm-ups and captures count, replays
@@ -68,6 +68,20 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      profile, the kernels a replay launches (K1: 88 a BBB step; K2: 1 an
      SVGD step), and the eval runner against the host loop, warm, beside the
      card's name and power limit;
+  7c. the Multi-X slice (configs/cifar.yaml's DeepEnsemble, MultiBBB,
+     MultiMCD and MultiSWAG at 5 members, MCD and SWAG at one): each through
+     ``run_single`` with ``device_data``, cut to 2 epochs of 20 steps and
+     1000 images per split (SWAG's start epoch in proportion), every count
+     set to 0 before and read after (K1 only on MultiBBB), SWAG's
+     collections per member from its saved final; 4 captured steps against
+     4 eager ones bit for bit (DeepEnsemble, MultiBBB, MCD: its key-mode
+     masks); steady steps eager and captured, a profile of the captured ones
+     (MultiBBB: K1 440 launches a replay) and the eval runner against the host loop
+     (DeepEnsemble, MultiBBB, MultiSWAG); a DeepEnsemble step and MultiBBB's
+     log-probs on the card against the CPU; a MultiSWAG run stopped after
+     epoch 1 and resumed from its checkpoint against an uninterrupted one,
+     bit for bit; ``multix_phase`` over three saved ``map_final`` runs
+     against ``eval_model`` of the same ensemble;
   8. the DistilBERT slice: the ``MCD`` variant of configs/amazon.yaml
      (distilbert-base, full-model MC-Dropout, L = 512, random weights from a
      seed) through ``experiments/wilds_task.py`` ``build`` -> ``train`` (10
@@ -76,7 +90,8 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      per step, exactly; 20 steady steps and a profile of 3; then the ``MAP``
      variant the same way; the card's MCD logits and one Adam step held
      against the CPU path with the same weights and masks;
-  9. the runner figures as one JSON line, the card's name and power limit,
+  9. the runner figures and the Multi-X figures as JSON lines, the card's
+     name and power limit,
      one JSON line of kernel figures (K1, K2, K3a, K3b), then the result
      line ``{"ok": true, "device": {...}}``.
 Exits non-zero and prints no result without CUDA or without the package
@@ -118,12 +133,38 @@ TRAIN_STEPS = 10
 # configs/cifar.yaml's DEFAULT block beyond the port's DEFAULT_CONFIG
 YAML_DEFAULT = {"corrupted_intensities": [0, 1, 2, 3, 4]}
 # the runner phase: device_data (the epoch runner, the eval runner), one
-# epoch of 300 steps at batch 128 on synthetic images, 1000 test images per
+# epoch of 100 steps at batch 128 on synthetic images, 1000 test images per
 # split at S = 50, eval batch 500; then COMPARE_STEPS captured steps against
 # eager ones and TIMED_STEPS of each timed
-RUNNER = {"epochs": 1, "subsample": 300 * 128, "test_subsample": 1000, "seed": 0, "device_data": True}
+RUNNER = {"epochs": 1, "subsample": 100 * 128, "test_subsample": 1000, "seed": 0, "device_data": True}
 COMPARE_STEPS = 4
 TIMED_STEPS = 20
+# the Multi-X phase: configs/cifar.yaml's variants (DEFAULT's lr, weight
+# decay and schedule are the port's DEFAULT_CONFIG), each through run_single
+# with device_data, cut to MULTIX (epochs and data size only): 2 epochs of 20
+# steps at batch 128, the test split and five corrupted splits of 1000
+# images at S = 50; SWAG's start epoch cut in proportion (250 of 300 -> 1 of
+# 2), so each member collects the last epoch's 20 steps
+MULTIX_VARIANTS = [
+    ("DeepEnsemble", {"model": "map", "members": 5}),
+    ("MultiBBB", {"model": "bbb", "members": 5, "prior_std": 1.0, "weight_decay": 0.0, "bbb_mc_samples": 2,
+                  "kl_rescaling": 0.2}),
+    ("MultiMCD", {"model": "mcd", "members": 5, "p": 0.1}),
+    ("MultiSWAG", {"model": "swag", "members": 5, "swag_deviation_samples": 30, "swag_start_epoch": 250,
+                   "swag_lr": 0.0005}),
+    ("MCD", {"model": "mcd", "members": 1, "p": 0.1}),
+    ("SWAG", {"model": "swag", "members": 1, "swag_deviation_samples": 30, "swag_start_epoch": 250,
+              "swag_lr": 0.0005}),
+]
+MULTIX = {"epochs": 2, "subsample": 20 * 128, "test_subsample": 1000, "seed": 0, "device_data": True}
+MULTIX_SWAG_START = MULTIX["epochs"] * 250 // 300
+MULTIX_EAGER_STEPS = 10  # an eager MultiBBB step takes about a second
+# resume: MultiSWAG over 3 epochs of 10 steps, collecting from epoch 1;
+# multix: three MAP runs of one epoch of 10 steps, the test split only
+RESUME = {"epochs": 3, "subsample": 10 * 128, "test_subsample": 100, "seed": 0, "device_data": True,
+          "swag_start_epoch": 1}
+MULTIX_CHECK = {"epochs": 1, "subsample": 10 * 128, "test_subsample": 1000, "seed": 0, "device_data": True,
+                "corrupted_intensities": []}
 # K2's shapes: the SVGD slice's particle matrix (5 particles of ResNet-20's
 # 273,610 parameters), the JAX package's upper end (20 particles of 25 M),
 # ragged P, one row
@@ -579,21 +620,29 @@ def profile_steps(torch, step, ours, steps=3, label="train steps"):
     wait in ``aten::_local_scalar_dense`` (a NaN guard's or a loss's read).
     Returns {"kernels": kernels per step, "launches": {name in ``ours``:
     launches per step}, "busy": the device's busy share}, or None where the
-    trace has no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    trace has no device time. The trace starts with a warm-up period, one
+    small kernel traced and discarded: without it the tracer once missed
+    the first kernels of a window that opened on a graph replay (one of
+    each of a BBB forward's first layers)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()  # the window: only what follows is reported
         t0 = time.perf_counter()
         for i in range(steps):
             step(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     averages = prof.key_averages()
     # kernels only: a record_function range (the optimizer's step) also
     # carries device time, that of the kernels inside it
     kernels = [e for e in averages if "CUDA" in str(e.device_type) and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)]
+               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("ProfilerStep")]
     device_us = sum(e.self_device_time_total for e in kernels)
     if device_us <= 0:
         print("profile: no device time in the trace (not measured)")
@@ -747,7 +796,7 @@ def runner_counts_check(label, counts, config):
 def runner_phase(torch, cifar, kernels, variant, label, ours):
     """``variant`` through ``run_single`` as configs/cifar.yaml writes it
     (DEFAULT's corrupted intensities) with ``device_data``: the epoch runner
-    (one epoch of 300 replayed steps) and the eval runner (the test split and
+    (one epoch of 100 replayed steps) and the eval runner (the test split and
     five corrupted splits, one capture), every count set to 0 just before and
     read just after. Then, on a model built afresh (the loss augmenting per
     step, as the scan_steps path runs it): COMPARE_STEPS captured steps
@@ -779,7 +828,7 @@ def runner_phase(torch, cifar, kernels, variant, label, ours):
         check(all(math.isfinite(v) for v in m.values()) and 0.0 <= m["accuracy"] <= 1.0 and m["avg_log_likelihood"] < 0.0,
               f"{label} {split}: metrics finite and in range: {json.dumps(m)}")
     runner_counts_check(label, counts, config)
-    print(f"{label} run_single: 300 replayed steps + 6 splits x 1000 images x S {config['eval_samples']} in {wall:.1f} s "
+    print(f"{label} run_single: {RUNNER['subsample'] // config['batch_size']} replayed steps + 6 splits x 1000 images x S {config['eval_samples']} in {wall:.1f} s "
           f"(data made, kernels compiled and graphs captured in it) [{CARD}]")
 
     dev = torch.device("cuda")
@@ -903,6 +952,335 @@ def runner_phase(torch, cifar, kernels, variant, label, ours):
     return {"run_single_s": wall, "steps": times, "profiles": profiles, "eval_samples_per_s": figures,
             "eval_busy": eval_profile and eval_profile["busy"], "captured_equals_eager_bitwise": bitwise,
             "captured_vs_eager_param_err": param_err, "host_counts": counts}
+
+
+def _variant_runs(torch, cifar, kernels):
+    """The six variants through ``run_single`` (MULTIX cut, device_data, the
+    test split and DEFAULT's five corrupted splits of 1000 images, S = 50),
+    every count set to 0 just before each and read just after; SWAG's
+    ``updates`` per member read from the run's saved ``swag_final``.
+    Returns {label: {"wall_s", "host_counts", "updates"}}."""
+    runs = {}
+    per_forward = len(bbb_shapes(1))
+    splits = ["test"] + [f"corrupted{i}" for i in YAML_DEFAULT["corrupted_intensities"]]
+    for label, variant in MULTIX_VARIANTS:
+        config = {**cifar.DEFAULT_CONFIG, **YAML_DEFAULT, **variant, **MULTIX}
+        if "swag_start_epoch" in variant:
+            config["swag_start_epoch"] = MULTIX_SWAG_START
+            config["checkpoint_dir"] = os.path.join(BUILD, "multix_runs", label)
+            print(f"{label}: swag_start_epoch cut from {variant['swag_start_epoch']} of "
+                  f"{cifar.DEFAULT_CONFIG['epochs']} epochs to {MULTIX_SWAG_START} of {MULTIX['epochs']}")
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = cifar.run_single(config, log=print)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        check(list(results) == splits, f"{label} run_single (device_data): splits {list(results)}")
+        for split, m in results.items():
+            check(all(math.isfinite(v) for v in m.values()) and 0.0 <= m["accuracy"] <= 1.0
+                  and m["avg_log_likelihood"] < 0.0, f"{label} {split}: metrics finite and in range: {json.dumps(m)}")
+        members = config["members"]
+        want = {name: 0 for name in kernels}
+        if config["model"] == "bbb":
+            # host counts: the step graph's two warm-ups and capture (every
+            # member, mc forwards each) and the eval graph's (S forwards)
+            train_forwards = (1 + 2) * members * config["bbb_mc_samples"]
+            want["k1_gaussian_sample"] = (train_forwards + (1 + 2) * config["eval_samples"]) * per_forward
+            want["k1_gaussian_sample_backward"] = train_forwards * per_forward
+        check(counts == want, f"{label} run_single: host launch counts {counts} (warm-ups and captures; replays launch "
+                              f"no wrapper)")
+        updates = None
+        if "checkpoint_dir" in config:
+            final = torch.load(os.path.join(config["checkpoint_dir"], "swag_final"), weights_only=True)
+            updates = [int(v) for k, v in sorted(final.items()) if k.endswith("swag.updates")]
+            check(len(updates) == members and min(updates) >= 2,
+                  f"{label}: SWAG collections per member {updates} (each at least 2)")
+        print(f"{label} run_single: {MULTIX['epochs']} epochs x {MULTIX['subsample'] // config['batch_size']} replayed "
+              f"steps x {members} member(s) + 6 splits x 1000 images x S {config['eval_samples']} in {wall:.1f} s [{CARD}]")
+        runs[label] = {"wall_s": wall, "host_counts": counts, "updates": updates}
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _built(torch, cifar, variant, steps=TIMED_STEPS, **extra):
+    """``variant`` built afresh at full width (the loss augmenting per step,
+    as the host loop runs it), with ``steps`` batches of 128 and the test
+    split on the card."""
+    from beyond_deep_ensembles_tpu_torch.data.cifar import load_cifar10
+
+    x, y = load_cifar10(True, subsample=steps * 128)
+    x_test, y_test = load_cifar10(False, subsample=1000)
+    config = {**cifar.DEFAULT_CONFIG, **YAML_DEFAULT, **variant, "dataset_size": x.shape[0], "epochs": 1, **extra}
+    built = cifar.build(config, torch.Generator().manual_seed(1), steps)
+    xd, yd = cifar._to_device(built, x, y)
+    batches = [(xd[i * 128 : (i + 1) * 128].clone(), yd[i * 128 : (i + 1) * 128].clone()) for i in range(steps)]
+    return built, config, batches, (x_test, y_test)
+
+
+def captured_vs_eager(torch, built, batches, label):
+    """COMPARE_STEPS captured steps (one graph, replayed) against as many
+    eager ones from one key and state, on cuDNN's deterministic algorithms:
+    every tensor the update writes (``written_tensors``: every member's
+    parameters and optimizer) and the metrics, ``*_per_member`` included.
+    Returns whether they are equal bit for bit."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    k, method, state = COMPARE_STEPS, built.method, built.state
+    torch.backends.cudnn.deterministic = True
+    written = multistep._written_tensors(state)
+    with torch.no_grad():
+        saved = [t.clone() for t in written]
+    key, step = keys.fold_in(7, 0), state.step
+    state, sums = multistep.eager_steps(method.update, state, key, batches[:k])
+    eager = [t.clone() for t in written]
+    with torch.no_grad():
+        for t, v in zip(written, saved):
+            t.copy_(v)
+    state.step = step
+    state, metrics = multistep.make_multi_step(method.update, k)(state, key, multistep.stack_batches(batches[:k]))
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    bitwise = all(torch.equal(a, b) for a, b in zip(written, eager))
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(written, eager))
+    metric_err = max(float(((metrics[n] - sums[n] / k).abs() / (sums[n] / k).abs().clamp_min(1e-30)).max())
+                     for n in sums)
+    check(bitwise and state.step == step + k and metric_err <= 1e-5,
+          f"{label}: {k} captured steps = {k} eager steps from one key and state, bit for bit (all {len(written)} "
+          f"written tensors, max abs err {err:.3g}; cuDNN deterministic); metrics {sorted(metrics)} rel err "
+          f"{metric_err:.2g} <= 1e-5")
+    return bitwise
+
+
+def eval_runner_vs_host(torch, cifar, built, config, test, label):
+    """The eval runner against the host loop on the same keys, warm (each
+    run twice, in the order runner, host, host, runner): metrics within
+    1e-5 relative, and samples/s of each."""
+    x_test, y_test = test
+    evals, rates = {}, {}
+    n_samples = x_test.shape[0] * config["eval_samples"]
+    for mode, device_eval in (("runner", True), ("host loop", False), ("host loop", False), ("runner", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = cifar.eval_model(built, {**config, "device_eval": device_eval}, x_test, y_test).as_dict()
+        torch.cuda.synchronize()
+        if mode in evals:
+            rates[mode] = n_samples / (time.perf_counter() - t0)
+        evals[mode] = result
+    diff = max(abs(evals["runner"][m] - evals["host loop"][m]) / max(abs(evals["host loop"][m]), 1e-30)
+               for m in evals["runner"])
+    check(diff <= 1e-5, f"{label}: eval runner = host eval loop on the same keys (metrics max rel diff {diff:.2g} "
+          f"<= 1e-5; equal: {evals['runner'] == evals['host loop']})")
+    print(f"{label} eval of {x_test.shape[0]} images x S {config['eval_samples']}, warm: runner {rates['runner']:.0f} "
+          f"samples/s, host loop {rates['host loop']:.0f} samples/s [{CARD}]")
+    return rates
+
+
+def step_figures(torch, built, batches, label, ours):
+    """Steady steps eager (MULTIX_EAGER_STEPS) and captured (TIMED_STEPS,
+    one replay a step), CUDA events, and a profile of the captured ones
+    (kernels per step, the device's busy share, the ``ours`` kernels per
+    step)."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    method, dev = built.method, torch.device("cuda")
+    single = multistep.make_multi_step(method.update, 1)
+    stacked = [multistep.stack_batches([b]) for b in batches]
+
+    def captured_step(i):
+        built.state, m = single(built.state, keys.fold_in(11, i), stacked[i % len(batches)])
+        return m["loss"]
+
+    def eager_step(i):
+        noise = NoiseSource(key=keys.as_key(keys.fold_in(11, i), dev))
+        built.state, m = method.update(built.state, noise, batches[i % len(batches)])
+        return m["loss"]
+
+    captured_step(0)  # the capture
+    times = {"eager": steady_steps(torch, eager_step, f"{label} eager", 128, count=MULTIX_EAGER_STEPS),
+             "captured": steady_steps(torch, captured_step, f"{label} captured", 128, count=TIMED_STEPS)}
+    profiles = {"captured": profile_steps(torch, captured_step, ours, label=f"{label} captured steps (graph replays)")}
+    return {"steps": times, "profiles": profiles}
+
+
+def ensemble_card_vs_cpu(torch, cifar, NoiseSource):
+    """One DeepEnsemble step (M = 2, batch 4, augmentation off) on the card
+    against the CPU path from the same weights: parameters within 1e-5
+    absolute, the loss and each member's loss within 1e-5 relative (as the
+    SVGD step check); then MultiBBB's log-probs (M = 5, one frozen forward
+    per member, 4 images) with the same given noise on both, within 1e-4."""
+    config = {**cifar.DEFAULT_CONFIG, "model": "map", "members": 2, "augment": False, "dataset_size": 1280,
+              "epochs": 1}
+    cpu = cifar.build(config, torch.Generator().manual_seed(4), 10, device="cpu")
+    gpu = cifar.build(config, torch.Generator().manual_seed(4), 10)
+    gen = torch.Generator().manual_seed(5)
+    x, y = torch.randn(4, 3, 32, 32, generator=gen), torch.randint(0, 10, (4,), generator=gen)
+    cpu.state, m_cpu = cpu.method.update(cpu.state, NoiseSource.seeded(0), (x, y))
+    gpu.state, m_gpu = gpu.method.update(gpu.state, NoiseSource.seeded(0), (x.cuda(), y.cuda()))
+    err = max(float((a.detach().cpu() - b.detach()).abs().max())
+              for a, b in zip(gpu.state.params.parameters(), cpu.state.params.parameters()))
+    loss_err = max(float(((m_gpu[k].cpu() - m_cpu[k]).abs() / m_cpu[k].abs()).max()) for k in ("loss", "loss_per_member"))
+    check(err <= 1e-5 and loss_err <= 1e-5,
+          f"DeepEnsemble step on the card = CPU path (2 members, batch 4: params max abs err {err:.2e} <= 1e-5; "
+          f"loss and per-member loss rel err {loss_err:.1e} <= 1e-5)")
+
+    config = {**cifar.DEFAULT_CONFIG, **dict(MULTIX_VARIANTS)["MultiBBB"], "dataset_size": 1280, "epochs": 1}
+    cpu = cifar.build(config, torch.Generator().manual_seed(6), 10, device="cpu")
+    gpu = cifar.build(config, torch.Generator().manual_seed(6), 10)
+    members = config["members"]
+    draws = [torch.randn(s, generator=gen) for _ in range(members) for s in noise_shapes(4, False)]
+    with torch.no_grad():
+        ref = predict_fn(cpu, x, members, NoiseSource(given=draws))
+        out = predict_fn(gpu, x.cuda(), members, NoiseSource(given=[d.cuda() for d in draws])).cpu()
+    err = float((out - ref).abs().max())
+    check(out.shape == (members, 4, 10) and bool(torch.isfinite(out).all()) and err <= 1e-4,
+          f"MultiBBB log-probs on the card = CPU path ({members} members, one frozen forward each, given noise: "
+          f"max abs err {err:.2e} <= 1e-4)")
+    return err
+
+
+def predict_fn(built, x, n_samples, noise):
+    from beyond_deep_ensembles_tpu_torch.methods import predict
+
+    return predict(built.method, built.state, built.apply_fn, x, n_samples, noise)
+
+
+class _Preempted(Exception):
+    """Stops a run at the end of an epoch, before its checkpoint: the resume
+    check's stand-in for a preemption."""
+
+
+def resume_check(torch, cifar):
+    """MultiSWAG (5 members) over RESUME epochs with ``checkpoint_dir`` and
+    ``checkpoint_interval`` 1 (device_data): stopped when epoch 1 ends
+    (checkpoint_0 on disk), built afresh and resumed to the end; equal bit
+    for bit, on cuDNN's deterministic algorithms, to an uninterrupted run
+    without checkpoints: every member's parameters, optimizer, moments,
+    ring and counters."""
+    import shutil
+
+    from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
+
+    run_dir = os.path.join(BUILD, "resume_check")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    config = {**cifar.DEFAULT_CONFIG, **dict(MULTIX_VARIANTS)["MultiSWAG"], **RESUME}
+    config, (x, y), _ = cifar._load_data(config)
+    torch.backends.cudnn.deterministic = True
+    whole = cifar.train(cifar._build_for(config, None), config, x, y).state.state_dict()
+
+    def stop_after_epoch_1(line):
+        print(line)
+        if line.startswith("epoch 1:"):
+            raise _Preempted(line)
+
+    run = {**config, "checkpoint_dir": run_dir, "checkpoint_interval": 1}
+    try:
+        cifar.train(cifar._build_for(run, None), run, x, y, log=stop_after_epoch_1)
+    except _Preempted:
+        pass
+    check(ckpt.latest_checkpoint_step(run_dir) == 0, "resume: stopped after epoch 1 with checkpoint_0 on disk")
+    resumed = cifar.train(cifar._build_for(run, None), run, x, y, log=print).state.state_dict()
+    torch.backends.cudnn.deterministic = False
+    same = whole.keys() == resumed.keys() and all(torch.equal(whole[k], resumed[k]) for k in whole)
+    updates = [int(v) for k, v in sorted(resumed.items()) if k.endswith("swag.updates")]
+    check(same, f"resume: MultiSWAG resumed from checkpoint_0 to {config['epochs']} epochs = the uninterrupted run, "
+                f"bit for bit ({len(whole)} tensors; collections per member {updates}; cuDNN deterministic)")
+    return same
+
+
+def multix_check(torch, cifar):
+    """Three MAP runs (``run_single`` with ``checkpoint_dir``, seeds 0-2)
+    save ``map_final``; ``multix_phase`` with leave_out 0 against
+    ``eval_model`` of a deep_ensemble of the other two states, the same
+    test split and keys."""
+    import shutil
+
+    from beyond_deep_ensembles_tpu_torch.methods import deep_ensemble
+    from beyond_deep_ensembles_tpu_torch.methods.ensemble import EnsembleState
+    from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
+
+    dirs = [os.path.join(BUILD, "multix_check", f"rep_{i}") for i in range(3)]
+    shutil.rmtree(os.path.join(BUILD, "multix_check"), ignore_errors=True)
+    base = {**dict(MULTIX_VARIANTS)["DeepEnsemble"], "members": 1, **MULTIX_CHECK}
+    for seed, d in enumerate(dirs):
+        cifar.run_single({**base, "seed": seed, "checkpoint_dir": d})
+    got = cifar.multix_phase(base, dirs, leave_out=0, log=print)["test"]
+    config, built, _, (x_test, y_test) = cifar._rebuild(base)
+    states = [ckpt.restore_final(d, "map", cifar._build_for(config, None).state) for d in dirs[1:]]
+    built.method, built.state = deep_ensemble(built.method, 2), EnsembleState(states)
+    want = cifar.eval_model(built, config, x_test, y_test).as_dict()
+    diff = max(abs(got[m] - want[m]) / max(abs(want[m]), 1e-30) for m in want)
+    check(diff <= 1e-5, f"multix_phase over 3 saved map_final runs, leave_out 0 = eval_model of a deep_ensemble of "
+                        f"the other two (metrics max rel diff {diff:.2g} <= 1e-5; equal: {got == want}): {json.dumps(got)}")
+    return diff
+
+
+def multi_x_phase(torch, cifar, kernels, NoiseSource, single_bbb):
+    """The Multi-X slice: the six variants through run_single, captured
+    against eager for the ensemble step (map and BBB members) and the MCD
+    step, the eval runner against the host loop (DeepEnsemble, MultiSWAG),
+    the card against the CPU, resume, the multix phase, then the step and
+    eval figures of DeepEnsemble and MultiBBB beside MAP's and BBB's single
+    member. Returns the figures."""
+    print(f"cut: {MULTIX['epochs']} epochs of {MULTIX['subsample']} synthetic images at batch 128 (configs/cifar.yaml: "
+          f"{cifar.DEFAULT_CONFIG['epochs']} epochs of 50,000), each eval split {MULTIX['test_subsample']} images "
+          f"(10,000); widths, batch, eval batch and S as the yaml writes them")
+    figures = {"runs": _variant_runs(torch, cifar, kernels)}
+    variants = dict(MULTIX_VARIANTS)
+    bitwise = {}
+    for label in ("DeepEnsemble", "MultiBBB", "MCD"):
+        built, _, batches, _ = _built(torch, cifar, variants[label], steps=COMPARE_STEPS)
+        bitwise[label] = captured_vs_eager(torch, built, batches, label)
+        del built, batches
+    figures["captured_equals_eager_bitwise"] = bitwise
+
+    evals = {}
+    for label, ours in (("DeepEnsemble", ()), ("MultiBBB", ("_flat_kernel", "_frozen_kernel")), ("MAP", ())):
+        variant = variants.get(label, {**variants["DeepEnsemble"], "members": 1})
+        built, config, batches, test = _built(torch, cifar, variant)
+        figures[label] = step_figures(torch, built, batches, label, ours)
+        if label != "MAP":
+            figures[label]["eval_samples_per_s"] = eval_runner_vs_host(torch, cifar, built, config, test, label)
+        if label == "MultiBBB":
+            per_replay = figures[label]["profiles"]["captured"]
+            want = config["members"] * 2 * config["bbb_mc_samples"] * len(bbb_shapes(1))
+            got = per_replay and per_replay["launches"]["_flat_kernel"]
+            check(got == want, f"MultiBBB: K1 launches per replayed step, from the profile: {got} = {want} "
+                               f"({config['members']} members x {config['bbb_mc_samples'] * len(bbb_shapes(1))} forward "
+                               f"+ as many backward)")
+        del built, batches
+        torch.cuda.empty_cache()
+    # MultiSWAG: a few captured steps collecting from the start, then eval
+    built, config, batches, test = _built(torch, cifar, variants["MultiSWAG"], steps=COMPARE_STEPS, swag_start_epoch=0)
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    built.state, _ = multistep.make_multi_step(built.method.update, COMPARE_STEPS)(
+        built.state, keys.fold_in(13, 0), multistep.stack_batches(batches))
+    evals["MultiSWAG"] = eval_runner_vs_host(torch, cifar, built, config, test, "MultiSWAG")
+    figures["MultiSWAG"] = {"eval_samples_per_s": evals["MultiSWAG"],
+                            "updates": [int(m.updates) for m in built.state.members]}
+    del built, batches
+    torch.cuda.empty_cache()
+
+    figures["card_vs_cpu_multibbb_logit_err"] = ensemble_card_vs_cpu(torch, cifar, NoiseSource)
+    figures["resume_bitwise"] = resume_check(torch, cifar)
+    figures["multix_rel_diff"] = multix_check(torch, cifar)
+    summary = {label: {"captured_median_ms": figures[label]["steps"]["captured"]["median_ms"],
+                       "eager_median_ms": figures[label]["steps"]["eager"]["median_ms"],
+                       "captured_busy": (figures[label]["profiles"]["captured"] or {}).get("busy")}
+               for label in ("DeepEnsemble", "MultiBBB", "MAP")}
+    summary["BBB"] = {"captured_median_ms": single_bbb["steps"]["captured"]["median_ms"],
+                      "eager_median_ms": single_bbb["steps"]["eager"]["median_ms"],
+                      "captured_busy": (single_bbb["profiles"]["captured"] or {}).get("busy")}
+    print(f"Multi-X steps, captured against one member of the same run [{CARD}]: {json.dumps(summary)}")
+    figures["summary"] = summary
+    return figures
 
 
 def build_phase(torch, _cuda_build):
@@ -1336,6 +1714,10 @@ def main() -> int:
     }
     print(json.dumps({"card": CARD, "cifar_runners": runners}))
 
+    phase("Multi-X: DeepEnsemble, MultiBBB, MultiMCD, MultiSWAG, MCD, SWAG")
+    multix = multi_x_phase(torch, cifar, kernels, NoiseSource, runners["BBB"])
+    print(json.dumps({"card": CARD, "multix": multix}))
+
     # the DistilBERT slice: MCD (its main path), then MAP
     phase("DistilBERT slice")
     layers = wilds_task._bert_config({}).n_layers
@@ -1390,6 +1772,11 @@ def main() -> int:
             # a profile, K1 launches per replayed BBB step (forward and backward)
             "runner_launches": runners["BBB"]["host_counts"]["k1_gaussian_sample"],
             "replay_launches_per_step": runners["BBB"]["profiles"]["captured"]["launches"]["_flat_kernel"],
+            # MultiBBB (5 members): host counts of its run_single, and K1
+            # launches per replayed step from a profile (forward and backward)
+            "multibbb_run_single_launches": multix["runs"]["MultiBBB"]["host_counts"]["k1_gaussian_sample"],
+            "multibbb_replay_launches_per_step":
+                multix["MultiBBB"]["profiles"]["captured"]["launches"]["_flat_kernel"],
         },
         {
             "name": "k2_svgd_gram",

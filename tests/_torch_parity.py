@@ -11,6 +11,7 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from beyond_deep_ensembles_tpu_torch.models.jax_convert import params_from_jax
@@ -92,6 +93,21 @@ def load_jax_params(module: torch.nn.Module, jax_params) -> torch.nn.Module:
 def flat_jax(tree):
     """Nested flax tree -> {dotted name: numpy array in the port's layout}."""
     return {k: v.numpy() for k, v in params_from_jax(to_numpy_tree(tree)).items()}
+
+
+@pytest.fixture
+def one_cpu_thread():
+    """Runs a test on one intra-op thread. The suite runs several workers on
+    the host's cores, and torch's default of one thread per core in each of
+    them makes the threads contend: a CIFAR test of a few seconds alone
+    then takes minutes. Use with ``pytest.mark.usefixtures``, after
+    importing this fixture into the test module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def assert_close(actual, desired, rtol=1e-7, atol=0.0, err_msg=""):

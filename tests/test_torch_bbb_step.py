@@ -125,13 +125,15 @@ def test_run_single_on_cpu():
     assert 0.0 <= res["accuracy"] <= 1.0 and res["avg_log_likelihood"] < 0.0
 
 
-@pytest.mark.parametrize("model", ["map", "swag", "rank1"])
+@pytest.mark.parametrize("model", ["ivon", "laplace", "rank1", "sngp"])
 def test_other_variants_not_ported(model):
     with pytest.raises(NotImplementedError):
         cifar.build({**CONFIG, "model": model}, torch.Generator(), device="cpu")
 
 
-@pytest.mark.parametrize("model", ["bbb", "svgd"])
+@pytest.mark.parametrize("model", ["svgd"])
 def test_members_not_ported(model):
+    """An ensemble of SVGD particle sets (no configs/cifar.yaml row; the JAX
+    build ignores ``members`` there) raises; MultiBBB is ported."""
     with pytest.raises(NotImplementedError, match="members"):
         cifar.build({**CONFIG, "model": model, "members": 2}, torch.Generator(), device="cpu")

@@ -176,6 +176,10 @@ def test_scan_steps_equal_single_steps_on_a_deterministic_run(no_data):
 
 
 def test_unported_keys_still_raise():
-    for key, value in (("use_hmc_baseline", True), ("checkpoint_dir", "/nonexistent"), ("members", 2)):
+    """Options whose paths are not ported raise before any work is done
+    (``checkpoint_dir`` and ``members`` > 1 are ported: see
+    test_torch_checkpoint.py and test_torch_cifar_multix.py)."""
+    for config in ({"model": "bbb", "use_hmc_baseline": True}, {"model": "bbb", "data_parallel": True},
+                   {"model": "svgd", "members": 2}):
         with pytest.raises(NotImplementedError):
-            cifar.run_single({"model": "bbb", key: value}, device="cpu")
+            cifar.run_single(config, device="cpu")

@@ -36,7 +36,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
     assert len(names) >= 42  # every module of the slices was imported
-    for module in ("parallel", "parallel.multistep", "keys", "utils.optim"):
+    for module in ("parallel", "parallel.multistep", "keys", "utils.optim", "methods.ensemble", "methods.swag",
+                   "methods.rings", "utils.checkpoint", "experiments.phases"):
         assert f"beyond_deep_ensembles_tpu_torch.{module}" in names, module
 
 

@@ -20,7 +20,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_parity import assert_close, nchw
+from _torch_parity import assert_close, nchw, one_cpu_thread  # noqa: F401 (one_cpu_thread: a fixture)
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu.methods import LossOutput as JaxLossOutput
 from beyond_deep_ensembles_tpu.methods import map_method as jax_map_method
@@ -254,8 +254,8 @@ def test_keys():
 
 def test_noise_source_key_mode():
     """Key mode: the same key gives the same draws (K1's CPU path, pooled
-    normals, crops), another key other draws; dropout and attention refuse
-    the mode."""
+    normals, crops), another key other draws; attention refuses the mode
+    (dropout masks draw in it: ``tests/test_torch_mcd.py``)."""
     def draws(key):
         noise = NoiseSource(key=torch.tensor(key))
         m = torch.zeros(2, 3, 4, 4)
@@ -273,7 +273,8 @@ def test_noise_source_key_mode():
     assert int(a[2].min()) >= 0 and int(a[2].max()) <= 8
     noise = NoiseSource(key=torch.tensor(7))
     with pytest.raises(NotImplementedError):
-        noise.keep_mask((2, 3), "cpu", 0.1)
+        q = torch.zeros(1, 4, 1, 64)
+        noise.attention(q, q, q, torch.ones(1, 4, dtype=torch.bool), 0.1)
     with pytest.raises(ValueError):
         NoiseSource(key=torch.tensor(7), generator=torch.Generator())
 
@@ -319,3 +320,28 @@ def _bad_batch_keeps_state(model):
 @pytest.mark.parametrize("model", ["bbb", "svgd"])
 def test_nonfinite_batch_keeps_params_momentum_and_count(model):
     _bad_batch_keeps_state(model)
+
+
+@pytest.mark.usefixtures("one_cpu_thread")
+@pytest.mark.parametrize("kind", [{"model": "swag"}, {"model": "map", "members": 2}, {"model": "swag", "members": 2}],
+                         ids=["swag", "deep_ensemble", "multiswag"])
+def test_warm_up_leaves_the_state_as_it_found_it(kind):
+    """A capture's warm-up (two updates) writes back every tensor the
+    update wrote, as the state lists them: SWAG's moments, ring and
+    counters (collecting from the first step here), every member's
+    parameters and optimizer; ``step`` too. The same two updates without
+    the write-back do move all of them."""
+    config = {**cifar.DEFAULT_CONFIG, **kind, "swag_start_epoch": 0, "epochs": 1, "dataset_size": 100,
+              "augment": False}
+    built = cifar.build(config, torch.Generator().manual_seed(0), 1, device="cpu")
+    rng = np.random.RandomState(0)
+    batch = (nchw(rng.standard_normal((2, 32, 32, 3)).astype(np.float32)), torch.from_numpy(rng.randint(0, 10, 2)))
+    before = {k: v.clone() for k, v in built.state.state_dict().items()}
+    metrics = multistep._warm_up(built.method.update, built.state, keys.as_key(3, "cpu"), batch)
+    assert math.isfinite(float(metrics["loss"])) and built.state.step == 0
+    after = built.state.state_dict()
+    assert all(torch.equal(after[k], v) for k, v in before.items())
+    multistep.eager_steps(built.method.update, built.state, 3, [batch, batch])
+    moved = built.state.state_dict()
+    unmoved = [k for k, v in before.items() if torch.equal(moved[k], v) and not k.endswith(("epoch", ".lr"))]
+    assert unmoved == []
