@@ -1,5 +1,5 @@
-"""CIFAR-10 (+CIFAR-10-C) experiment: ResNet-20-FRN-swish under MAP, MCD,
-SWAG, BBB or SVGD, and their Multi-X ensembles.
+"""CIFAR-10 (+CIFAR-10-C) experiment: ResNet-20-FRN-swish under every method
+of ``configs/cifar.yaml``, and their Multi-X ensembles.
 
 Counterpart of ``beyond_deep_ensembles_tpu/experiments/cifar.py`` (reference
 experiments/cifar/{cifar.py,models.py,cifar.yaml}): SGD (momentum 0.9,
@@ -7,12 +7,14 @@ nesterov) under the Wilson schedule stepped per epoch (``utils/optim.py``,
 state and lr on the device), crop + flip augmentation, 50 posterior samples
 at eval, the clean test split and the corrupted splits of every intensity in
 ``corrupted_intensities``. Ported: the ``map``, ``mcd`` (``p``), ``swag``
-(``swag_*``), ``bbb`` and ``svgd`` variants, each with ``members`` > 1 as a
-``deep_ensemble`` (``svgd`` with one member: its particles are its
-ensemble), periodic checkpoints with auto-resume and the ``{model}_final``
-artifact (``checkpoint_dir``, ``checkpoint_interval``), and
-``multix_phase``. ``laplace`` (and ``fit_laplace_phase``), ``ivon``,
-``rank1``, ``sngp``, the HMC baseline and data parallelism raise.
+(``swag_*``), ``bbb``, ``svgd``, ``rank1`` (``rank1_*``), ``ivon``
+(``ivon_*``), ``sngp`` (``sngp``, ``spectral_norm_bound``) and ``laplace``
+(``ll_hessian``) variants, each with ``members`` > 1 as a ``deep_ensemble``
+(``svgd`` with one member: its particles are its ensemble), periodic
+checkpoints with auto-resume and the ``{model}_final`` artifact
+(``checkpoint_dir``, ``checkpoint_interval``), ``fit_laplace_phase`` and
+``multix_phase``. The ``bf16`` key, the HMC baseline and data parallelism
+raise.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed. The data sets
 move to the device once, as NCHW float32. ``train`` runs, as in JAX, the
@@ -42,11 +44,14 @@ from ..data.native_loader import shuffled_indices
 from ..evals.classification import EvalResult, analyze_output, bayesian_model_average
 from ..methods.api import GaussianPrior, LossOutput, PosteriorMethod
 from ..methods.bbb import bbb_method
-from ..methods.ensemble import deep_ensemble, predict
+from ..methods.ensemble import EnsembleState, deep_ensemble, predict
+from ..methods.ivon import ivon_method
+from ..methods.laplace import laplace_method
 from ..methods.map import map_method
+from ..methods.sngp import sngp_method
 from ..methods.svgd import svgd_method
 from ..methods.swag import swag_method
-from ..models.resnet import ResNet20
+from ..models.resnet import ResNet20, SNGPResNet20
 from ..nn.base import Model
 from ..nn.gaussian import NoiseSource
 from ..parallel.multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches
@@ -71,8 +76,7 @@ DEFAULT_CONFIG = {
     "subsample": None,
     "test_subsample": None,
     "seed": 0,
-    # the ported variants' knobs (cifar.yaml defaults); the other methods'
-    # keys come with their ports
+    # the variants' knobs (cifar.yaml defaults)
     "p": 0.1,  # MCD dropout
     "prior_std": 1.0,
     "bbb_mc_samples": 2,
@@ -82,18 +86,38 @@ DEFAULT_CONFIG = {
     "swag_lr": 0.0005,  # also the Wilson schedule's final lr
     "svgd_particles": 5,
     "svgd_reg_scale": 0.0003,
+    "ivon_lr": 1e-4,
+    "ivon_prior_prec": 50,
+    "ivon_damping": 0.001,
+    "ivon_augmentation": 10,
+    "ivon_mc_samples": 2,
+    "rank1_components": 4,
+    "rank1_l2_scale": 0.0003,
+    "rank1_kl_rescaling": 1.0,
+    "sngp": {
+        "num_random_features": 1024,
+        "num_gp_features": -1,
+        "normalize_gp_features": False,
+        "ridge_penalty": 1.0,
+        "mean_field_factor": 20.0,
+        "feature_scale": 1.0,
+        "rff_init_std": 0.05,
+    },
+    "spectral_norm_bound": 6.0,
+    "ll_hessian": "full",
     "checkpoint_interval": 20,  # epochs between periodic saves (reference cifar.py:175-176)
     "dataset_size": 50_000,
 }
 
 
 def _xent_loss_fn(model: Model, augment: bool = True):
-    def loss_fn(params, model_state, noise, batch):
+    def loss_fn(params, model_state, noise, batch, component=None):
         x, y = batch
         if augment:
             offsets, flips = noise.crops(x.shape[0], x.device)
             x = cifar_data.augment(x, offsets=offsets, flips=flips)
-        out, kl, new_state = model.apply(params, model_state, noise, x, train=True)
+        kwargs = {} if component is None else {"component": component}
+        out, kl, new_state = model.apply(params, model_state, noise, x, train=True, **kwargs)
         logp = F.log_softmax(out, dim=-1)
         loss = -torch.mean(torch.gather(logp, 1, y[:, None]))
         acc = torch.mean((torch.argmax(out, dim=-1) == y).float())
@@ -103,8 +127,12 @@ def _xent_loss_fn(model: Model, augment: bool = True):
 
 
 def _predict_fn(model: Model):
-    def apply_fn(params, model_state, noise, x):
-        out, _, _ = model.apply(params, model_state, noise, x, train=False)
+    """``apply_fn(params, model_state, noise, x, **kwargs)``: log-probs of one
+    forward at eval, ``kwargs`` a Rank-1 model's joint ``component`` or an
+    SNGP model's ``n_samples``."""
+
+    def apply_fn(params, model_state, noise, x, **kwargs):
+        out, _, _ = model.apply(params, model_state, noise, x, train=False, **kwargs)
         return F.log_softmax(out, dim=-1)
 
     return apply_fn
@@ -141,25 +169,32 @@ class BuiltExperiment:
     eval_runners: dict = dataclasses.field(default_factory=dict)
 
 
-def _resnet(config, generator: torch.Generator, conv_kind: str, dropout_p=None) -> ResNet20:
-    if config.get("bf16"):
-        raise NotImplementedError("bf16 compute: not ported yet")
+def _resnet(config, generator: torch.Generator, conv_kind: str, dropout_p=None, components: int = 1) -> ResNet20:
     return ResNet20(classes=10, activation="swish", norm="frn", conv_kind=conv_kind, dropout_p=dropout_p,
-                    generator=generator)
+                    components=components, generator=generator)
 
 
-_PORTED = ("map", "mcd", "swag", "bbb", "svgd")
+def _sngp_resnet(config, generator: torch.Generator) -> SNGPResNet20:
+    """The SNGP model with the CIFAR build's frozen head (JAX :282-307): the
+    reference hands the base SGD only the featurizer's parameters
+    (cifar/models.py:98), so ``beta`` keeps its init, without step, momentum
+    or weight decay; ``sngp_train_beta: True`` opts out."""
+    model = SNGPResNet20(10, config["spectral_norm_bound"], config["sngp"], generator=generator)
+    if not config.get("sngp_train_beta", False):
+        model.SNGPHead_0.requires_grad_(False)
+    return model
+
+
+_PORTED = ("map", "mcd", "swag", "bbb", "svgd", "rank1", "ivon", "sngp", "laplace")
 
 
 def _not_ported(config: dict) -> None:
-    if config["model"] in ("laplace", "ivon", "rank1", "sngp"):
-        raise NotImplementedError(f"model {config['model']!r}: not ported yet")
     if config["model"] not in _PORTED:
         raise ValueError(f"unknown model {config['model']!r}")
     if config["model"] == "svgd" and config.get("members", 1) != 1:
         # the JAX build ignores members for svgd; the port refuses
         raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
-    for key in ("use_hmc_baseline", "data_parallel"):
+    for key in ("bf16", "use_hmc_baseline", "data_parallel"):
         if config.get(key):
             raise NotImplementedError(f"{key}: not ported yet")
 
@@ -179,13 +214,17 @@ def build(
     device=None,
 ) -> BuiltExperiment:
     """The model(s), initialized from ``generator``, and the method state
-    (JAX ``build``, :202-333): ``map`` a plain ResNet-20 under
-    ``map_method``, ``mcd`` the same with ``dropout_p = p``, ``swag`` under
-    ``swag_method`` (a collection every ``max(1, steps_per_epoch *
-    max(1, epochs - swag_start_epoch) // 50)`` steps), ``bbb`` the BBB
-    ResNet-20, ``svgd`` its ``svgd_particles`` plain particles. With
-    ``members`` > 1, M models are initialized from ``generator`` in turn
-    and trained as a ``deep_ensemble``."""
+    (JAX ``build``, :202-333): ``map`` (and ``laplace``, which trains as
+    ``map``) a plain ResNet-20 under ``map_method``, ``mcd`` the same with
+    ``dropout_p = p``, ``swag`` under ``swag_method`` (a collection every
+    ``max(1, steps_per_epoch * max(1, epochs - swag_start_epoch) // 50)``
+    steps), ``bbb`` the BBB ResNet-20, ``rank1`` the Rank-1 ResNet-20 of
+    ``rank1_components`` under ``bbb_method`` with ``components``, ``ivon``
+    a plain ResNet-20 under ``ivon_method``, ``sngp`` the
+    ``SNGPResNet20`` under ``sngp_method`` (its head frozen), ``svgd`` its
+    ``svgd_particles`` plain particles. With ``members`` > 1, M models are
+    initialized from ``generator`` in turn and trained as a
+    ``deep_ensemble``."""
     device = resolve_device(device)
     _not_ported(config)
     name, members = config["model"], config.get("members", 1)
@@ -206,13 +245,40 @@ def build(
         state = method.init(particles, {})
         return BuiltExperiment(model, method, state, _predict_fn(model), device)
 
-    conv_kind = "bbb" if name == "bbb" else "plain"
+    conv_kind = name if name in ("bbb", "rank1") else "plain"
     dropout_p = config["p"] if name == "mcd" else None
-    modules = [_resnet(config, generator, conv_kind, dropout_p).to(device) for _ in range(members)]
+    components = config["rank1_components"] if name == "rank1" else 1
+    if name == "sngp":
+        modules = [_sngp_resnet(config, generator).to(device) for _ in range(members)]
+    else:
+        modules = [_resnet(config, generator, conv_kind, dropout_p, components).to(device) for _ in range(members)]
     model = Model(modules[0])
     loss_fn = _xent_loss_fn(model, augment=augment)
-    if name in ("map", "mcd"):
+    if name in ("map", "mcd", "laplace"):
         method = map_method(loss_fn, tx)
+    elif name == "sngp":
+        method = sngp_method(loss_fn, tx, ridge_penalty=config["sngp"]["ridge_penalty"])
+    elif name == "ivon":
+        method = ivon_method(
+            loss_fn,
+            lr=config["ivon_lr"],
+            prior_prec=config["ivon_prior_prec"],
+            dataset_size=config["dataset_size"],
+            damping=config["ivon_damping"],
+            augmentation=config["ivon_augmentation"],
+            mc_samples=config["ivon_mc_samples"],
+        )
+    elif name == "rank1":
+        method = bbb_method(
+            loss_fn,
+            tx,
+            GaussianPrior(0.0, config["prior_std"]),
+            dataset_size=config["dataset_size"],
+            mc_samples=config["bbb_mc_samples"],
+            components=components,
+            kl_rescaling=config["rank1_kl_rescaling"],
+            l2_scale=config["rank1_l2_scale"],
+        )
     elif name == "swag":
         # mean_samples = 50 collected over the SWA epochs (cifar.yaml)
         swag_epochs = max(1, config["epochs"] - config["swag_start_epoch"])
@@ -365,11 +431,14 @@ def eval_model(
     with copies of its last image and trimmed, so every point counts once."""
     method, state = built.method, built.state
     bs, n_samples = config["eval_batch_size"], config["eval_samples"]
+    # rank-1 mixtures: sample i evaluates the joint component i % components
+    components = config.get("rank1_components", 1) if config.get("model") == "rank1" else 1
     xd, yd = _to_device(built, x, y)
     n = xd.shape[0]
 
     def predict_batch(state, key, xb):
-        log_probs = predict(method, state, built.apply_fn, xb, n_samples=n_samples, noise=NoiseSource(key=key))
+        log_probs = predict(method, state, built.apply_fn, xb, n_samples=n_samples, noise=NoiseSource(key=key),
+                            components=components)
         return bayesian_model_average(log_probs)
 
     device_eval = config.get("device_eval", bool(config.get("device_data")) or built.device.type == "cuda")
@@ -412,7 +481,8 @@ def run_single(config: dict, log=None, device=None) -> dict:
     every intensity in ``corrupted_intensities``; returns the metric dicts
     by split (``test``, ``corrupted{i}``). With ``checkpoint_dir`` the
     trained state is saved there as ``{model}_final`` (reference
-    cifar.py:98)."""
+    cifar.py:98). ``laplace`` fits its posterior on the training set after
+    the save (JAX :601-609)."""
     config = {**DEFAULT_CONFIG, **config}
     _not_ported(config)
     device = resolve_device(device)
@@ -420,6 +490,8 @@ def run_single(config: dict, log=None, device=None) -> dict:
     built = train(_build_for(config, device), config, x_train, y_train, log=log)
     if config.get("checkpoint_dir"):
         ckpt.save_final(config["checkpoint_dir"], config["model"], built.state)
+    if config["model"] == "laplace":
+        _fit_laplace(built, config, x_train, y_train)
     results = {"test": eval_model(built, config, x_test, y_test).as_dict()}
     for intensity in config.get("corrupted_intensities") or []:
         xc, yc = cifar_data.load_cifar10_corrupted(intensity, subsample=config["test_subsample"])
@@ -437,10 +509,31 @@ def _rebuild(config: dict, device=None):
     return config, _build_for(config, device), train_split, test_split
 
 
+def _fit_laplace(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray) -> None:
+    """``built``'s trained MAP state (or MAP ensemble) replaced by its
+    last-layer Laplace posterior, fitted on ``(x, y)`` with ``ll_hessian``.
+    With ``members`` > 1 the method is a ``deep_ensemble`` over the fitted
+    members: the JAX ``run_single`` sets the bare Laplace method there, whose
+    ``sample`` cannot read a stacked state."""
+    lap = laplace_method(built.model, hessian=config["ll_hessian"], regression=False, inner=built.method)
+    built.state = lap.fit(built.state, _to_device(built, x, y))
+    members = config.get("members", 1)
+    built.method = deep_ensemble(lap, members) if members > 1 else lap
+
+
 def fit_laplace_phase(config: dict, run_dir: str, log=None, device=None) -> dict:
-    """Post-hoc Laplace on a saved ``{model}_final`` (JAX :653-669): waits
-    for ``methods/laplace.py``."""
-    raise NotImplementedError("fit_laplace_phase: methods/laplace.py is not ported yet")
+    """Post-hoc Laplace on a saved ``{from_model}_final`` (``from_model``
+    defaults to ``map``; JAX :653-669, the reference's fit-laplace protocol,
+    cifar.py:188-210): the state restored into a fresh build, the posterior
+    fitted on the training split, the test split's metrics."""
+    config = {**config, "model": config.get("from_model", "map")}
+    config, built, (x_train, y_train), (x_test, y_test) = _rebuild(config, device)
+    built.state = ckpt.restore_final(run_dir, config["model"], built.state)
+    _fit_laplace(built, config, x_train, y_train)
+    if log:
+        first = built.state.members[0] if isinstance(built.state, EnsembleState) else built.state
+        log(f"fit_laplace: prior_prec={float(first.prior_prec):.4g}")
+    return {"test": eval_model(built, config, x_test, y_test).as_dict()}
 
 
 def multix_phase(config: dict, run_dirs, leave_out: Optional[int] = None, log=None, device=None) -> dict:

@@ -1,13 +1,13 @@
-"""Checkpoint-driven downstream phases: Multi-X ensembling.
+"""Checkpoint-driven downstream phases: Multi-X ensembling and post-hoc
+Laplace fitting.
 
 Counterpart of ``beyond_deep_ensembles_tpu/experiments/phases.py``
 (reference per-task ``eval_ensembles.py``: a DeepEnsemble of 4 of 5 saved
-single-model checkpoints, civilcomments/eval_ensembles.py:34-48), on the
-port's ``torch.save`` checkpoints (``utils/checkpoint.py``). A restore
-fills a state in place, so each member is restored into a state of its
-own. ``fit_laplace_from_checkpoint`` waits for ``methods/laplace.py``
-(ROADMAP item 9) and is not here yet; ``drop_rates`` waits for the WILDS
-engine (item 14).
+single-model checkpoints, civilcomments/eval_ensembles.py:34-48; and
+``fit_laplace.py``, laplace-torch on saved MAP checkpoints), on the port's
+``torch.save`` checkpoints (``utils/checkpoint.py``). A restore fills a
+state in place, so each member is restored into a state of its own.
+``drop_rates`` waits for the WILDS engine (ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Callable, List, Optional, Sequence
 
 from ..methods.api import PosteriorMethod
 from ..methods.ensemble import EnsembleState, deep_ensemble
+from ..methods.laplace import laplace_method
 from ..utils import checkpoint as ckpt
 
 
@@ -32,3 +33,10 @@ def multix_from_checkpoints(inner_method: PosteriorMethod, states: Sequence, lea
     copies (JAX stacks them on a leading axis)."""
     states = [s for i, s in enumerate(states) if i != leave_out]
     return deep_ensemble(inner_method, n_members=len(states)), EnsembleState(states)
+
+
+def fit_laplace_from_checkpoint(model, map_state, train_data, hessian: str = "full", regression: bool = False):
+    """Post-hoc Laplace on a saved MAP state (reference fit_laplace.py):
+    ``(laplace method, fitted state)``."""
+    method = laplace_method(model, hessian=hessian, regression=regression)
+    return method, method.fit(map_state, train_data)

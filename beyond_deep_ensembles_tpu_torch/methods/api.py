@@ -59,7 +59,12 @@ class MethodState:
     (:meth:`written_tensors`: the runners save and restore them around a
     capture's warm-up) and has a flat ``state_dict`` of tensors that
     :meth:`load_state_dict` copies back in place (the checkpoints). Methods
-    that keep more state extend both."""
+    that keep more state extend both.
+
+    What the JAX package keeps as mutable model state (SNGP's precision, a
+    spectral norm's ``u``) the port keeps as module buffers, which a
+    forward updates in place: they are among the written tensors and in
+    ``params.state_dict()``, and ``model_state`` stays empty."""
 
     params: nn.Module
     model_state: dict
@@ -68,23 +73,26 @@ class MethodState:
     epoch: int = 0
 
     def written_tensors(self) -> list:
-        """Every tensor an update writes in place: the parameters and the
-        optimizer's buffers and count."""
+        """Every tensor an update writes in place: the parameters, the
+        module's buffers and the optimizer's buffers and count (a state
+        without an optimizer, iVON's, lists its own)."""
+        if self.opt_state is None:
+            return _module_tensors(self.params)
         optimizer = self.opt_state[0]
         if not hasattr(optimizer, "tensors"):
             raise TypeError(
                 f"capturing a step needs an optimizer whose state exists before its first step "
                 f"(utils.optim.SGD), not {type(optimizer).__name__}"
             )
-        return [p.detach() for p in self.params.parameters()] + list(optimizer.tensors())
+        return _module_tensors(self.params) + list(optimizer.tensors())
 
     def state_dict(self) -> dict:
-        """``params.*`` (the module's), ``opt.*`` (the optimizer's), ``step``
-        and ``epoch``: the live tensors, not copies."""
-        if self.model_state:
-            raise NotImplementedError("checkpoints of a non-empty model state: not ported yet")
+        """``params.*`` (the module's parameters and buffers), ``opt.*`` (the
+        optimizer's, where there is one), ``step`` and ``epoch``: the live
+        tensors, not copies."""
         out = {f"params.{k}": v for k, v in self.params.state_dict().items()}
-        out.update({f"opt.{k}": v for k, v in self.opt_state[0].state_dict().items()})
+        if self.opt_state is not None:
+            out.update({f"opt.{k}": v for k, v in self.opt_state[0].state_dict().items()})
         out["step"] = torch.tensor(self.step, dtype=torch.int64)
         out["epoch"] = torch.as_tensor(self.epoch).to(torch.int64)
         return out
@@ -98,13 +106,20 @@ class MethodState:
             raise KeyError(f"state keys differ: {sorted(mine.keys() ^ state.keys())}")
         self.params.load_state_dict(
             {k[len("params."):]: v for k, v in state.items() if k.startswith("params.")}, strict=True)
-        self.opt_state[0].load_state_dict({k[len("opt."):]: v for k, v in state.items() if k.startswith("opt.")})
+        if self.opt_state is not None:
+            self.opt_state[0].load_state_dict({k[len("opt."):]: v for k, v in state.items() if k.startswith("opt.")})
         self.step = int(state["step"])
         if isinstance(self.epoch, torch.Tensor):
             with torch.no_grad():
                 self.epoch.copy_(state["epoch"])
         else:
             self.epoch = int(state["epoch"])
+
+
+def _module_tensors(module: nn.Module) -> list:
+    """A module's parameters and buffers (what its forward and an update
+    write)."""
+    return [p.detach() for p in module.parameters()] + list(module.buffers())
 
 
 @dataclasses.dataclass(frozen=True)

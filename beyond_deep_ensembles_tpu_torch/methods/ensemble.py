@@ -14,8 +14,9 @@ each drawing fresh noise, for methods whose model samples in its forward
 returns for index i otherwise (SVGD: particle ``i % n``; an ensemble:
 member ``i % M``'s sample ``i // M``; SWAG: a draw of the Gaussian). Nothing
 on the identity and particle paths materializes sampled parameters, so the
-JAX ``chunk_size`` has no counterpart. Multisample methods and rank-1
-components are not ported yet.
+JAX ``chunk_size`` has no counterpart. With ``components`` = C > 1 (Rank-1
+mixtures) sample i runs the joint component ``i % C`` in every layer of its
+forward; a multisample method (SNGP) makes one forward that returns all S.
 """
 from __future__ import annotations
 
@@ -122,15 +123,24 @@ def predict(
     noise,
     components: int = 1,
 ) -> torch.Tensor:
-    """apply_fn(params, model_state, noise, x) -> output of one draw.
-    Returns ``[n_samples, ...]`` stacked outputs."""
-    if method.multisample or components > 1:
-        raise NotImplementedError("multisample methods and rank-1 components: not ported yet")
+    """apply_fn(params, model_state, noise, x, **kwargs) -> output of one
+    draw, ``kwargs`` ``n_samples`` (multisample methods) or ``component``
+    (Rank-1 mixtures). Returns ``[n_samples, ...]`` stacked outputs."""
+    if method.multisample:
+        # one forward of all S (reference ensemble.py:34-35); a multisample
+        # model returns [B, ...] at S = 1, restored to [1, B, ...] here
+        params, model_state = method.sample(state, noise, 0)
+        out = apply_fn(params, model_state, noise, x, n_samples=n_samples)
+        return out[None] if n_samples == 1 else out
+
+    def kwargs(i):
+        return {"component": i % components} if components > 1 else {}
+
     if method.sample_is_identity:
         params, model_state = method.sample(state, noise, 0)
-        return torch.stack([apply_fn(params, model_state, noise, x) for _ in range(n_samples)])
+        return torch.stack([apply_fn(params, model_state, noise, x, **kwargs(i)) for i in range(n_samples)])
     outs = []
     for i in range(n_samples):
         params, model_state = method.sample(state, noise, i)
-        outs.append(apply_fn(params, model_state, noise, x))
+        outs.append(apply_fn(params, model_state, noise, x, **kwargs(i)))
     return torch.stack(outs)

@@ -17,7 +17,7 @@ DistilBERT, after the embedding LayerNorm and after ``lin2`` (rate
 ``out_lin``.
 
 flax's ``nn.Embed``, ``nn.LayerNorm`` and ``nn.Dense`` become :class:`Embed`,
-:class:`LayerNorm` and ``models/layers.py::Dense``, with flax's initializers,
+:class:`LayerNorm` and :class:`Dense` (``nn/plain.py``), with flax's initializers,
 and submodules carry the flax names, so that ``models/jax_convert.py::
 bert_from_jax`` maps a flax param tree onto the state_dict. The JAX
 package's ``bbb`` and ``rank1`` heads, ``remat``, a bf16 compute dtype and
@@ -34,7 +34,7 @@ from torch import nn
 
 from ..nn.dropout import FixableDropout, dropout
 from ..ops.attention import fused_dropout_attention
-from .layers import Dense
+from ..nn.plain import Dense, LayerNorm
 
 
 class DistilBertConfig:
@@ -77,23 +77,6 @@ class Embed(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids.long(), self.embedding)
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` over the last axis: epsilon 1e-6 (HF's is
-    1e-12), the variance as E[x^2] - E[x]^2 clipped at 0, ``scale`` ones,
-    ``bias`` zeros."""
-
-    def __init__(self, features: int, epsilon: float = 1e-6):
-        super().__init__()
-        self.epsilon = epsilon
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(-1, keepdim=True)
-        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias
 
 
 class TransformerBlock(nn.Module):

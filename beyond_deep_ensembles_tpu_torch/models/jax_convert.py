@@ -1,23 +1,29 @@
-"""Flax parameters to a PyTorch state_dict.
+"""Flax parameters and JAX method states to PyTorch state_dicts.
 
 The reverse of ``beyond_deep_ensembles_tpu/models/torch_convert.py``. The
 port registers its submodules under flax's names (``nn/base.py``), so a key
 is the flax path joined with dots and only layouts change: conv kernels
-HWIO -> OIHW, dense kernels ``[in, out]`` -> ``[out, in]``; ``__gmean``/
-``__grho`` leaves keep their names and FRN vectors pass as they are. Plain
-``Conv_k``/``Dense_k`` kernels follow the same rules. A DistilBERT tree has
-2-D leaves that are not kernels (the embeddings), so it has its own
-:func:`bert_from_jax`.
+HWIO -> OIHW, dense kernels ``[in, out]`` -> ``[out, in]`` (the leaves named
+``kernel``, ``kernel__gmean``, ``kernel__grho``); every other leaf passes as
+it is: FRN vectors, Rank-1 layers' ``[C, in]`` / ``[C, out]`` factors and
+``[C, out]`` biases. A DistilBERT tree has 2-D leaves that are not kernels
+(the embeddings), so it has its own :func:`bert_from_jax`. JAX mutable
+collections (a spectral norm's ``kernel_u``, SNGP's ``precision``,
+``covariance``, ``seen_data``, the RFF ``W`` and ``b``) are the port's module
+buffers under the same paths, in the same layouts (:func:`buffers_from_jax`).
 
 Method states: :func:`particles_from_jax` splits parameters stacked on a
 leading axis (SVGD's particles, an ensemble's members);
-:func:`state_from_jax` turns one JAX ``MethodState`` or ``SwagState`` (its
-optax state the CIFAR chain's: a ``trace`` and a schedule ``count``) into
-the port's ``state_dict`` for a given module. JAX flattens a parameter tree
-in sorted-key order (``jax.tree.leaves``), the port in the module's
-parameter order (``tree.ravel``), so the flat vectors (the SGD buffers,
-SWAG's moments and ring rows) are unraveled by the first and raveled by the
-second. Only numpy is used: the JAX objects are read by their fields.
+:func:`state_from_jax` turns one JAX ``MethodState`` (its optax state the
+CIFAR chain's: a ``trace`` and a schedule ``count``), ``SwagState``,
+``IvonState`` or ``LaplaceState`` into the port's ``state_dict`` for a given
+module. JAX flattens a parameter tree in sorted-key order
+(``jax.tree.leaves``), the port in the module's parameter order
+(``tree.ravel``), so the flat vectors (the SGD buffers, SWAG's moments and
+ring rows, iVON's mean, momentum and precision) are unraveled by the first
+and raveled by the second; the Laplace vectors keep the JAX order, which the
+port's ``methods/laplace.py`` uses. Only numpy is used: the JAX objects are
+read by their fields.
 """
 from __future__ import annotations
 
@@ -27,14 +33,14 @@ import numpy as np
 import torch
 
 
-def _leaf(a) -> torch.Tensor:
+def _leaf(name: str, a) -> torch.Tensor:
     a = np.asarray(a)
-    if a.ndim == 4:
+    if name.startswith("kernel") and a.ndim == 4:
         a = a.transpose(3, 2, 0, 1)
-    elif a.ndim == 2:
+    elif name.startswith("kernel") and a.ndim == 2:
         a = a.T
     elif a.ndim > 2:
-        raise ValueError(f"no layout rule for a rank-{a.ndim} leaf")
+        raise ValueError(f"no layout rule for the rank-{a.ndim} leaf {name!r}")
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
@@ -56,7 +62,17 @@ def _convert(params: Mapping, leaf) -> dict:
 
 def params_from_jax(params: Mapping) -> dict:
     """``flax_params_as_numpy`` (nested mappings of arrays) -> state_dict."""
-    return _convert(params, lambda name, a: _leaf(a))
+    return _convert(params, _leaf)
+
+
+def buffers_from_jax(model_state: Mapping) -> dict:
+    """A JAX model state (``{collection: tree}``: ``spectral_norm``,
+    ``sngp``, ``buffers``) -> the port's buffers, each tree's paths joined
+    with dots, layouts and dtypes kept (``seen_data`` int32)."""
+    out = {}
+    for tree in model_state.values():
+        out.update(_convert(tree, lambda name, a: torch.from_numpy(np.array(a, order="C"))))
+    return out
 
 
 def bert_from_jax(params: Mapping) -> dict:
@@ -128,26 +144,46 @@ def _numpy_tree(node):
     return {k: _numpy_tree(v) for k, v in node.items()} if isinstance(node, Mapping) else np.asarray(node)
 
 
-def state_from_jax(module: torch.nn.Module, state, lr: float) -> dict:
-    """A JAX ``MethodState`` (``map_method``, the CIFAR optax chain) or
-    ``SwagState`` -> the port's ``state_dict`` for ``module`` (its
-    parameter names and order), ``lr`` the optimizer's base lr."""
+def state_from_jax(module: torch.nn.Module, state, lr: float = 0.0) -> dict:
+    """A JAX ``MethodState`` (``map_method``, ``bbb_method``, the CIFAR optax
+    chain), ``SwagState``, ``IvonState`` or ``LaplaceState`` -> the port's
+    ``state_dict`` for ``module`` (its parameter names and order), ``lr`` the
+    optimizer's base lr. A Rank-1 mixture's (factors of more than one
+    component) carries the JAX step as ``bbb.updates``."""
     params = _numpy_tree(state.params)
     named = params_from_jax(params)
+    named.update(buffers_from_jax(_numpy_tree(state.model_state or {})))
 
     def flat_of(vector):
         return _port_flat(module, params_from_jax(_unravel_sorted(params, vector)))
 
+    def flat_tree(tree):
+        return _port_flat(module, params_from_jax(_numpy_tree(tree)))
+
     out = {f"params.{k}": v for k, v in named.items()}
-    count = _field(state.opt_state, "count")
-    out.update({
-        "opt.flat": _port_flat(module, named),
-        "opt.trace": _port_flat(module, params_from_jax(_numpy_tree(_field(state.opt_state, "trace")))),
-        "opt.count": torch.tensor(0 if count is None else int(count), dtype=torch.int64),
-        "opt.lr": torch.tensor(lr, dtype=torch.float64),
-        "step": torch.tensor(int(state.step), dtype=torch.int64),
-        "epoch": torch.tensor(int(state.epoch), dtype=torch.int64),
-    })
+    step = torch.tensor(int(state.step), dtype=torch.int64)
+    if hasattr(state, "ll_mean"):
+        out.update({f"laplace.{k}": torch.from_numpy(np.array(getattr(state, k), np.float32))
+                    for k in ("ll_mean", "scale_tril", "diag_scale", "prior_prec", "kron_ua", "kron_ub",
+                              "kron_sa", "kron_sb")})
+    elif hasattr(state, "momentum"):
+        out.update({
+            "ivon.mean": flat_tree(state.mean),
+            "ivon.momentum": flat_tree(state.momentum),
+            "ivon.precision": flat_tree(state.precision),
+            "ivon.count": step.clone(),
+        })
+    else:
+        count = _field(state.opt_state, "count")
+        out.update({
+            "opt.flat": _port_flat(module, named),
+            "opt.trace": flat_tree(_field(state.opt_state, "trace")),
+            "opt.count": torch.tensor(0 if count is None else int(count), dtype=torch.int64),
+            "opt.lr": torch.tensor(lr, dtype=torch.float64),
+        })
+    out.update({"step": step, "epoch": torch.tensor(int(state.epoch), dtype=torch.int64)})
+    if any(k.rsplit(".", 1)[-1] == "s__gmean" and v.shape[0] > 1 for k, v in named.items()):
+        out["bbb.updates"] = step.clone()
     if hasattr(state, "deviations"):
         out.update({
             "swag.mean": flat_of(state.mean),

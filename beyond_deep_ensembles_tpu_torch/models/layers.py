@@ -1,84 +1,22 @@
 """Layer-type factories.
 
 Counterpart of ``beyond_deep_ensembles_tpu/models/layers.py``: a kind string
-selects the layer class so architectures stay agnostic. Ported: ``"plain"``
-and ``"bbb"``; the other kinds raise.
+selects the layer class so architectures stay agnostic: ``"plain"``,
+``"bbb"``, ``"rank1"`` (with ``components``) and ``"spectral"`` (with
+``norm_bound``).
 """
 from __future__ import annotations
 
-import math
 from typing import Sequence, Union
 
 import torch
 from torch import nn
 
 from ..nn.bbb import BBBConv, BBBDense
-from ..nn.convops import Padding, conv2d
-
-# flax's lecun_normal: a normal truncated at two standard deviations, whose
-# stddev is divided by this (the std of a unit normal truncated at +-2) so
-# the draws have variance 1/fan_in
-_TRUNCATED_STD = 0.87962566103423978
-
-
-def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
-    """flax ``initializers.lecun_normal()``: truncated normal in [-2, 2]
-    standard deviations, variance ``1 / fan_in``."""
-    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
-    with torch.no_grad():
-        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-
-
-class Conv(nn.Module):
-    """Plain 2-D convolution (JAX ``models/layers.py::Conv``, flax
-    ``nn.Conv``'s parameters): ``kernel`` OIHW with lecun-normal init at fan-in
-    ``I * kh * kw``, ``bias`` zero. Computes through ``nn/convops.conv2d``."""
-
-    def __init__(
-        self,
-        in_features: int,
-        features: int,
-        kernel_size: Sequence[int],
-        strides: Union[int, Sequence[int]] = 1,
-        padding: Padding = 0,
-        use_bias: bool = True,
-        *,
-        generator: torch.Generator,
-    ):
-        super().__init__()
-        kh, kw = kernel_size
-        self.strides = (strides, strides) if isinstance(strides, int) else tuple(strides)
-        self.padding = padding
-        self.kernel = nn.Parameter(torch.empty(features, in_features, kh, kw))
-        lecun_normal_(self.kernel, in_features * kh * kw, generator)
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
-
-    def forward(self, x, noise=None, train: bool = True):
-        del noise, train
-        out = conv2d(x, self.kernel, self.strides, self.padding)
-        if self.bias is not None:
-            out = out + self.bias[:, None, None]
-        return out
-
-
-class Dense(nn.Module):
-    """flax ``nn.Dense``: ``kernel`` ``[features, in_features]`` (flax's
-    ``[in, out]`` transposed) with lecun-normal init, ``bias`` zero."""
-
-    def __init__(self, in_features: int, features: int, use_bias: bool = True, *, generator: torch.Generator):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(features, in_features))
-        lecun_normal_(self.kernel, in_features, generator)
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
-
-    def forward(self, x, noise=None, train: bool = True):
-        del noise, train
-        out = x @ self.kernel.T
-        return out if self.bias is None else out + self.bias
-
-
-def _not_ported(what: str, kind: str):
-    return NotImplementedError(f"{what} kind {kind!r}: not ported yet")
+from ..nn.convops import Padding
+from ..nn.plain import Conv, Dense
+from ..nn.rank1 import Rank1Conv, Rank1Dense
+from ..nn.spectral_norm import SpectralNormConv, SpectralNormDense
 
 
 def make_dense(
@@ -86,6 +24,7 @@ def make_dense(
     in_features: int,
     features: int,
     use_bias: bool = True,
+    components: int = 1,
     *,
     generator: torch.Generator,
     **kwargs,
@@ -94,7 +33,11 @@ def make_dense(
         return Dense(in_features, features, use_bias=use_bias, generator=generator)
     if kind == "bbb":
         return BBBDense(in_features, features, use_bias=use_bias, generator=generator, **kwargs)
-    raise _not_ported("dense", kind)
+    if kind == "rank1":
+        return Rank1Dense(in_features, features, components=components, use_bias=use_bias, generator=generator)
+    if kind == "spectral":
+        return SpectralNormDense(in_features, features, use_bias=use_bias, generator=generator, **kwargs)
+    raise ValueError(f"unknown dense kind {kind!r}")
 
 
 def make_conv(
@@ -105,6 +48,7 @@ def make_conv(
     strides: Union[int, Sequence[int]] = 1,
     padding: Padding = 0,
     use_bias: bool = True,
+    components: int = 1,
     *,
     generator: torch.Generator,
     **kwargs,
@@ -119,9 +63,22 @@ def make_conv(
             in_features, features, kernel_size, strides=strides, padding=padding,
             use_bias=use_bias, generator=generator, **kwargs,
         )
-    raise _not_ported("conv", kind)
+    if kind == "rank1":
+        return Rank1Conv(
+            in_features, features, kernel_size, strides=strides, padding=padding, components=components,
+            use_bias=use_bias, generator=generator,
+        )
+    if kind == "spectral":
+        return SpectralNormConv(
+            in_features, features, kernel_size, strides=strides, padding=padding,
+            use_bias=use_bias, generator=generator, **kwargs,
+        )
+    raise ValueError(f"unknown conv kind {kind!r}")
 
 
-def call_layer(layer: nn.Module, x, noise, train: bool):
-    """Invoke a factory-made layer with the right signature."""
+def call_layer(layer: nn.Module, x, noise, train: bool, component=None):
+    """Invoke a factory-made layer with the right signature: a Rank-1 layer
+    takes the mixture component."""
+    if isinstance(layer, (Rank1Dense, Rank1Conv)):
+        return layer(x, noise, train=train, component=component)
     return layer(x, noise, train=train)

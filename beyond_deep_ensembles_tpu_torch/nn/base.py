@@ -29,12 +29,13 @@ def add_auto_named(parent: nn.Module, layer: nn.Module) -> nn.Module:
 class Model:
     """A module plus the calling convention every method uses:
 
-    apply(params, model_state, noise, *inputs, train) -> (out, kl, new_model_state)
+    apply(params, model_state, noise, *inputs, train, **kwargs) -> (out, kl, new_model_state)
 
     ``params`` is the module to run (a method's live parameters), or a
     mapping from parameter names to tensors (a SWAG draw), which runs
     through :attr:`module` by ``torch.func.functional_call``. ``noise``
-    feeds every stochastic layer. No layer on the ported path computes its
+    feeds every stochastic layer; ``kwargs`` go to the module's forward (a
+    Rank-1 model's ``component``, an SNGP model's ``n_samples``). No layer on the ported path computes its
     own KL, so ``kl`` is zero; the methods collect the Gaussian KL from the
     parameters.
     """
@@ -42,10 +43,11 @@ class Model:
     def __init__(self, module: nn.Module):
         self.module = module
 
-    def apply(self, params, model_state, noise: NoiseSource, *inputs, train: bool = True):
+    def apply(self, params, model_state, noise: NoiseSource, *inputs, train: bool = True, **kwargs):
+        kwargs = {"noise": noise, "train": train, **kwargs}
         if isinstance(params, Mapping):
-            out = torch.func.functional_call(self.module, dict(params), inputs, {"noise": noise, "train": train})
+            out = torch.func.functional_call(self.module, dict(params), inputs, kwargs)
         else:
-            out = params(*inputs, noise=noise, train=train)
-        kl = torch.zeros((), dtype=torch.float32, device=out.device)
+            out = params(*inputs, **kwargs)
+        kl = torch.zeros((), dtype=torch.float32, device=inputs[0].device)
         return out, kl, model_state or {}

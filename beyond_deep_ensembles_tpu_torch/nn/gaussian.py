@@ -13,7 +13,7 @@ layer and every attention with live dropout.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -32,19 +32,28 @@ _POOL = 1 << 20
 _POOL_STREAM = 1 << 31
 
 
+def sign_mean_init(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+    """+-1 with equal odds: the Rank-1 factors' mean init (JAX
+    ``sign_mean_init``, reference util.py:165-168)."""
+    return (torch.rand(tuple(shape), generator=generator) > 0.5).to(torch.float32) * 2.0 - 1.0
+
+
 def gaussian_param(
     module: nn.Module,
     name: str,
     shape: Sequence[int],
     generator: torch.Generator,
-    mean_init: Optional[float] = None,
+    mean_init: Optional[Union[float, Callable]] = None,
     rho_init: float = RHO_INIT,
 ) -> None:
     """Register ``{name}__gmean`` and ``{name}__grho`` on ``module``. The mean
-    is N(0, 0.1) from ``generator``, or the constant ``mean_init``; rho is
+    is N(0, 0.1) from ``generator``, the constant ``mean_init``, or
+    ``mean_init(shape, generator)`` (:func:`sign_mean_init`); rho is
     ``rho_init``."""
     if mean_init is None:
         mean = MEAN_STD_INIT * torch.randn(tuple(shape), generator=generator)
+    elif callable(mean_init):
+        mean = mean_init(shape, generator)
     else:
         mean = torch.full(tuple(shape), float(mean_init))
     module.register_parameter(name + GMEAN_SUFFIX, nn.Parameter(mean))

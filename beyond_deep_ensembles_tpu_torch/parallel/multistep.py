@@ -24,7 +24,9 @@ Capture, on a card:
     advanced (``keys.advance``) inside the graph, as ``make_multi_step``
     splits its key into one per step;
   * replays: each copies its batch into the static buffers and replays.
-A capture that fails raises; nothing falls back to eager steps. The graph
+Python's cycle collector is run before a capture and kept off during it
+(:func:`_capturing`). A capture that fails raises; nothing falls back to
+eager steps. The graph
 holds the state's tensors, so a runner recaptures when it is handed another
 state. The update's optimizer must have its state before its first step
 (the port's ``utils/optim.py::SGD``). Launch counters on the kernel wrappers
@@ -32,6 +34,8 @@ count the warm-up and the capture, never a replay.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -76,6 +80,25 @@ def _written_tensors(state):
     return written()
 
 
+@contextlib.contextmanager
+def _capturing(graph: torch.cuda.CUDAGraph):
+    """``torch.cuda.graph(graph)`` with Python's cycle collector run first
+    and kept off until the capture ends: an unreachable cycle that holds
+    another graph (an earlier run's eval runner, say, whose prediction
+    closure refers back to its experiment) would otherwise be collected in
+    the middle of the capture, and a graph destroyed during a capture
+    invalidates it."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def _warm_up(update: Callable, state, key: torch.Tensor, batch: Tuple[torch.Tensor, ...]) -> dict:
     """``_WARMUP`` updates, after which every tensor the update writes
     (:func:`_written_tensors`) and ``state.step`` are as they were: so that
@@ -111,7 +134,7 @@ class _StepGraph:
         self.sums = {name: torch.zeros_like(value) for name, value in metrics.items()}
         step = state.step
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):  # records the writes; runs none of them
+        with _capturing(self.graph):  # records the writes; runs none of them
             _, metrics = update(state, NoiseSource(key=self.key), self.batch)
             for name, value in metrics.items():
                 self.sums[name].add_(value)
@@ -222,7 +245,7 @@ class _PredictGraph:
                     predict_batch(state, self.key, self.x)
             torch.cuda.current_stream(device).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            with _capturing(self.graph):
                 self.out = predict_batch(state, self.key, self.x)
 
     def run(self, key: int, x: torch.Tensor) -> torch.Tensor:

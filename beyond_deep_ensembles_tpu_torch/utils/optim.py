@@ -25,6 +25,25 @@ import torch
 from ..tree import tree_where
 
 
+@torch.no_grad()
+def flatten_parameters(params) -> torch.Tensor:
+    """One flat buffer holding ``params`` (a list of parameters, on one
+    device) in order, each parameter rebound as a view of it: a write to the
+    buffer is a write to the module's weights."""
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    start = 0
+    for p in params:
+        p.data = flat[start : start + p.numel()].view_as(p)
+        start += p.numel()
+    return flat
+
+
+def flat_grad(params) -> torch.Tensor:
+    """The parameters' gradients as one flat vector, zero where a parameter
+    has none (as JAX's ``grad`` gives)."""
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in params])
+
+
 class SGD:
     """optax ``add_decayed_weights(weight_decay)`` then ``sgd`` over one flat
     buffer, per element:
@@ -54,12 +73,7 @@ class SGD:
             raise ValueError("SGD got no parameters")
         self.lr0, self.momentum, self.nesterov = lr, momentum, nesterov
         self.weight_decay, self.schedule, self.steps_per_epoch = weight_decay, schedule, steps_per_epoch
-        with torch.no_grad():
-            self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
-            start = 0
-            for p in self.params:
-                p.data = self.flat[start : start + p.numel()].view_as(p)
-                start += p.numel()
+        self.flat = flatten_parameters(self.params)
         self.trace = torch.zeros_like(self.flat)
         self.count = torch.zeros((), dtype=torch.int64, device=self.flat.device)
 
@@ -104,7 +118,7 @@ class SGD:
     def step(self, ok: Optional[torch.Tensor] = None) -> None:
         """One update; with ``ok`` (a 0-dim bool tensor) only where it holds,
         the parameters, momentum and count otherwise left as they were."""
-        grad = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in self.params])
+        grad = flat_grad(self.params)
         if self.weight_decay:
             grad = grad + self.weight_decay * self.flat
         trace = grad + self.momentum * self.trace

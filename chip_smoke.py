@@ -82,6 +82,20 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      epoch 1 and resumed from its checkpoint against an uninterrupted one,
      bit for bit; ``multix_phase`` over three saved ``map_final`` runs
      against ``eval_model`` of the same ensemble;
+  7d. the rest of CIFAR (configs/cifar.yaml's Rank1, iVON, MultiiVON, SNGP,
+     Laplace and MultiLaplace, Multi-X at 5 members): each through
+     ``run_single`` with ``device_data`` at the Multi-X cut, every count set
+     to 0 before and read after (no kernel of the port on these paths); 4
+     captured steps against 4 eager ones bit for bit (Rank1: its component
+     counter; iVON: its count and moments; SNGP: its precision and spectral
+     u); steady steps eager and captured, a profile of the captured ones,
+     the eval runner against the host loop (Rank1, iVON, SNGP, Laplace);
+     SNGP's epoch boundary (a 1024 x 1024 Cholesky); the Laplace fit's wall
+     time (GGN pass, marginal-likelihood search); one step of Rank1, iVON
+     and SNGP and a Laplace fit on the card against the CPU; resumed iVON
+     and SNGP runs against uninterrupted ones, bit for bit;
+     ``fit_laplace_phase`` on a saved ``map_final`` against the Laplace
+     row's fit and eval of the same state;
   8. the DistilBERT slice: the ``MCD`` variant of configs/amazon.yaml
      (distilbert-base, full-model MC-Dropout, L = 512, random weights from a
      seed) through ``experiments/wilds_task.py`` ``build`` -> ``train`` (10
@@ -90,8 +104,8 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      per step, exactly; 20 steady steps and a profile of 3; then the ``MAP``
      variant the same way; the card's MCD logits and one Adam step held
      against the CPU path with the same weights and masks;
-  9. the runner figures and the Multi-X figures as JSON lines, the card's
-     name and power limit,
+  9. the runner figures, the Multi-X figures and the rest-of-CIFAR figures
+     as JSON lines, the card's name and power limit,
      one JSON line of kernel figures (K1, K2, K3a, K3b), then the result
      line ``{"ok": true, "device": {...}}``.
 Exits non-zero and prints no result without CUDA or without the package
@@ -139,6 +153,8 @@ YAML_DEFAULT = {"corrupted_intensities": [0, 1, 2, 3, 4]}
 RUNNER = {"epochs": 1, "subsample": 100 * 128, "test_subsample": 1000, "seed": 0, "device_data": True}
 COMPARE_STEPS = 4
 TIMED_STEPS = 20
+# idle host time on each side of a profile's window (profile_steps)
+PROFILE_PAD_S = 0.1
 # the Multi-X phase: configs/cifar.yaml's variants (DEFAULT's lr, weight
 # decay and schedule are the port's DEFAULT_CONFIG), each through run_single
 # with device_data, cut to MULTIX (epochs and data size only): 2 epochs of 20
@@ -165,6 +181,24 @@ RESUME = {"epochs": 3, "subsample": 10 * 128, "test_subsample": 100, "seed": 0, 
           "swag_start_epoch": 1}
 MULTIX_CHECK = {"epochs": 1, "subsample": 10 * 128, "test_subsample": 1000, "seed": 0, "device_data": True,
                 "corrupted_intensities": []}
+# the rest of CIFAR: configs/cifar.yaml's rows Rank1, iVON, MultiiVON, SNGP,
+# Laplace and MultiLaplace (DEFAULT's lr, weight decay and schedule are the
+# port's DEFAULT_CONFIG), each through run_single with device_data at the
+# MULTIX cut (2 epochs of 20 steps, six splits of 1000 images, S = 50, SNGP's
+# row S = 1)
+SNGP_HEAD = {"num_random_features": 1024, "num_gp_features": -1, "normalize_gp_features": False,
+             "ridge_penalty": 1.0, "mean_field_factor": 20.0, "feature_scale": 1.0, "rff_init_std": 0.05}
+IVON_ROW = {"model": "ivon", "members": 1, "lr_schedule": False, "ivon_lr": 0.0001, "ivon_prior_prec": 50,
+            "ivon_damping": 0.001, "ivon_augmentation": 10, "ivon_mc_samples": 2}
+REST_VARIANTS = [
+    ("Rank1", {"model": "rank1", "members": 1, "prior_std": 0.1, "rank1_components": 4, "rank1_l2_scale": 0.0003,
+               "rank1_kl_rescaling": 1.0}),
+    ("iVON", IVON_ROW),
+    ("MultiiVON", {**IVON_ROW, "members": 5}),
+    ("SNGP", {"model": "sngp", "members": 1, "eval_samples": 1, "spectral_norm_bound": 6.0, "sngp": SNGP_HEAD}),
+    ("Laplace", {"model": "laplace", "members": 1, "ll_hessian": "full"}),
+    ("MultiLaplace", {"model": "laplace", "members": 5, "ll_hessian": "full"}),
+]
 # K2's shapes: the SVGD slice's particle matrix (5 particles of ResNet-20's
 # 273,610 parameters), the JAX package's upper end (20 particles of 25 M),
 # ragged P, one row
@@ -623,7 +657,15 @@ def profile_steps(torch, step, ours, steps=3, label="train steps"):
     trace has no device time. The trace starts with a warm-up period, one
     small kernel traced and discarded: without it the tracer once missed
     the first kernels of a window that opened on a graph replay (one of
-    each of a BBB forward's first layers)."""
+    each of a BBB forward's first layers). The tracer keeps a device record
+    only where its timestamps, on the card's clock, fall inside the window,
+    which opens and closes on the host's: the trace of a runner eval, which
+    ran from the window's first moment to its last, once lost 24 of its 2200
+    K1 launches. So the window has ``PROFILE_PAD_S`` of idle host time on
+    each side of the steps, and the margins between it and the first and
+    last device record are printed, with the last record's end less the
+    end of the host's ``cudaDeviceSynchronize`` after the steps (which
+    waited for it: at most 0 where the two clocks agree)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
@@ -632,12 +674,30 @@ def profile_steps(torch, step, ours, steps=3, label="train steps"):
         torch.zeros(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         prof.step()  # the window: only what follows is reported
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         for i in range(steps):
             step(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
         prof.step()
+    events = prof.events()
+    window = [e.time_range for e in events if e.name.startswith("ProfilerStep") and "CPU" in str(e.device_type)]
+    device = [e.time_range for e in events if "CUDA" in str(e.device_type) and not e.is_user_annotation]
+    syncs = [e.time_range for e in events if e.name == "cudaDeviceSynchronize"]
+    if window and device:
+        first, last = min(r.start for r in device), max(r.end for r in device)
+        line = (f"trace window margins: first device record {(first - window[0].start) / 1e3:.3f} ms after the "
+                f"window opened, last {(window[0].end - last) / 1e3:.3f} ms before it closed "
+                f"({PROFILE_PAD_S * 1e3:.0f} ms of idle host time on each side)")
+        # the host's last synchronize before the closing idle time (the
+        # profiler's own, after it, waits for nothing of the steps)
+        syncs = [r.end for r in syncs if r.start < window[0].end - PROFILE_PAD_S * 1e6 / 2]
+        if syncs:
+            line += (f"; the last device record ended {(last - max(syncs)) / 1e3:+.3f} ms after the host's "
+                     f"synchronize returned (<= 0 where the clocks agree)")
+        print(line)
     averages = prof.key_averages()
     # kernels only: a record_function range (the optimizer's step) also
     # carries device time, that of the kernels inside it
@@ -954,16 +1014,16 @@ def runner_phase(torch, cifar, kernels, variant, label, ours):
             "captured_vs_eager_param_err": param_err, "host_counts": counts}
 
 
-def _variant_runs(torch, cifar, kernels):
-    """The six variants through ``run_single`` (MULTIX cut, device_data, the
-    test split and DEFAULT's five corrupted splits of 1000 images, S = 50),
-    every count set to 0 just before each and read just after; SWAG's
-    ``updates`` per member read from the run's saved ``swag_final``.
-    Returns {label: {"wall_s", "host_counts", "updates"}}."""
+def _variant_runs(torch, cifar, kernels, variants=MULTIX_VARIANTS):
+    """The variants through ``run_single`` (MULTIX cut, device_data, the
+    test split and DEFAULT's five corrupted splits of 1000 images, S = 50,
+    or the row's own S), every count set to 0 just before each and read just
+    after; SWAG's ``updates`` per member read from the run's saved
+    ``swag_final``. Returns {label: {"wall_s", "host_counts", "updates"}}."""
     runs = {}
     per_forward = len(bbb_shapes(1))
     splits = ["test"] + [f"corrupted{i}" for i in YAML_DEFAULT["corrupted_intensities"]]
-    for label, variant in MULTIX_VARIANTS:
+    for label, variant in variants:
         config = {**cifar.DEFAULT_CONFIG, **YAML_DEFAULT, **variant, **MULTIX}
         if "swag_start_epoch" in variant:
             config["swag_start_epoch"] = MULTIX_SWAG_START
@@ -1155,20 +1215,21 @@ class _Preempted(Exception):
     check's stand-in for a preemption."""
 
 
-def resume_check(torch, cifar):
-    """MultiSWAG (5 members) over RESUME epochs with ``checkpoint_dir`` and
+def resume_check(torch, cifar, variant, label):
+    """``variant`` over RESUME epochs with ``checkpoint_dir`` and
     ``checkpoint_interval`` 1 (device_data): stopped when epoch 1 ends
     (checkpoint_0 on disk), built afresh and resumed to the end; equal bit
     for bit, on cuDNN's deterministic algorithms, to an uninterrupted run
-    without checkpoints: every member's parameters, optimizer, moments,
-    ring and counters."""
+    without checkpoints: every tensor of the state (MultiSWAG: every
+    member's parameters, optimizer, moments, ring and counters; iVON: mean,
+    momentum, precision, count; SNGP: parameters, optimizer and buffers)."""
     import shutil
 
     from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
 
-    run_dir = os.path.join(BUILD, "resume_check")
+    run_dir = os.path.join(BUILD, "resume_check", label)
     shutil.rmtree(run_dir, ignore_errors=True)
-    config = {**cifar.DEFAULT_CONFIG, **dict(MULTIX_VARIANTS)["MultiSWAG"], **RESUME}
+    config = {**cifar.DEFAULT_CONFIG, **variant, **RESUME}
     config, (x, y), _ = cifar._load_data(config)
     torch.backends.cudnn.deterministic = True
     whole = cifar.train(cifar._build_for(config, None), config, x, y).state.state_dict()
@@ -1183,13 +1244,13 @@ def resume_check(torch, cifar):
         cifar.train(cifar._build_for(run, None), run, x, y, log=stop_after_epoch_1)
     except _Preempted:
         pass
-    check(ckpt.latest_checkpoint_step(run_dir) == 0, "resume: stopped after epoch 1 with checkpoint_0 on disk")
+    check(ckpt.latest_checkpoint_step(run_dir) == 0, f"resume {label}: stopped after epoch 1 with checkpoint_0 on disk")
     resumed = cifar.train(cifar._build_for(run, None), run, x, y, log=print).state.state_dict()
     torch.backends.cudnn.deterministic = False
     same = whole.keys() == resumed.keys() and all(torch.equal(whole[k], resumed[k]) for k in whole)
-    updates = [int(v) for k, v in sorted(resumed.items()) if k.endswith("swag.updates")]
-    check(same, f"resume: MultiSWAG resumed from checkpoint_0 to {config['epochs']} epochs = the uninterrupted run, "
-                f"bit for bit ({len(whole)} tensors; collections per member {updates}; cuDNN deterministic)")
+    counters = {k: int(v) for k, v in sorted(resumed.items()) if k.endswith(("swag.updates", "ivon.count", "seen_data"))}
+    check(same, f"resume: {label} resumed from checkpoint_0 to {config['epochs']} epochs = the uninterrupted run, "
+                f"bit for bit ({len(whole)} tensors; counters {counters}; cuDNN deterministic)")
     return same
 
 
@@ -1269,7 +1330,7 @@ def multi_x_phase(torch, cifar, kernels, NoiseSource, single_bbb):
     torch.cuda.empty_cache()
 
     figures["card_vs_cpu_multibbb_logit_err"] = ensemble_card_vs_cpu(torch, cifar, NoiseSource)
-    figures["resume_bitwise"] = resume_check(torch, cifar)
+    figures["resume_bitwise"] = resume_check(torch, cifar, dict(MULTIX_VARIANTS)["MultiSWAG"], "MultiSWAG")
     figures["multix_rel_diff"] = multix_check(torch, cifar)
     summary = {label: {"captured_median_ms": figures[label]["steps"]["captured"]["median_ms"],
                        "eager_median_ms": figures[label]["steps"]["eager"]["median_ms"],
@@ -1279,6 +1340,187 @@ def multi_x_phase(torch, cifar, kernels, NoiseSource, single_bbb):
                       "eager_median_ms": single_bbb["steps"]["eager"]["median_ms"],
                       "captured_busy": (single_bbb["profiles"]["captured"] or {}).get("busy")}
     print(f"Multi-X steps, captured against one member of the same run [{CARD}]: {json.dumps(summary)}")
+    figures["summary"] = summary
+    return figures
+
+
+def rest_card_vs_cpu(torch, cifar, NoiseSource):
+    """One step of Rank1, iVON and SNGP (batch 4, augmentation off) on the
+    card against the CPU path from the same weights and the same draws (the
+    CPU's, drawn in generator mode and recorded, given to the card): every
+    floating tensor of the state within 1e-5 of its largest magnitude (at
+    least 1), the integer ones equal, the loss within 1e-5 relative (as the
+    DeepEnsemble step check); then a full Laplace fit on 64 images: the GGN
+    within 1e-5 of its largest entry, and the card's prior precision scored
+    on the CPU's marginal-likelihood curve within 1e-5 relative of the CPU's
+    own (the curve is flat at its optimum, so two fp32 searches may stop
+    apart). Returns the gaps."""
+    from beyond_deep_ensembles_tpu_torch.methods.laplace import laplace_method, log_marginal_likelihood
+
+    class Recording(NoiseSource):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.drawn = []
+
+        def normal(self, shape, device, train, freeze_on_eval):
+            eps = super().normal(shape, device, train, freeze_on_eval)
+            self.drawn.append(eps.clone())
+            return eps
+
+    gen = torch.Generator().manual_seed(5)
+    x, y = torch.randn(4, 3, 32, 32, generator=gen), torch.randint(0, 10, (4,), generator=gen)
+    variants, gaps = dict(REST_VARIANTS), {}
+    for label in ("Rank1", "iVON", "SNGP"):
+        config = {**cifar.DEFAULT_CONFIG, **variants[label], "augment": False, "dataset_size": 1280, "epochs": 1}
+        cpu = cifar.build(config, torch.Generator().manual_seed(4), 10, device="cpu")
+        gpu = cifar.build(config, torch.Generator().manual_seed(4), 10)
+        noise = Recording(generator=torch.Generator().manual_seed(0))
+        cpu.state, m_cpu = cpu.method.update(cpu.state, noise, (x, y))
+        gpu.state, m_gpu = gpu.method.update(gpu.state, NoiseSource(given=[d.cuda() for d in noise.drawn]),
+                                             (x.cuda(), y.cuda()))
+        a, b = cpu.state.state_dict(), {k: v.cpu() for k, v in gpu.state.state_dict().items()}
+        err = max(float((b[k].double() - a[k].double()).abs().max()) / max(float(a[k].double().abs().max()), 1.0)
+                  for k in a if a[k].is_floating_point())
+        ints = all(torch.equal(a[k], b[k]) for k in a if not a[k].is_floating_point())
+        loss_err = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        check(err <= 1e-5 and ints and loss_err <= 1e-5,
+              f"{label} step on the card = CPU path (batch 4, {len(noise.drawn)} draws given: state max err {err:.2e} "
+              f"of each tensor's scale <= 1e-5, counters equal; loss rel err {loss_err:.1e} <= 1e-5)")
+        gaps[label] = {"state_err": err, "loss_rel_err": loss_err}
+
+    config = {**cifar.DEFAULT_CONFIG, **variants["Laplace"], "dataset_size": 1280, "epochs": 1}
+    cpu = cifar.build(config, torch.Generator().manual_seed(4), 10, device="cpu")
+    gpu = cifar.build(config, torch.Generator().manual_seed(4), 10)
+    xs, ys = torch.randn(64, 3, 32, 32, generator=gen), torch.randint(0, 10, (64,), generator=gen)
+    laps = [laplace_method(b.model, hessian="full", regression=False, inner=b.method) for b in (cpu, gpu)]
+    (h_cpu, ll_cpu), (h_gpu, ll_gpu) = laps[0].ggn(cpu.state, (xs, ys)), laps[1].ggn(gpu.state, (xs.cuda(), ys.cuda()))
+    h_err = float((h_gpu.cpu() - h_cpu).abs().max()) / float(h_cpu.abs().max())
+    fit_cpu, fit_gpu = laps[0].fit(cpu.state, (xs, ys)), laps[1].fit(gpu.state, (xs.cuda(), ys.cuda()))
+    score = log_marginal_likelihood(h_cpu, ll_cpu, fit_cpu.ll_mean, "full")
+    s_cpu, s_gpu = float(score(fit_cpu.prior_prec)), float(score(fit_gpu.prior_prec.cpu()))
+    scale_err = float((fit_gpu.scale_tril.cpu() - fit_cpu.scale_tril).abs().max()) / float(fit_cpu.scale_tril.abs().max())
+    check(h_err <= 1e-5 and abs(float(ll_gpu) - float(ll_cpu)) <= 1e-5 * abs(float(ll_cpu))
+          and s_gpu >= s_cpu - 1e-5 * abs(s_cpu),
+          f"Laplace fit on the card = CPU path (full, D = 650, 64 images): GGN max err {h_err:.2e} of its largest entry "
+          f"<= 1e-5; prior precision card {float(fit_gpu.prior_prec):.6g}, CPU {float(fit_cpu.prior_prec):.6g}, "
+          f"the card's on the CPU's curve {s_gpu:.8g} >= {s_cpu:.8g} - 1e-5 rel; scale_tril max err {scale_err:.2e} of "
+          f"its largest entry")
+    gaps["Laplace"] = {"ggn_err": h_err, "prior_prec_card": float(fit_gpu.prior_prec),
+                       "prior_prec_cpu": float(fit_cpu.prior_prec), "scale_tril_err": scale_err}
+    return gaps
+
+
+def sngp_finalize_ms(torch, built, reps=10):
+    """Device time of SNGP's epoch boundary (``recompute_covariance_and_reset``
+    of the 1024 x 1024 precision: Cholesky, solve, reset), CUDA events over
+    ``reps`` calls after one warm-up."""
+    from beyond_deep_ensembles_tpu_torch.nn.sngp import recompute_covariance_and_reset
+
+    ridge = SNGP_HEAD["ridge_penalty"]
+    recompute_covariance_and_reset(built.state.params, ridge)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        recompute_covariance_and_reset(built.state.params, ridge)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    print(f"SNGP finalize_epoch (1024 x 1024 Cholesky inverse and reset): {ms:.3f} ms [{CARD}]")
+    return ms
+
+
+def laplace_figures(torch, cifar):
+    """The Laplace row's fit (``ll_hessian: full``, D = 650) on the phase's
+    training set of TIMED_STEPS x 128 images, on a fresh MAP state: the wall
+    time of the GGN pass alone and of the whole fit (the GGN pass, the
+    marginal-likelihood search on the host, the posterior), then the eval
+    runner against the host loop on the fitted state."""
+    from beyond_deep_ensembles_tpu_torch.data.cifar import load_cifar10
+    from beyond_deep_ensembles_tpu_torch.methods.laplace import laplace_method
+
+    built, config, _, test = _built(torch, cifar, dict(REST_VARIANTS)["Laplace"])
+    x, y = load_cifar10(True, subsample=TIMED_STEPS * 128)
+    data = cifar._to_device(built, x, y)
+    lap = laplace_method(built.model, hessian=config["ll_hessian"], regression=False, inner=built.method)
+    lap.ggn(built.state, (data[0][:256], data[1][:256]))  # warm-up: cuDNN's and the jacrev's first calls
+    times = {}
+    for name, fn in (("ggn_s", lambda: lap.ggn(built.state, data)), ("fit_s", lambda: lap.fit(built.state, data))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    fitted = out
+    print(f"Laplace fit of {x.shape[0]} images (full, D = 650): GGN pass {times['ggn_s']:.3f} s, whole fit "
+          f"{times['fit_s']:.3f} s (the marginal-likelihood search and the posterior {times['fit_s'] - times['ggn_s']:.3f} "
+          f"s), prior precision {float(fitted.prior_prec):.5g} [{CARD}]")
+    built.method, built.state = lap, fitted
+    times["eval_samples_per_s"] = eval_runner_vs_host(torch, cifar, built, config, test, "Laplace")
+    del built, data
+    torch.cuda.empty_cache()
+    return times
+
+
+def fit_laplace_check(torch, cifar):
+    """``fit_laplace_phase`` on the ``map_final`` that the Multi-X phase's
+    multix check wrote (rep_0) against the Laplace row's build with that
+    state restored, fitted on the same training split and evaluated: the
+    same test metrics."""
+    from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
+
+    run_dir = os.path.join(BUILD, "multix_check", "rep_0")
+    base = {**dict(REST_VARIANTS)["Laplace"], **MULTIX_CHECK}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = cifar.fit_laplace_phase({**base, "from_model": "map"}, run_dir, log=print)["test"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    config, built, (x, y), (x_test, y_test) = cifar._rebuild(base)
+    built.state = ckpt.restore_final(run_dir, "map", built.state)
+    cifar._fit_laplace(built, config, x, y)
+    want = cifar.eval_model(built, config, x_test, y_test).as_dict()
+    diff = max(abs(got[m] - want[m]) / max(abs(want[m]), 1e-30) for m in want)
+    check(diff <= 1e-5, f"fit_laplace_phase on a saved map_final ({wall:.1f} s) = the Laplace row's fit and eval of the "
+                        f"same state (metrics max rel diff {diff:.2g} <= 1e-5; equal: {got == want}): {json.dumps(got)}")
+    return diff
+
+
+def rest_phase(torch, cifar, kernels, NoiseSource):
+    """The rest of CIFAR: the six rows through run_single (no kernel of
+    the port on their paths: every count 0), captured against eager bit
+    for bit for Rank1, iVON and SNGP (SNGP's precision and spectral u
+    among the written tensors), step and eval figures of the three, SNGP's
+    epoch boundary, the Laplace fit's time and eval, the card against the
+    CPU, resumed iVON and SNGP runs, and fit_laplace_phase. Returns the
+    figures."""
+    print(f"cut: {MULTIX['epochs']} epochs of {MULTIX['subsample']} synthetic images at batch 128 (configs/cifar.yaml: "
+          f"{cifar.DEFAULT_CONFIG['epochs']} epochs of 50,000), each eval split {MULTIX['test_subsample']} images "
+          f"(10,000); widths, batch, eval batch and S as the yaml writes them; MultiiVON and MultiLaplace 5 members")
+    figures = {"runs": _variant_runs(torch, cifar, kernels, REST_VARIANTS)}
+    variants = dict(REST_VARIANTS)
+    bitwise = {}
+    for label in ("Rank1", "iVON", "SNGP"):
+        built, _, batches, _ = _built(torch, cifar, variants[label], steps=COMPARE_STEPS)
+        bitwise[label] = captured_vs_eager(torch, built, batches, label)
+        del built, batches
+    figures["captured_equals_eager_bitwise"] = bitwise
+    for label in ("Rank1", "iVON", "SNGP"):
+        built, config, batches, test = _built(torch, cifar, variants[label])
+        figures[label] = step_figures(torch, built, batches, label, ())
+        figures[label]["eval_samples_per_s"] = eval_runner_vs_host(torch, cifar, built, config, test, label)
+        if label == "SNGP":
+            figures[label]["finalize_epoch_ms"] = sngp_finalize_ms(torch, built)
+        del built, batches
+        torch.cuda.empty_cache()
+    figures["Laplace"] = laplace_figures(torch, cifar)
+    figures["card_vs_cpu"] = rest_card_vs_cpu(torch, cifar, NoiseSource)
+    figures["resume_bitwise"] = {label: resume_check(torch, cifar, variants[label], label) for label in ("iVON", "SNGP")}
+    figures["fit_laplace_phase_rel_diff"] = fit_laplace_check(torch, cifar)
+    summary = {label: {"captured_median_ms": figures[label]["steps"]["captured"]["median_ms"],
+                       "eager_median_ms": figures[label]["steps"]["eager"]["median_ms"],
+                       "captured_busy": (figures[label]["profiles"]["captured"] or {}).get("busy")}
+               for label in ("Rank1", "iVON", "SNGP")}
+    print(f"Rank1, iVON and SNGP steps [{CARD}]: {json.dumps(summary)}")
     figures["summary"] = summary
     return figures
 
@@ -1717,6 +1959,10 @@ def main() -> int:
     phase("Multi-X: DeepEnsemble, MultiBBB, MultiMCD, MultiSWAG, MCD, SWAG")
     multix = multi_x_phase(torch, cifar, kernels, NoiseSource, runners["BBB"])
     print(json.dumps({"card": CARD, "multix": multix}))
+
+    phase("CIFAR: Rank1, iVON, MultiiVON, SNGP, Laplace, MultiLaplace")
+    rest = rest_phase(torch, cifar, kernels, NoiseSource)
+    print(json.dumps({"card": CARD, "rest": rest}))
 
     # the DistilBERT slice: MCD (its main path), then MAP
     phase("DistilBERT slice")

@@ -42,6 +42,99 @@ def install_feed(monkeypatch, seed: int = 0) -> NoiseFeed:
     return feed
 
 
+RECORDED = []  # the JAX draws of the running test, in the order the program made them
+
+
+def recorded_normal(key, shape=(), dtype=jnp.float32):
+    import jax
+
+    value = jax.random.normal(key, shape, dtype)
+    jax.debug.callback(lambda v: RECORDED.append(np.asarray(v)), value, ordered=True)
+    return value
+
+
+class JaxShim:
+    """Stands in for a module's ``jax`` (or ``jax.random``) name: every
+    attribute is the real one's but ``random.normal``."""
+
+    def __init__(self, real, **overrides):
+        self._real, self._overrides = real, overrides
+
+    def __getattr__(self, name):
+        if name in self._overrides:
+            return self._overrides[name]
+        return getattr(self._real, name)
+
+
+def record_jax_normals(monkeypatch, *modules) -> list:
+    """Wraps ``jax.random.normal`` as ``modules`` (JAX-package modules that
+    import ``jax``) see it, so that each draw is also recorded in
+    :data:`RECORDED`, in program order (an ordered ``jax.debug.callback``:
+    under ``jit`` each run appends its draws; under ``vmap`` the callback
+    runs once per sample, the samples of one draw site together). Returns
+    :data:`RECORDED`, emptied; call ``jax.effects_barrier()`` before reading
+    it."""
+    import jax
+
+    RECORDED.clear()
+    shim = JaxShim(jax, random=JaxShim(jax.random, normal=recorded_normal))
+    for module in modules:
+        monkeypatch.setattr(module, "jax", shim)
+    return RECORDED
+
+
+# the CIFAR comparisons of build -> train -> eval_model: 4 steps of 16, 24 test
+# images at eval batch 10 (the last batch padded), S = 4, no augmentation
+PARITY = {"members": 1, "augment": False, "epochs": 1, "subsample": 64, "test_subsample": 24, "batch_size": 16,
+          "eval_batch_size": 10, "eval_samples": 4}
+
+
+def run_both(config, monkeypatch, to_port_draws, fit_laplace=False):
+    """The JAX package's and the port's ``build`` -> ``train`` ->
+    ``eval_model`` (host loops) of ``config`` from JAX's initial weights,
+    JAX's draws (``RECORDED``, made by the recorders the caller installed)
+    given to the port through ``to_port_draws(train_draws, eval_draws,
+    module) -> [tensors]``, with ``laplace``'s fit between train and eval
+    when ``fit_laplace``. Returns (JAX's metrics, the port's)."""
+    import jax
+    from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
+    from beyond_deep_ensembles_tpu_torch.experiments import cifar
+
+    config, (x, y), (xt, yt) = cifar._load_data({**jax_cifar.DEFAULT_CONFIG, **config})
+    steps = x.shape[0] // config["batch_size"]
+    jbuilt = jax_cifar.build(config, jax.random.key(config["seed"]), steps)
+    built = cifar.build(config, torch.Generator().manual_seed(0), steps, device="cpu")
+    jparams = to_numpy_tree(jbuilt.state.params)
+    built.state.params.load_state_dict(params_from_jax(jparams), strict=True)
+    if hasattr(built.state, "mean"):  # iVON: the state's mean holds the parameters too
+        built.state.mean.copy_(built.state.flat)
+
+    RECORDED.clear()
+    jbuilt = jax_cifar.train(jbuilt, config, x, y)
+    jax.effects_barrier()
+    train_draws = list(RECORDED)
+    RECORDED.clear()
+    if fit_laplace:
+        from beyond_deep_ensembles_tpu.methods import laplace_method as jax_laplace_method
+
+        lap = jax_laplace_method(jbuilt.model, hessian=config["ll_hessian"], regression=False, inner=jbuilt.method)
+        jbuilt.state = lap.fit(jbuilt.state, (jax.numpy.asarray(x), jax.numpy.asarray(y)))
+        jbuilt.method = lap
+    want = jax_cifar.eval_model(jbuilt, config, xt, yt).as_dict()
+    jax.effects_barrier()
+    eval_draws = list(RECORDED)
+
+    given = NoiseSource(given=to_port_draws(train_draws, eval_draws, built.state.params))
+    monkeypatch.setattr(cifar, "NoiseSource", lambda **kw: given)
+    built = cifar.train(built, config, x, y)
+    if fit_laplace:
+        cifar._fit_laplace(built, config, x, y)
+    got = cifar.eval_model(built, {**config, "device_eval": False}, xt, yt).as_dict()
+    assert given.draws == len(given._given), (given.draws, len(given._given))
+    return want, got, jbuilt, built
+
+
+
 def nchw(a: np.ndarray) -> torch.Tensor:
     """A JAX-layout array in the port's layout: rank 4 NHWC -> NCHW, rank 3
     (one HWC row) -> CHW, lower ranks as they are."""

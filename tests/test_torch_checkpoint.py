@@ -28,6 +28,13 @@ KINDS = {
     "svgd": {"model": "svgd", "svgd_particles": 2},
     "swag": {"model": "swag", "swag_start_epoch": 0, "swag_deviation_samples": 3, "epochs": 1},
     "ensemble": {"model": "mcd", "members": 2},
+    # iVON (mean, momentum, precision, its device count), SNGP (the spectral
+    # u, the precision, covariance and seen_data as buffers), MultiiVON, a
+    # Rank-1 mixture (its update counter)
+    "ivon": {"model": "ivon", "ivon_mc_samples": 1},
+    "sngp": {"model": "sngp", "sngp": {**cifar.DEFAULT_CONFIG["sngp"], "num_random_features": 16}},
+    "multiivon": {"model": "ivon", "members": 2, "ivon_mc_samples": 1},
+    "rank1": {"model": "rank1", "bbb_mc_samples": 1},
 }
 # a tiny run: 2 steps of 16 an epoch, 3 epochs, the Wilson schedule over them
 RUN = {"subsample": 32, "test_subsample": 10, "batch_size": 16, "eval_batch_size": 10, "eval_samples": 2,
@@ -66,11 +73,26 @@ def test_round_trip_of_each_state_kind(tmp_path, kind):
     assert step == 5 and state is template and _equal(saved.state, state)
     members = state.members if isinstance(state, EnsembleState) else [state]
     for member in members:
-        opt = member.opt_state[0]
-        lo, hi = opt.flat.data_ptr(), opt.flat.data_ptr() + opt.flat.numel() * 4
-        assert all(lo <= p.data_ptr() < hi for p in member.params.parameters())
+        flat = member.flat if member.opt_state is None else member.opt_state[0].flat  # iVON: its own buffer
+        lo, hi = flat.data_ptr(), flat.data_ptr() + flat.numel() * 4
+        assert all(lo <= p.data_ptr() < hi for p in member.params.parameters() if p.requires_grad)
     loaded = torch.load(tmp_path / "checkpoint_5", weights_only=True)
     assert all(isinstance(v, torch.Tensor) and v.device.type == "cpu" for v in loaded.values())
+
+
+def test_sngp_state_dict_carries_its_buffers():
+    """The JAX package keeps SNGP's spectral ``u`` and the head's precision,
+    covariance and seen_data as mutable model state; the port's are module
+    buffers, in ``params.*`` of the state's checkpoint, and ``model_state``
+    stays empty."""
+    state = _build("sngp", 0).state
+    keys = state.state_dict().keys()
+    assert not state.model_state
+    for name in ("SNGPHead_0.precision", "SNGPHead_0.covariance", "SNGPHead_0.seen_data",
+                 "SNGPHead_0.RandomFourierFeatures_0.W", "SpectralNormConv_0.kernel_u",
+                 "BasicBlock_8.SpectralNormConv_1.kernel_u"):
+        assert f"params.{name}" in keys, name
+    assert sum(k.endswith("kernel_u") for k in keys) == 21
 
 
 def test_restore_refuses_another_kind(tmp_path):
@@ -101,13 +123,17 @@ def _preempt_after(epoch):
 
 
 @pytest.mark.parametrize("variant", [{"model": "swag", "swag_start_epoch": 1, "swag_deviation_samples": 3},
-                                     {"model": "map", "members": 2, "device_data": True}],
-                         ids=["swag_host_loop", "deep_ensemble_epoch_runner"])
+                                     {"model": "map", "members": 2, "device_data": True},
+                                     {"model": "ivon", "ivon_mc_samples": 1},
+                                     {"model": "sngp", "device_data": True,
+                                      "sngp": {**cifar.DEFAULT_CONFIG["sngp"], "num_random_features": 16}}],
+                         ids=["swag_host_loop", "deep_ensemble_epoch_runner", "ivon_host_loop", "sngp_epoch_runner"])
 def test_resumed_run_equals_uninterrupted(tmp_path, variant):
     """A run stopped after epoch 1 (its checkpoint_0 saved), resumed by a
     fresh build to 3 epochs, equals a 3-epoch run without checkpoints,
     bit for bit: parameters, optimizer buffers, SWAG's moments, ring and
-    counters, the members' states."""
+    counters, the members' states, iVON's mean, momentum, precision and
+    count, SNGP's buffers (u, precision, covariance, seen_data)."""
     config = {**cifar.DEFAULT_CONFIG, **RUN, **variant}
     config, (x, y), _ = cifar._load_data(config)
     whole = cifar.train(cifar._build_for(config, "cpu"), config, x, y)

@@ -221,4 +221,4 @@ def test_ensemble_finalize_epoch_and_unported_arguments():
     with pytest.raises(ValueError):
         method.init(modules[:1])
     with pytest.raises(NotImplementedError):
-        predict(method, state, None, torch.zeros(1, 3), 2, noise=None, components=2)
+        method.init(modules, model_state={"stacked": torch.zeros(2)})

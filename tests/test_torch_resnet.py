@@ -79,6 +79,6 @@ def test_state_dict_keys_are_flax_paths(jax_model_and_params):
 def test_not_ported_kinds_raise():
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError):
-        ResNet20(10, "swish", "frn", "rank1", generator=gen)
+        ResNet20(10, "relu", "frn", "rank1", components=4, generator=gen)
     with pytest.raises(NotImplementedError):
         ResNet20(10, "swish", "batch_static", "bbb", generator=gen)
