@@ -15,9 +15,12 @@ buffers under the same paths, in the same layouts (:func:`buffers_from_jax`).
 Method states: :func:`particles_from_jax` splits parameters stacked on a
 leading axis (SVGD's particles, an ensemble's members);
 :func:`state_from_jax` turns one JAX ``MethodState`` (its optax state the
-CIFAR chain's: a ``trace`` and a schedule ``count``), ``SwagState``,
-``IvonState`` or ``LaplaceState`` into the port's ``state_dict`` for a given
-module. JAX flattens a parameter tree in sorted-key order
+CIFAR chain's, a ``trace`` and a schedule ``count``, or the UCI
+``multi_transform``'s, an Adam ``mu``, ``nu`` and ``count`` beside the
+``__mle`` parameters' stateless SGD), ``SvgdState`` (particles stacked),
+``SwagState``, ``IvonState`` or ``LaplaceState`` into the port's
+``state_dict`` for a given module (an ``nn.ModuleList`` of particles for
+SVGD). JAX flattens a parameter tree in sorted-key order
 (``jax.tree.leaves``), the port in the module's parameter order
 (``tree.ravel``), so the flat vectors (the SGD buffers, SWAG's moments and
 ring rows, iVON's mean, momentum and precision) are unraveled by the first
@@ -31,6 +34,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from ..methods.api import MLE_SUFFIX
 
 
 def _leaf(name: str, a) -> torch.Tensor:
@@ -129,11 +134,12 @@ def _port_flat(module: torch.nn.Module, state_dict: Mapping) -> torch.Tensor:
 
 
 def _field(node, name):
-    """The first ``name`` field in a nest of named tuples (an optax state)."""
+    """The first ``name`` field in a nest of named tuples and mappings (an
+    optax state; a ``multi_transform``'s partitions are a mapping)."""
     if name in getattr(node, "_fields", ()):
         return getattr(node, name)
-    if isinstance(node, tuple):
-        for child in node:
+    if isinstance(node, (tuple, Mapping)):
+        for child in (node.values() if isinstance(node, Mapping) else node):
             found = _field(child, name)
             if found is not None:
                 return found
@@ -144,21 +150,78 @@ def _numpy_tree(node):
     return {k: _numpy_tree(v) for k, v in node.items()} if isinstance(node, Mapping) else np.asarray(node)
 
 
-def state_from_jax(module: torch.nn.Module, state, lr: float = 0.0) -> dict:
-    """A JAX ``MethodState`` (``map_method``, ``bbb_method``, the CIFAR optax
-    chain), ``SwagState``, ``IvonState`` or ``LaplaceState`` -> the port's
-    ``state_dict`` for ``module`` (its parameter names and order), ``lr`` the
-    optimizer's base lr. A Rank-1 mixture's (factors of more than one
-    component) carries the JAX step as ``bbb.updates``."""
+def _unmasked(node):
+    """A tree without the ``optax.MaskedNode`` leaves (empty tuples) that a
+    ``multi_transform`` state holds where a leaf belongs to the other
+    partition."""
+    out = {}
+    for key, value in node.items():
+        if isinstance(value, Mapping):
+            out[key] = _unmasked(value)
+        elif not (isinstance(value, tuple) and len(value) == 0):
+            out[key] = value
+    return out
+
+
+def _named_from(tree: Mapping, stacked: bool) -> dict:
+    """A JAX tree (numpy) -> {port name: tensor}; ``stacked``: the leading
+    axis is an ``nn.ModuleList``'s index (SVGD's particles)."""
+    if not stacked:
+        return params_from_jax(tree)
+    return {f"{i}.{k}": v for i, sd in enumerate(particles_from_jax(tree)) for k, v in sd.items()}
+
+
+def _is_mle(name: str) -> bool:
+    return name.rsplit(".", 1)[-1].endswith(MLE_SUFFIX)
+
+
+def _adam_from_jax(module: torch.nn.Module, opt_state, named: dict, lr: float, var_lr: float,
+                   stacked: bool) -> dict:
+    """The UCI optimizer's state (``utils/optim.py``: ``Adam`` over every
+    parameter but the ``__mle`` ones, a momentum-free ``SGD`` over those, a
+    ``Split`` when there are both) from a JAX ``multi_transform`` state
+    whose ``main`` partition holds a ``ScaleByAdamState``. The SGD keeps no
+    state in JAX: its count is the Adam count (the two step together) and
+    its trace zeros."""
+    names = [name for name, _ in module.named_parameters()]
+    main = [n for n in names if not _is_mle(n)]
+    mle = [n for n in names if _is_mle(n)]
+    mu = _named_from(_numpy_tree(_unmasked(_field(opt_state, "mu"))), stacked)
+    nu = _named_from(_numpy_tree(_unmasked(_field(opt_state, "nu"))), stacked)
+    count = torch.tensor(int(np.asarray(_field(opt_state, "count")).reshape(-1)[0]), dtype=torch.int64)
+
+    def cat(tree, which):
+        return torch.cat([tree[n].reshape(-1) for n in which])
+
+    adam = {"flat": cat(named, main), "mu": cat(mu, main), "nu": cat(nu, main), "count": count,
+            "lr": torch.tensor(lr, dtype=torch.float64)}
+    if not mle:
+        return {f"opt.{k}": v for k, v in adam.items()}
+    flat = cat(named, mle)
+    sgd = {"flat": flat, "trace": torch.zeros_like(flat), "count": count.clone(),
+           "lr": torch.tensor(var_lr, dtype=torch.float64)}
+    return {**{f"opt.main.{k}": v for k, v in adam.items()}, **{f"opt.mle.{k}": v for k, v in sgd.items()}}
+
+
+def state_from_jax(module: torch.nn.Module, state, lr: float = 0.0, var_lr: float = 0.0) -> dict:
+    """A JAX ``MethodState`` (``map_method``, ``bbb_method``; the CIFAR optax
+    chain or the UCI ``multi_transform``), ``SvgdState``, ``SwagState``,
+    ``IvonState`` or ``LaplaceState`` -> the port's ``state_dict`` for
+    ``module`` (its parameter names and order; the particles'
+    ``nn.ModuleList`` for SVGD), ``lr`` the optimizer's base lr and
+    ``var_lr`` the ``__mle`` parameters' (UCI). A Rank-1 mixture's (factors
+    of more than one component) carries the JAX step as ``bbb.updates``."""
+    stacked = isinstance(module, torch.nn.ModuleList)
     params = _numpy_tree(state.params)
-    named = params_from_jax(params)
-    named.update(buffers_from_jax(_numpy_tree(state.model_state or {})))
+    named = _named_from(params, stacked)
+    if not stacked:
+        named.update(buffers_from_jax(_numpy_tree(state.model_state or {})))
 
     def flat_of(vector):
         return _port_flat(module, params_from_jax(_unravel_sorted(params, vector)))
 
     def flat_tree(tree):
-        return _port_flat(module, params_from_jax(_numpy_tree(tree)))
+        return _port_flat(module, _named_from(_numpy_tree(tree), stacked))
 
     out = {f"params.{k}": v for k, v in named.items()}
     step = torch.tensor(int(state.step), dtype=torch.int64)
@@ -173,6 +236,8 @@ def state_from_jax(module: torch.nn.Module, state, lr: float = 0.0) -> dict:
             "ivon.precision": flat_tree(state.precision),
             "ivon.count": step.clone(),
         })
+    elif _field(state.opt_state, "mu") is not None:
+        out.update(_adam_from_jax(module, state.opt_state, named, lr, var_lr, stacked))
     else:
         count = _field(state.opt_state, "count")
         out.update({

@@ -104,8 +104,23 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      per step, exactly; 20 steady steps and a profile of 3; then the ``MAP``
      variant the same way; the card's MCD logits and one Adam step held
      against the CPU path with the same weights and masks;
-  9. the runner figures, the Multi-X figures and the rest-of-CIFAR figures
-     as JSON lines, the card's name and power limit,
+  9. UCI regression (``experiments/uci.py`` through the CLI): configs/uci.yaml
+     written to a temporary file with its list of data sets cut to naval (the
+     largest), 2 epochs and 1 repetition, the grid's nine models and
+     DEFAULT's values kept, and driven through ``run.main`` (every count set
+     to 0 just before and read just after: K1 on bbb and bbb_fixed_kl only,
+     K2 once a svgd step), each run's five metrics finite and its wall time;
+     SVGD at 20 particles through ``run_single`` (K2 at n = 20) and map on
+     yacht with the gap splits; 16 steps of map, bbb and svgd through the
+     multi-step runner (two replays of a graph of 8) against 16 eager ones
+     from one key, bit for bit; 20 steady steps eager and captured of map,
+     bbb, svgd at 10 and 20 particles and ivon, with K1 and K2 launches per
+     step; evaluate's samples/s at S = 1000; one step of map, bbb and svgd
+     and evaluate at S = 8 on the card against the CPU; K1 at the MLP's
+     planes and K2 at (10, P) and (20, P) against their plain versions, K2's
+     time beside ``torch.mm``'s;
+ 10. the runner figures, the Multi-X figures, the rest-of-CIFAR figures and
+     the UCI figures as JSON lines, the card's name and power limit,
      one JSON line of kernel figures (K1, K2, K3a, K3b), then the result
      line ``{"ok": true, "device": {...}}``.
 Exits non-zero and prints no result without CUDA or without the package
@@ -1525,6 +1540,367 @@ def rest_phase(torch, cifar, kernels, NoiseSource):
     return figures
 
 
+# the UCI phase: configs/uci.yaml through the CLI (run.main) with DEFAULT's
+# values (batch 32, eval_samples 1000, learn_var, lr 0.01, std_init 1.0) and
+# the grid's nine models; cut: the list of eight data sets to naval (the
+# largest: 14 inputs, 11,934 rows, 10,741 train and 1,193 test), epochs 100
+# -> 2, repetitions 5 -> 1
+UCI_DATASET = "naval"
+UCI_CUT_EPOCHS = 2
+UCI_STEPS = 20  # steady steps timed, each way
+UCI_COMPARE_STEPS = 16  # captured (two replays of a graph of 8) against eager
+UCI_SCAN = 8
+UCI_CHECK_SAMPLES = 8  # the card-against-CPU evaluate
+
+
+def uci_yaml_docs():
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", "uci.yaml")) as f:
+        return [d for d in yaml.safe_load_all(f) if d]
+
+
+def uci_sweep_file(path):
+    """configs/uci.yaml cut as UCI_* says, written to ``path``; returns its
+    DEFAULT params."""
+    import yaml
+
+    default, sweep = uci_yaml_docs()
+    print(f"cut: list dataset {sweep['list']['dataset']} -> [{UCI_DATASET!r}], epochs {default['params']['epochs']} "
+          f"-> {UCI_CUT_EPOCHS}, repetitions {default['repetitions']} -> 1; grid {sweep['grid']['model']} and "
+          f"DEFAULT's other params kept: {default['params']}")
+    default = {**default, "repetitions": 1, "params": {**default["params"], "epochs": UCI_CUT_EPOCHS}}
+    sweep = {**sweep, "list": {"dataset": [UCI_DATASET]}}
+    with open(path, "w") as f:
+        yaml.safe_dump_all([default, sweep], f)
+    return default["params"]
+
+
+def uci_cli_phase(torch, kernels):
+    """The CLI's nine naval runs on the card, every count set to 0 just
+    before ``run.main`` and read just after: K1 on bbb and bbb_fixed_kl
+    only (mc 2 x 2 layers a step, forward and backward; S x 2 frozen at
+    evaluate), K2 once a svgd step, K3 never. Each run's five metrics finite
+    and QCE in [0, 1]; each run's wall time from its log record."""
+    import tempfile
+
+    from beyond_deep_ensembles_tpu_torch import run
+    from beyond_deep_ensembles_tpu_torch.data.uci import UCI_SHAPES
+    from beyond_deep_ensembles_tpu_torch.experiments import uci
+    from beyond_deep_ensembles_tpu_torch.utils.config import load_sweep
+
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        path = os.path.join(tmp, "uci_naval.yaml")
+        params = uci_sweep_file(path)
+        specs = list(load_sweep(path))
+        models = [spec["params"]["model"] for spec in specs]
+        check(models == list(uci.MODELS) and all(spec["params"]["dataset"] == UCI_DATASET for spec in specs),
+              f"the cut sweep holds the nine models on {UCI_DATASET}: {models}")
+        out = os.path.join(tmp, "results")
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.main(["uci", path, "--out", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        walls = {}
+        for i, model in enumerate(models):
+            with open(os.path.join(out, f"yacht_{i}", "rep_0", "metrics.jsonl")) as f:
+                record = json.loads(f.read().splitlines()[-1])
+            (result,) = record["plain"]
+            check(sorted(result) == ["avg_ll", "avg_lml", "mse", "qce", "sqce"]
+                  and all(math.isfinite(v) for v in result.values()) and 0.0 <= result["qce"] <= 1.0,
+                  f"CLI {model} on {UCI_DATASET}: metrics finite, QCE in [0, 1]: {json.dumps(result)}")
+            walls[model] = record["_t"]
+    n = UCI_SHAPES[UCI_DATASET][1]
+    n_train = n - n // 10
+    steps = UCI_CUT_EPOCHS * -(-n_train // params["batch_size"])
+    mc, s = uci.DEFAULT_CONFIG["mc_samples"], params["eval_samples"]
+    want = {name: 0 for name in kernels}
+    want["k1_gaussian_sample"] = 2 * (steps * mc * 2 + s * 2)  # bbb and bbb_fixed_kl
+    want["k1_gaussian_sample_backward"] = 2 * steps * mc * 2
+    want["k2_svgd_gram"] = steps
+    check(counts == want, f"CLI: launch counts {counts} = {want} ({steps} steps a run, mc {mc}, S {s}, 2 BBB layers)")
+    print(f"CLI runs on {UCI_DATASET}, wall time each (s) [{CARD}]: {json.dumps(walls)}; run.main {wall:.1f} s")
+    return {"wall_s": wall, "run_wall_s": walls, "host_counts": counts, "steps_per_run": steps}
+
+
+def uci_svgd20_and_gap(torch, kernels, params):
+    """SVGD at 20 particles through run_single on naval (K2 at n = 20, once
+    a step), then ``run`` of map on yacht with the gap splits (6)."""
+    from beyond_deep_ensembles_tpu_torch.data.uci import UCI_SHAPES
+    from beyond_deep_ensembles_tpu_torch.experiments import uci
+
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = uci.result_dict(uci.run_single({**params, "model": "svgd", "svgd_particles": 20, "dataset": UCI_DATASET,
+                                          "epochs": 1}))
+    wall = time.perf_counter() - t0
+    n = UCI_SHAPES[UCI_DATASET][1]
+    steps = -(-(n - n // 10) // params["batch_size"])
+    check(kernels["k2_svgd_gram"].launches == steps and kernels["k1_gaussian_sample"].launches == 0,
+          f"SVGD 20 particles, 1 epoch on {UCI_DATASET}: K2 launched {kernels['k2_svgd_gram'].launches} times "
+          f"({steps} steps), K1 never")
+    check(all(math.isfinite(v) for v in res.values()) and 0.0 <= res["qce"] <= 1.0,
+          f"SVGD 20 particles: metrics {json.dumps(res)} ({wall:.1f} s)")
+    t0 = time.perf_counter()
+    gap = uci.run({**params, "model": "map", "dataset": "yacht", "epochs": 1, "gap": True})
+    gap_wall = time.perf_counter() - t0
+    results = gap["plain"] + [g["result"] for g in gap["gap_results"]]
+    check([g["gap_split"] for g in gap["gap_results"]] == list(range(6))
+          and all(math.isfinite(v) for r in results for v in r.values()),
+          f"map on yacht with gap: true: the standard split and 6 gap splits, metrics finite ({gap_wall:.1f} s)")
+    return {"svgd20_wall_s": wall, "svgd20": res, "gap_wall_s": gap_wall}
+
+
+def uci_built(torch, uci, model, params, device=None, **extra):
+    """``model`` built on naval at the sweep's params (seed 1), with the
+    first UCI_STEPS batches of the run's order on its device."""
+    import numpy as np
+
+    from beyond_deep_ensembles_tpu_torch.data.uci import UCIDataset, batch_indices
+
+    ds = UCIDataset(UCI_DATASET)
+    x, y = ds.get_arrays("train")
+    config = {**uci.DEFAULT_CONFIG, **params, "model": model, "dataset": UCI_DATASET, "in_dim": ds.in_dim, **extra}
+    built = uci.build(config, x.shape[0], torch.Generator().manual_seed(1), device=device)
+    xd, yd = uci._to_device(built, x, y)
+    rows = list(batch_indices(x.shape[0], config["batch_size"], np.random.RandomState(0)))[:UCI_STEPS]
+    batches = [(xd[torch.from_numpy(r).to(built.device)], yd[torch.from_numpy(r).to(built.device)]) for r in rows]
+    return built, config, batches, ds
+
+
+def uci_captured_vs_eager(torch, built, batches, label):
+    """UCI_COMPARE_STEPS steps through the multi-step runner (two replays of
+    a graph of UCI_SCAN steps, the second from the key the first left)
+    against as many eager ones from one key and state: every written tensor
+    bit for bit."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    method, state, k = built.method, built.state, UCI_COMPARE_STEPS
+    written = multistep._written_tensors(state)
+    with torch.no_grad():
+        saved = [t.clone() for t in written]
+    key, step = keys.fold_in(7, 0), state.step
+    state, _ = multistep.eager_steps(method.update, state, key, batches[:k])
+    eager = [t.clone() for t in written]
+    with torch.no_grad():
+        for t, v in zip(written, saved):
+            t.copy_(v)
+    state.step = step
+    multi = multistep.make_multi_step(method.update, UCI_SCAN)
+    for start in range(0, k, UCI_SCAN):
+        state, _ = multi(state, key, multistep.stack_batches(batches[start : start + UCI_SCAN]))
+        for _ in range(UCI_SCAN):
+            key = keys.advance(key)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(written, eager))
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(written, eager))
+    check(bitwise and state.step == step + k,
+          f"UCI {label}: {k} steps as {k // UCI_SCAN} replays of a graph of {UCI_SCAN} = {k} eager steps from one key "
+          f"and state, bit for bit (all {len(written)} written tensors, max abs err {err:.3g})")
+    return bitwise
+
+
+def uci_step_times(torch, built, batches, label):
+    """UCI_STEPS steady steps eager and captured (a graph of one step,
+    replayed), CUDA events; K1 and K2 host launches per eager step."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+    from beyond_deep_ensembles_tpu_torch.ops import sampling, svgd_kernel
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    method, dev = built.method, torch.device("cuda")
+    single = multistep.make_multi_step(method.update, 1)
+    stacked = [multistep.stack_batches([b]) for b in batches]
+
+    def captured_step(i):
+        built.state, m = single(built.state, keys.fold_in(11, i), stacked[i % len(batches)])
+        return m["loss"]
+
+    def eager_step(i):
+        built.state, m = method.update(built.state, NoiseSource(key=keys.as_key(keys.fold_in(11, i), dev)),
+                                       batches[i % len(batches)])
+        return m["loss"]
+
+    eager_step(0)
+    before = (sampling.gaussian_sample.launches, sampling.gaussian_sample_backward.launches, svgd_kernel.gram.launches)
+    times = {"eager": steady_steps(torch, eager_step, f"UCI {label} eager", 32, count=UCI_STEPS)}
+    after = (sampling.gaussian_sample.launches, sampling.gaussian_sample_backward.launches, svgd_kernel.gram.launches)
+    per_step = [(b - a) / UCI_STEPS for a, b in zip(before, after)]
+    captured_step(0)  # the capture
+    times["captured"] = steady_steps(torch, captured_step, f"UCI {label} captured", 32, count=UCI_STEPS)
+    print(f"UCI {label}: host launches per eager step: K1 {per_step[0]:g}, K1 backward {per_step[1]:g}, "
+          f"K2 {per_step[2]:g}")
+    return {**times, "k1_per_step": per_step[0], "k1_backward_per_step": per_step[1], "k2_per_step": per_step[2]}
+
+
+def uci_eval_rate(torch, uci, built, config, ds):
+    """``evaluate`` over the test split at the sweep's S, warm (the second of
+    two calls): samples/s, and K1 launches per evaluate."""
+    from beyond_deep_ensembles_tpu_torch.ops import sampling
+
+    x, y = ds.get_arrays("test")
+    uci.evaluate(built, config, x, y, ds)
+    before = sampling.gaussian_sample.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = uci.result_dict(uci.evaluate(built, config, x, y, ds))
+    torch.cuda.synchronize()
+    rate = x.shape[0] * config["eval_samples"] / (time.perf_counter() - t0)
+    check(all(math.isfinite(v) for v in res.values()), f"UCI {config['model']} evaluate: metrics finite")
+    return rate, sampling.gaussian_sample.launches - before
+
+
+def uci_card_vs_cpu(torch, uci, params):
+    """One step of map, bbb (the CPU's draws given) and svgd on the card
+    against the CPU from the same state: every state tensor within 1e-5 of
+    its scale (counters equal); then ``evaluate`` at S = UCI_CHECK_SAMPLES
+    with the quantile draw (and bbb's frozen draws) given: the five metrics
+    within 1e-5 relative."""
+    from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+
+    gen = torch.Generator().manual_seed(5)
+    worst = {}
+    for model in ("map", "bbb", "svgd"):
+        cpu, config, batches, ds = uci_built(torch, uci, model, params, device="cpu")
+        gpu, _, _, _ = uci_built(torch, uci, model, params)
+        gpu.state.load_state_dict(cpu.state.state_dict())
+        xb, yb = batches[0]
+        train = [torch.randn(shape, generator=gen) for _ in range(2) for shape in ((32, 50), (32, 1))
+                 if model == "bbb"]
+        cpu.state, _ = cpu.method.update(cpu.state, NoiseSource(given=train), (xb, yb))
+        gpu.state, _ = gpu.method.update(gpu.state, NoiseSource(given=[d.cuda() for d in train]),
+                                         (xb.cuda(), yb.cuda()))
+        mine, ref = gpu.state.state_dict(), cpu.state.state_dict()
+        err = 0.0
+        for name, value in ref.items():
+            got = mine[name].cpu()
+            if not value.is_floating_point():
+                check(torch.equal(got, value), f"UCI {model} card = CPU: {name} equal")
+                continue
+            err = max(err, float((got - value).abs().max()) / max(float(value.abs().max()), 1e-30))
+        check(err <= 1e-5, f"UCI {model}: one step on the card = CPU (every state tensor within {err:.3g} of its "
+                           f"scale, <= 1e-5)")
+        x, y = ds.get_arrays("test")
+        z = torch.randn(UCI_CHECK_SAMPLES, x.shape[0], 1, generator=gen)
+        evals = [d for _ in range(UCI_CHECK_SAMPLES) for d in (torch.randn(50, generator=gen),
+                                                               torch.randn(1, generator=gen))] if model == "bbb" else []
+        cfg = {**config, "eval_samples": UCI_CHECK_SAMPLES}
+        results = []
+        for built, device in ((cpu, "cpu"), (gpu, "cuda")):
+            given = NoiseSource(given=[d.to(device) for d in evals])
+            uci.NoiseSource = lambda **kw: given
+            try:
+                results.append(uci.result_dict(uci.evaluate(built, cfg, x, y, ds, z=z.to(device))))
+            finally:
+                uci.NoiseSource = NoiseSource
+        rel = max(abs(results[1][k] - results[0][k]) / max(abs(results[0][k]), 1e-30) for k in results[0])
+        check(rel <= 1e-5, f"UCI {model}: evaluate at S = {UCI_CHECK_SAMPLES} on the card = CPU (metrics max rel diff "
+                           f"{rel:.3g} <= 1e-5): {json.dumps(results[1])}")
+        worst[model] = {"state_rel_err": err, "metrics_rel_diff": rel}
+    return worst
+
+
+def uci_kernel_checks(torch, sampling, svgd_kernel, p):
+    """K1 at the MLP's planes (train [32, 50] and [32, 1]; frozen eval at
+    the naval test split's [1193, 50] and [1193, 1]) against its plain
+    version; K2 at (10, P) and (20, P), naval's P, against the fp64 product
+    and gram_plain, then its CUDA-graph time beside ``torch.mm``'s (TF32
+    off) and its byte bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = 0.0
+    for shape, frozen in (((32, 50), False), ((32, 1), False), ((1193, 50), True), ((1193, 1), True)):
+        mean = torch.randn(shape, device=dev, generator=gen)
+        var = torch.rand(shape, device=dev, generator=gen) + 1e-4
+        bm, bv = torch.randn(shape[1], device=dev, generator=gen), torch.rand(shape[1], device=dev, generator=gen)
+        eps = torch.randn(shape[1:] if frozen else shape, device=dev, generator=gen)
+        out = sampling.gaussian_sample(mean, var, bm, bv, eps=eps)
+        worst = max(worst, float((out - sampling.gaussian_sample_plain(mean, var, bm, bv, eps)).abs().max()))
+        drawn = sampling.gaussian_sample(mean, var, bm, bv, seed=9, frozen=frozen)
+        row = sampling.gaussian_sample(torch.zeros((1,) + shape[1:], device=dev),
+                                       torch.ones((1,) + shape[1:], device=dev), seed=9)
+        ones = torch.ones(shape, device=dev)
+        z = row[0] if frozen else sampling.gaussian_sample(torch.zeros_like(ones), ones, seed=9)
+        worst = max(worst, float((drawn - sampling.gaussian_sample_plain(mean, var, bm, bv, z)).abs().max()))
+    torch.cuda.synchronize()
+    check(worst <= 1e-6, f"K1 at the UCI MLP's train and eval planes = plain, given noise and Philox draws "
+                         f"(max abs err {worst:.3g} <= 1e-6)")
+    figures = {"k1_max_abs_err": worst}
+    for n in (10, 20):
+        x = torch.randn(n, p, device=dev, generator=gen) + torch.randn(1, p, device=dev, generator=gen)
+        err, _ = k2_check(torch, svgd_kernel, x)
+        before = svgd_kernel.gram.launches
+        svgd_kernel.gram(x)
+        check(svgd_kernel.gram.launches == before + 1, f"K2 ({n}, {p}): one launch")
+        def per_launch(fn, reps=20):  # reps launches in one graph: no replay overhead in the figure
+            def repeated():
+                for _ in range(reps):
+                    fn(x)
+            return graph_ms(torch, repeated, reps=5) / reps
+
+        with torch.no_grad():  # in turns: kernel, library, kernel, library, plain
+            ms = per_launch(svgd_kernel.gram)
+            lib_ms = per_launch(lambda t: torch.mm(t, t.T))
+            ms2 = per_launch(svgd_kernel.gram)
+            lib_ms2 = per_launch(lambda t: torch.mm(t, t.T))
+            plain_ms = per_launch(svgd_kernel.gram_plain)
+        n_bytes = 4 * n * p + 4 * n * n
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * n * n * p / FP32_FLOPS_PER_S * 1e3
+        print(f"K2 ({n}, {p}), 20 launches in a CUDA graph, per launch: kernel {ms * 1e3:.2f} / {ms2 * 1e3:.2f} us, "
+              f"torch.mm (TF32 off) {lib_ms * 1e3:.2f} / {lib_ms2 * 1e3:.2f} us, gram_plain {plain_ms * 1e3:.2f} us, "
+              f"bound {max(bytes_ms, ops_ms) * 1e3:.4f} us ({n_bytes} bytes; fp32 ops {ops_ms * 1e3:.4f} us) [{CARD}]")
+        figures[f"k2_{n}"] = {"shape": [n, p], "ms": min(ms, ms2), "library_ms": min(lib_ms, lib_ms2),
+                              "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "max_abs_err": err}
+    return figures
+
+
+def uci_phase(torch, kernels):
+    """UCI regression (configs/uci.yaml) on the card: the CLI's nine naval
+    runs, SVGD at 20 particles and a gap run, captured against eager for
+    map, bbb and svgd, steady steps of map, bbb, svgd (10 and 20), ivon,
+    evaluate's rate, the card against the CPU, K1 and K2 at the slice's
+    shapes. Returns the figures."""
+    from beyond_deep_ensembles_tpu_torch.experiments import uci
+    from beyond_deep_ensembles_tpu_torch.ops import sampling, svgd_kernel
+
+    figures = {"cli": uci_cli_phase(torch, kernels)}
+    params = uci_yaml_docs()[0]["params"]
+    figures.update(uci_svgd20_and_gap(torch, kernels, params))
+    torch.backends.cudnn.deterministic = True
+    figures["captured_equals_eager_bitwise"] = {}
+    for model in ("map", "bbb", "svgd"):
+        built, _, batches, _ = uci_built(torch, uci, model, params)
+        figures["captured_equals_eager_bitwise"][model] = uci_captured_vs_eager(torch, built, batches, model)
+    torch.backends.cudnn.deterministic = False
+    figures["steps"] = {}
+    for label, model, extra in (("map", "map", {}), ("bbb", "bbb", {}), ("svgd10", "svgd", {}),
+                                ("svgd20", "svgd", {"svgd_particles": 20}), ("ivon", "ivon", {})):
+        built, config, batches, ds = uci_built(torch, uci, model, params, **extra)
+        figures["steps"][label] = uci_step_times(torch, built, batches, label)
+        if label in ("map", "bbb"):
+            rate, k1 = uci_eval_rate(torch, uci, built, config, ds)
+            figures["steps"][label].update({"eval_samples_per_s": rate, "k1_per_evaluate": k1})
+            print(f"UCI {label} evaluate, {UCI_DATASET} test split x S {config['eval_samples']}, warm: {rate:.0f} "
+                  f"samples/s; K1 {k1} launches [{CARD}]")
+        del built, batches
+    figures["card_vs_cpu"] = uci_card_vs_cpu(torch, uci, params)
+    p = sum(t.numel() for t in uci_built(torch, uci, "map", params, device="cpu")[0].state.params.parameters())
+    figures["kernels"] = uci_kernel_checks(torch, sampling, svgd_kernel, p)
+    summary = {label: {"eager_median_ms": f["eager"]["median_ms"], "captured_median_ms": f["captured"]["median_ms"]}
+               for label, f in figures["steps"].items()}
+    print(f"UCI steps [{CARD}]: {json.dumps(summary)}")
+    figures["summary"] = summary
+    return figures
+
+
 def build_phase(torch, _cuda_build):
     """Both CUDA C++ sources compiled at once, one nvcc each; their build time
     and ptxas report (registers, spills). Triton compiles K1 at first launch."""
@@ -1987,6 +2363,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     bert_card_vs_cpu(torch, wilds_task, NoiseSource)
 
+    phase("UCI regression: configs/uci.yaml through the CLI")
+    uci = uci_phase(torch, kernels)
+    print(json.dumps({"card": CARD, "uci": uci}))
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(CARD)
     print(json.dumps({"kernels": [
@@ -2023,6 +2403,15 @@ def main() -> int:
             "multibbb_run_single_launches": multix["runs"]["MultiBBB"]["host_counts"]["k1_gaussian_sample"],
             "multibbb_replay_launches_per_step":
                 multix["MultiBBB"]["profiles"]["captured"]["launches"]["_flat_kernel"],
+            # the UCI phase: the CLI's nine naval runs (bbb and bbb_fixed_kl),
+            # host launches per eager bbb step and per evaluate (S = 1000), the
+            # MLP's planes against the plain version
+            "uci_cli_launches": uci["cli"]["host_counts"]["k1_gaussian_sample"],
+            "uci_cli_backward_launches": uci["cli"]["host_counts"]["k1_gaussian_sample_backward"],
+            "uci_launches_per_bbb_step": uci["steps"]["bbb"]["k1_per_step"],
+            "uci_backward_launches_per_bbb_step": uci["steps"]["bbb"]["k1_backward_per_step"],
+            "uci_launches_per_evaluate": uci["steps"]["bbb"]["k1_per_evaluate"],
+            "uci_max_abs_err": uci["kernels"]["k1_max_abs_err"],
         },
         {
             "name": "k2_svgd_gram",
@@ -2039,6 +2428,12 @@ def main() -> int:
             "host_us": k2["host_us"],
             "runner_launches": runners["SVGD"]["host_counts"]["k2_svgd_gram"],
             "replay_launches_per_step": runners["SVGD"]["profiles"]["captured"]["launches"]["gram_kernel"],
+            # the UCI phase: the CLI's svgd run (10 particles), launches per
+            # eager svgd step, and K2 at (10, P) and (20, P), naval's P
+            "uci_cli_launches": uci["cli"]["host_counts"]["k2_svgd_gram"],
+            "uci_launches_per_svgd_step": uci["steps"]["svgd10"]["k2_per_step"],
+            "uci_10": uci["kernels"]["k2_10"],
+            "uci_20": uci["kernels"]["k2_20"],
         },
         *(
             {
