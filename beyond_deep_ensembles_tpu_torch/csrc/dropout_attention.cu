@@ -35,7 +35,11 @@
 // kernel's per-(b, h) seeding) with the counter (col / 8, row), whose four
 // words give eight 16-bit uniforms for eight neighbouring columns, so that
 // K3b regenerates the mask of K3a bit for bit from (seed, b, h, row, col)
-// alone; or a given uint8 keep mask.
+// alone; or a given uint8 keep mask. The seed is a host value, or a key in
+// device memory plus a host index (`seed_ptr`, as K1's device seed): each
+// block reads the key when it starts and adds it, so a CUDA graph that
+// captured the launch draws afresh at every replay once the key has moved,
+// as the JAX kernel reads its seed from SMEM.
 //
 // Split TF32. An fp32 operand x becomes hi = x rounded to TF32 and lo = x -
 // hi as the tensor core reads it (`split` has the arithmetic); a product a b
@@ -123,12 +127,22 @@ constexpr int kModeNone = 0, kModePhilox = 1, kModeGiven = 2;
 
 // The mask's parameters; the mode itself is the kernels' template argument.
 struct Dropout {
-  unsigned long long seed;    // Philox: the step's seed (the panel adds b H + h)
+  unsigned long long seed;    // Philox: the step's seed (the panel adds b H + h), or the index added to *seed_ptr
+  const long long* seed_ptr;  // Philox: the key in device memory, or null for a host seed
   const uint8_t* keep;        // given: [B, H, L, L]
   float p;                    // drop probability
   float inv_keep;             // 1 / (1 - p)
   uint32_t threshold;         // Philox: a 16-bit value u is kept if u << 16 >= threshold
 };
+
+// The Philox seed of this launch: the host value, plus the device key where
+// there is one (read once per block, before any mask is drawn).
+template <int kMode>
+__device__ __forceinline__ void resolve_seed(Dropout& drop) {
+  if constexpr (kMode == kModePhilox) {
+    if (drop.seed_ptr != nullptr) drop.seed += static_cast<unsigned long long>(__ldg(drop.seed_ptr));
+  }
+}
 
 __device__ __forceinline__ long long row_offset(int b, int row, int h, int L, int H) {
   return ((static_cast<long long>(b) * L + row) * H + h) * kD;
@@ -705,6 +719,7 @@ attn_forward(const float* __restrict__ q, const __grid_constant__ CUtensorMap k_
              const __grid_constant__ CUtensorMap v_map, const float* __restrict__ bias, Dropout drop, float scale,
              float* __restrict__ o, float* __restrict__ lse, float* __restrict__ probs, int L, int H) {
   extern __shared__ __align__(1024) float smem[];
+  resolve_seed<kMode>(drop);
   float* k_tile = smem;                 // K as score columns
   float* vt_tile = smem + kOperand;     // V^T as depth
   float* k_raw = smem + 2 * kOperand;
@@ -864,6 +879,7 @@ attn_backward_dq(const float* __restrict__ q, const __grid_constant__ CUtensorMa
                  const float* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ delta,
                  float* __restrict__ dq, int L, int H) {
   extern __shared__ __align__(1024) float smem[];
+  resolve_seed<kMode>(drop);
   float* k_tile = smem;                  // K as score columns
   float* v_tile = smem + kOperand;       // V as score columns (of dO V^T)
   float* kt_tile = smem + 2 * kOperand;  // K^T as depth
@@ -967,6 +983,7 @@ attn_backward_dkdv(const __grid_constant__ CUtensorMap q_map, const float* __res
                    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
                    float* __restrict__ dv, int L, int H) {
   extern __shared__ __align__(1024) float smem[];
+  resolve_seed<kMode>(drop);
   float* q_tile = smem;                    // Q as score columns (of K Q^T)
   float* do_tile = smem + kOperand;        // dO as score columns (of V dO^T)
   float* qt_tile = smem + 2 * kOperand;    // Q^T as depth
@@ -1147,11 +1164,12 @@ cudaError_t make_map(CUtensorMap* map, const void* x, int B, int L, int H) {
   return result == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-Dropout make_dropout(unsigned long long seed, const void* keep, float p) {
+Dropout make_dropout(unsigned long long seed, const void* seed_ptr, const void* keep, float p) {
   // ceil(p 2^16) <= 2^16 - 1 for p <= 0.99998; above, every element is dropped
   const uint32_t halves = static_cast<uint32_t>(ceilf(p * 65536.f));
   const uint32_t threshold = halves > 65535u ? 0xffffffffu : halves << 16;
-  return Dropout{seed, static_cast<const uint8_t*>(keep), p, 1.f / (1.f - p), threshold};
+  return Dropout{seed, static_cast<const long long*>(seed_ptr), static_cast<const uint8_t*>(keep), p,
+                 1.f / (1.f - p), threshold};
 }
 
 }  // namespace
@@ -1159,9 +1177,10 @@ Dropout make_dropout(unsigned long long seed, const void* keep, float p) {
 extern "C" {
 
 // K3a. o: [B, L, H, 64]; lse: [B, H, L], base 2; probs: [B, H, L, L] or null.
-// mode 0: no dropout (p must be 0); 1: Philox from `seed`; 2: `keep` given.
+// mode 0: no dropout (p must be 0); 1: Philox from `seed`, plus the int64 at
+// `seed_ptr` (device memory) unless it is null; 2: `keep` given.
 int k3_forward(const void* q, const void* k, const void* v, const void* bias, int mode, unsigned long long seed,
-               const void* keep, float p, float scale, void* o, void* lse, void* probs, int B, int L, int H,
+               const void* seed_ptr, const void* keep, float p, float scale, void* o, void* lse, void* probs, int B, int L, int H,
                int device, void* stream) {
   int previous = 0;
   cudaError_t err = check_and_enter(B, L, H, mode, p, keep, device, &previous);
@@ -1173,7 +1192,7 @@ int k3_forward(const void* q, const void* k, const void* v, const void* bias, in
                         : mode == kModePhilox ? attn_forward<kModePhilox>
                                               : attn_forward<kModeGiven>;
     kernel<<<dim3((L + kBlockRows - 1) / kBlockRows, H, B), kThreads, kForwardBytes, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), k_map, v_map, static_cast<const float*>(bias), make_dropout(seed, keep, p),
+        static_cast<const float*>(q), k_map, v_map, static_cast<const float*>(bias), make_dropout(seed, seed_ptr, keep, p),
         scale, static_cast<float*>(o), static_cast<float*>(lse), static_cast<float*>(probs), L, H);
     err = cudaGetLastError();
   }
@@ -1183,11 +1202,11 @@ int k3_forward(const void* q, const void* k, const void* v, const void* bias, in
 
 // K3b. lse: K3a's; delta: [B, H, L] scratch; dq, dk, dv: [B, L, H, 64].
 int k3_backward(const void* q, const void* k, const void* v, const void* bias, int mode, unsigned long long seed,
-                const void* keep, float p, float scale, const void* o, const void* dout, const void* lse,
+                const void* seed_ptr, const void* keep, float p, float scale, const void* o, const void* dout, const void* lse,
                 void* delta, void* dq, void* dk, void* dv, int B, int L, int H, int device, void* stream) {
   int previous = 0;
   cudaError_t err = check_and_enter(B, L, H, mode, p, keep, device, &previous);
-  const Dropout drop = make_dropout(seed, keep, p);
+  const Dropout drop = make_dropout(seed, seed_ptr, keep, p);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((L + kBlockRows - 1) / kBlockRows, H, B);
   CUtensorMap q_map, k_map, v_map, do_map;

@@ -444,9 +444,12 @@ def eval_model(
     device_eval = config.get("device_eval", bool(config.get("device_data")) or built.device.type == "cuda")
     with torch.no_grad():
         if device_eval:
-            runner = built.eval_runners.get((n, bs, n_samples))
-            if runner is None:
-                runner = built.eval_runners[(n, bs, n_samples)] = make_eval_runner(predict_batch, n, bs)
+            # the runner closes over the method: one swapped in since (a
+            # Laplace fit after evals during training) needs a new one
+            cached, runner = built.eval_runners.get((n, bs, n_samples), (None, None))
+            if cached is not method:
+                runner = make_eval_runner(predict_batch, n, bs)
+                built.eval_runners[(n, bs, n_samples)] = (method, runner)
             log_marginal = runner(state, seed, xd)
         else:
             outs = []

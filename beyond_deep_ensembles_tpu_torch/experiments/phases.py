@@ -7,7 +7,9 @@ single-model checkpoints, civilcomments/eval_ensembles.py:34-48; and
 ``fit_laplace.py``, laplace-torch on saved MAP checkpoints), on the port's
 ``torch.save`` checkpoints (``utils/checkpoint.py``). A restore fills a
 state in place, so each member is restored into a state of its own.
-``drop_rates`` waits for the WILDS engine (ROADMAP item 14).
+The WILDS ``drop_rates`` and ``eval`` phases live in
+``experiments/wilds_task.py`` (``sweep_drop_rates_phase``,
+``eval_only_phase``), as in the JAX package.
 """
 from __future__ import annotations
 

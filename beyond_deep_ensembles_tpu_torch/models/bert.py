@@ -1,4 +1,5 @@
-"""DistilBERT classifier with an MC-Dropout head.
+"""DistilBERT classifier with swappable Bayesian heads, and the SNGP text
+model.
 
 Counterpart of ``beyond_deep_ensembles_tpu/models/bert.py`` (reference
 src/architectures/bert.py: HF ``DistilBertModel`` backbone + a 2-layer head
@@ -19,9 +20,13 @@ DistilBERT, after the embedding LayerNorm and after ``lin2`` (rate
 flax's ``nn.Embed``, ``nn.LayerNorm`` and ``nn.Dense`` become :class:`Embed`,
 :class:`LayerNorm` and :class:`Dense` (``nn/plain.py``), with flax's initializers,
 and submodules carry the flax names, so that ``models/jax_convert.py::
-bert_from_jax`` maps a flax param tree onto the state_dict. The JAX
-package's ``bbb`` and ``rank1`` heads, ``remat``, a bf16 compute dtype and
-``load_hf_weights`` are not ported yet and raise.
+bert_from_jax`` maps a flax param tree onto the state_dict. The head is
+two layers of one kind (``models/layers.py::make_dense``: plain, BBB or
+Rank-1 with ``components``), named as flax names them (``Dense_0``,
+``BBBDense_1``, ``Rank1Dense_0``), kept in fp32. :class:`BertSNGP` is the
+encoder under an ``SNGPHead`` on the first token (the JAX package's text
+``BertSNGP``, ``experiments/wilds_task.py:568-583``). ``remat``, a bf16
+compute dtype and ``load_hf_weights`` are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -32,9 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..nn.base import add_auto_named
 from ..nn.dropout import FixableDropout, dropout
-from ..ops.attention import fused_dropout_attention
 from ..nn.plain import Dense, LayerNorm
+from ..nn.sngp import SNGPHead
+from ..ops.attention import fused_dropout_attention
+from .layers import call_layer, make_dense
 
 
 class DistilBertConfig:
@@ -144,32 +152,58 @@ class DistilBertEncoder(nn.Module):
 
 class BertClassifier(nn.Module):
     """Reference BertClassifier (bert.py:10-51) with ``head_kind`` ``map``
-    (dropout 0.2 in training only) or ``drop`` (``FixableDropout(drop_p,
+    (dropout 0.2 in training only), ``drop`` (``FixableDropout(drop_p,
     freeze_on_eval=False)``, active at eval too: the text tasks patch dropout
     with freeze_on_eval=False, civilcomments/models.py:69,
-    amazon/models.py:71-73). ``mc_encoder_dropout`` keeps the encoder's
+    amazon/models.py:71-73), ``bbb`` (two ``BBBDense``) or ``rank1`` (two
+    ``Rank1Dense`` of ``components``, the forward's ``component`` threaded
+    to both; JAX ``models/bert.py:235-253``), the last two with the
+    training-only dropout 0.2. ``mc_encoder_dropout`` keeps the encoder's
     dropouts sampling at eval (full-model MC-Dropout)."""
 
-    def __init__(self, classes: int, head_kind: str = "map", drop_p: float = 0.2,
+    def __init__(self, classes: int, head_kind: str = "map", drop_p: float = 0.2, components: int = 1,
                  config: Optional[DistilBertConfig] = None, mc_encoder_dropout: bool = False,
                  dtype=None, *, generator: torch.Generator):
         super().__init__()
-        if head_kind not in ("map", "drop"):
-            raise NotImplementedError(f"head kind {head_kind!r}: not ported yet")
+        if head_kind not in ("map", "drop", "bbb", "rank1"):
+            raise ValueError(f"unknown head kind {head_kind!r}")
         if dtype not in (None, torch.float32):
             raise NotImplementedError(f"compute dtype {dtype}: not ported yet")
         cfg = config or DistilBertConfig()
         self.head_kind = head_kind
+        kind = {"map": "plain", "drop": "plain"}.get(head_kind, head_kind)
         self.bert = DistilBertEncoder(cfg, mc_dropout=mc_encoder_dropout, generator=generator)
-        self.Dense_0 = Dense(cfg.dim, cfg.dim, generator=generator)
+        first = add_auto_named(self, make_dense(kind, cfg.dim, cfg.dim, components=components, generator=generator))
         self.head_dropout = FixableDropout(drop_p, freeze_on_eval=False)
-        self.Dense_1 = Dense(cfg.dim, classes, generator=generator)
+        second = add_auto_named(self, make_dense(kind, cfg.dim, classes, components=components, generator=generator))
+        # a tuple keeps the references out of the state_dict (one key per parameter)
+        self._head = (first, second)
 
-    def forward(self, packed_input, noise, train: bool = True):
+    def forward(self, packed_input, noise, train: bool = True, component=None):
+        first, second = self._head
         hidden = self.bert(packed_input[:, :, 0], packed_input[:, :, 1], noise, train)
-        h = F.relu(self.Dense_0(hidden[:, 0]))
+        h = F.relu(call_layer(first, hidden[:, 0], noise, train, component))
         if self.head_kind == "drop":
             h = self.head_dropout(h, noise, train)
         elif train:
             h = dropout(h, 0.2, noise)
-        return self.Dense_1(h)
+        return call_layer(second, h, noise, train, component)
+
+
+class BertSNGP(nn.Module):
+    """The text SNGP model (reference civilcomments SNGP model; JAX
+    ``experiments/wilds_task.py:568-583``): the encoder, then
+    ``SNGPHead(**sngp_kwargs)`` on the first token's hidden state.
+    ``forward(x, noise, train, n_samples)``: training logits ``[B, O]``; at
+    eval the head's output for ``n_samples``."""
+
+    def __init__(self, classes: int, config: Optional[DistilBertConfig] = None, sngp_kwargs: Optional[dict] = None,
+                 *, generator: torch.Generator):
+        super().__init__()
+        cfg = config or DistilBertConfig()
+        self.bert = DistilBertEncoder(cfg, generator=generator)
+        self.SNGPHead_0 = SNGPHead(cfg.dim, classes, **(sngp_kwargs or {}), generator=generator)
+
+    def forward(self, packed_input, noise=None, train: bool = True, n_samples: int = 1):
+        hidden = self.bert(packed_input[:, :, 0], packed_input[:, :, 1], noise, train)
+        return self.SNGPHead_0(hidden[:, 0], noise, train=train, n_samples=n_samples)

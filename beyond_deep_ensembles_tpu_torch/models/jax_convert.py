@@ -25,11 +25,18 @@ SVGD). JAX flattens a parameter tree in sorted-key order
 (``tree.ravel``), so the flat vectors (the SGD buffers, SWAG's moments and
 ring rows, iVON's mean, momentum and precision) are unraveled by the first
 and raveled by the second; the Laplace vectors keep the JAX order, which the
-port's ``methods/laplace.py`` uses. Only numpy is used: the JAX objects are
-read by their fields.
+port's ``methods/laplace.py`` uses. :func:`last_layer_state_from_jax` turns a
+JAX ``LastLayerState`` (its inner state over the head tree, the backbone
+tree and its optimizer state, each with zero-size placeholders where a leaf
+belongs to the other side) into the port's ``LastLayerState`` state_dict,
+the inner state through :func:`state_from_jax` on the head view(s). The
+DistilBERT heads (plain, BBB, Rank-1, SNGP) follow the rules above: their
+kernels ``[in, out]`` are transposed, Rank-1 factors and biases and the SNGP
+buffers kept. Only numpy is used: the JAX objects are read by their fields.
 """
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import Mapping
 
 import numpy as np
@@ -81,11 +88,15 @@ def buffers_from_jax(model_state: Mapping) -> dict:
 
 
 def bert_from_jax(params: Mapping) -> dict:
-    """A flax ``BertClassifier`` param tree (numpy) -> the port's state_dict:
-    dense ``kernel`` ``[in, out]`` -> ``[out, in]``; embeddings, LayerNorm
-    ``scale``/``bias`` and the dense biases as they are."""
+    """A flax ``BertClassifier`` or ``BertSNGP`` param tree (numpy) -> the
+    port's state_dict: dense kernels ``[in, out]`` (``kernel``, a BBB head's
+    ``kernel__gmean`` and ``kernel__grho``) -> ``[out, in]``; embeddings,
+    LayerNorm ``scale``/``bias``, the biases and Rank-1 factors as they
+    are."""
     return _convert(
-        params, lambda name, a: torch.from_numpy(np.array(a.T if name == "kernel" else a, np.float32, order="C"))
+        params,
+        lambda name, a: torch.from_numpy(
+            np.array(a.T if name.startswith("kernel") and a.ndim == 2 else a, np.float32, order="C")),
     )
 
 
@@ -257,4 +268,86 @@ def state_from_jax(module: torch.nn.Module, state, lr: float = 0.0, var_lr: floa
             "swag.updates": torch.tensor(int(state.updates), dtype=torch.int32),
             "swag.steps_since_start": torch.tensor(int(state.steps_since_start), dtype=torch.int32),
         })
+    return out
+
+
+def strip_placeholders(tree):
+    """A tree without its zero-size leaves (the JAX last-layer split's
+    placeholders) and the subtrees left empty."""
+    if not isinstance(tree, Mapping):
+        return tree
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            value = strip_placeholders(value)
+            if value:
+                out[key] = value
+        elif not (isinstance(value, tuple) and len(value) == 0) and np.asarray(value).size:
+            out[key] = value
+    return out
+
+
+# an optax state's fields as ``state_from_jax`` reads them (``_field``)
+_AdamFields = namedtuple("_AdamFields", "mu nu count")
+_TraceFields = namedtuple("_TraceFields", "trace count")
+
+
+def _stripped_opt(opt_state):
+    """An optax state's moments without placeholders, as the fields
+    :func:`state_from_jax` reads."""
+    count = _field(opt_state, "count")
+    mu = _field(opt_state, "mu")
+    if mu is not None:
+        return _AdamFields(strip_placeholders(_unmasked(_numpy_tree(mu))),
+                           strip_placeholders(_unmasked(_numpy_tree(_field(opt_state, "nu")))), count)
+    return _TraceFields(strip_placeholders(_numpy_tree(_field(opt_state, "trace"))), count)
+
+
+class _Stripped:
+    """A JAX method state read through :func:`state_from_jax` with the
+    placeholders of its trees removed."""
+
+    _TREES = ("params", "mean", "momentum", "precision")
+
+    def __init__(self, state):
+        self._state = state
+
+    def __getattr__(self, name):
+        value = getattr(self._state, name)
+        if name in self._TREES and isinstance(value, Mapping):
+            return strip_placeholders(_numpy_tree(value))
+        if name == "opt_state":
+            return _stripped_opt(value)
+        return value
+
+
+def last_layer_state_from_jax(template, state, lr: float = 0.0) -> dict:
+    """A JAX ``LastLayerState`` -> the state_dict of the port's
+    ``LastLayerState`` ``template`` (``methods/last_layer.py``): the inner
+    state on ``template.inner.params`` (a head view, or a ``ModuleList`` of
+    them for stacked head particles), the backbone parameters by name, and
+    their optimizer (Adam or SGD, its moments raveled in the template's
+    backbone order), ``lr`` both optimizers' base rate."""
+    out = {f"inner.{k}": v for k, v in state_from_jax(template.inner.params, _Stripped(state.inner), lr).items()}
+    backbone = params_from_jax(strip_placeholders(_numpy_tree(state.backbone)))
+    names = list(template.backbone)
+    if set(names) != set(backbone):
+        raise KeyError(f"backbone names differ: {sorted(set(names) ^ set(backbone))[:8]}")
+    out.update({f"backbone.{n}": backbone[n] for n in names})
+    opt = _stripped_opt(state.backbone_opt)
+
+    def flat(tree):
+        named = params_from_jax(tree)
+        return torch.cat([named[n].reshape(-1) for n in names])
+
+    count = torch.tensor(int(np.asarray(opt.count).reshape(-1)[0]) if opt.count is not None else 0, dtype=torch.int64)
+    fields = {"flat": flat(strip_placeholders(_numpy_tree(state.backbone)))}
+    if isinstance(opt, _AdamFields):
+        fields.update({"mu": flat(opt.mu), "nu": flat(opt.nu)})
+    else:
+        fields["trace"] = flat(opt.trace)
+    fields.update({"count": count, "lr": torch.tensor(lr, dtype=torch.float64)})
+    out.update({f"backbone_opt.{k}": v for k, v in fields.items()})
+    out.update({"step": torch.tensor(int(state.step), dtype=torch.int64),
+                "epoch": torch.tensor(int(state.epoch), dtype=torch.int64)})
     return out

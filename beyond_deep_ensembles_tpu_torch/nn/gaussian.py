@@ -30,6 +30,12 @@ MEAN_STD_INIT = 0.1
 # counter-hash normals per step, on the key's stream _POOL_STREAM + chunk
 _POOL = 1 << 20
 _POOL_STREAM = 1 << 31
+# key mode: a normal draw of more than _POOL values takes the stream
+# _BIG_STREAM + its index
+_BIG_STREAM = 3 << 30
+# key mode: attention draw d seeds K3 with key + ((d + 1) << _PANEL_SHIFT),
+# its panels (b, h) with that plus b H + h < 2^_PANEL_SHIFT
+_PANEL_SHIFT = 20
 
 
 def sign_mean_init(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
@@ -93,10 +99,18 @@ class NoiseSource:
     (:class:`DeviceSeed`); the per-example draws of
     ``VariationalFilterResponseNorm`` and frozen rows are taken in turn from
     chunks of :data:`_POOL` counter-hash normals (``keys.normal``, one chunk
-    drawn per 2^20 values); :meth:`crops` gives augmentation draws and
-    :meth:`keep_mask` dropout masks, each from ``keys.bits`` on the key's
-    stream of the draw's index (uniform bits, for any size). Attention seeds
-    have no key mode yet (the WILDS path keeps its host seeds) and raise.
+    drawn per 2^20 values), and a draw of more than 2^20 values (SWAG's and
+    iVON's over a whole DistilBERT) from a stream of its own; :meth:`crops`
+    gives augmentation draws and :meth:`keep_mask` dropout masks, each from
+    ``keys.bits`` on the key's stream of the draw's index (uniform bits, for
+    any size). An attention
+    with live dropout passes K3 the seed ``key + ((index + 1) << 20)``
+    (a :class:`DeviceSeed`, which K3 reads from device memory): K3 keys its
+    panel (b, h) by that seed plus ``b H + h``, so with the index in the high
+    bits the panels of two draws, and the K1 seeds ``key + index``, never
+    coincide (with ``key + index`` the next layer's panels would repeat this
+    layer's, shifted by a few heads). On the CPU the mask is the top 24 of
+    ``keys.bits`` on the key's stream of that seed's index.
     :meth:`member` gives an ensemble member its own source: in key mode one
     of the key ``fold_in(key, m)``, so no two members draw the same noise.
 
@@ -151,10 +165,6 @@ class NoiseSource:
             return self
         return NoiseSource(key=keys.fold_in(self.key.reshape(()), index))
 
-    def _refuse_key_mode(self, what: str) -> None:
-        if self.key is not None:
-            raise NotImplementedError(f"{what} in key mode: not ported yet (the WILDS path keeps host seeds)")
-
     def _pooled(self, numel: int) -> torch.Tensor:
         """The next ``numel`` normals of the key's pool (key mode)."""
         if numel > _POOL:
@@ -194,7 +204,11 @@ class NoiseSource:
         if self._given is not None:
             eps = self._take(draw_shape).to(device)
         elif self.key is not None:
-            eps = self._pooled(math.prod(draw_shape)).reshape(draw_shape)
+            numel = math.prod(draw_shape)
+            if numel > _POOL:  # one draw of its own stream (a SWAG or iVON draw over a whole model)
+                eps = keys.normal(self.key.reshape(()), _BIG_STREAM + self.draws, numel).reshape(draw_shape)
+            else:
+                eps = self._pooled(numel).reshape(draw_shape)
             self.draws += 1
         else:
             eps = torch.randn(
@@ -231,12 +245,19 @@ class NoiseSource:
 
     def attention(self, q, k, v, key_mask, rate: float):
         """Self-attention with dropout ``rate`` on the probabilities through
-        K3 (``ops/attention.py``): a fresh Philox seed, or the next given keep
-        mask ``[B, H, L, L]``."""
+        K3 (``ops/attention.py``): a fresh Philox seed, in key mode the device
+        seed of this draw's index, or the next given keep mask ``[B, H, L,
+        L]``."""
         b, l, h, _ = q.shape
         if self._given is not None:
             keep = self._take((b, h, l, l)).to(device=q.device, dtype=torch.bool)
             return fused_dropout_attention(q, k, v, key_mask, dropout_p=rate, keep=keep)
-        self._refuse_key_mode("attention dropout")
+        if self.key is None:
+            seed = self.seed()
+        else:
+            if b * h >= 1 << _PANEL_SHIFT or self.draws + 1 >= 1 << (31 - _PANEL_SHIFT):
+                raise ValueError(f"a key-mode attention takes B H < 2^{_PANEL_SHIFT} panels and fewer than "
+                                 f"{(1 << (31 - _PANEL_SHIFT)) - 1} draws of one source")
+            seed = DeviceSeed(self.key.reshape(()), (self.draws + 1) << _PANEL_SHIFT)
         self.draws += 1
-        return fused_dropout_attention(q, k, v, key_mask, dropout_p=rate, seed=self.seed())
+        return fused_dropout_attention(q, k, v, key_mask, dropout_p=rate, seed=seed)

@@ -32,9 +32,18 @@ The dropout mask comes from one of:
 
   * ``seed``: on a card, Philox in the kernels, the panel (b, h) keyed by
     ``seed + b H + h`` as the JAX kernel seeds its panels, a 16-bit uniform
-    per element; the backward regenerates the mask. On the CPU, ``torch.rand`` from a generator seeded
-    with ``seed`` (:func:`cpu_keep_mask`). The two streams differ, as the
-    TPU's hardware bits differ from ``jax.random``; both are iid.
+    per element; the backward regenerates the mask. The seed is a host int,
+    or a :class:`~.sampling.DeviceSeed` (an int64 key in device memory plus
+    a static index, the seed their sum): the kernels read the key when they
+    run, as the JAX kernel reads its seed from SMEM, so a CUDA graph that
+    captured the launch draws afresh at each replay once the key has moved
+    on. Autograd saves the key for the backward, which raises if it was
+    written in between. On the CPU, ``torch.rand`` from a generator seeded
+    with a host ``seed`` (:func:`cpu_keep_mask`), or, for a device seed, the
+    top 24 of ``keys.bits`` on the key's stream of the index
+    (:func:`key_keep_mask`, as ``NoiseSource.keep_mask`` draws). The streams
+    differ from the card's, as the TPU's hardware bits differ from
+    ``jax.random``; all are iid.
   * ``keep``: a given keep mask ``[B, H, L, L]`` (bool or uint8), read by the
     kernels on a card, so that a card and the CPU can run one draw.
 
@@ -54,7 +63,9 @@ from typing import Optional
 
 import torch
 
+from .. import keys
 from . import _cuda_build
+from .sampling import DeviceSeed, Seed
 
 NEG = -1e30  # additive bias of a padded key; finite, so s - max is never NaN
 HEAD_DIM = 64  # the kernels' head dimension (distilbert-base: 768 / 12)
@@ -65,9 +76,9 @@ _MODE_NONE, _MODE_PHILOX, _MODE_GIVEN = 0, 1, 2
 def _library() -> ctypes.CDLL:
     lib = _cuda_build.load("dropout_attention.cu")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.k3_forward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, f, f, p, p, p, i, i, i, i, p]
+    lib.k3_forward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, p, f, f, p, p, p, i, i, i, i, p]
     lib.k3_forward.restype = i
-    lib.k3_backward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, f, f, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.k3_backward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, p, f, f, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.k3_backward.restype = i
     lib.k3_error_string.argtypes = [i]
     lib.k3_error_string.restype = ctypes.c_char_p
@@ -84,6 +95,14 @@ def cpu_keep_mask(shape, seed: int, dropout_p: float) -> torch.Tensor:
     generator seeded with ``seed``."""
     gen = torch.Generator().manual_seed(seed)
     return torch.rand(tuple(shape), generator=gen) >= dropout_p
+
+
+def key_keep_mask(shape, seed: DeviceSeed, dropout_p: float) -> torch.Tensor:
+    """The plain version's mask for a device seed: ``u >= p`` for u the top
+    24 of ``keys.bits`` on the key's stream ``index``, a function of (key,
+    index) alone, on the key's device (``NoiseSource.keep_mask``'s draw)."""
+    h = keys.bits(seed.key.reshape(()), seed.index, math.prod(shape))
+    return ((h >> 8).to(torch.float32) * 2.0**-24 >= dropout_p).reshape(tuple(shape))
 
 
 def _plain_probs(q, k, key_mask, keep, dropout_p):
@@ -131,11 +150,20 @@ def _keep_ptr(keep):
     return keep.data_ptr() if keep is not None else None
 
 
-def attention_forward(q, k, v, bias, dropout_p: float, seed: Optional[int], keep: Optional[torch.Tensor],
+def _seed_args(seed: Optional[Seed]):
+    """(host value, key pointer or None) of a seed: a device seed passes its
+    index and its key's address, which the kernels read and add."""
+    if isinstance(seed, DeviceSeed):
+        return seed.index, seed.key.data_ptr()
+    return (seed or 0) & 0xFFFFFFFFFFFFFFFF, None
+
+
+def attention_forward(q, k, v, bias, dropout_p: float, seed: Optional[Seed], keep: Optional[torch.Tensor],
                       with_probs: bool = False):
     """K3a on CUDA tensors: ``(o, lse, probs or None)``; ``lse`` ``[B, H, L]``
     is the row's log-sum-exp in base 2 of the scores times log2(e), which K3b
-    reads. ``keep``: uint8 ``[B, H, L, L]``."""
+    reads. ``keep``: uint8 ``[B, H, L, L]``; ``seed``: a host int or a
+    device seed."""
     _check_kernel(q, k, v, bias, keep)
     lib = _library()
     b, l, h, _ = q.shape
@@ -143,8 +171,8 @@ def attention_forward(q, k, v, bias, dropout_p: float, seed: Optional[int], keep
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     probs = torch.empty((b, h, l, l), dtype=torch.float32, device=q.device) if with_probs else None
     err = lib.k3_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep),
-        (seed or 0) & 0xFFFFFFFFFFFFFFFF, _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep), *_seed_args(seed),
+        _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM),
         o.data_ptr(), lse.data_ptr(), probs.data_ptr() if with_probs else None, b, l, h,
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -156,7 +184,7 @@ def attention_forward(q, k, v, bias, dropout_p: float, seed: Optional[int], keep
 attention_forward.launches = 0
 
 
-def attention_backward(q, k, v, bias, dropout_p: float, seed: Optional[int], keep: Optional[torch.Tensor],
+def attention_backward(q, k, v, bias, dropout_p: float, seed: Optional[Seed], keep: Optional[torch.Tensor],
                        o, lse, do):
     """K3b on CUDA tensors: ``(dq, dk, dv)`` for the output gradient ``do``."""
     _check_kernel(q, k, v, bias, keep, o, lse, do)
@@ -165,8 +193,8 @@ def attention_backward(q, k, v, bias, dropout_p: float, seed: Optional[int], kee
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     err = lib.k3_backward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep),
-        (seed or 0) & 0xFFFFFFFFFFFFFFFF, _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep), *_seed_args(seed),
+        _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, l, h, q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -180,19 +208,32 @@ attention_backward.launches = 0
 
 class _Attend(torch.autograd.Function):
     """K3a forward, K3b backward; the mask is held fixed between them (the
-    seed, or the given mask, is kept, never the drawn mask)."""
+    seed, or the given mask, is kept, never the drawn mask: a device seed's
+    key is saved as a tensor, so autograd raises if it was written before
+    the backward). The forward takes no ``ctx`` (``setup_context``), so that
+    ``torch.func`` transforms (the Laplace fit's ``jacrev``) can run a model
+    through it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, keep, seed, dropout_p):
+    def forward(q, k, v, bias, keep, seed, dropout_p):
         o, lse, _ = attention_forward(q, k, v, bias, dropout_p, seed, keep)
-        ctx.save_for_backward(q, k, v, bias, keep, o, lse)
-        ctx.seed, ctx.dropout_p = seed, dropout_p
-        return o
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v, bias, keep, o, lse = ctx.saved_tensors
-        dq, dk, dv = attention_backward(q, k, v, bias, ctx.dropout_p, ctx.seed, keep, o, lse, do.contiguous())
+    def setup_context(ctx, inputs, output):
+        q, k, v, bias, keep, seed, dropout_p = inputs
+        o, lse = output
+        key = seed.key if isinstance(seed, DeviceSeed) else None
+        ctx.save_for_backward(q, k, v, bias, keep, o, lse, key)
+        ctx.seed = seed.index if key is not None else seed
+        ctx.dropout_p = dropout_p
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, bias, keep, o, lse, key = ctx.saved_tensors
+        seed = DeviceSeed(key, ctx.seed) if key is not None else ctx.seed
+        dq, dk, dv = attention_backward(q, k, v, bias, ctx.dropout_p, seed, keep, o, lse, do.contiguous())
         return dq, dk, dv, None, None, None, None
 
 
@@ -214,6 +255,11 @@ def _check(q, k, v, key_mask, dropout_p, seed, keep) -> None:
         raise ValueError("a keep mask was given with dropout_p 0")
     if dropout_p > 0.0 and (seed is None) == (keep is None):
         raise ValueError("with dropout_p > 0 pass exactly one of seed= and keep=")
+    if isinstance(seed, DeviceSeed) and (
+        seed.key.dtype != torch.int64 or seed.key.numel() != 1 or seed.key.device != q.device
+        or not 0 <= seed.index < 2**31
+    ):
+        raise ValueError("a device seed is a one-element int64 key on q's device and an index below 2^31")
     if keep is not None and (
         keep.shape != (b, h, l, l) or keep.dtype not in (torch.bool, torch.uint8) or keep.device != q.device
     ):
@@ -229,22 +275,25 @@ def _cpu_keep(q, dropout_p, seed, keep):
     if dropout_p == 0.0 or keep is not None:
         return keep
     b, l, h, _ = q.shape
+    if isinstance(seed, DeviceSeed):
+        return key_keep_mask((b, h, l, l), seed, dropout_p)
     return cpu_keep_mask((b, h, l, l), seed, dropout_p)
 
 
-def fused_dropout_attention(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: Optional[int] = None,
+def fused_dropout_attention(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: Optional[Seed] = None,
                             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention with dropout on the probabilities, differentiable in
     q, k and v with the mask held fixed. q/k/v ``[B, L, H, D]`` fp32,
     ``key_mask`` ``[B, L]``; with ``dropout_p > 0`` exactly one of ``seed``
-    (an int) and ``keep`` (a ``[B, H, L, L]`` mask). Returns ``[B, L, H, D]``."""
+    (an int or a :class:`DeviceSeed`) and ``keep`` (a ``[B, H, L, L]``
+    mask). Returns ``[B, L, H, D]``."""
     _check(q, k, v, key_mask, dropout_p, seed, keep)
     if q.is_cuda:
-        return _Attend.apply(q, k, v, key_bias(key_mask), _kernel_keep(keep), seed, float(dropout_p))
+        return _Attend.apply(q, k, v, key_bias(key_mask), _kernel_keep(keep), seed, float(dropout_p))[0]
     return dropout_attention_plain(q, k, v, key_mask, _cpu_keep(q, dropout_p, seed, keep), dropout_p=dropout_p)
 
 
-def fused_dropout_attention_debug(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: Optional[int] = None,
+def fused_dropout_attention_debug(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: Optional[Seed] = None,
                                   keep: Optional[torch.Tensor] = None):
     """Forward only, also returning the realized (dropped, normalized)
     probabilities ``[B, H, L, L]``: test and debug use; the main path never

@@ -7,18 +7,20 @@ protocol ``python3 {task}.py {task}.yaml``):
         [--name VARIANT] [--rep K] [--out results/] [--phase PHASE]
         [--leave-out K] [--wandb] [--device cuda|cpu]
 
-Tasks: ``uci``, ``cifar`` and the WILDS tasks (``amazon`` with ``map`` and
-``mcd`` is ported; the rest raise in ``experiments/wilds_task.py``). Each
+Tasks: ``uci``, ``cifar`` and the WILDS tasks (the text tasks ``amazon``
+and ``civilcomments`` are ported, every model of their yamls; the image
+tasks raise in ``experiments/wilds_task.py``). Each
 variant x repetition trains, evaluates and appends its records to
 ``<out>/<name>_<variant>/rep_<k>/metrics.jsonl``. The checkpoint-driven
 phases read the ``{model}_final`` states a train phase wrote:
 
-  --phase fit_laplace   post-hoc Laplace per repetition (CIFAR)
+  --phase fit_laplace   post-hoc Laplace per repetition (CIFAR, WILDS)
   --phase multix        deep ensemble over the variant's repetitions, in
-                        ``<out>/<name>_<variant>/multix[_lo<k>]/`` (CIFAR;
-                        ``--leave-out K`` for the leave-one-out protocol)
-  --phase drop_rates    dropout-rate sweep over a saved MCD checkpoint
-  --phase eval          re-evaluate a saved checkpoint without training
+                        ``<out>/<name>_<variant>/multix[_lo<k>]/`` (CIFAR,
+                        WILDS; ``--leave-out K`` for the leave-one-out
+                        protocol)
+  --phase drop_rates    dropout-rate sweep over a saved MCD checkpoint (WILDS)
+  --phase eval          re-evaluate a saved checkpoint without training (WILDS)
 
 ``--device`` stands in for the JAX package's global backend choice: every
 run goes to ``utils/device.py::resolve_device``, the card unless ``cpu`` is
@@ -72,9 +74,17 @@ def run_phase(task: str, phase: str, params: dict, run_dirs, log, leave_out=None
             return cifar.fit_laplace_phase(params, run_dirs[0], log=log.info, device=device)
         if phase == "multix":
             return cifar.multix_phase(params, run_dirs, leave_out=leave_out, log=log.info, device=device)
-    if task in WILDS_TASKS and phase in ("fit_laplace", "drop_rates", "eval", "multix"):
-        raise NotImplementedError(
-            f"the {task} {phase} phase: not ported yet (ROADMAP item 14, the other WILDS variants)")
+    if task in WILDS_TASKS:
+        from .experiments import wilds_task
+
+        if phase == "fit_laplace":
+            return wilds_task.fit_laplace_phase(task, params, run_dirs[0], log=log.info, device=device)
+        if phase == "drop_rates":
+            return wilds_task.sweep_drop_rates_phase(task, params, run_dirs[0], log=log.info, device=device)
+        if phase == "eval":
+            return wilds_task.eval_only_phase(task, params, run_dirs[0], log=log.info, device=device)
+        if phase == "multix":
+            return wilds_task.multix_phase(task, params, run_dirs, leave_out=leave_out, log=log.info, device=device)
     raise ValueError(f"phase {phase!r} not supported for task {task!r}")
 
 

@@ -119,10 +119,27 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      and evaluate at S = 8 on the card against the CPU; K1 at the MLP's
      planes and K2 at (10, P) and (20, P) against their plain versions, K2's
      time beside ``torch.mm``'s;
- 10. the runner figures, the Multi-X figures, the rest-of-CIFAR figures and
-     the UCI figures as JSON lines, the card's name and power limit,
-     one JSON line of kernel figures (K1, K2, K3a, K3b), then the result
-     line ``{"ok": true, "device": {...}}``.
+ 10. the WILDS text tasks: K1 at the BBB head's train planes ([8, 768],
+     [8, 5], [16, 768], [16, 2]; given noise and DeviceSeed draws, forward
+     and backward) and frozen eval planes (eval batch 16 and 32) against its
+     plain version; K3 with a DeviceSeed (the key in device memory) against the equal host seed bit for bit, against the plain version fed
+     its mask, a captured launch under two keys, and its time against a
+     host-seed launch; K3 and SDPA at CivilComments' (16, 12, 300, 64); K2
+     at (5, 66,957,317) and (5, 592,130) beside torch.mm; every row of
+     configs/amazon.yaml and configs/civilcomments.yaml through ``run.main``
+     at distilbert-base's width, cut to one epoch of 8 steps and 64 test
+     examples (SWAG's collections in proportion), a row at a time with
+     every count set to 0 just before and read just after, exact; the
+     ``eval``, ``fit_laplace``, ``drop_rates`` and ``multix`` phases on the
+     written checkpoints against the runs' own evals; a captured DistilBERT
+     MCD step against an eager one bit for bit, a captured loss forward
+     under two keys, the eval runner against the host loop; 20 captured and
+     10 eager steady steps of MAP, MCD, SVGD and LL_SVGD; one step of each
+     new method on the card against the CPU at one layer of the same width;
+ 11. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
+     UCI figures and the WILDS figures as JSON lines, the card's name and
+     power limit, one JSON line of kernel figures (K1, K2, K3a, K3b), then
+     the result line ``{"ok": true, "device": {...}}``.
 Exits non-zero and prints no result without CUDA or without the package
 beside this file.
 """
@@ -235,8 +252,9 @@ AMAZON_DEFAULT = {
 MCD_VARIANT = {"model": "mcd", "dropout_p": 0.2}
 MAP_VARIANT = {"model": "map"}
 # cut to size: one epoch of 80 synthetic reviews = 10 steps at batch 8; 32
-# test reviews = 2 eval batches of 16
-BERT_SMOKE = {"epochs": 1, "subsample": 80, "test_subsample": 32, "seed": 0}
+# test reviews = 2 eval batches of 16, through the host eval loop (the WILDS
+# phase drives the eval runner)
+BERT_SMOKE = {"epochs": 1, "subsample": 80, "test_subsample": 32, "seed": 0, "device_eval": False}
 
 
 def block_widths():
@@ -2245,6 +2263,585 @@ def run_bert_slice(torch, wilds_task, kernels, variant, label):
     return built, counts, config, step
 
 
+# The WILDS text phase: configs/amazon.yaml and configs/civilcomments.yaml
+# through run.main at distilbert-base's full width, each row cut in data
+# and epochs only: one epoch of 8 steps (64 Amazon reviews at batch 8, 128
+# comments at batch 16), 64 test examples (4 Amazon eval batches of 16, 2
+# CivilComments batches of 32) at the rows' S; SWAG's collections in
+# proportion (3 of 5 epochs -> from the cut's first step; 50 collections
+# over 2 epochs -> 4 over 8 steps); MAP run twice (repetitions 2) for the
+# multix phase, every other row once
+WILDS_STEPS = 8
+WILDS_TEST = 64
+WILDS_SWAG = {"swag_start_epoch": 0, "swag_updates": 4}
+WILDS_ROWS = {
+    "amazon": ["MAP", "MCD", "SWAG", "SWAG_LL", "BBB", "Rank1", "SVGD", "iVON", "LL_iVON", "Laplace", "SNGP"],
+    "civilcomments": ["MAP", "MCD", "SWAG", "BBB", "Rank1", "LL_SVGD", "LL_iVON", "Laplace", "SNGP"],
+}
+# K3 at CivilComments' train shape (B, H, L, D); the card-against-CPU steps
+# at one layer of distilbert-base's width (dim 768, 12 heads, FFN 3072), a
+# vocabulary of 2048 (the token ids taken modulo it) so that the CPU side's
+# steps stay short, L = 128, batch 4
+K3_CIVIL_SHAPE = (16, 12, 300, 64)
+WILDS_CPU_CHECK = {"bert_config": {"n_layers": 1, "vocab_size": 2048}, "seq": 128, "batch": 4}
+
+
+def wilds_yaml_docs(task):
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", f"{task}.yaml")) as f:
+        return [d for d in yaml.safe_load_all(f) if d]
+
+
+def wilds_sweep_file(task, path):
+    """configs/<task>.yaml cut as WILDS_* says, written to ``path``; returns
+    {row: its params, DEFAULT's merged under}."""
+    import yaml
+
+    docs = wilds_yaml_docs(task)
+    default = docs[0]
+    batch = default["params"]["batch_size"]
+    cut = {"epochs": 1, "subsample": WILDS_STEPS * batch, "test_subsample": WILDS_TEST}
+    print(f"{task} cut: epochs {default['params']['epochs']} -> 1, subsample -> {cut['subsample']} "
+          f"({WILDS_STEPS} steps of {batch}), test_subsample -> {WILDS_TEST}, repetitions {default['repetitions']} "
+          f"-> 1 (MAP 2); SWAG {WILDS_SWAG}; the rows' other params kept: {json.dumps(default['params'])}")
+    out = [{**default, "repetitions": 1, "params": {**default["params"], **cut}}]
+    for doc in docs[1:]:
+        params = dict(doc["params"])
+        if params["model"] in ("swag", "swag_ll"):
+            params.update(WILDS_SWAG)
+        out.append({**doc, "params": params, **({"repetitions": 2} if doc["name"] == "MAP" else {})})
+    with open(path, "w") as f:
+        yaml.safe_dump_all(out, f)
+    return {d["name"]: {**out[0]["params"], **d["params"]} for d in out[1:]}
+
+
+def wilds_expected_counts(config, layers):
+    """The exact host launch counts of one row's run_single on the card:
+    train (one update per call: every forward launches K3a once a layer and
+    its backward K3b once a layer; BBB's two head layers K1 forward and
+    backward; K2 once an SVGD step), the Laplace fit's one forward pass
+    (K3a), and eval through the eval runner, whose host counters see its two
+    warm-ups and its capture, never a replay (S forwards a batch, one for
+    SNGP's multisample; BBB's head K1 frozen, twice a forward)."""
+    model = config["model"]
+    forwards = {"svgd": config["svgd_particles"], "ll_svgd": config["svgd_particles"],
+                "ivon": config["ivon_mc_samples"], "ll_ivon": config["ivon_mc_samples"]}.get(model, 1)
+    eval_forwards = 3 * (1 if model == "sngp" else config["eval_samples"])
+    k3a = WILDS_STEPS * forwards * layers + (layers if model == "laplace" else 0) + eval_forwards * layers
+    bbb = model in ("bbb", "ll_bbb")
+    return {
+        "k1_gaussian_sample": (WILDS_STEPS * 2 + eval_forwards * 2) if bbb else 0,
+        "k1_gaussian_sample_backward": WILDS_STEPS * 2 if bbb else 0,
+        "k2_svgd_gram": WILDS_STEPS if model in ("svgd", "ll_svgd") else 0,
+        "k3a_attention_forward": k3a,
+        "k3b_attention_backward": WILDS_STEPS * forwards * layers,
+    }
+
+
+def wilds_cli_rows(torch, task, kernels, out):
+    """Every row of configs/<task>.yaml through ``run.main`` (``--name`` a
+    row at a time), every count set to 0 just before and read just after:
+    the counts exact (``wilds_expected_counts``), the metrics finite and in
+    range, the wall time and peak device memory. Each row's checkpoints are
+    deleted after it but MAP's, MCD's and Laplace's run directory, which the
+    phases read."""
+    import shutil
+    import tempfile
+
+    from beyond_deep_ensembles_tpu_torch import run
+    from beyond_deep_ensembles_tpu_torch.experiments import wilds_task
+
+    sweep = os.path.join(out, f"{task}.yaml")
+    rows = wilds_sweep_file(task, sweep)
+    layers = wilds_task._bert_config({}).n_layers
+    figures, results = {}, {}
+    for name in WILDS_ROWS[task]:
+        config = {**wilds_task.DEFAULT_CONFIG, **rows[name]}
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run.main([task, sweep, "--name", name, "--out", out, "--rep", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        want = wilds_expected_counts(config, layers)
+        check(counts == want, f"{task} {name}: launch counts {counts} = {want}")
+        run_dir = os.path.join(out, f"{name}_0", "rep_0")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            result = {k: v for k, v in json.loads(f.read().splitlines()[-1]).items() if not k.startswith("_")}
+        check(all(math.isfinite(v) for v in result.values() if isinstance(v, (int, float)))
+              and 0.0 <= result["accuracy"] <= 1.0 and result["avg_log_likelihood"] < 0.0,
+              f"{task} {name}: metrics finite and in range: {json.dumps({k: result[k] for k in ('accuracy', 'avg_log_likelihood', 'ece')})}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        figures[name] = {"wall_s": wall, "peak_gib": peak, "counts": counts}
+        results[name] = result
+        print(f"{task} {name} through run.main: {wall:.1f} s, peak device memory {peak:.2f} GiB [{CARD}]")
+        if name not in ("MAP", "MCD", "Laplace"):
+            shutil.rmtree(os.path.join(out, f"{name}_0"), ignore_errors=True)
+        torch.cuda.empty_cache()
+    run.main([task, sweep, "--name", "MAP", "--out", out, "--rep", "1"])  # multix's second member
+    return rows, results, figures
+
+
+def wilds_phases(torch, task, rows, results, out):
+    """The checkpoint phases through ``run.main`` on what the rows wrote:
+    ``eval`` of MAP's ``map_final`` = the MAP run's own eval;
+    ``fit_laplace`` of it (copied into the Laplace row's run directory, so
+    that the phase takes that row's ``ll_hessian``) = the Laplace row's eval
+    (the same MAP training, then the fit); ``drop_rates`` of MCD's ``mcd_final`` at p = 0.2 = the
+    MCD run's eval; ``multix`` over MAP's two repetitions = eval_task of a
+    deep_ensemble of the two restored states. Each within 1e-5 relative."""
+    import shutil
+
+    from beyond_deep_ensembles_tpu_torch import run
+    from beyond_deep_ensembles_tpu_torch.methods import deep_ensemble
+    from beyond_deep_ensembles_tpu_torch.methods.ensemble import EnsembleState
+    from beyond_deep_ensembles_tpu_torch.experiments import wilds_task
+    from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
+
+    sweep = os.path.join(out, f"{task}.yaml")
+
+    def last(path):
+        with open(path) as f:
+            return {k: v for k, v in json.loads(f.read().splitlines()[-1]).items() if not k.startswith("_")}
+
+    def close(got, want):
+        return max(abs(got[m] - want[m]) / max(abs(want[m]), 1e-30) for m in want if isinstance(want[m], float))
+
+    diffs = {}
+    t0 = time.perf_counter()
+    run.main([task, sweep, "--name", "MAP", "--out", out, "--rep", "0", "--phase", "eval"])
+    diffs["eval"] = close(last(os.path.join(out, "MAP_0", "rep_0", "eval", "metrics.jsonl")), results["MAP"])
+    shutil.copy(os.path.join(out, "MAP_0", "rep_0", "map_final"), os.path.join(out, "Laplace_0", "rep_0", "map_final"))
+    run.main([task, sweep, "--name", "Laplace", "--out", out, "--rep", "0", "--phase", "fit_laplace"])
+    fitted = last(os.path.join(out, "Laplace_0", "rep_0", "fit_laplace", "metrics.jsonl"))
+    diffs["fit_laplace"] = close(fitted, results["Laplace"])
+    run.main([task, sweep, "--name", "MCD", "--out", out, "--rep", "0", "--phase", "drop_rates"])
+    rates = last(os.path.join(out, "MCD_0", "rep_0", "drop_rates", "metrics.jsonl"))
+    diffs["drop_rates"] = close(rates["p=0.2"], results["MCD"])
+    run.main([task, sweep, "--name", "MAP", "--out", out, "--phase", "multix"])
+    got = last(os.path.join(out, "MAP_0", "multix", "metrics.jsonl"))
+    dirs = [os.path.join(out, "MAP_0", f"rep_{r}") for r in range(2)]
+    config, built, _, test = wilds_task._rebuild(task, rows["MAP"])
+    states = [ckpt.restore_final(d, "map", wilds_task._build_for(task, config, built.device).state) for d in dirs]
+    built.method, built.state = deep_ensemble(built.method, 2), EnsembleState(states)
+    diffs["multix"] = close(got, wilds_task.eval_task(built, task, config, *test))
+    check(all(d <= 1e-5 for d in diffs.values()),
+          f"{task} phases through run.main = the runs' own evals (max rel diff {json.dumps(diffs)} <= 1e-5): eval of "
+          f"map_final = MAP; fit_laplace of it = Laplace; drop_rates p=0.2 of mcd_final = MCD; multix over MAP's two "
+          f"repetitions = a deep_ensemble of them")
+    print(f"{task} phases: {time.perf_counter() - t0:.1f} s [{CARD}]")
+    return diffs
+
+
+def k3_key_mode(torch, att, sampling, shape):
+    """K3 with a DeviceSeed against K3 with the equal host seed, bit for bit
+    (output, dQ, dK, dV); against the plain version fed the mask it drew;
+    a captured launch replayed under two keys draws two masks, each the
+    eager one of its key; then the time of a key-mode launch against a
+    host-seed launch (CUDA graphs, forward and backward)."""
+    q, k, v, do, mask = k3_inputs(torch, shape, seed=21)
+    key = torch.full((), 123_456_789, dtype=torch.int64, device="cuda")
+    seed = sampling.DeviceSeed(key, 5 << 20)
+    host = 123_456_789 + (5 << 20)
+    out_d, grads_d = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=K3_P, seed=seed),
+                                q, k, v, do)
+    out_h, grads_h = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=K3_P, seed=host),
+                                q, k, v, do)
+    check(torch.equal(out_d, out_h) and all(torch.equal(a, b) for a, b in zip(grads_d, grads_h)),
+          f"K3 {shape}: a DeviceSeed (key in device memory + index) = the equal host seed, bit for bit "
+          f"(output, dQ, dK, dV)")
+    out, probs = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=seed)
+    check(torch.equal(out, out_d), f"K3 {shape}: the debug entry draws the key's mask")
+    ref, ref_grads = with_grads(torch, lambda *t: att.dropout_attention_plain(*t, mask, probs > 0, dropout_p=K3_P),
+                                q, k, v, do)
+    err, gerr = k3_hold(torch, f"{shape} DeviceSeed, realized mask", out_d, ref, grads_d, ref_grads)
+    del ref, ref_grads, grads_h, out_h
+
+    static = torch.zeros((), dtype=torch.int64, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    captured_seed = sampling.DeviceSeed(static, 5 << 20)
+    att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=captured_seed)  # warm-up
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        _, captured = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=K3_P, seed=captured_seed)
+    masks = []
+    for value in (123_456_789, 987_654_321):
+        static.fill_(value)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = att.fused_dropout_attention_debug(
+            q, k, v, mask, dropout_p=K3_P, seed=sampling.DeviceSeed(torch.full_like(static, value), 5 << 20))[1]
+        check(torch.equal(captured > 0, eager > 0), f"K3 {shape}: a captured launch replayed with key {value} draws "
+                                                    f"that key's eager mask")
+        masks.append((captured > 0).clone())
+    changed = float((masks[0] != masks[1]).float().mean())
+    check(changed > 0.05, f"K3 {shape}: two replays under two keys draw two masks ({changed:.3f} of the elements differ)")
+    del graph, captured, masks, probs
+
+    bias = att.key_bias(mask)
+    o, lse, _ = att.attention_forward(q, k, v, bias, K3_P, host, None)
+    times = in_turns({
+        "host seed": lambda: graph_ms(torch, lambda: att.attention_forward(q, k, v, bias, K3_P, host, None)),
+        "device seed": lambda: graph_ms(torch, lambda: att.attention_forward(q, k, v, bias, K3_P, seed, None)),
+    })
+    back = in_turns({
+        "host seed": lambda: graph_ms(torch, lambda: att.attention_backward(q, k, v, bias, K3_P, host, None, o, lse, do)),
+        "device seed": lambda: graph_ms(torch, lambda: att.attention_backward(q, k, v, bias, K3_P, seed, None, o, lse,
+                                                                              do)),
+    })
+    print(f"K3 {shape} forward, host seed {times['host seed'][0]:.4f} ms, device seed {times['device seed'][0]:.4f} ms; "
+          f"backward, host seed {back['host seed'][0]:.4f} ms, device seed {back['device seed'][0]:.4f} ms [{CARD}]")
+    del q, k, v, do, o, lse, bias
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "grad_max_abs_err": gerr,
+            "forward_ms": {n: t[0] for n, t in times.items()}, "backward_ms": {n: t[0] for n, t in back.items()}}
+
+
+def k2_wilds_times(torch, svgd_kernel):
+    """K2 at the text rows' shapes, (5, 66,957,317) (SVGD over distilbert-base
+    + Amazon's head) and (5, 592,130) (LL_SVGD's CivilComments heads):
+    against fp64 and gram_plain, then its CUDA-graph time beside
+    ``gram_plain``'s and ``torch.mm(x, x.T)``'s (TF32 off), and the byte
+    bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    for n, p in ((5, 66_957_317), (5, 592_130)):
+        x = torch.randn(n, p, device=dev, generator=gen) + torch.randn(1, p, device=dev, generator=gen)
+        err, _ = k2_check(torch, svgd_kernel, x)
+        copies = max(1, -(-60_000_000 // (4 * n * p)))
+        xs = [x] + [torch.randn(n, p, device=dev, generator=gen) for _ in range(copies - 1)]
+        reps = max(copies, 4)
+
+        def run(fn):
+            def repeated():
+                for i in range(reps):
+                    fn(xs[i % copies])
+            return graph_ms(torch, repeated, reps=5) / reps
+
+        with torch.no_grad():
+            times = in_turns({"kernel": lambda: run(svgd_kernel.gram), "plain": lambda: run(svgd_kernel.gram_plain),
+                              "library": lambda: run(lambda t: torch.mm(t, t.T))})
+        n_bytes = 4 * n * p + 4 * n * n
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * n * n * p / FP32_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        rows[f"{n}x{p}"] = {"ms": times["kernel"][0], "plain_ms": times["plain"][0], "library_ms": times["library"][0],
+                            "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                            "max_abs_err": err}
+        print(f"K2 ({n}, {p}): kernel {times['kernel'][0] * 1e3:.2f} us, gram_plain {times['plain'][0] * 1e3:.2f} us, "
+              f"torch.mm {times['library'][0] * 1e3:.2f} us, bound {bound * 1e3:.2f} us by "
+              f"{rows[f'{n}x{p}']['bound_by']} (K2 at {100 * bound / times['kernel'][0]:.0f}% of it) [{CARD}]")
+        del x, xs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def wilds_built(torch, wilds_task, task, row, **extra):
+    """``row`` of configs/<task>.yaml built at full width on the card, with
+    WILDS_STEPS batches of its train split there."""
+    from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
+
+    docs = {d["name"]: d.get("params", {}) for d in wilds_yaml_docs(task)}
+    bs = docs["DEFAULT"]["batch_size"]
+    x, y, _ = load_wilds(task, "train", subsample=WILDS_STEPS * bs)
+    config = {**wilds_task.DEFAULT_CONFIG, **docs["DEFAULT"], **docs[row], "dataset_size": x.shape[0],
+              "steps_per_epoch": WILDS_STEPS, "epochs": 1, **extra}
+    built = wilds_task.build(task, config, torch.Generator().manual_seed(0), WILDS_STEPS)
+    xd, yd = wilds_task._to_device(built, x, y)
+    batches = [(xd[i * bs : (i + 1) * bs].clone(), yd[i * bs : (i + 1) * bs].clone()) for i in range(WILDS_STEPS)]
+    return built, config, batches
+
+
+def wilds_step_times(torch, built, batches, label, captured=20, eager=10):
+    """Steady steps, ``captured`` replayed from one graph of WILDS_STEPS / 2
+    steps and ``eager`` one update per call, key mode both, CUDA events:
+    ms a step each way."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    k = WILDS_STEPS // 2
+    multi = multistep.make_multi_step(built.method.update, k)
+    stacked = [multistep.stack_batches(batches[i * k : (i + 1) * k]) for i in range(2)]
+    built.state, _ = multi(built.state, 1, stacked[0])  # capture, outside the timing
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(captured // k):
+        built.state, metrics = multi(built.state, 2 + i, stacked[i % 2])
+    end.record()
+    end.synchronize()
+    captured_ms = start.elapsed_time(end) / captured
+    check(bool(torch.isfinite(metrics["loss"])), f"{label}: captured steps' loss finite")
+    built.state, _ = built.method.update(built.state, NoiseSource(key=keys.as_key(3, "cuda")), batches[0])
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(eager):
+        built.state, metrics = built.method.update(
+            built.state, NoiseSource(key=keys.as_key(keys.fold_in(4, i), "cuda")), batches[i % len(batches)])
+    end.record()
+    end.synchronize()
+    eager_ms = start.elapsed_time(end) / eager
+    print(f"{label} steady step: captured {captured_ms:.2f} ms ({captured} steps, graphs of {k}), eager {eager_ms:.2f} "
+          f"ms ({eager} steps) [{CARD}]")
+    return {"captured_ms": captured_ms, "eager_ms": eager_ms}
+
+
+def wilds_mcd_capture(torch, wilds_task):
+    """Amazon's MCD at full width: COMPARE_STEPS captured steps = as many
+    eager ones from one key, bit for bit (``captured_vs_eager``); a captured
+    loss forward replayed under two keys gives two losses, each the eager
+    forward's of its key; the eval runner against the host loop on the same
+    keys within 1e-5. Returns the built row and its batches."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
+    from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+
+    built, config, batches = wilds_built(torch, wilds_task, "amazon", "MCD")
+    captured_vs_eager(torch, built, batches, "DistilBERT MCD (device_data)")
+    loss_fn = wilds_task._loss_fn_for(built.model)
+    static = torch.zeros((), dtype=torch.int64, device="cuda")
+    batch = batches[0]
+    with torch.no_grad():
+        loss_fn(built.state.params, {}, NoiseSource(key=static), batch)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            loss = loss_fn(built.state.params, {}, NoiseSource(key=static), batch).loss
+        losses = []
+        for value in (keys.fold_in(5, 0), keys.fold_in(5, 1)):
+            static.fill_(value)
+            graph.replay()
+            eager = loss_fn(built.state.params, {}, NoiseSource(key=keys.as_key(value, "cuda")), batch).loss
+            check(torch.equal(loss, eager), f"DistilBERT MCD: the captured loss forward under key {value} = the eager "
+                                            f"one, bit for bit ({float(loss):.6f})")
+            losses.append(float(loss))
+    check(losses[0] != losses[1], f"DistilBERT MCD: two replays under two keys draw two sets of masks (losses "
+                                  f"{losses[0]:.6f}, {losses[1]:.6f})")
+    del graph
+    xt, yt, mt = load_wilds("amazon", "test", subsample=WILDS_TEST)
+    evals = {mode: wilds_task.eval_task(built, "amazon", {**config, "device_eval": mode}, xt, yt, mt)
+             for mode in (True, False)}
+    diff = max(abs(evals[True][m] - evals[False][m]) / max(abs(evals[False][m]), 1e-30) for m in evals[False]
+               if isinstance(evals[False][m], float))
+    check(diff <= 1e-5, f"DistilBERT MCD: eval runner = host eval loop on the same keys (metrics max rel diff "
+                        f"{diff:.2g} <= 1e-5; equal: {evals[True] == evals[False]})")
+    return built, batches
+
+
+def k_lin_layouts(state):
+    """The flat layouts of a text state's parameter vectors, each as a bool
+    vector True on the k_lin biases' elements (the parameters' module order,
+    the order of the optimizers', SWAG's and iVON's flat vectors)."""
+    import torch
+
+    from beyond_deep_ensembles_tpu_torch.methods.last_layer import LastLayerState
+
+    groups = [list(state.backbone.items()), list(state.inner.params.named_parameters())] \
+        if isinstance(state, LastLayerState) else [list(state.params.named_parameters())]
+    return [torch.cat([torch.full((p.numel(),), n.endswith("k_lin.bias")) for n, p in group]) for group in groups]
+
+
+def k_lin_elements(layouts, key, t):
+    """True on the elements of state tensor ``key`` that hold a k_lin bias."""
+    import torch
+
+    if key.endswith("k_lin.bias"):
+        return torch.ones_like(t, dtype=torch.bool)
+    for mask in layouts:
+        if t.dim() and t.shape[-1] == mask.shape[0]:
+            return mask.expand(t.shape)
+    return torch.zeros_like(t, dtype=torch.bool)
+
+
+def wilds_card_vs_cpu(torch, wilds_task, NoiseSource):
+    """One update of each text method on the card and on the CPU from the
+    same weights and draws, at one layer of distilbert-base's width
+    (WILDS_CPU_CHECK: vocabulary 2048, L = 128, batch 4, Amazon's rows; BBB's and LL-BBB's head noise given, the
+    rest key mode, whose draws are the same on both; dropout and attention
+    dropout off on both, as K3's Philox and the CPU's stream differ): the
+    loss within 1e-5 relative, the counters equal, and every tensor of the
+    state: at most one element in a thousand (at least one) beyond 1e-4 of
+    its tensor's largest change plus two roundings of it (of the mean, for a SWAG
+    deviation), none beyond twice that change; the k_lin biases' elements
+    (a gradient of zero in exact arithmetic, the softmax being blind to a
+    shift of a row of scores, so rounding alone: ``bert_card_vs_cpu``) held
+    to twice the largest step of any parameter
+    (Adam's first step is lr times the gradient's sign, which rounding sets
+    where the gradient is near zero: a flip moves an element by twice the
+    step)."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
+
+    x, y, _ = load_wilds("amazon", "train", subsample=WILDS_CPU_CHECK["batch"])
+    x = x[:, : WILDS_CPU_CHECK["seq"]].copy()
+    x[..., 0] %= WILDS_CPU_CHECK["bert_config"]["vocab_size"]
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    docs = {d["name"]: d.get("params", {}) for d in wilds_yaml_docs("amazon")}
+    bert = {**WILDS_CPU_CHECK["bert_config"], "dropout": 0.0, "attention_dropout": 0.0,
+            "max_position_embeddings": WILDS_CPU_CHECK["seq"]}
+    figures = {}
+    variants = [("SWAG", {}), ("SWAG_LL", {}), ("BBB", {}), ("Rank1", {}), ("SVGD", {}), ("iVON", {}),
+                ("LL_iVON", {}), ("SNGP", {}), ("BBB", {"model": "ll_bbb"}),
+                ("SVGD", {"model": "ll_svgd"})]
+    for row, extra in variants:
+        config = {**wilds_task.DEFAULT_CONFIG, **docs["DEFAULT"], **docs[row], **extra, "bert_config": bert,
+                  "dataset_size": 64, "steps_per_epoch": 8, "swag_start_epoch": 0, "swag_updates": 8}
+        label = extra.get("model", row)
+        sides = {}
+        for device in ("cpu", "cuda"):
+            built = wilds_task.build("amazon", config, torch.Generator().manual_seed(3), 8, device=device)
+            state = built.state
+            before = {k: t.detach().clone().cpu() for k, t in state.state_dict().items()}
+            if config["model"] in ("bbb", "ll_bbb"):
+                gen = torch.Generator().manual_seed(4)
+                noise = NoiseSource(given=[torch.randn(4, 768, generator=gen),
+                                           torch.rand(4, 768, generator=gen) >= 0.2,
+                                           torch.randn(4, 5, generator=gen)])
+            else:
+                noise = NoiseSource(key=keys.as_key(keys.fold_in(6, 0), device))
+            state, metrics = built.method.update(state, noise, (x.to(device), y.to(device)))
+            sides[device] = (float(metrics["loss"]), before,
+                             {k: t.detach().clone().cpu() for k, t in state.state_dict().items()})
+            layouts = k_lin_layouts(state)
+            del built, state
+        (l_cpu, b_cpu, a_cpu), (l_gpu, _, a_gpu) = sides["cpu"], sides["cuda"]
+        loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+        worst_share, outliers, flip_share, counters = 0.0, 0.0, 0.0, True
+        # the largest step of any parameter: the k_lin biases' bound
+        moved = max(float((a_cpu[k].double() - b_cpu[k].double()).abs().max()) for k in a_cpu
+                    if (".params." in f".{k}" or k.startswith("backbone.")) and a_cpu[k].is_floating_point())
+        k_lin_gap = 0.0
+        for key, cpu in a_cpu.items():
+            gpu, before = a_gpu[key], b_cpu[key]
+            if not cpu.is_floating_point():
+                counters &= torch.equal(cpu, gpu)
+                continue
+            change = float((cpu.double() - before.double()).abs().max())
+            gap = (gpu.double() - cpu.double()).abs()
+            # a SWAG deviation is a parameter less the mean: its rounding is
+            # the operands', the mean's magnitude
+            operand = a_cpu[key.replace("deviations", "mean")] if key.endswith("deviations") else cpu
+            share = gap / (1e-4 * change + 2.0**-22 * operand.double().abs() + 1e-30)
+            k_lin = k_lin_elements(layouts, key, cpu)
+            over = (share > 1.0) & ~k_lin
+            outliers = max(outliers, int(over.sum()) / max(1, cpu.numel() // 1000))
+            if over.any():
+                flip_share = max(flip_share, float(gap[over].max()) / (2 * change + 1e-30))
+            if k_lin.any():
+                k_lin_gap = max(k_lin_gap, float(gap[k_lin].max()) / (2 * moved + 1e-30))
+            rest = ~(over | k_lin)
+            worst_share = max(worst_share, float(share[rest].max()) if rest.any() else 0.0)
+        check(loss_err <= 1e-5 and counters and outliers <= 1.0 and flip_share <= 1.0 and k_lin_gap <= 1.0,
+              f"{label} update on the card = CPU path at one layer of distilbert-base (loss rel err {loss_err:.1e} "
+              f"<= 1e-5; counters equal; state tensors at {worst_share:.3f} of 1e-4 of their largest change plus "
+              f"two roundings, elements beyond it at {outliers:.2g} of one in a thousand (at least one) a tensor, "
+              f"those within "
+              f"{flip_share:.3f} of twice the largest change; k_lin biases within {k_lin_gap:.3f} of twice the "
+              f"largest parameter step)")
+        figures[label] = {"loss_rel_err": loss_err, "bound_share": worst_share, "outlier_share": outliers,
+                          "flip_share": flip_share, "k_lin_share": k_lin_gap}
+    return figures
+
+
+def wilds_k1_checks(torch, sampling):
+    """K1 at the planes the text BBB head hands it (768 -> 768 -> classes on
+    the [CLS] row): train at batch 8 (amazon, 5 classes) and 16
+    (civilcomments, 2), given noise and Philox draws from a DeviceSeed,
+    forward and backward; frozen (one row for the batch) at eval batch 16 and
+    32. Each against ``gaussian_sample_plain`` on the same inputs: outputs
+    within 1e-6 absolute, gradients within 1e-5 relative, as ``kernel_phase``
+    holds the ResNet-20 planes; the Philox draw equal to the same z given,
+    output and gradients bit for bit, one backward launch a backward."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    key = torch.full((), 987_654_321, dtype=torch.int64, device=dev)
+    var_w = max(F.softplus(torch.tensor(-3.0)).item() ** 2, 1e-4)  # init rho -3, the layer's clamp
+    worst, grad_worst = 0.0, 0.0
+    for batch, classes, frozen in ((8, 5, False), (16, 2, False), (16, 5, True), (32, 2, True)):
+        x = torch.randn(batch, 768, device=dev, generator=gen)
+        for index, (fan_in, out_dim) in enumerate(((768, 768), (768, classes))):
+            shape = (batch, out_dim)
+            w = 0.02 * torch.randn(out_dim, fan_in, device=dev, generator=gen)
+            leaves = [x @ w.T, torch.clamp(x * x, min=1e-4) @ torch.full_like(w, var_w).T,
+                      0.02 * torch.randn(out_dim, device=dev, generator=gen), torch.full((out_dim,), var_w, device=dev)]
+            leaves = [t.requires_grad_(True) for t in leaves]
+            mode = "frozen" if frozen else "train"
+            seed = sampling.DeviceSeed(key, (index + 1) << 20)
+            z = sampling.gaussian_sample(torch.zeros(shape, device=dev), torch.ones(shape, device=dev), seed=seed,
+                                         frozen=frozen)
+            z = z[0].contiguous() if frozen else z
+            for noise in (torch.randn(z.shape, device=dev, generator=gen), z):
+                given = sampling.gaussian_sample(*leaves, eps=noise)
+                ref = sampling.gaussian_sample_plain(*leaves, noise)
+                worst = max(worst, float((given - ref).detach().abs().max()))
+                if frozen:
+                    continue
+                g = torch.randn(shape, device=dev, generator=gen)
+                want = torch.autograd.grad((given * g).sum(), leaves)
+                plain = torch.autograd.grad((ref * g).sum(), leaves)
+                for a, b in zip(want, plain):
+                    grad_worst = max(grad_worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+            drawn = sampling.gaussian_sample(*leaves, seed=seed, frozen=frozen)
+            check(torch.equal(drawn, given), f"K1 DeviceSeed draw = the same z given, {shape}, {mode}")
+            if not frozen:
+                backwards = sampling.gaussian_sample_backward.launches
+                got = torch.autograd.grad((drawn * g).sum(), leaves)
+                check(sampling.gaussian_sample_backward.launches == backwards + 1,
+                      f"K1 backward: one launch for one backward, {shape}, DeviceSeed")
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"K1 DeviceSeed gradients = given-noise gradients bit for bit, {shape}")
+    torch.cuda.synchronize()
+    check(worst <= 1e-6 and grad_worst <= 1e-5,
+          f"K1 at the text BBB head's train planes [8, 768], [8, 5], [16, 768], [16, 2] and frozen eval planes "
+          f"[16, 768], [16, 5], [32, 768], [32, 2] = plain, given noise and DeviceSeed draws (max abs err "
+          f"{worst:.3g} <= 1e-6; gradients rel err {grad_worst:.3g} <= 1e-5)")
+    return {"max_abs_err": worst, "grad_rel_err": grad_worst}
+
+
+def wilds_phase(torch, kernels, att, sampling, svgd_kernel, wilds_task, NoiseSource):
+    """K1 at the text BBB head's planes, both text yamls through run.main at
+    full width with exact launch counts, the checkpoint phases, K3's key mode, K2 and K3 at the text
+    shapes, the captured MCD step, steady steps of MAP, MCD, SVGD and
+    LL_SVGD, and one step of each new method against the CPU."""
+    import shutil
+
+    out = os.path.join(BUILD, "wilds_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    figures = {"k1_head": wilds_k1_checks(torch, sampling)}
+    figures["k3_key_mode"] = k3_key_mode(torch, att, sampling, K3_CIVIL_SHAPE)
+    figures["k3_civil"] = k3_times(torch, att, K3_CIVIL_SHAPE)
+    figures["k2"] = k2_wilds_times(torch, svgd_kernel)
+    figures["rows"], figures["phases"] = {}, {}
+    for task in WILDS_ROWS:
+        rows, results, row_figures = wilds_cli_rows(torch, task, kernels, out)
+        figures["rows"][task] = row_figures
+        figures["phases"][task] = wilds_phases(torch, task, rows, results, out)
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+    shutil.rmtree(out, ignore_errors=True)
+    built, batches = wilds_mcd_capture(torch, wilds_task)
+    figures["steps"] = {"MCD": wilds_step_times(torch, built, batches, "Amazon MCD")}
+    del built
+    torch.cuda.empty_cache()
+    for row, task in (("MAP", "amazon"), ("SVGD", "amazon"), ("LL_SVGD", "civilcomments")):
+        built, _, batches = wilds_built(torch, wilds_task, task, row)
+        figures["steps"][row] = wilds_step_times(torch, built, batches, f"{task} {row}")
+        del built, batches
+        torch.cuda.empty_cache()
+    figures["card_vs_cpu"] = wilds_card_vs_cpu(torch, wilds_task, NoiseSource)
+    return figures
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "beyond_deep_ensembles_tpu_torch")):
         print("chip_smoke: the beyond_deep_ensembles_tpu_torch package is not beside this file", file=sys.stderr)
@@ -2367,6 +2964,12 @@ def main() -> int:
     uci = uci_phase(torch, kernels)
     print(json.dumps({"card": CARD, "uci": uci}))
 
+    phase("WILDS text tasks: configs/amazon.yaml and configs/civilcomments.yaml through the CLI")
+    wilds = wilds_phase(torch, kernels, att, sampling, svgd_kernel, wilds_task, NoiseSource)
+    print(json.dumps({"card": CARD, "wilds": wilds}))
+    wilds_counts = {name: sum(row["counts"][name] for rows in wilds["rows"].values() for row in rows.values())
+                    for name in kernels}
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(CARD)
     print(json.dumps({"kernels": [
@@ -2412,6 +3015,12 @@ def main() -> int:
             "uci_backward_launches_per_bbb_step": uci["steps"]["bbb"]["k1_backward_per_step"],
             "uci_launches_per_evaluate": uci["steps"]["bbb"]["k1_per_evaluate"],
             "uci_max_abs_err": uci["kernels"]["k1_max_abs_err"],
+            # the WILDS phase: host counts over both yamls' rows through
+            # run.main (BBB's head: 2 a step forward and backward, 2 frozen a
+            # forward at eval)
+            "wilds_launches": wilds_counts["k1_gaussian_sample"],
+            "wilds_backward_launches": wilds_counts["k1_gaussian_sample_backward"],
+            "wilds_head_max_abs_err": wilds["k1_head"]["max_abs_err"],
         },
         {
             "name": "k2_svgd_gram",
@@ -2434,6 +3043,10 @@ def main() -> int:
             "uci_launches_per_svgd_step": uci["steps"]["svgd10"]["k2_per_step"],
             "uci_10": uci["kernels"]["k2_10"],
             "uci_20": uci["kernels"]["k2_20"],
+            # the WILDS phase: host counts over both yamls' rows (SVGD and
+            # LL_SVGD, once a step), and K2 at their shapes beside torch.mm
+            "wilds_launches": wilds_counts["k2_svgd_gram"],
+            "wilds_shapes": wilds["k2"],
         },
         *(
             {
@@ -2450,6 +3063,11 @@ def main() -> int:
                 "bound_fp32_cores_ms": k3[key]["bound_fp32_cores_ms"],
                 "library_ms": k3[key]["library_ms"],
                 "library_p": k3[key]["library_p"],
+                # the WILDS phase: host counts over both yamls' rows, K3 at
+                # CivilComments' train shape, key mode (a DeviceSeed)
+                "wilds_launches": wilds_counts[name],
+                "civilcomments_shape": wilds["k3_civil"][key],
+                "key_mode_ms": wilds["k3_key_mode"]["forward_ms" if key == "K3a" else "backward_ms"],
             }
             for name, key, replaces in (
                 ("k3a_attention_forward", "K3a", "beyond_deep_ensembles_tpu/ops/attention.py:84"),

@@ -13,7 +13,8 @@ Tolerances: against the interpreted kernel the JAX test's own (outputs 2e-5;
 gradients atol 3e-5, rtol 3e-4); against the JAX explicit-mask math, the same
 fp32 operations in another library, 1e-5. On the card, K3a and K3b against
 the plain version at (2, 128, 3, 64) and at the ragged lengths 300, 65, 5
-and 96: outputs 1e-5 and gradients atol 3e-5, rtol 3e-4: the kernels sum over
+and 96, and with a seed read from device memory (a ``DeviceSeed``) equal to
+the host seed of the same value, bit for bit: outputs 1e-5 and gradients atol 3e-5, rtol 3e-4: the kernels sum over
 64-wide tiles in another order, rescale with an online softmax, take
 rowsum(dP * P) as rowsum(dO * O), each rounding about 1e-7 relative per
 step, and take every product as split TF32 on the tensor cores (three
@@ -29,6 +30,7 @@ import pytest
 import torch
 
 from beyond_deep_ensembles_tpu_torch.ops import attention as att
+from beyond_deep_ensembles_tpu_torch.ops import sampling
 
 SHAPE = (2, 8, 2, 4)  # the JAX test's interpreted shape: B, L, H, D
 
@@ -442,3 +444,23 @@ def test_kernel_raises_instead_of_falling_back(cuda_device):
     q, k, v, _, mask = _card_inputs(cuda_device, shape=(2, 64, 2, 64))
     with pytest.raises(ValueError):  # the kernel wrappers never take a CPU tensor
         att.attention_forward(q.cpu(), k.cpu(), v.cpu(), att.key_bias(mask).cpu(), 0.0, None, None)
+
+
+@pytest.mark.cuda
+def test_kernel_device_seed_equals_host_seed(cuda_device):
+    """K3 with a DeviceSeed (the key read from device memory) = K3 with the
+    equal host seed, bit for bit, output and dQ, dK, dV; another key, another
+    mask."""
+    q, k, v, cot, mask = (torch.from_numpy(a).to(cuda_device) for a in _inputs((2, 64, 2, 64), seed=3))
+
+    def run(seed):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = att.fused_dropout_attention(*leaves, mask, dropout_p=0.3, seed=seed)
+        (out * cot).sum().backward()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    key = torch.full((), 77, dtype=torch.int64, device=cuda_device)
+    device = run(sampling.DeviceSeed(key, 3 << 20))
+    host = run(77 + (3 << 20))
+    assert all(torch.equal(a, b) for a, b in zip(device, host))
+    assert not torch.equal(run(sampling.DeviceSeed(key + 1, 3 << 20))[0], device[0])

@@ -269,9 +269,8 @@ def test_bert_from_jax_layouts():
 
 def test_unported_options_raise():
     gen = torch.Generator()
-    for head in ("bbb", "rank1"):
-        with pytest.raises(NotImplementedError):
-            bert.BertClassifier(5, head, config=bert.TINY_CONFIG, generator=gen)
+    with pytest.raises(ValueError):
+        bert.BertClassifier(5, "spectral", config=bert.TINY_CONFIG, generator=gen)
     with pytest.raises(NotImplementedError):
         bert.BertClassifier(5, "map", config=bert.TINY_CONFIG, dtype=torch.bfloat16, generator=gen)
     with pytest.raises(NotImplementedError):

@@ -138,8 +138,8 @@ def test_logger_records(tmp_path, capsys):
 def test_unported_phases_and_missing_card(tmp_path):
     log = VoidLog()
     for phase in ("fit_laplace", "drop_rates", "eval", "multix"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            run.run_phase("amazon", phase, {}, [str(tmp_path)], log)
+        with pytest.raises(NotImplementedError, match="item 15"):
+            run.run_phase("camelyon17", phase, {"model": "map"}, [str(tmp_path)], log)
     with pytest.raises(ValueError, match="not supported"):
         run.run_phase("uci", "multix", {}, [str(tmp_path)], log)
     with pytest.raises(ValueError, match="unknown task"):

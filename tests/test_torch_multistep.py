@@ -254,8 +254,8 @@ def test_keys():
 
 def test_noise_source_key_mode():
     """Key mode: the same key gives the same draws (K1's CPU path, pooled
-    normals, crops), another key other draws; attention refuses the mode
-    (dropout masks draw in it: ``tests/test_torch_mcd.py``)."""
+    normals, crops, attention masks), another key other draws (dropout masks
+    draw in it: ``tests/test_torch_mcd.py``)."""
     def draws(key):
         noise = NoiseSource(key=torch.tensor(key))
         m = torch.zeros(2, 3, 4, 4)
@@ -271,10 +271,12 @@ def test_noise_source_key_mode():
     assert not torch.equal(a[0], c[0]) and not torch.equal(a[1], c[1])
     assert torch.equal(a[1][0], a[1][1])  # a frozen row shared by the batch
     assert int(a[2].min()) >= 0 and int(a[2].max()) <= 8
-    noise = NoiseSource(key=torch.tensor(7))
-    with pytest.raises(NotImplementedError):
-        q = torch.zeros(1, 4, 1, 64)
-        noise.attention(q, q, q, torch.ones(1, 4, dtype=torch.bool), 0.1)
+    q = torch.randn(1, 64, 2, 64, generator=torch.Generator().manual_seed(0))
+
+    def attention(key):
+        return NoiseSource(key=torch.tensor(key)).attention(q, q, q, torch.ones(1, 64, dtype=torch.bool), 0.5)
+
+    assert torch.equal(attention(7), attention(7)) and not torch.equal(attention(7), attention(8))
     with pytest.raises(ValueError):
         NoiseSource(key=torch.tensor(7), generator=torch.Generator())
 
