@@ -13,8 +13,9 @@ at eval, the clean test split and the corrupted splits of every intensity in
 (``svgd`` with one member: its particles are its ensemble), periodic
 checkpoints with auto-resume and the ``{model}_final`` artifact
 (``checkpoint_dir``, ``checkpoint_interval``), ``fit_laplace_phase`` and
-``multix_phase``. The ``bf16`` key, the HMC baseline and data parallelism
-raise.
+``multix_phase``. The ``bf16`` key and the HMC baseline raise;
+``data_parallel`` is a no-op on one device, as in JAX, and raises with more
+than one visible card (``utils/device.py::refuse_multi_device``).
 
 Entry points run on CUDA unless ``device="cpu"`` is passed. The data sets
 move to the device once, as NCHW float32. ``train`` runs, as in JAX, the
@@ -56,7 +57,7 @@ from ..nn.base import Model
 from ..nn.gaussian import NoiseSource
 from ..parallel.multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches
 from ..utils import checkpoint as ckpt
-from ..utils.device import resolve_device
+from ..utils.device import refuse_multi_device, resolve_device
 from ..utils.optim import SGD
 from ..utils.schedules import wilson_schedule
 from . import phases
@@ -194,9 +195,10 @@ def _not_ported(config: dict) -> None:
     if config["model"] == "svgd" and config.get("members", 1) != 1:
         # the JAX build ignores members for svgd; the port refuses
         raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
-    for key in ("bf16", "use_hmc_baseline", "data_parallel"):
+    for key in ("bf16", "use_hmc_baseline"):
         if config.get(key):
             raise NotImplementedError(f"{key}: not ported yet")
+    refuse_multi_device(config, ("data_parallel",))
 
 
 def _uses_epoch_runner(config: dict) -> bool:

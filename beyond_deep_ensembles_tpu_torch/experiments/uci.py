@@ -51,7 +51,7 @@ from ..models.mlp import RegressionMLP
 from ..nn.base import Model
 from ..nn.gaussian import NoiseSource
 from ..parallel.multistep import make_multi_step, stack_batches
-from ..utils.device import resolve_device
+from ..utils.device import refuse_multi_device, resolve_device
 from ..utils.optim import SGD, Adam, mle_split
 
 DEFAULT_CONFIG = {
@@ -204,8 +204,7 @@ def train(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray, se
     ``fold_in(seed, s)``, ``scan_steps`` > 1 through the multi-step runner,
     ``finalize_epoch`` after every epoch. The losses are read on the host
     only for the log line of every tenth epoch."""
-    if config.get("data_parallel"):
-        raise NotImplementedError("data_parallel: not ported yet (ROADMAP item 18, multi-device)")
+    refuse_multi_device(config, ("data_parallel",))
     method, state = built.method, built.state
     xd, yd = _to_device(built, x, y)
     bs, n = config["batch_size"], xd.shape[0]

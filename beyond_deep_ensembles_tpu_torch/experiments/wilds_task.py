@@ -1,40 +1,55 @@
 """WILDS experiment runner: the DistilBERT text tasks, Amazon and
-CivilComments, under every method of ``configs/amazon.yaml`` and
-``configs/civilcomments.yaml``.
+CivilComments, and the DenseNet-121 image tasks, Camelyon17 and FMoW, under
+every method of ``configs/{amazon,civilcomments,camelyon,fmow}.yaml``.
 
 Counterpart of ``beyond_deep_ensembles_tpu/experiments/wilds_task.py``
-(reference experiments/{amazon,civilcomments}/{*.py,models.py,*.yaml}), for
-``task`` ``amazon`` (L = 512, 5 classes, the 10th-percentile user accuracy)
-and ``civilcomments`` (L = 300, 2 classes, the worst-group accuracy).
-Ported: ``build`` -> ``train`` -> ``eval_task`` / ``run_single`` with
-``model`` ``map``, ``mcd`` (``dropout_p``; ``last_layer_mcd`` keeps the
-encoder's dropouts off at eval), ``swag``, ``bbb``, ``rank1``, ``svgd``,
-``ivon``, ``sngp``, ``laplace`` (``ll_hessian``) and the last-layer
-``swag_ll``, ``ll_bbb``, ``ll_ivon`` and ``ll_svgd`` (``methods/
-last_layer.py``, the head both dense layers), each with ``members`` > 1 as
-a ``deep_ensemble`` (``svgd`` with one: its particles are its ensemble);
-``ring_dtype``; periodic checkpoints with auto-resume and the
-``{model}_final`` artifact (``checkpoint_dir``, ``checkpoint_interval``);
-the device-resident epoch (``device_data``), K steps per call
-(``scan_steps``) and the device-resident eval (``device_eval``), whose
-runners replay CUDA graphs on a card (``parallel/multistep.py``);
-``eval_while_train``; and the phases ``fit_laplace_phase``,
-``eval_only_phase``, ``sweep_drop_rates_phase`` and ``multix_phase``. The
-optimizer is the JAX package's ``_tx``: weight decay added to the gradient,
-then Adam or SGD with momentum (the port's ``utils/optim.py``, whose state
-lives on the device, so a CUDA graph can capture a step), at a constant
-rate. Every path draws its noise in key mode from ``keys.fold_in`` of the
-seed: per step, per epoch, per eval batch.
+(reference experiments/{amazon,civilcomments,camelyon,fmow}/{*.py,models.py,
+*.yaml}), for ``task`` ``amazon`` (L = 512, 5 classes, the 10th-percentile
+user accuracy), ``civilcomments`` (L = 300, 2 classes, the worst-group
+accuracy), ``camelyon17`` (96x96, 2 classes, a from-scratch DenseNet-121
+under SGD with momentum, BBB and Rank-1 variational throughout, frozen
+dropout masks at eval) and ``fmow`` (224x224, 62 classes, the worst-region
+accuracy, Adam under the ``exponential`` schedule, BBB and Rank-1 on the
+head only unless ``all_layers_bbb``). Ported: ``build`` -> ``train`` ->
+``eval_task`` / ``run_single`` with ``model`` ``map``, ``mcd``
+(``dropout_p``; ``last_layer_mcd`` keeps the encoder's dropouts off at
+eval), ``swag``, ``bbb``, ``rank1``, ``svgd``, ``ivon``, ``sngp`` (a
+spectral DenseNet under the SNGP head for the images), ``laplace``
+(``ll_hessian``) and the last-layer ``swag_ll``, ``ll_bbb``, ``ll_ivon`` and
+``ll_svgd`` (``methods/last_layer.py``; the text head is both dense layers,
+the image head the DenseNet's ``Dense_0``), each with ``members`` > 1 as a
+``deep_ensemble`` (``svgd`` with one: its particles are its ensemble);
+``ring_dtype``; DenseNet's ``conv_remat``, ``densenet_incremental_bn`` and
+``densenet_concat_mode``; the ``exponential`` schedule (Adam's, SGD's and
+iVON's lr from the device count); periodic checkpoints with auto-resume and
+the ``{model}_final`` artifact (``checkpoint_dir``,
+``checkpoint_interval``); the device-resident epoch (``device_data``), K
+steps per call (``scan_steps``) and the device-resident eval
+(``device_eval``), whose runners replay CUDA graphs on a card
+(``parallel/multistep.py``); ``eval_while_train``; and the phases
+``fit_laplace_phase``, ``eval_only_phase``, ``sweep_drop_rates_phase`` and
+``multix_phase``. The optimizer is the JAX package's ``_tx``: weight decay
+added to the gradient, then Adam or SGD with momentum (the port's
+``utils/optim.py``, whose state lives on the device, so a CUDA graph can
+capture a step). Every path draws its noise in key mode from
+``keys.fold_in`` of the seed: per step, per epoch, per eval batch.
+``data_parallel`` and ``ring_shard`` are no-ops on one device, as in JAX,
+and raise with more than one visible card (ROADMAP item 18).
 
-Not ported yet, each raising ``NotImplementedError``: the image tasks
-(ROADMAP item 15), pretrained DistilBERT weights (``load_hf_weights`` waits
-until the files are in the repository), the ``exponential`` and
-``cosine_warmup`` schedules, bf16 compute, remat, ``ring_shard`` and data
-parallelism (item 18).
+Not ported yet, each raising ``NotImplementedError``: iwildcam and rxrx1
+(ResNet-50, ROADMAP item 15b), poverty (ResNet-18 and the regression eval,
+item 15d), pretrained weights (DistilBERT's ``load_hf_weights`` and fmow's
+``densenet121.pth``, items 15b and 15e), the ``cosine_warmup`` schedule
+(item 15b), bf16 compute (item 13), DistilBERT remat, and the DenseNet's
+running-statistics BatchNorm (``static_bn: false``).
 
-Entry points run on CUDA unless ``device="cpu"`` is passed. The data sets
-move to the device once; each step gathers its batch there, in the order of
-the JAX package's native loader (``data/native_loader.py``).
+Entry points run on CUDA unless ``device="cpu"`` is passed. The text data
+sets move to the device once and each step gathers its batch there; an image
+train set stays on the host (a staged camelyon17 train set is about 33 GB
+in fp32) and each step
+moves its batch, in the order of the JAX package's native loader
+(``data/native_loader.py``) either way. Image arrays are NCHW
+(:func:`task_images`; the loaders give NHWC).
 """
 from __future__ import annotations
 
@@ -64,12 +79,14 @@ from ..methods.sngp import sngp_method
 from ..methods.svgd import svgd_method
 from ..methods.swag import swag_method
 from ..models.bert import TINY_CONFIG, BertClassifier, BertSNGP, DistilBertConfig
+from ..models.densenet import DenseNetClassifier, DenseNetSNGP
 from ..nn.base import Model
 from ..nn.gaussian import NoiseSource
 from ..parallel.multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches
 from ..utils import checkpoint as ckpt
-from ..utils.device import resolve_device
+from ..utils.device import refuse_multi_device, resolve_device
 from ..utils.optim import SGD, Adam
+from ..utils.schedules import exponential_schedule
 from . import phases
 
 DEFAULT_CONFIG = {
@@ -107,7 +124,13 @@ DEFAULT_CONFIG = {
     "static_bn": True,  # the image backbones' key, kept with the JAX defaults
 }
 
+# the Laplace fit's batch (the JAX ``laplace_method`` default): under static
+# BN the batches decide the statistics, so both engines cut the same ones
+LAPLACE_BATCH = 256
 TEXT_TASKS = ("amazon", "civilcomments")
+IMAGE_TASKS = ("camelyon17", "fmow")
+_WAITING = {"iwildcam": "ResNet-50, ROADMAP item 15b", "rxrx1": "ResNet-50, ROADMAP item 15b",
+            "poverty": "ResNet-18 and the regression eval, ROADMAP item 15d"}
 MODELS = ("map", "mcd", "swag", "bbb", "rank1", "svgd", "ivon", "sngp", "laplace",
           "swag_ll", "ll_bbb", "ll_ivon", "ll_svgd")
 
@@ -126,8 +149,8 @@ def _bert_config(config: dict) -> DistilBertConfig:
 def _not_ported(task: str, config: dict) -> None:
     if task not in wilds_data.TASKS:
         raise ValueError(f"unknown task {task!r}")
-    if task not in TEXT_TASKS:
-        raise NotImplementedError(f"task {task!r}: not ported yet (the image tasks, ROADMAP item 15)")
+    if task in _WAITING:
+        raise NotImplementedError(f"task {task!r}: not ported yet ({_WAITING[task]})")
     if config["model"] not in MODELS:
         raise ValueError(f"unknown model {config['model']!r}")
     if config["model"] == "svgd" and config.get("members", 1) != 1:
@@ -135,35 +158,104 @@ def _not_ported(task: str, config: dict) -> None:
         raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
     if config.get("compute_dtype", "fp32") not in ("fp32", "float32"):
         raise NotImplementedError("bf16 compute: not ported yet (ROADMAP item 13)")
-    if config.get("lr_schedule_kind", "none") != "none":
-        raise NotImplementedError(f"lr schedule {config['lr_schedule_kind']!r}: not ported yet")
-    for key in ("data_parallel", "ring_shard"):
-        if config.get(key):
-            raise NotImplementedError(f"{key}: not ported yet (ROADMAP item 18)")
-    pretrained = config.get("pretrained_path") or (
-        config.get("pretrained", True)
-        and os.path.exists(os.path.join(data_dir(), "distilbert-base-uncased", "pytorch_model.bin"))
+    if config.get("lr_schedule_kind", "none") not in ("none", "exponential"):
+        raise NotImplementedError(f"lr schedule {config['lr_schedule_kind']!r}: not ported yet (ROADMAP item 15b)")
+    refuse_multi_device(config)
+    if _pretrained_path(task, config):
+        raise NotImplementedError(f"pretrained {task} weights: not ported yet (ROADMAP items 15b and 15e)")
+
+
+def _pretrained_path(task: str, config: dict):
+    """Where the JAX package would load pretrained weights from (JAX
+    ``_pretrained_path``, :337-363): ``pretrained_path``, else, unless
+    ``pretrained: false``, fmow's ``$BDE_DATA_DIR/pretrained/densenet121.pth``
+    or the text tasks' ``$BDE_DATA_DIR/distilbert-base-uncased/
+    pytorch_model.bin`` where the file exists. camelyon17 trains from
+    scratch."""
+    if config.get("pretrained_path"):
+        return config["pretrained_path"]
+    if not config.get("pretrained", True):
+        return None
+    if task == "fmow":
+        path = os.path.join(data_dir(), "pretrained", "densenet121.pth")
+    elif task in TEXT_TASKS:
+        path = os.path.join(data_dir(), "distilbert-base-uncased", "pytorch_model.bin")
+    else:
+        return None
+    return path if os.path.exists(path) else None
+
+
+def task_images(task: str, config: dict, x: np.ndarray) -> np.ndarray:
+    """A loader's array as the port's model takes it: an image task's NHWC
+    float array as NCHW, cut to 32x32 under ``tiny`` (JAX :393,1035,1072);
+    a text task's as it is."""
+    if task not in IMAGE_TASKS:
+        return x
+    if config.get("tiny"):
+        x = x[:, :32, :32, :]
+    return np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+
+
+def _densenet_kwargs(task: str, config: dict) -> dict:
+    """DenseNet-121 (growth 32, blocks (6, 12, 24, 16), 64 initial features,
+    bn_size 4), or under ``tiny`` growth 4, blocks (2, 2), 8 and 2 (JAX
+    :128-161)."""
+    tiny = config.get("tiny", False)
+    return dict(
+        growth_rate=4 if tiny else 32,
+        block_config=(2, 2) if tiny else (6, 12, 24, 16),
+        init_features=8 if tiny else 64,
+        bn_size=2 if tiny else 4,
+        track_running_stats=not config.get("static_bn", True),
+        norm_off=config.get("no_norm", False),
     )
-    if pretrained:
-        raise NotImplementedError("pretrained DistilBERT weights (load_hf_weights): not ported yet")
 
 
-def _make_backbone(task: str, config: dict, generator: torch.Generator, head_kind: str = "map",
-                   dropout_p=None) -> nn.Module:
-    """The DistilBERT classifier: its head ``map`` for plain layers, ``bbb``
-    or ``rank1`` (``rank1_components``), or with ``dropout_p`` the
-    MC-Dropout ``drop`` head, whose encoder dropouts sample at eval too
-    unless ``last_layer_mcd`` (reference amazon/models.py:67-73)."""
-    head = "drop" if dropout_p is not None else head_kind
+def _make_backbone(task: str, config: dict, generator: torch.Generator, kind: str = "plain",
+                   head_kind: Optional[str] = None, dropout_p=None) -> nn.Module:
+    """The task's classifier with layers of ``kind`` and a head of
+    ``head_kind`` (default ``kind``; JAX ``_make_backbone``). Text: the
+    DistilBERT classifier, its head ``map`` for plain layers, ``bbb`` or
+    ``rank1`` (``rank1_components``), or with ``dropout_p`` the MC-Dropout
+    ``drop`` head, whose encoder dropouts sample at eval too unless
+    ``last_layer_mcd`` (reference amazon/models.py:67-73). Images: the
+    DenseNet classifier (``dropout_freeze_eval`` on camelyon17 only,
+    ``remat`` from ``conv_remat``)."""
+    components = config.get("rank1_components", 1)
+    classes = wilds_data.TASKS[task].classes
+    if task in IMAGE_TASKS:
+        return DenseNetClassifier(
+            classes,
+            head_kind=head_kind or kind,
+            conv_kind=kind,
+            components=components,
+            dropout_p=dropout_p,
+            dropout_freeze_eval=task == "camelyon17",
+            remat=config.get("conv_remat", "none"),
+            incremental_bn=config.get("densenet_incremental_bn", True),
+            concat_mode=config.get("densenet_concat_mode", "concat"),
+            generator=generator,
+            **_densenet_kwargs(task, config),
+        )
+    head = "drop" if dropout_p is not None else {"bbb": "bbb", "rank1": "rank1"}.get(head_kind or kind, "map")
     return BertClassifier(
-        classes=wilds_data.TASKS[task].classes,
+        classes=classes,
         head_kind=head,
         drop_p=dropout_p or 0.2,
-        components=config.get("rank1_components", 1),
+        components=components,
         config=_bert_config(config),
         mc_encoder_dropout=head == "drop" and not config.get("last_layer_mcd", False),
         generator=generator,
     )
+
+
+def _make_sngp(task: str, config: dict, generator: torch.Generator) -> nn.Module:
+    """The SNGP model (JAX ``_make_sngp``): DistilBERT or a spectral DenseNet
+    under the SNGP head."""
+    classes = wilds_data.TASKS[task].classes
+    if task in IMAGE_TASKS:
+        return DenseNetSNGP(classes, config["sngp"], generator=generator, **_densenet_kwargs(task, config))
+    return BertSNGP(classes, _bert_config(config), config["sngp"], generator=generator)
 
 
 def _loss_fn_for(model: Model):
@@ -191,27 +283,52 @@ def _predict_fn(model: Model):
     return apply_fn
 
 
+def _schedule(config: dict):
+    """``(factor of the epoch, steps_per_epoch)`` of ``lr_schedule_kind``
+    ``exponential`` (the staircase decay by ``lr_decay_rate`` once an epoch,
+    JAX ``_scheduled_lr``, :272-293), or ``(None, 1)`` for a constant
+    rate."""
+    if config.get("lr_schedule_kind", "none") == "exponential":
+        return exponential_schedule(config.get("lr_decay_rate", 0.96)), config.get("steps_per_epoch", 1000)
+    return None, 1
+
+
+def _scheduled_lr(config: dict, lr: float):
+    """``lr`` under the task's schedule, as a function of an update count
+    (a device tensor), or the constant ``lr``: iVON's rate (JAX
+    ``_scheduled_lr(config, ivon_lr)``, which the reference's fmow decays
+    like the backbone's, fmow.py:154-158)."""
+    factor, steps = _schedule(config)
+    if factor is None:
+        return lr
+    return lambda count: lr * factor(count // steps)
+
+
 def _tx(config: dict):
     """optax ``add_decayed_weights`` then ``adam`` (or ``sgd`` with momentum)
     as the port's ``Adam`` and ``SGD`` (``utils/optim.py``): weight decay
     added to the gradient before the moments, so torch ``Adam``, not
-    ``AdamW``; Adam's defaults (betas 0.9, 0.999, eps 1e-8) are optax's.
-    ``train_all_layers: false`` freezes the encoder in ``build`` (no
+    ``AdamW``; Adam's defaults (betas 0.9, 0.999, eps 1e-8) are optax's; the
+    lr under :func:`_schedule`, computed on the device from the optimizer's
+    count. ``train_all_layers: false`` freezes the encoder in ``build`` (no
     gradient, so no step and no decay, as optax's ``set_to_zero`` leaves
     it). Returns ``tx(params) -> (optimizer, None)``."""
     lr, wd = config["lr"], config.get("weight_decay", 0.0)
+    schedule, steps = _schedule(config)
 
     def tx(params):
         if config.get("optimizer_kind", "sgd") == "adam":
-            return Adam(params, lr, weight_decay=wd), None
-        return SGD(params, lr, momentum=config.get("momentum", 0.9), weight_decay=wd), None
+            return Adam(params, lr, weight_decay=wd, schedule=schedule, steps_per_epoch=steps), None
+        return SGD(params, lr, momentum=config.get("momentum", 0.9), weight_decay=wd, schedule=schedule,
+                   steps_per_epoch=steps), None
 
     return tx
 
 
 def _ring_kwargs(config: dict) -> dict:
     """``ring_dtype: bf16`` stores SWAG's deviation ring in bfloat16 (JAX
-    ``_ring_kwargs``); ``ring_shard`` raises in ``_not_ported``."""
+    ``_ring_kwargs``); ``ring_shard`` is a no-op on one device and raises
+    in ``_not_ported`` with more than one visible card."""
     rd = config.get("ring_dtype")
     if rd in ("bf16", "bfloat16"):
         return {"ring_dtype": torch.bfloat16}
@@ -235,6 +352,7 @@ class BuiltExperiment:
     state: object
     apply_fn: Callable
     device: torch.device
+    task: str = ""
     # eval runners by (test points, eval batch, samples): captured once for
     # every eval_while_train epoch of one split (JAX :923-932)
     eval_runners: dict = dataclasses.field(default_factory=dict)
@@ -268,7 +386,8 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
             return lambda lf: bbb_method(lf, tx, prior, dataset_size=config["dataset_size"],
                                          mc_samples=config["bbb_mc_samples"], kl_rescaling=config["kl_rescaling"])
         if inner_name == "ivon":
-            return lambda lf: ivon_method(lf, lr=config["ivon_lr"], prior_prec=config["ivon_prior_prec"],
+            return lambda lf: ivon_method(lf, lr=_scheduled_lr(config, config["ivon_lr"]),
+                                          prior_prec=config["ivon_prior_prec"],
                                           dataset_size=config["dataset_size"], mc_samples=config["ivon_mc_samples"],
                                           damping=config.get("ivon_damping", 0.0))
         if inner_name == "svgd":
@@ -285,13 +404,19 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
         model = Model(particles[0])
         method = inner_factory_for("svgd")(_loss_fn_for(model))
         state = method.init(particles, {})
-        return BuiltExperiment(model, method, state, _predict_fn(model), device)
+        return BuiltExperiment(model, method, state, _predict_fn(model), device, task)
 
     if name == "sngp":
-        made = modules(lambda: BertSNGP(wilds_data.TASKS[task].classes, _bert_config(config), config["sngp"],
-                                        generator=generator))
+        made = modules(lambda: _make_sngp(task, config, generator))
     elif name in ("bbb", "rank1"):
-        made = modules(lambda: _make_backbone(task, config, generator, head_kind=name))
+        # the variational scope follows the reference per task (JAX
+        # :453-483): fmow's pretrained-backbone protocol puts the layer on
+        # the head of a plain net (fmow/models.py:92-102) unless
+        # all_layers_bbb (BBB only); camelyon17's from-scratch net and the
+        # text heads take it throughout
+        head_only = task == "fmow" and not (name == "bbb" and config.get("all_layers_bbb", False))
+        made = modules(lambda: _make_backbone(task, config, generator, "plain" if head_only else name,
+                                              head_kind=name))
     elif name == "mcd":
         made = modules(lambda: _make_backbone(task, config, generator, dropout_p=config["dropout_p"]))
     elif name == "ll_bbb":
@@ -315,8 +440,9 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
         method = sngp_method(loss_fn, tx, ridge_penalty=config["sngp"]["ridge_penalty"])
     else:  # swag_ll, ll_bbb, ll_ivon, ll_svgd (reference iwildcam/models.py:87-154)
         inner_name = name.replace("_ll", "").replace("ll_", "")
+        mask = {"mask_fn": bert_head_mask} if task in TEXT_TASKS else {}
         method = last_layer_method(
-            loss_fn, inner_factory_for(inner_name), backbone_tx=tx, mask_fn=bert_head_mask,
+            loss_fn, inner_factory_for(inner_name), backbone_tx=tx, **mask,
             head_particles=config["svgd_particles"] if inner_name == "svgd" else 0, generator=generator,
         )
     if members > 1:
@@ -324,12 +450,38 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
         state = method.init(made)
     else:
         state = method.init(made[0], {})
-    return BuiltExperiment(model, method, state, _predict_fn(model), device)
+    return BuiltExperiment(model, method, state, _predict_fn(model), device, task)
 
 
 def _to_device(built: BuiltExperiment, x: np.ndarray, y: np.ndarray):
     return (torch.from_numpy(np.ascontiguousarray(x)).to(built.device),
             torch.from_numpy(np.asarray(y, np.int64)).to(built.device))
+
+
+def _host_data(task: str) -> bool:
+    """Whether ``train`` keeps the train set on the host and moves each batch
+    (the image tasks, whose staged train sets do not fit the card; JAX's
+    host ``PrefetchLoader`` loop, :784-850, moves each batch too), rather
+    than gathering batches on the device (the text tasks)."""
+    return task in IMAGE_TASKS
+
+
+class _HostBatches:
+    """``(x, y)`` batches of ``batch_size`` cut from host arrays, each moved
+    to ``device`` when it is reached: a re-iterable for the Laplace fit,
+    which sees the same batches as the JAX package's (its ``batch_size``,
+    the last one partial)."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, batch_size: int, device):
+        self.x, self.y, self.bs, self.device = x, y, batch_size, device
+
+    def __len__(self):
+        return -(-self.x.shape[0] // self.bs)
+
+    def __iter__(self):
+        for i in range(0, self.x.shape[0], self.bs):
+            yield (torch.from_numpy(np.ascontiguousarray(self.x[i : i + self.bs])).to(self.device),
+                   torch.from_numpy(np.asarray(self.y[i : i + self.bs], np.int64)).to(self.device))
 
 
 def _end_epoch(state, method, epoch: int, epoch_loss: float, log):
@@ -352,7 +504,10 @@ def train(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray,
         partial batch, step s (counted over the run from 1) under
         ``fold_in(seed, s)``: with ``scan_steps`` > 1, every ``scan_steps``
         batches go through the multi-step runner (under the key of the
-        last) and the rest of an epoch through single updates.
+        last) and the rest of an epoch through single updates. The batches
+        are gathered on the device from the train set moved there once, or,
+        under :func:`_host_data`, gathered on the host and moved one at a
+        time: the same batches either way.
 
     With ``checkpoint_dir``, both paths resume from the latest
     ``checkpoint_<epoch>`` there (the host loop's step count at ``start *
@@ -362,8 +517,20 @@ def train(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray,
     epoch's ``finalize_epoch`` (eval_while_train, early stopping). One host
     read per epoch, the divergence check."""
     method, state = built.method, built.state
-    xd, yd = _to_device(built, x, y)
-    seed, bs, n = config["seed"], config["batch_size"], xd.shape[0]
+    seed, bs, n = config["seed"], config["batch_size"], x.shape[0]
+    host = _host_data(built.task) and not config.get("device_data")
+    if host:
+        yh = np.asarray(y, np.int64)
+
+        def gather(order, s):
+            idx = order[s * bs : (s + 1) * bs]
+            return (torch.from_numpy(x[idx]).to(built.device), torch.from_numpy(yh[idx]).to(built.device))
+    else:
+        xd, yd = _to_device(built, x, y)
+
+        def gather(order, s):
+            idx = order[s * bs : (s + 1) * bs]
+            return xd[idx], yd[idx]
     ckpt_dir = config.get("checkpoint_dir")
     start = 0
     if ckpt_dir:
@@ -388,11 +555,12 @@ def train(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray,
             return method.update(state, noise, batch)
 
         def run_epoch(epoch, state):
-            order = torch.from_numpy(shuffled_indices(n, seed * 1_000_003 + epoch)).to(built.device)
+            order = shuffled_indices(n, seed * 1_000_003 + epoch)
+            if not host:
+                order = torch.from_numpy(order).to(built.device)
             step, losses, pending = epoch * (n // bs), [], []
             for s in range(n // bs):
-                idx = order[s * bs : (s + 1) * bs]
-                batch = (xd[idx], yd[idx])
+                batch = gather(order, s)
                 step += 1
                 if multi is not None:
                     pending.append(batch)
@@ -442,15 +610,17 @@ def eval_task(built: BuiltExperiment, task: str, config: dict, x: np.ndarray, y:
     default on a card, or under ``device_data``, for a test set of at most
     2 GiB) the whole set goes through the eval runner, cached on ``built``
     per (points, eval batch, S) and method; else a host loop over the same batches and
-    keys. Either way the last partial batch is padded with copies of its
-    last example and trimmed, so every example counts once."""
+    keys, each batch moved to the device when it is reached. Either way the
+    last partial batch is padded with copies of its last example and
+    trimmed, so every example counts once (and, under static BN, the padded
+    batch's statistics are the same on both paths). An image task's ``x``
+    is NCHW (:func:`task_images`)."""
     if wilds_data.TASKS[task].classes == 1:
-        raise NotImplementedError("the regression eval (poverty): not ported yet (ROADMAP item 15)")
+        raise NotImplementedError("the regression eval (poverty): not ported yet (ROADMAP item 15d)")
     method, state = built.method, built.state
     bs, n_samples = config["eval_batch_size"], config["eval_samples"]
     components = config.get("rank1_components", 1) if config.get("model") == "rank1" else 1
-    xd, yd = _to_device(built, x, y)
-    n = xd.shape[0]
+    n = x.shape[0]
 
     def predict_batch(state, key, xb):
         log_probs = predict(method, state, built.apply_fn, xb, n_samples=n_samples, noise=NoiseSource(key=key),
@@ -467,17 +637,18 @@ def eval_task(built: BuiltExperiment, task: str, config: dict, x: np.ndarray, y:
             if cached is not method:
                 runner = make_eval_runner(predict_batch, n, bs)
                 built.eval_runners[(n, bs, n_samples)] = (method, runner)
-            log_marginal = runner(state, seed, xd)
+            log_marginal = runner(state, seed, _to_device(built, x, y)[0])
         else:
             outs = []
             for i, start in enumerate(range(0, n, bs)):
-                xb = xd[start : start + bs]
+                xb = torch.from_numpy(np.ascontiguousarray(x[start : start + bs])).to(built.device)
                 valid = xb.shape[0]
                 if valid < bs:
                     xb = torch.cat([xb, xb[-1:].expand(bs - valid, *xb.shape[1:])])
                 key = keys.as_key(keys.fold_in(seed, i), built.device)
                 outs.append(predict_batch(state, key, xb)[:valid])
             log_marginal = torch.cat(outs)
+        yd = torch.from_numpy(np.asarray(y, np.int64)).to(built.device)
         result = eval_metrics(log_marginal, yd, config["ece_bins"])
     preds = log_marginal.argmax(dim=1).cpu().numpy()
     official = wilds_data.evaluate_task(task, preds, np.asarray(y), meta[: len(preds)])
@@ -485,10 +656,12 @@ def eval_task(built: BuiltExperiment, task: str, config: dict, x: np.ndarray, y:
 
 
 def _load_task_data(task: str, config: dict):
-    """The train and test splits; sets ``dataset_size`` and
-    ``steps_per_epoch`` in ``config`` (JAX :1068-1075)."""
+    """The train and test splits (images NCHW, :func:`task_images`); sets
+    ``dataset_size`` and ``steps_per_epoch`` in ``config`` (JAX
+    :1068-1075)."""
     x, y, _ = wilds_data.load_wilds(task, "train", subsample=config["subsample"], fold=config.get("fold"))
     xt, yt, mt = wilds_data.load_wilds(task, "test", subsample=config["test_subsample"], fold=config.get("fold"))
+    x, xt = task_images(task, config, x), task_images(task, config, xt)
     config["dataset_size"] = x.shape[0]
     config["steps_per_epoch"] = max(1, x.shape[0] // config["batch_size"])
     return x, y, xt, yt, mt
@@ -501,11 +674,18 @@ def _build_for(task: str, config: dict, device) -> BuiltExperiment:
 
 def _fit_laplace(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray) -> None:
     """``built``'s trained MAP state (or MAP ensemble) replaced by its
-    last-layer Laplace posterior (``Dense_1``), fitted on ``(x, y)`` with
-    ``ll_hessian`` (JAX :1055-1063); with ``members`` > 1 a
-    ``deep_ensemble`` over the fitted members."""
-    lap = laplace_method(built.model, hessian=config["ll_hessian"], regression=False, inner=built.method)
-    built.state = lap.fit(built.state, _to_device(built, x, y))
+    last-layer Laplace posterior (the text head's ``Dense_1``, the
+    DenseNet's ``Dense_0``), fitted on ``(x, y)`` with ``ll_hessian`` (JAX
+    :1055-1063); with ``members`` > 1 a ``deep_ensemble`` over the fitted
+    members. Under :func:`_host_data` the fit's batches move one at a
+    time."""
+    lap = laplace_method(built.model, hessian=config["ll_hessian"], regression=False, inner=built.method,
+                         batch_size=LAPLACE_BATCH)
+    if _host_data(built.task):
+        data = _HostBatches(x, y, LAPLACE_BATCH, built.device)
+    else:
+        data = _to_device(built, x, y)
+    built.state = lap.fit(built.state, data)
     members = config.get("members", 1)
     built.method = deep_ensemble(lap, members) if members > 1 else lap
 
@@ -529,6 +709,7 @@ def run_single(task: str, config: dict, log=None, device=None) -> dict:
     epoch_callback = None
     if config.get("eval_while_train"):
         xv, yv, mv = wilds_data.load_wilds(task, "val", subsample=config["test_subsample"], fold=config.get("fold"))
+        xv = task_images(task, config, xv)
         interval = config.get("eval_interval", 1)
 
         def epoch_callback(epoch, b):

@@ -26,13 +26,16 @@ gradients and the deltas. A non-finite loss or gradient skips the whole
 update, ``count`` included, by a select on the device. Afterwards the
 parameters hold the mean. ``sample`` returns ``mean + delta`` as a mapping
 from parameter names to tensors, as SWAG's draws. There is no optimizer:
-the lr is a constant (``configs/cifar.yaml``'s iVON rows set
-``lr_schedule: false``).
+``lr`` is a constant (``configs/cifar.yaml``'s iVON rows set
+``lr_schedule: false``) or a function of ``count`` before the update, a
+device tensor, so the rate is computed on the device (JAX
+``lr_fn(state.step)``; fmow's ``iVON`` and ``LL_iVON`` rows decay it with
+the ``exponential`` schedule).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -67,7 +70,7 @@ class IvonState(MethodState):
 
 def ivon_method(
     loss_fn: LossFn,
-    lr: float,
+    lr: Union[float, Callable],
     prior_prec: float,
     dataset_size: int,
     betas=(0.9, 0.999),
@@ -78,8 +81,7 @@ def ivon_method(
 ) -> PosteriorMethod:
     """The JAX package's ``deterministic`` (no perturbation, for its
     last-layer methods) has no caller in the port yet and is not taken."""
-    if callable(lr):
-        raise NotImplementedError("an iVON lr schedule: not ported yet")
+    lr_fn = lr if callable(lr) else (lambda count: lr)
     n_eff = dataset_size * augmentation
     delta_reg = tempering * prior_prec / n_eff
     beta1, beta2 = betas
@@ -143,7 +145,7 @@ def ivon_method(
             g_s = delta_reg - prec + (n_eff * prec * acc_delta / mc_samples) * g + damping
             corr_mom = new_mom / (1 - torch.pow(beta1, t))
             corr_prec = prec / (1 - torch.pow(beta2, t))
-            new_mean = mean - lr * corr_mom / corr_prec
+            new_mean = mean - lr_fn(state.count) * corr_mom / corr_prec
             new_prec = prec + ((1 - beta2) + 0.5 * (1 - beta2) ** 2 * g_s / prec) * g_s
             # skip the whole update on a non-finite loss or gradient
             # (reference ivorn.py:60-61), the count included

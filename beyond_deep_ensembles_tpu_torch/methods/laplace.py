@@ -301,7 +301,7 @@ def laplace_method(
         if isinstance(data, tuple):
             x, y = data
             return [(x[i : i + batch_size], y[i : i + batch_size]) for i in range(0, x.shape[0], batch_size)]
-        return list(data)
+        return data if hasattr(data, "__len__") else list(data)
 
     @torch.no_grad()
     def ggn(state, data):
@@ -318,11 +318,13 @@ def laplace_method(
 
     def fit(state, data, key=None):
         """``data``: ``(x, y)`` tensors on the model's device (cut into
-        batches of ``batch_size``) or a sequence of ``(x, y)`` batches. A
-        deep-ensemble state is fitted per member, on the same batches."""
+        batches of ``batch_size``) or a sized re-iterable of ``(x, y)``
+        batches (a list, or batches moved to the device as they are
+        reached). A deep-ensemble state is fitted per member, on the same
+        batches."""
         del key
         if isinstance(state, EnsembleState):
-            data = data if isinstance(data, tuple) else list(data)
+            data = data if isinstance(data, tuple) or hasattr(data, "__len__") else list(data)
             return EnsembleState([fit(member, data) for member in state.members])
         batches = _batches(data)
         with torch.no_grad():

@@ -254,7 +254,9 @@ def state_from_jax(module: torch.nn.Module, state, lr: float = 0.0, var_lr: floa
         out.update({
             "opt.flat": _port_flat(module, named),
             "opt.trace": flat_tree(_field(state.opt_state, "trace")),
-            "opt.count": torch.tensor(0 if count is None else int(count), dtype=torch.int64),
+            # a constant-rate optax sgd keeps no count: the port's counts
+            # the updates, the method's step
+            "opt.count": torch.tensor(int(state.step) if count is None else int(count), dtype=torch.int64),
             "opt.lr": torch.tensor(lr, dtype=torch.float64),
         })
     out.update({"step": step, "epoch": torch.tensor(int(state.epoch), dtype=torch.int64)})

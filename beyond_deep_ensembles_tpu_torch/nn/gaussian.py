@@ -12,6 +12,7 @@ layer and every attention with live dropout.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence, Union
 
@@ -175,6 +176,35 @@ class NoiseSource:
         out = self._pool[self._pool_used : self._pool_used + numel]
         self._pool_used += numel
         return out
+
+    def mark(self) -> tuple:
+        """Where the draws stand: the next draw's index, the key mode's pool,
+        the generators' states. :meth:`replay` draws again from here."""
+        gen_state = None if self.generator is None else self.generator.get_state()
+        devices = {k: (g, g.get_state()) for k, g in self._device_generators.items()}
+        return self.draws, self._pool, self._pool_used, self._chunks, gen_state, devices
+
+    def _restore(self, mark: tuple) -> None:
+        self.draws, self._pool, self._pool_used, self._chunks, gen_state, devices = mark
+        if gen_state is not None:
+            self.generator.set_state(gen_state)
+        self._device_generators = {}
+        for k, (g, state) in devices.items():
+            g.set_state(state)
+            self._device_generators[k] = g
+
+    @contextlib.contextmanager
+    def replay(self, mark: tuple):
+        """Within the block the draws start again at ``mark`` and repeat what
+        was drawn from there (a rematerialized forward recomputed in the
+        backward draws the masks and noise of the forward it stands for);
+        afterwards they stand where they stood before the block."""
+        now = self.mark()
+        self._restore(mark)
+        try:
+            yield self
+        finally:
+            self._restore(now)
 
     def crops(self, batch: int, device) -> tuple:
         """Random-crop offsets ``[batch, 2]`` in [0, 8] and flip bits

@@ -30,3 +30,21 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def device_count() -> int:
+    """The devices this process sees (JAX ``jax.device_count()``): the
+    visible cards, and one where there is none."""
+    return max(1, torch.cuda.device_count())
+
+
+def refuse_multi_device(config: dict, flags=("data_parallel", "ring_shard")) -> None:
+    """The multi-device flags of a config: on one device they are no-ops, as
+    in the JAX package, which gates every use on ``jax.device_count() > 1``;
+    with more than one visible card the port has no mesh yet and raises."""
+    n = device_count()
+    if n == 1:
+        return
+    for flag in flags:
+        if config.get(flag):
+            raise NotImplementedError(f"{flag} over {n} visible cards: not ported yet (ROADMAP item 18)")

@@ -139,10 +139,13 @@ class Adam:
 
     with t the count after the step, ``b^t`` in fp32 on the device, as optax
     takes it (fp64 bias corrections, ``torch.optim.Adam``'s, differ from it
-    by about 4e-5 lr a step). The moments and the int64 count live on the
-    parameters' device, the parameters are rebound as views of :attr:`flat`
-    (as :class:`SGD`'s), and :meth:`step` takes the posterior methods' guard,
-    so a CUDA graph can capture the whole step."""
+    by about 4e-5 lr a step). With a ``schedule`` the lr is ``lr *
+    schedule(count // steps_per_epoch)`` at the count before the step, on the
+    device (optax's ``scale_by_schedule``), as :class:`SGD`'s. The moments
+    and the int64 count live on the parameters' device, the parameters are
+    rebound as views of :attr:`flat` (as :class:`SGD`'s), and :meth:`step`
+    takes the posterior methods' guard, so a CUDA graph can capture the whole
+    step."""
 
     def __init__(
         self,
@@ -152,11 +155,14 @@ class Adam:
         b2: float = 0.999,
         eps: float = 1e-8,
         weight_decay: float = 0.0,
+        schedule: Optional[Callable] = None,
+        steps_per_epoch: int = 1,
     ):
         self.params = list(params)
         if not self.params:
             raise ValueError("Adam got no parameters")
         self.lr0, self.b1, self.b2, self.eps, self.weight_decay = lr, b1, b2, eps, weight_decay
+        self.schedule, self.steps_per_epoch = schedule, steps_per_epoch
         self.flat = flatten_parameters(self.params)
         self.mu = torch.zeros_like(self.flat)
         self.nu = torch.zeros_like(self.flat)
@@ -199,7 +205,11 @@ class Adam:
         bc1 = 1 - torch.pow(self.b1, t)
         bc2 = 1 - torch.pow(self.b2, t)
         update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-        new = [self.flat + update * -self.lr0, mu, nu, count]
+        if self.schedule is None:
+            new_flat = self.flat + update * -self.lr0
+        else:
+            new_flat = self.flat + update * -(self.lr0 * self.schedule(self.count // self.steps_per_epoch))
+        new = [new_flat, mu, nu, count]
         if ok is not None:
             new = tree_where(ok, new, self.tensors())
         for old, value in zip(self.tensors(), new):

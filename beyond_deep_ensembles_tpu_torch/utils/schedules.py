@@ -1,7 +1,10 @@
 """Learning-rate schedules as epoch->factor functions.
 
-Counterpart of ``beyond_deep_ensembles_tpu/utils/schedules.py``; only the
-Wilson schedule is ported so far. A factor takes a Python number (and gives a
+Counterpart of ``beyond_deep_ensembles_tpu/utils/schedules.py``: the Wilson
+schedule, and the staircase exponential decay of the WILDS engine's
+``lr_schedule_kind: exponential`` (JAX ``experiments/wilds_task.py::
+_scheduled_lr``, an optax ``exponential_decay(staircase=True)``); the
+``cosine_warmup`` schedule is not ported yet. A factor takes a Python number (and gives a
 float) or an integer tensor (and gives an fp32 tensor on its device, so that
 the port's SGD computes its lr on the device, inside a CUDA graph, as the
 JAX schedule is traced into the step).
@@ -29,5 +32,19 @@ def wilson_schedule(pretrain_epochs: int, lr_init: float, swag_lr: Optional[floa
         if t <= 0.9:
             return 1.0 - (1.0 - lr_ratio) * (t - 0.5) / 0.4
         return lr_ratio
+
+    return factor
+
+
+def exponential_schedule(decay_rate: float):
+    """The staircase exponential decay as a factor of the epoch,
+    ``decay_rate ** epoch`` in fp32 (optax ``exponential_decay(lr,
+    transition_steps=steps_per_epoch, decay_rate, staircase=True)`` is ``lr``
+    times this factor at ``epoch = count // steps_per_epoch``)."""
+
+    def factor(epoch):
+        if isinstance(epoch, torch.Tensor):
+            return torch.pow(decay_rate, epoch.to(torch.float32))
+        return float(torch.pow(torch.tensor(decay_rate, dtype=torch.float32), float(epoch)))
 
     return factor

@@ -57,9 +57,9 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      held against the CPU path from the same weights;
   7b. the CUDA-graph runners (``parallel/multistep.py``), for BBB and for
      SVGD: ``run_single`` as configs/cifar.yaml writes it (DEFAULT's
-     corrupted intensities 0-4) with ``device_data``, one epoch of 100 steps
+     corrupted intensities 0-4) with ``device_data``, one epoch of 50 steps
      replayed from one captured graph and the test split and five corrupted
-     splits (1000 images each, S = 50) through the eval runner, every count
+     splits (250 images each, S = 50) through the eval runner, every count
      set to 0 before and read after (warm-ups and captures count, replays
      do not); then 4 captured steps against 4 eager ones from one key and
      state (cuDNN deterministic), a captured loss forward replayed under two
@@ -70,8 +70,8 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      card's name and power limit;
   7c. the Multi-X slice (configs/cifar.yaml's DeepEnsemble, MultiBBB,
      MultiMCD and MultiSWAG at 5 members, MCD and SWAG at one): each through
-     ``run_single`` with ``device_data``, cut to 2 epochs of 20 steps and
-     1000 images per split (SWAG's start epoch in proportion), every count
+     ``run_single`` with ``device_data``, cut to 1 epoch of 20 steps and
+     250 images per split (SWAG's start epoch in proportion), every count
      set to 0 before and read after (K1 only on MultiBBB), SWAG's
      collections per member from its saved final; 4 captured steps against
      4 eager ones bit for bit (DeepEnsemble, MultiBBB, MCD: its key-mode
@@ -106,7 +106,7 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      against the CPU path with the same weights and masks;
   9. UCI regression (``experiments/uci.py`` through the CLI): configs/uci.yaml
      written to a temporary file with its list of data sets cut to naval (the
-     largest), 2 epochs and 1 repetition, the grid's nine models and
+     largest), 1 epoch and 1 repetition, the grid's nine models and
      DEFAULT's values kept, and driven through ``run.main`` (every count set
      to 0 just before and read just after: K1 on bbb and bbb_fixed_kl only,
      K2 once a svgd step), each run's five metrics finite and its wall time;
@@ -133,13 +133,34 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      ``eval``, ``fit_laplace``, ``drop_rates`` and ``multix`` phases on the
      written checkpoints against the runs' own evals; a captured DistilBERT
      MCD step against an eager one bit for bit, a captured loss forward
-     under two keys, the eval runner against the host loop; 20 captured and
-     10 eager steady steps of MAP, MCD, SVGD and LL_SVGD; one step of each
+     under two keys, the eval runner against the host loop; 12 captured and
+     5 eager steady steps of MAP, MCD, SVGD and LL_SVGD; one step of each
      new method on the card against the CPU at one layer of the same width;
- 11. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
-     UCI figures and the WILDS figures as JSON lines, the card's name and
-     power limit, one JSON line of kernel figures (K1, K2, K3a, K3b), then
-     the result line ``{"ok": true, "device": {...}}``.
+ 11. the WILDS image tasks: every row of configs/camelyon.yaml and
+     configs/fmow.yaml through ``run.main`` at DenseNet-121's full width
+     (the yamls' batch and input sizes, lr, S and conv_remat; synthetic
+     images of the true shapes), cut to one epoch of 8 (camelyon17) or 4
+     (fmow) steps and 64 test images, SWAG collecting at every step,
+     MultiSWAG at 5 members, a row at a time with every count set to 0 just
+     before and read just after, exact (K1 121 a camelyon17 BBB forward, 1 a
+     fmow BBB forward; K2 once an SVGD step; K3 never); each row's wall time
+     and peak memory; the four phases on the written checkpoints against the
+     runs' own evals; 4 captured steps against 4 eager ones bit for bit
+     (camelyon17 MAP and BBB, fmow MCD under remat ``layer``); the eval
+     runner against the host loop (camelyon17 BBB, fmow MCD); 20 captured
+     and 10 eager steady steps (camelyon17 MAP and BBB, fmow MAP with remat
+     ``layer`` and ``none``, fmow SVGD); K1 on the 121 planes of one
+     camelyon17 BBB train forward (batch 32) against its plain version, its
+     forward and backward launches timed against the byte bound; K2 at (3,
+     6,955,906) and (5, 7,017,406) beside ``torch.mm``; one step of
+     camelyon17 MAP, BBB (K1, given noise) and Rank1, fmow MAP (remat), SNGP
+     and two Adam steps across the schedule's epoch boundary on the card
+     against the CPU at batch 4;
+ 12. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
+     UCI figures, the WILDS figures and the image figures as JSON lines, the
+     card's name and power limit, one JSON line of kernel figures (K1, K2,
+     K3a, K3b), then the result line ``{"ok": true, "device": {...}}``.
+Every phase heading prints the seconds since the script started.
 Exits non-zero and prints no result without CUDA or without the package
 beside this file.
 """
@@ -153,6 +174,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(ROOT, "build")
 CARD = ""  # "name, power limit" as nvidia-smi gives them, printed beside every phase's times
+T_START = time.perf_counter()  # reset when main starts
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -174,25 +196,25 @@ SVGD_VARIANT = {"model": "svgd", "members": 1, "svgd_particles": 5, "svgd_reg_sc
 # cut to size: one epoch of 1280 synthetic images = 10 steps at batch 128;
 # these phases drive the one-update-per-call loop and the host eval loop
 # (device_eval off), the runner phase the CUDA-graph runners
-SMOKE = {"epochs": 1, "subsample": 1280, "test_subsample": 1000, "seed": 0, "device_eval": False}
+SMOKE = {"epochs": 1, "subsample": 1280, "test_subsample": 500, "seed": 0, "device_eval": False}
 TRAIN_STEPS = 10
 # configs/cifar.yaml's DEFAULT block beyond the port's DEFAULT_CONFIG
 YAML_DEFAULT = {"corrupted_intensities": [0, 1, 2, 3, 4]}
 # the runner phase: device_data (the epoch runner, the eval runner), one
-# epoch of 100 steps at batch 128 on synthetic images, 1000 test images per
-# split at S = 50, eval batch 500; then COMPARE_STEPS captured steps against
-# eager ones and TIMED_STEPS of each timed
-RUNNER = {"epochs": 1, "subsample": 100 * 128, "test_subsample": 1000, "seed": 0, "device_data": True}
+# epoch of 50 steps at batch 128 on synthetic images, 250 test images per
+# split at S = 50, eval batch 500; then COMPARE_STEPS captured steps against eager ones and
+# TIMED_STEPS of each timed
+RUNNER = {"epochs": 1, "subsample": 50 * 128, "test_subsample": 250, "seed": 0, "device_data": True}
 COMPARE_STEPS = 4
-TIMED_STEPS = 20
+TIMED_STEPS = 10
 # idle host time on each side of a profile's window (profile_steps)
 PROFILE_PAD_S = 0.1
 # the Multi-X phase: configs/cifar.yaml's variants (DEFAULT's lr, weight
 # decay and schedule are the port's DEFAULT_CONFIG), each through run_single
-# with device_data, cut to MULTIX (epochs and data size only): 2 epochs of 20
-# steps at batch 128, the test split and five corrupted splits of 1000
-# images at S = 50; SWAG's start epoch cut in proportion (250 of 300 -> 1 of
-# 2), so each member collects the last epoch's 20 steps
+# with device_data, cut to MULTIX (epochs and data size only): 1 epoch of 20
+# steps at batch 128, the test split and five corrupted splits of 250
+# images at S = 50; SWAG's start epoch cut in proportion (250 of 300 -> 0 of
+# 1), so each member collects the epoch's 20 steps
 MULTIX_VARIANTS = [
     ("DeepEnsemble", {"model": "map", "members": 5}),
     ("MultiBBB", {"model": "bbb", "members": 5, "prior_std": 1.0, "weight_decay": 0.0, "bbb_mc_samples": 2,
@@ -204,19 +226,19 @@ MULTIX_VARIANTS = [
     ("SWAG", {"model": "swag", "members": 1, "swag_deviation_samples": 30, "swag_start_epoch": 250,
               "swag_lr": 0.0005}),
 ]
-MULTIX = {"epochs": 2, "subsample": 20 * 128, "test_subsample": 1000, "seed": 0, "device_data": True}
+MULTIX = {"epochs": 1, "subsample": 20 * 128, "test_subsample": 250, "seed": 0, "device_data": True}
 MULTIX_SWAG_START = MULTIX["epochs"] * 250 // 300
-MULTIX_EAGER_STEPS = 10  # an eager MultiBBB step takes about a second
+MULTIX_EAGER_STEPS = 5  # an eager MultiBBB step takes about a second
 # resume: MultiSWAG over 3 epochs of 10 steps, collecting from epoch 1;
 # multix: three MAP runs of one epoch of 10 steps, the test split only
 RESUME = {"epochs": 3, "subsample": 10 * 128, "test_subsample": 100, "seed": 0, "device_data": True,
           "swag_start_epoch": 1}
-MULTIX_CHECK = {"epochs": 1, "subsample": 10 * 128, "test_subsample": 1000, "seed": 0, "device_data": True,
+MULTIX_CHECK = {"epochs": 1, "subsample": 10 * 128, "test_subsample": 250, "seed": 0, "device_data": True,
                 "corrupted_intensities": []}
 # the rest of CIFAR: configs/cifar.yaml's rows Rank1, iVON, MultiiVON, SNGP,
 # Laplace and MultiLaplace (DEFAULT's lr, weight decay and schedule are the
 # port's DEFAULT_CONFIG), each through run_single with device_data at the
-# MULTIX cut (2 epochs of 20 steps, six splits of 1000 images, S = 50, SNGP's
+# MULTIX cut (1 epoch of 20 steps, six splits of 250 images, S = 50, SNGP's
 # row S = 1)
 SNGP_HEAD = {"num_random_features": 1024, "num_gp_features": -1, "normalize_gp_features": False,
              "ridge_penalty": 1.0, "mean_field_factor": 20.0, "feature_scale": 1.0, "rff_init_std": 0.05}
@@ -286,8 +308,9 @@ def noise_shapes(batch, train):
 
 
 def phase(title):
-    """A phase's heading: every time printed under it was taken on this card."""
-    print(f"== {title} [{CARD}]")
+    """A phase's heading, with the seconds since the script started: every
+    time printed under it was taken on this card."""
+    print(f"== {title} [{CARD}] (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def check(cond, what):
@@ -889,7 +912,7 @@ def runner_counts_check(label, counts, config):
 def runner_phase(torch, cifar, kernels, variant, label, ours):
     """``variant`` through ``run_single`` as configs/cifar.yaml writes it
     (DEFAULT's corrupted intensities) with ``device_data``: the epoch runner
-    (one epoch of 100 replayed steps) and the eval runner (the test split and
+    (one epoch of 50 replayed steps) and the eval runner (the test split and
     five corrupted splits, one capture), every count set to 0 just before and
     read just after. Then, on a model built afresh (the loss augmenting per
     step, as the scan_steps path runs it): COMPARE_STEPS captured steps
@@ -921,7 +944,8 @@ def runner_phase(torch, cifar, kernels, variant, label, ours):
         check(all(math.isfinite(v) for v in m.values()) and 0.0 <= m["accuracy"] <= 1.0 and m["avg_log_likelihood"] < 0.0,
               f"{label} {split}: metrics finite and in range: {json.dumps(m)}")
     runner_counts_check(label, counts, config)
-    print(f"{label} run_single: {RUNNER['subsample'] // config['batch_size']} replayed steps + 6 splits x 1000 images x S {config['eval_samples']} in {wall:.1f} s "
+    print(f"{label} run_single: {RUNNER['subsample'] // config['batch_size']} replayed steps + 6 splits x "
+          f"{RUNNER['test_subsample']} images x S {config['eval_samples']} in {wall:.1f} s "
           f"(data made, kernels compiled and graphs captured in it) [{CARD}]")
 
     dev = torch.device("cuda")
@@ -1049,7 +1073,7 @@ def runner_phase(torch, cifar, kernels, variant, label, ours):
 
 def _variant_runs(torch, cifar, kernels, variants=MULTIX_VARIANTS):
     """The variants through ``run_single`` (MULTIX cut, device_data, the
-    test split and DEFAULT's five corrupted splits of 1000 images, S = 50,
+    test split and DEFAULT's five corrupted splits of 250 images, S = 50,
     or the row's own S), every count set to 0 just before each and read just
     after; SWAG's ``updates`` per member read from the run's saved
     ``swag_final``. Returns {label: {"wall_s", "host_counts", "updates"}}."""
@@ -1092,7 +1116,8 @@ def _variant_runs(torch, cifar, kernels, variants=MULTIX_VARIANTS):
             check(len(updates) == members and min(updates) >= 2,
                   f"{label}: SWAG collections per member {updates} (each at least 2)")
         print(f"{label} run_single: {MULTIX['epochs']} epochs x {MULTIX['subsample'] // config['batch_size']} replayed "
-              f"steps x {members} member(s) + 6 splits x 1000 images x S {config['eval_samples']} in {wall:.1f} s [{CARD}]")
+              f"steps x {members} member(s) + 6 splits x {MULTIX['test_subsample']} images x S "
+              f"{config['eval_samples']} in {wall:.1f} s [{CARD}]")
         runs[label] = {"wall_s": wall, "host_counts": counts, "updates": updates}
         torch.cuda.empty_cache()
     return runs
@@ -1562,9 +1587,9 @@ def rest_phase(torch, cifar, kernels, NoiseSource):
 # values (batch 32, eval_samples 1000, learn_var, lr 0.01, std_init 1.0) and
 # the grid's nine models; cut: the list of eight data sets to naval (the
 # largest: 14 inputs, 11,934 rows, 10,741 train and 1,193 test), epochs 100
-# -> 2, repetitions 5 -> 1
+# -> 1, repetitions 5 -> 1
 UCI_DATASET = "naval"
-UCI_CUT_EPOCHS = 2
+UCI_CUT_EPOCHS = 1
 UCI_STEPS = 20  # steady steps timed, each way
 UCI_COMPARE_STEPS = 16  # captured (two replays of a graph of 8) against eager
 UCI_SCAN = 8
@@ -2284,12 +2309,14 @@ WILDS_ROWS = {
 # steps stay short, L = 128, batch 4
 K3_CIVIL_SHAPE = (16, 12, 300, 64)
 WILDS_CPU_CHECK = {"bert_config": {"n_layers": 1, "vocab_size": 2048}, "seq": 128, "batch": 4}
+# a task's yaml under configs/ where its name differs
+YAML_NAMES = {"camelyon17": "camelyon"}
 
 
 def wilds_yaml_docs(task):
     import yaml
 
-    with open(os.path.join(ROOT, "configs", f"{task}.yaml")) as f:
+    with open(os.path.join(ROOT, "configs", f"{YAML_NAMES.get(task, task)}.yaml")) as f:
         return [d for d in yaml.safe_load_all(f) if d]
 
 
@@ -2389,11 +2416,15 @@ def wilds_cli_rows(torch, task, kernels, out):
 def wilds_phases(torch, task, rows, results, out):
     """The checkpoint phases through ``run.main`` on what the rows wrote:
     ``eval`` of MAP's ``map_final`` = the MAP run's own eval;
-    ``fit_laplace`` of it (copied into the Laplace row's run directory, so
-    that the phase takes that row's ``ll_hessian``) = the Laplace row's eval
-    (the same MAP training, then the fit); ``drop_rates`` of MCD's ``mcd_final`` at p = 0.2 = the
-    MCD run's eval; ``multix`` over MAP's two repetitions = eval_task of a
-    deep_ensemble of the two restored states. Each within 1e-5 relative."""
+    ``fit_laplace`` of the Laplace row's own saved MAP state (its
+    ``laplace_final``, written before the fit, copied to ``map_final`` in
+    its run directory, so that the phase takes that row's ``ll_hessian``) =
+    the Laplace row's eval (the same state, then the fit: a second MAP
+    training would differ where cuDNN's backward is not deterministic);
+    ``drop_rates`` of MCD's
+    ``mcd_final`` at the MCD row's p = the MCD run's eval; ``multix`` over
+    MAP's two repetitions = eval_task of a deep_ensemble of the two restored
+    states. Each within 1e-5 relative."""
     import shutil
 
     from beyond_deep_ensembles_tpu_torch import run
@@ -2415,13 +2446,14 @@ def wilds_phases(torch, task, rows, results, out):
     t0 = time.perf_counter()
     run.main([task, sweep, "--name", "MAP", "--out", out, "--rep", "0", "--phase", "eval"])
     diffs["eval"] = close(last(os.path.join(out, "MAP_0", "rep_0", "eval", "metrics.jsonl")), results["MAP"])
-    shutil.copy(os.path.join(out, "MAP_0", "rep_0", "map_final"), os.path.join(out, "Laplace_0", "rep_0", "map_final"))
+    laplace_dir = os.path.join(out, "Laplace_0", "rep_0")
+    shutil.copy(os.path.join(laplace_dir, "laplace_final"), os.path.join(laplace_dir, "map_final"))
     run.main([task, sweep, "--name", "Laplace", "--out", out, "--rep", "0", "--phase", "fit_laplace"])
     fitted = last(os.path.join(out, "Laplace_0", "rep_0", "fit_laplace", "metrics.jsonl"))
     diffs["fit_laplace"] = close(fitted, results["Laplace"])
     run.main([task, sweep, "--name", "MCD", "--out", out, "--rep", "0", "--phase", "drop_rates"])
     rates = last(os.path.join(out, "MCD_0", "rep_0", "drop_rates", "metrics.jsonl"))
-    diffs["drop_rates"] = close(rates["p=0.2"], results["MCD"])
+    diffs["drop_rates"] = close(rates[f"p={rows['MCD']['dropout_p']}"], results["MCD"])
     run.main([task, sweep, "--name", "MAP", "--out", out, "--phase", "multix"])
     got = last(os.path.join(out, "MAP_0", "multix", "metrics.jsonl"))
     dirs = [os.path.join(out, "MAP_0", f"rep_{r}") for r in range(2)]
@@ -2431,8 +2463,9 @@ def wilds_phases(torch, task, rows, results, out):
     diffs["multix"] = close(got, wilds_task.eval_task(built, task, config, *test))
     check(all(d <= 1e-5 for d in diffs.values()),
           f"{task} phases through run.main = the runs' own evals (max rel diff {json.dumps(diffs)} <= 1e-5): eval of "
-          f"map_final = MAP; fit_laplace of it = Laplace; drop_rates p=0.2 of mcd_final = MCD; multix over MAP's two "
-          f"repetitions = a deep_ensemble of them")
+          f"map_final = MAP; fit_laplace of the Laplace row's saved state = Laplace; drop_rates "
+          f"p={rows['MCD']['dropout_p']} of mcd_final = MCD; "
+          f"multix over MAP's two repetitions = a deep_ensemble of them")
     print(f"{task} phases: {time.perf_counter() - t0:.1f} s [{CARD}]")
     return diffs
 
@@ -2501,17 +2534,17 @@ def k3_key_mode(torch, att, sampling, shape):
             "forward_ms": {n: t[0] for n, t in times.items()}, "backward_ms": {n: t[0] for n, t in back.items()}}
 
 
-def k2_wilds_times(torch, svgd_kernel):
-    """K2 at the text rows' shapes, (5, 66,957,317) (SVGD over distilbert-base
-    + Amazon's head) and (5, 592,130) (LL_SVGD's CivilComments heads):
-    against fp64 and gram_plain, then its CUDA-graph time beside
-    ``gram_plain``'s and ``torch.mm(x, x.T)``'s (TF32 off), and the byte
-    bound."""
+def k2_wilds_times(torch, svgd_kernel, shapes=((5, 66_957_317), (5, 592_130))):
+    """K2 at the WILDS rows' shapes, by default the text rows', (5,
+    66,957,317) (SVGD over distilbert-base + Amazon's head) and (5, 592,130)
+    (LL_SVGD's CivilComments heads): against fp64 and gram_plain, then its
+    CUDA-graph time beside ``gram_plain``'s and ``torch.mm(x, x.T)``'s (TF32
+    off), and the byte bound."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = {}
-    for n, p in ((5, 66_957_317), (5, 592_130)):
+    for n, p in shapes:
         x = torch.randn(n, p, device=dev, generator=gen) + torch.randn(1, p, device=dev, generator=gen)
         err, _ = k2_check(torch, svgd_kernel, x)
         copies = max(1, -(-60_000_000 // (4 * n * p)))
@@ -2544,7 +2577,7 @@ def k2_wilds_times(torch, svgd_kernel):
 
 def wilds_built(torch, wilds_task, task, row, **extra):
     """``row`` of configs/<task>.yaml built at full width on the card, with
-    WILDS_STEPS batches of its train split there."""
+    WILDS_STEPS batches of its train split there (an image task's NCHW)."""
     from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
 
     docs = {d["name"]: d.get("params", {}) for d in wilds_yaml_docs(task)}
@@ -2553,20 +2586,19 @@ def wilds_built(torch, wilds_task, task, row, **extra):
     config = {**wilds_task.DEFAULT_CONFIG, **docs["DEFAULT"], **docs[row], "dataset_size": x.shape[0],
               "steps_per_epoch": WILDS_STEPS, "epochs": 1, **extra}
     built = wilds_task.build(task, config, torch.Generator().manual_seed(0), WILDS_STEPS)
-    xd, yd = wilds_task._to_device(built, x, y)
+    xd, yd = wilds_task._to_device(built, wilds_task.task_images(task, config, x), y)
     batches = [(xd[i * bs : (i + 1) * bs].clone(), yd[i * bs : (i + 1) * bs].clone()) for i in range(WILDS_STEPS)]
     return built, config, batches
 
 
-def wilds_step_times(torch, built, batches, label, captured=20, eager=10):
-    """Steady steps, ``captured`` replayed from one graph of WILDS_STEPS / 2
-    steps and ``eager`` one update per call, key mode both, CUDA events:
-    ms a step each way."""
+def wilds_step_times(torch, built, batches, label, captured=20, eager=10, k=WILDS_STEPS // 2):
+    """Steady steps, ``captured`` replayed from one graph of ``k`` steps and
+    ``eager`` one update per call, key mode both, CUDA events: ms a step
+    each way."""
     from beyond_deep_ensembles_tpu_torch import keys
     from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
     from beyond_deep_ensembles_tpu_torch.parallel import multistep
 
-    k = WILDS_STEPS // 2
     multi = multistep.make_multi_step(built.method.update, k)
     stacked = [multistep.stack_batches(batches[i * k : (i + 1) * k]) for i in range(2)]
     built.state, _ = multi(built.state, 1, stacked[0])  # capture, outside the timing
@@ -2600,7 +2632,6 @@ def wilds_mcd_capture(torch, wilds_task):
     forward's of its key; the eval runner against the host loop on the same
     keys within 1e-5. Returns the built row and its batches."""
     from beyond_deep_ensembles_tpu_torch import keys
-    from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
     from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 
     built, config, batches = wilds_built(torch, wilds_task, "amazon", "MCD")
@@ -2625,34 +2656,53 @@ def wilds_mcd_capture(torch, wilds_task):
     check(losses[0] != losses[1], f"DistilBERT MCD: two replays under two keys draw two sets of masks (losses "
                                   f"{losses[0]:.6f}, {losses[1]:.6f})")
     del graph
-    xt, yt, mt = load_wilds("amazon", "test", subsample=WILDS_TEST)
-    evals = {mode: wilds_task.eval_task(built, "amazon", {**config, "device_eval": mode}, xt, yt, mt)
-             for mode in (True, False)}
-    diff = max(abs(evals[True][m] - evals[False][m]) / max(abs(evals[False][m]), 1e-30) for m in evals[False]
-               if isinstance(evals[False][m], float))
-    check(diff <= 1e-5, f"DistilBERT MCD: eval runner = host eval loop on the same keys (metrics max rel diff "
-                        f"{diff:.2g} <= 1e-5; equal: {evals[True] == evals[False]})")
+    wilds_runner_vs_host(wilds_task, built, config, "amazon", "DistilBERT MCD")
     return built, batches
 
 
+def wilds_runner_vs_host(wilds_task, built, config, task, label):
+    """``eval_task`` of WILDS_TEST test examples through the eval runner
+    against the host loop on the same keys: metrics within 1e-5 relative."""
+    from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
+
+    xt, yt, mt = load_wilds(task, "test", subsample=WILDS_TEST)
+    xt = wilds_task.task_images(task, config, xt)
+    evals = {mode: wilds_task.eval_task(built, task, {**config, "device_eval": mode}, xt, yt, mt)
+             for mode in (True, False)}
+    diff = max(abs(evals[True][m] - evals[False][m]) / max(abs(evals[False][m]), 1e-30) for m in evals[False]
+               if isinstance(evals[False][m], float))
+    check(diff <= 1e-5, f"{label}: eval runner = host eval loop on the same keys (metrics max rel diff "
+                        f"{diff:.2g} <= 1e-5; equal: {evals[True] == evals[False]})")
+    return diff
+
+
+# parameters whose gradient is zero in exact arithmetic, so that a step
+# moves them by rounding alone: DistilBERT's k_lin biases (the softmax is
+# blind to a shift of a row of scores) and the DenseNet stem norm's scale
+# (every consumer of the stem's channels is a static BN, blind to a
+# per-channel scale, behind a ReLU and a max pool)
+ZERO_GRADIENT = ("k_lin.bias", "DenseNet_0._BN_0.StaticBatchNorm_0.scale")
+
+
 def k_lin_layouts(state):
-    """The flat layouts of a text state's parameter vectors, each as a bool
-    vector True on the k_lin biases' elements (the parameters' module order,
-    the order of the optimizers', SWAG's and iVON's flat vectors)."""
+    """The flat layouts of a state's parameter vectors, each as a bool vector
+    True on the ZERO_GRADIENT parameters' elements (the parameters' module
+    order, the order of the optimizers', SWAG's and iVON's flat vectors)."""
     import torch
 
     from beyond_deep_ensembles_tpu_torch.methods.last_layer import LastLayerState
 
     groups = [list(state.backbone.items()), list(state.inner.params.named_parameters())] \
         if isinstance(state, LastLayerState) else [list(state.params.named_parameters())]
-    return [torch.cat([torch.full((p.numel(),), n.endswith("k_lin.bias")) for n, p in group]) for group in groups]
+    return [torch.cat([torch.full((p.numel(),), n.endswith(ZERO_GRADIENT)) for n, p in group]) for group in groups]
 
 
 def k_lin_elements(layouts, key, t):
-    """True on the elements of state tensor ``key`` that hold a k_lin bias."""
+    """True on the elements of state tensor ``key`` that hold a
+    ZERO_GRADIENT parameter."""
     import torch
 
-    if key.endswith("k_lin.bias"):
+    if key.endswith(ZERO_GRADIENT):
         return torch.ones_like(t, dtype=torch.bool)
     for mask in layouts:
         if t.dim() and t.shape[-1] == mask.shape[0]:
@@ -2665,17 +2715,9 @@ def wilds_card_vs_cpu(torch, wilds_task, NoiseSource):
     same weights and draws, at one layer of distilbert-base's width
     (WILDS_CPU_CHECK: vocabulary 2048, L = 128, batch 4, Amazon's rows; BBB's and LL-BBB's head noise given, the
     rest key mode, whose draws are the same on both; dropout and attention
-    dropout off on both, as K3's Philox and the CPU's stream differ): the
-    loss within 1e-5 relative, the counters equal, and every tensor of the
-    state: at most one element in a thousand (at least one) beyond 1e-4 of
-    its tensor's largest change plus two roundings of it (of the mean, for a SWAG
-    deviation), none beyond twice that change; the k_lin biases' elements
-    (a gradient of zero in exact arithmetic, the softmax being blind to a
-    shift of a row of scores, so rounding alone: ``bert_card_vs_cpu``) held
-    to twice the largest step of any parameter
-    (Adam's first step is lr times the gradient's sign, which rounding sets
-    where the gradient is near zero: a flip moves an element by twice the
-    step)."""
+    dropout off on both, as K3's Philox and the CPU's stream differ), held by
+    ``card_vs_cpu_check`` (the k_lin biases: a gradient of zero in exact
+    arithmetic, the softmax being blind to a shift of a row of scores)."""
     from beyond_deep_ensembles_tpu_torch import keys
     from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
 
@@ -2711,43 +2753,59 @@ def wilds_card_vs_cpu(torch, wilds_task, NoiseSource):
                              {k: t.detach().clone().cpu() for k, t in state.state_dict().items()})
             layouts = k_lin_layouts(state)
             del built, state
-        (l_cpu, b_cpu, a_cpu), (l_gpu, _, a_gpu) = sides["cpu"], sides["cuda"]
-        loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
-        worst_share, outliers, flip_share, counters = 0.0, 0.0, 0.0, True
-        # the largest step of any parameter: the k_lin biases' bound
-        moved = max(float((a_cpu[k].double() - b_cpu[k].double()).abs().max()) for k in a_cpu
-                    if (".params." in f".{k}" or k.startswith("backbone.")) and a_cpu[k].is_floating_point())
-        k_lin_gap = 0.0
-        for key, cpu in a_cpu.items():
-            gpu, before = a_gpu[key], b_cpu[key]
-            if not cpu.is_floating_point():
-                counters &= torch.equal(cpu, gpu)
-                continue
-            change = float((cpu.double() - before.double()).abs().max())
-            gap = (gpu.double() - cpu.double()).abs()
-            # a SWAG deviation is a parameter less the mean: its rounding is
-            # the operands', the mean's magnitude
-            operand = a_cpu[key.replace("deviations", "mean")] if key.endswith("deviations") else cpu
-            share = gap / (1e-4 * change + 2.0**-22 * operand.double().abs() + 1e-30)
-            k_lin = k_lin_elements(layouts, key, cpu)
-            over = (share > 1.0) & ~k_lin
-            outliers = max(outliers, int(over.sum()) / max(1, cpu.numel() // 1000))
-            if over.any():
-                flip_share = max(flip_share, float(gap[over].max()) / (2 * change + 1e-30))
-            if k_lin.any():
-                k_lin_gap = max(k_lin_gap, float(gap[k_lin].max()) / (2 * moved + 1e-30))
-            rest = ~(over | k_lin)
-            worst_share = max(worst_share, float(share[rest].max()) if rest.any() else 0.0)
-        check(loss_err <= 1e-5 and counters and outliers <= 1.0 and flip_share <= 1.0 and k_lin_gap <= 1.0,
-              f"{label} update on the card = CPU path at one layer of distilbert-base (loss rel err {loss_err:.1e} "
-              f"<= 1e-5; counters equal; state tensors at {worst_share:.3f} of 1e-4 of their largest change plus "
-              f"two roundings, elements beyond it at {outliers:.2g} of one in a thousand (at least one) a tensor, "
-              f"those within "
-              f"{flip_share:.3f} of twice the largest change; k_lin biases within {k_lin_gap:.3f} of twice the "
-              f"largest parameter step)")
-        figures[label] = {"loss_rel_err": loss_err, "bound_share": worst_share, "outlier_share": outliers,
-                          "flip_share": flip_share, "k_lin_share": k_lin_gap}
+        figures[label] = card_vs_cpu_check(torch, sides, layouts, f"{label} update on the card = CPU path at one "
+                                                                     f"layer of distilbert-base")
     return figures
+
+
+def card_vs_cpu_check(torch, sides, layouts, label):
+    """``sides``: {"cpu" | "cuda": (loss, the state before on the CPU's side,
+    the state after)} of one update from the same weights and draws. The
+    loss within 1e-5 relative, the counters equal, and every tensor of the
+    state: at most one element in a thousand (at least one) beyond 1e-4 of
+    its tensor's largest change plus two roundings of it (of the mean, for a
+    SWAG deviation), none beyond twice that change; the ZERO_GRADIENT
+    parameters' elements held to twice the largest step of any parameter
+    (Adam's first step is lr times the gradient's sign, which rounding sets
+    where the gradient is near zero: a flip moves an element by twice the
+    step). Returns the figures."""
+    (l_cpu, b_cpu, a_cpu), (l_gpu, _, a_gpu) = sides["cpu"], sides["cuda"]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst_share, outliers, flip_share, counters = 0.0, 0.0, 0.0, True
+    shares = {}  # each tensor's largest gap over its largest change
+    # the largest step of any parameter: the ZERO_GRADIENT parameters' bound
+    moved = max(float((a_cpu[k].double() - b_cpu[k].double()).abs().max()) for k in a_cpu
+                if (".params." in f".{k}" or k.startswith("backbone.")) and a_cpu[k].is_floating_point())
+    k_lin_gap = 0.0
+    for key, cpu in a_cpu.items():
+        gpu, before = a_gpu[key], b_cpu[key]
+        if not cpu.is_floating_point():
+            counters &= torch.equal(cpu, gpu)
+            continue
+        change = float((cpu.double() - before.double()).abs().max())
+        gap = (gpu.double() - cpu.double()).abs()
+        shares[key] = float(gap.max()) / (change + 1e-30)
+        # a SWAG deviation is a parameter less the mean: its rounding is
+        # the operands', the mean's magnitude
+        operand = a_cpu[key.replace("deviations", "mean")] if key.endswith("deviations") else cpu
+        share = gap / (1e-4 * change + 2.0**-22 * operand.double().abs() + 1e-30)
+        k_lin = k_lin_elements(layouts, key, cpu)
+        over = (share > 1.0) & ~k_lin
+        outliers = max(outliers, int(over.sum()) / max(1, cpu.numel() // 1000))
+        if over.any():
+            flip_share = max(flip_share, float(gap[over].max()) / (2 * change + 1e-30))
+        if k_lin.any():
+            k_lin_gap = max(k_lin_gap, float(gap[k_lin].max()) / (2 * moved + 1e-30))
+        rest = ~(over | k_lin)
+        worst_share = max(worst_share, float(share[rest].max()) if rest.any() else 0.0)
+    check(loss_err <= 1e-5 and counters and outliers <= 1.0 and flip_share <= 1.0 and k_lin_gap <= 1.0,
+          f"{label} (loss rel err {loss_err:.1e} <= 1e-5; counters equal; state tensors at {worst_share:.3f} of "
+          f"1e-4 of their largest change plus two roundings, elements beyond it at {outliers:.2g} of one in a "
+          f"thousand (at least one) a tensor, those within {flip_share:.3f} of twice the largest change; "
+          f"zero-gradient parameters within {k_lin_gap:.3f} of twice the largest parameter step; largest gaps over "
+          f"their tensor's change: {json.dumps({k: round(v, 6) for k, v in sorted(shares.items(), key=lambda kv: -kv[1])[:3]})})")
+    return {"loss_rel_err": loss_err, "bound_share": worst_share, "outlier_share": outliers,
+            "flip_share": flip_share, "k_lin_share": k_lin_gap}
 
 
 def wilds_k1_checks(torch, sampling):
@@ -2830,15 +2888,384 @@ def wilds_phase(torch, kernels, att, sampling, svgd_kernel, wilds_task, NoiseSou
         os.makedirs(out)
     shutil.rmtree(out, ignore_errors=True)
     built, batches = wilds_mcd_capture(torch, wilds_task)
-    figures["steps"] = {"MCD": wilds_step_times(torch, built, batches, "Amazon MCD")}
+    figures["steps"] = {"MCD": wilds_step_times(torch, built, batches, "Amazon MCD", captured=12, eager=5)}
     del built
     torch.cuda.empty_cache()
     for row, task in (("MAP", "amazon"), ("SVGD", "amazon"), ("LL_SVGD", "civilcomments")):
         built, _, batches = wilds_built(torch, wilds_task, task, row)
-        figures["steps"][row] = wilds_step_times(torch, built, batches, f"{task} {row}")
+        figures["steps"][row] = wilds_step_times(torch, built, batches, f"{task} {row}", captured=12, eager=5)
         del built, batches
         torch.cuda.empty_cache()
     figures["card_vs_cpu"] = wilds_card_vs_cpu(torch, wilds_task, NoiseSource)
+    return figures
+
+
+# the image phase (phase 11): configs/camelyon.yaml and configs/fmow.yaml at
+# DenseNet-121's full width (growth 32, blocks (6, 12, 24, 16)), the yamls'
+# batch and input sizes, lr, S and conv_remat, synthetic data of the true
+# shapes; cut in depth only: IMAGE_STEPS steps a row (one epoch), 64 test
+# images, SWAG collecting at every step from the first (its start epoch 0),
+# MultiSWAG at its 5 members, MAP twice (multix)
+IMAGE_STEPS = {"camelyon17": 8, "fmow": 4}
+IMAGE_ROWS = {
+    "camelyon17": ["MAP", "MCD", "SWAG", "MultiSWAG", "BBB", "Rank1", "iVON", "SVGD", "Laplace"],
+    "fmow": ["MAP", "MCD", "SWAG", "SWAG_PODS", "SWAG_LL", "BBB", "Rank1", "SVGD", "iVON", "LL_iVON", "Laplace",
+             "SNGP"],
+}
+# K1 launches a forward of each task's BBB row: camelyon17's DenseNet-121 is
+# variational throughout (120 convs and the head), fmow's on the head only
+IMAGE_K1_PER_FORWARD = {"camelyon17": 121, "fmow": 1}
+# K2's shapes: SVGD's particles x the DenseNet-121 classifier's parameters
+K2_IMAGE_SHAPES = {"camelyon17": (3, 6_955_906), "fmow": (5, 7_017_406)}
+# the card-against-CPU steps: full width at this batch (at least 2: the
+# loaders read a subsample of 1 or less as a fraction of the split)
+IMAGE_CPU_BATCH = 2
+
+
+def image_sweep_file(task, path):
+    """configs/<task>.yaml cut as IMAGE_* says, written to ``path``; returns
+    {row: its params, DEFAULT's merged under}."""
+    import yaml
+
+    docs = wilds_yaml_docs(task)
+    default, steps = docs[0], IMAGE_STEPS[task]
+    batch = default["params"]["batch_size"]
+    cut = {"epochs": 1, "subsample": steps * batch, "test_subsample": WILDS_TEST}
+    swag = {"swag_start_epoch": 0, "swag_updates": steps}
+    print(f"{task} cut: epochs {default['params']['epochs']} -> 1, subsample -> {cut['subsample']} ({steps} steps of "
+          f"{batch}), test_subsample -> {WILDS_TEST}, repetitions {default['repetitions']} -> 1 (MAP 2); SWAG {swag}; "
+          f"the rows' other params kept: {json.dumps(default['params'])}")
+    out = [{**default, "repetitions": 1, "params": {**default["params"], **cut}}]
+    for doc in docs[1:]:
+        params = dict(doc["params"])
+        if params["model"] in ("swag", "swag_ll"):
+            params.update(swag)
+        out.append({**doc, "params": params, **({"repetitions": 2} if doc["name"] == "MAP" else {})})
+    with open(path, "w") as f:
+        yaml.safe_dump_all(out, f)
+    return {d["name"]: {**out[0]["params"], **d["params"]} for d in out[1:]}
+
+
+def image_expected_counts(task, config):
+    """The exact host launch counts of one image row's run_single on the card:
+    K1 in BBB (IMAGE_K1_PER_FORWARD a forward at mc 1; its backward as many
+    a step), in training and in the eval runner's two warm-ups and capture
+    (S forwards each, never a replay); K2 once an SVGD step; K3 never."""
+    steps, model = IMAGE_STEPS[task], config["model"]
+    per = IMAGE_K1_PER_FORWARD[task] if model == "bbb" else 0
+    mc = config.get("bbb_mc_samples", 1)
+    return {
+        "k1_gaussian_sample": steps * mc * per + 3 * config["eval_samples"] * per,
+        "k1_gaussian_sample_backward": steps * mc * per,
+        "k2_svgd_gram": steps if model == "svgd" else 0,
+        "k3a_attention_forward": 0,
+        "k3b_attention_backward": 0,
+    }
+
+
+def image_cli_rows(torch, task, kernels, out):
+    """Every row of configs/<task>.yaml through ``run.main`` (``--name`` a
+    row at a time), every count set to 0 just before and read just after:
+    the counts exact (``image_expected_counts``), the metrics finite and in
+    range, the wall time and peak device memory. Each row's checkpoints are
+    deleted after it but MAP's, MCD's and Laplace's, which the phases read."""
+    import shutil
+
+    from beyond_deep_ensembles_tpu_torch import run
+    from beyond_deep_ensembles_tpu_torch.experiments import wilds_task
+
+    sweep = os.path.join(out, f"{task}.yaml")
+    rows = image_sweep_file(task, sweep)
+    figures, results = {}, {}
+    for name in IMAGE_ROWS[task]:
+        config = {**wilds_task.DEFAULT_CONFIG, **rows[name]}
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run.main([task, sweep, "--name", name, "--out", out, "--rep", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        want = image_expected_counts(task, config)
+        check(counts == want, f"{task} {name}: launch counts {counts} = {want}")
+        run_dir = os.path.join(out, f"{name}_0", "rep_0")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            result = {k: v for k, v in json.loads(f.read().splitlines()[-1]).items() if not k.startswith("_")}
+        check(all(math.isfinite(v) for v in result.values() if isinstance(v, (int, float)))
+              and 0.0 <= result["accuracy"] <= 1.0 and result["avg_log_likelihood"] < 0.0,
+              f"{task} {name}: metrics finite and in range: "
+              f"{json.dumps({k: result[k] for k in ('accuracy', 'avg_log_likelihood', 'ece')})}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        figures[name] = {"wall_s": wall, "peak_gib": peak, "counts": counts}
+        results[name] = result
+        print(f"{task} {name} through run.main: {wall:.1f} s, peak device memory {peak:.2f} GiB [{CARD}]")
+        if name not in ("MAP", "MCD", "Laplace"):
+            shutil.rmtree(os.path.join(out, f"{name}_0"), ignore_errors=True)
+        torch.cuda.empty_cache()
+    run.main([task, sweep, "--name", "MAP", "--out", out, "--rep", "1"])  # multix's second member
+    return rows, results, figures
+
+
+def recorded_noise(torch, NoiseSource, seed):
+    """A given-mode NoiseSource whose draws are made as they are asked for,
+    standard normal from a CPU generator, and kept in its given list, so
+    that the other device's run can be given the same ones."""
+    source, gen = NoiseSource(given=[]), torch.Generator().manual_seed(seed)
+
+    def take(shape):
+        eps = torch.randn(tuple(shape), generator=gen)
+        source._given.append(eps)
+        source.draws += 1
+        return eps
+
+    source._take = take
+    return source
+
+
+def image_card_vs_cpu(torch, wilds_task, NoiseSource, sampling):
+    """One update (two for the epoch boundary) of camelyon17's MAP, BBB and
+    Rank1 and fmow's MAP (remat ``layer``), SNGP (the spectral DenseNet) and
+    MAP across the schedule's epoch boundary (steps_per_epoch 1: the second
+    step's Adam rate is lr x 0.96, read from the device count), from one
+    state and the same draws on the card, on the CPU, and on the CPU in
+    float64 (the same fp32 start; BBB's epilogue there by K1's plain
+    version, which takes any dtype), at DenseNet-121's full width and the
+    task's input size at batch IMAGE_CPU_BATCH: BBB's noise given (drawn for
+    the CPU side and handed to the card's K1 launches), the rest key mode,
+    whose draws are the same on all three. Through 121 layers of static BN
+    an fp32 step is ill-conditioned (some BN scales' and biases' steps are
+    rounding: the stem norm's scale has no true gradient, and under Adam a
+    step near zero takes the rounding's sign), so the card is held to the
+    CPU's own fp32 error: the card's state change within three times the
+    CPU's distance from the float64 change (relative L2 over the whole
+    state), or 1 % where that is smaller (the CPU's error of a step ran from
+    0.001 % (a BBB step, its KL gradient exact and dominant) to 0.9 %
+    (camelyon17 MAP) and 8 % (fmow's Adam) in this check's runs), the first
+    step's loss within three times the CPU's error or 1e-5, the counters
+    equal on all three."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
+
+    class PlainEpilogue(NoiseSource):
+        """Given draws; the BBB epilogue by the plain version, for float64."""
+
+        def gaussian(self, act_mean, act_var, b_mean, b_var, train, freeze_on_eval):
+            shape = act_mean.shape[1:] if not train and freeze_on_eval else act_mean.shape
+            eps = self._take(shape).to(device=act_mean.device, dtype=act_mean.dtype)
+            return sampling.gaussian_sample_plain(act_mean, act_var, b_mean, b_var, eps)
+
+    figures = {}
+    cases = [("camelyon17", "MAP", {}, 1), ("camelyon17", "BBB", {}, 1), ("camelyon17", "Rank1", {}, 1),
+             ("fmow", "MAP", {}, 1), ("fmow", "SNGP", {}, 1), ("fmow", "MAP", {"steps_per_epoch": 1}, 2)]
+    for task, row, extra, steps in cases:
+        docs = {d["name"]: d.get("params", {}) for d in wilds_yaml_docs(task)}
+        config = {**wilds_task.DEFAULT_CONFIG, **docs["DEFAULT"], **docs[row], "dataset_size": 64,
+                  "steps_per_epoch": 8, **extra}
+        x, y, _ = load_wilds(task, "train", subsample=IMAGE_CPU_BATCH)
+        x, y = torch.from_numpy(wilds_task.task_images(task, config, x)), torch.from_numpy(y)
+        label = f"{task} {row}" + (" across the epoch boundary" if steps > 1 else "")
+        sides, recorded, before = {}, {}, None
+        t0 = time.perf_counter()
+        for side, device, dtype in (("cpu", "cpu", torch.float32), ("cuda", "cuda", torch.float32),
+                                    ("fp64", "cpu", torch.float64)):
+            torch.set_default_dtype(dtype)
+            try:
+                built = wilds_task.build(task, config, torch.Generator().manual_seed(3), 8, device=device)
+            finally:
+                torch.set_default_dtype(torch.float32)
+            state = built.state
+            if before is None:
+                before = {k: t.detach().clone().cpu() for k, t in state.state_dict().items()}
+            else:
+                with torch.no_grad():
+                    for k, t in state.state_dict().items():
+                        t.copy_(before[k])
+            losses = []
+            for i in range(steps):
+                if row != "BBB":
+                    noise = NoiseSource(key=keys.as_key(keys.fold_in(6, i), device))
+                elif side == "cpu":
+                    noise = recorded[i] = recorded_noise(torch, NoiseSource, 4 + i)
+                else:
+                    noise = (PlainEpilogue if side == "fp64" else NoiseSource)(given=recorded[i]._given)
+                state, metrics = built.method.update(state, noise, (x.to(device, dtype), y.to(device)))
+                losses.append(float(metrics["loss"]))
+            sides[side] = (losses[0], {k: t.detach().cpu() for k, t in state.state_dict().items()})
+            del built, state
+            torch.cuda.empty_cache()
+        ref_loss, ref = sides["fp64"]
+        floats = [k for k, t in before.items() if t.is_floating_point()]
+        scale = math.sqrt(sum(float(((ref[k].double() - before[k].double()) ** 2).sum()) for k in floats))
+
+        def error(side):
+            got = sides[side][1]
+            return math.sqrt(sum(float(((got[k].double() - ref[k].double()) ** 2).sum()) for k in floats)) / scale
+
+        err = {side: error(side) for side in ("cpu", "cuda")}
+        loss_err = {side: abs(sides[side][0] - ref_loss) / abs(ref_loss) for side in ("cpu", "cuda")}
+        counters = all(torch.equal(sides[side][1][k], ref[k]) for k in before if k not in floats for side in sides)
+        check(err["cuda"] <= max(3 * err["cpu"], 1e-2) and loss_err["cuda"] <= max(3 * loss_err["cpu"], 1e-5)
+              and counters,
+              f"{label}: the update on the card against the float64 step within 3 x the CPU's own fp32 error or 1 %, "
+              f"at DenseNet-121's width, batch {IMAGE_CPU_BATCH} (state change rel L2 err card {err['cuda']:.3g}, CPU "
+              f"{err['cpu']:.3g}; first loss rel err card {loss_err['cuda']:.3g}, CPU {loss_err['cpu']:.3g}, within "
+              f"3 x or 1e-5; counters equal)")
+        figures[label] = {"card_rel_err": err["cuda"], "cpu_rel_err": err["cpu"], "card_loss_rel_err": loss_err["cuda"],
+                          "cpu_loss_rel_err": loss_err["cpu"], "s": time.perf_counter() - t0}
+        print(f"{label} card vs CPU vs float64: {time.perf_counter() - t0:.1f} s")
+    return figures
+
+
+def image_k1_checks(torch, sampling, wilds_task, NoiseSource):
+    """K1 at the planes of one camelyon17 BBB train forward (DenseNet-121,
+    batch 32, 96x96: 120 convs and the head, 121 launches; the planes
+    recorded from the model's own forward on the card): outputs against
+    ``gaussian_sample_plain`` with given noise (1e-6 absolute), gradients
+    against the plain autograd (1e-5 relative), a DeviceSeed draw against
+    the same z given, bit for bit; then the 121 forward launches and the 121
+    backward launches, each in a CUDA graph, against the plain forward and
+    the byte bound (act_mean and act_var read, the output written: 12 B an
+    element; the backward reads g and act_var and writes d act_var)."""
+    from beyond_deep_ensembles_tpu_torch import keys
+
+    planes = []
+
+    class Recording(NoiseSource):
+        def gaussian(self, act_mean, act_var, b_mean, b_var, train, freeze_on_eval):
+            planes.append((act_mean.detach().clone(), act_var.detach().clone(),
+                           None if b_mean is None else b_mean.detach().clone(),
+                           None if b_var is None else b_var.detach().clone()))
+            return super().gaussian(act_mean, act_var, b_mean, b_var, train, freeze_on_eval)
+
+    built, config, batches = wilds_built(torch, wilds_task, "camelyon17", "BBB")
+    with torch.no_grad():
+        built.model.apply(built.state.params, {}, Recording(key=keys.as_key(1, "cuda")), batches[0][0], train=True)
+    del built, batches
+    torch.cuda.empty_cache()
+    check(len(planes) == IMAGE_K1_PER_FORWARD["camelyon17"],
+          f"K1: one camelyon17 BBB train forward hands K1 {len(planes)} planes (120 convs and the head)")
+    n_elem = sum(m.numel() for m, _, _, _ in planes)
+    n_bytes = sum(12 * m.numel() + (8 * m.shape[1] if bm is not None else 0) for m, _, bm, _ in planes)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(33)
+    key = torch.full((), 123_456_789, dtype=torch.int64, device=dev)
+    worst, grad_worst, bitwise, scale = 0.0, 0.0, True, 1.0
+    for i, layer in enumerate(planes):
+        leaves = [t.clone().requires_grad_(True) if t is not None else None for t in layer]
+        flat = [t for t in leaves if t is not None]
+        seed = sampling.DeviceSeed(key, i)
+        z = sampling.gaussian_sample(torch.zeros_like(layer[0]), torch.ones_like(layer[0]), seed=seed)
+        given = sampling.gaussian_sample(*leaves, eps=z)
+        ref = sampling.gaussian_sample_plain(*leaves, z)
+        worst = max(worst, float((given - ref).detach().abs().max()))
+        scale = max(scale, float(ref.detach().abs().max()))
+        g = torch.randn(layer[0].shape, device=dev, generator=gen)
+        want = torch.autograd.grad((given * g).sum(), flat)
+        plain = torch.autograd.grad((ref * g).sum(), flat)
+        for a, b in zip(want, plain):
+            grad_worst = max(grad_worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+        drawn = sampling.gaussian_sample(*leaves, seed=seed)
+        got = torch.autograd.grad((drawn * g).sum(), flat)
+        bitwise &= torch.equal(drawn, given) and all(torch.equal(a, b) for a, b in zip(got, want))
+    check(worst <= 1e-6 * scale and grad_worst <= 1e-5 and bitwise,
+          f"K1 at one camelyon17 BBB forward's 121 planes ([32, C, H, W], {n_elem} elements) = plain (max abs err "
+          f"{worst:.3g} <= 1e-6 of the largest output, {scale:.3g}, as the planes' outputs exceed 1; gradients rel "
+          f"err {grad_worst:.3g} <= 1e-5); DeviceSeed draws and gradients = the same z given, bit for bit")
+    layers = planes
+    gs = [torch.randn_like(m) for m, _, _, _ in layers]
+
+    def kernel_forward():
+        for j, (m, v, bm, bv) in enumerate(layers):
+            sampling.gaussian_sample(m, v, bm, bv, seed=sampling.DeviceSeed(key, j))
+
+    def plain_forward():
+        for m, v, bm, bv in layers:
+            sampling.gaussian_sample_plain(m, v, bm, bv, torch.randn(m.shape, device=dev))
+
+    def kernel_backward():
+        for (_, v, _, bv), g in zip(layers, gs):
+            sampling.gaussian_sample_backward(g, v, bv, seed=5)
+
+    with torch.no_grad():
+        times = in_turns({"kernel": lambda: graph_ms(torch, kernel_forward, reps=10),
+                          "plain": lambda: graph_ms(torch, plain_forward, reps=10),
+                          "backward": lambda: graph_ms(torch, kernel_backward, reps=10)}, rounds=1)
+    bound = k1_bound_ms(n_elem, n_bytes)
+    ms, plain_ms, back_ms = times["kernel"][0], times["plain"][0], times["backward"][0]
+    print(f"K1 one camelyon17 BBB train forward at batch 32 ({len(layers)} launches, {n_elem} elements, {n_bytes} "
+          f"bytes): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, backward kernels {back_ms:.4f} ms, bound "
+          f"{bound:.4f} ms (forward at {100 * bound / ms:.0f}% of it, backward {100 * bound / back_ms:.0f}%) [{CARD}]")
+    return {"launches_per_forward": len(layers), "elements": n_elem, "bytes": n_bytes, "max_abs_err": worst,
+            "largest_output": scale,
+            "grad_rel_err": grad_worst, "ms": ms, "plain_ms": plain_ms, "backward_ms": back_ms, "bound_ms": bound,
+            "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_elem * K1_FLOPS_PER_ELEMENT / FP32_FLOPS_PER_S
+            else "operations"}
+
+
+def image_k2_shapes(torch, wilds_task):
+    """K2's image shapes: SVGD's particles x the parameters of the port's
+    DenseNet-121 classifier, counted from the model (2 and 62 classes)."""
+    from beyond_deep_ensembles_tpu_torch.data.wilds import TASKS
+    from beyond_deep_ensembles_tpu_torch.models.densenet import DenseNetClassifier
+
+    for task, (n, p) in K2_IMAGE_SHAPES.items():
+        got = sum(q.numel() for q in DenseNetClassifier(TASKS[task].classes, generator=torch.Generator()).parameters())
+        check(got == p, f"{task}: the DenseNet-121 classifier has {got} parameters = K2's P {p}")
+    return list(K2_IMAGE_SHAPES.values())
+
+
+def image_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
+    """Both image yamls through run.main at DenseNet-121's full width with
+    exact launch counts, the checkpoint phases, captured steps against eager
+    ones (camelyon17 MAP and BBB, fmow MCD with remat), the eval runner
+    against the host loop, steady steps (camelyon17 MAP and BBB; fmow MAP
+    with remat ``layer`` and ``none``, and SVGD), K1 and K2 at the image
+    shapes, and one step of six rows against the CPU."""
+    import gc
+    import shutil
+
+    def release():
+        """Frees what the last part left: graphs and states held in
+        reference cycles go at a collection, their memory at empty_cache."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"(at {time.perf_counter() - T_START:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB held)")
+
+    out = os.path.join(BUILD, "image_cli")
+    figures = {"rows": {}, "phases": {}, "steps": {}}
+    release()
+    for task in IMAGE_ROWS:
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        rows, results, row_figures = image_cli_rows(torch, task, kernels, out)
+        figures["rows"][task] = row_figures
+        figures["phases"][task] = wilds_phases(torch, task, rows, results, out)
+        print(f"{task} rows and phases: {time.perf_counter() - t0:.1f} s [{CARD}]")
+        release()
+    shutil.rmtree(out, ignore_errors=True)
+    figures["runner_vs_host"] = {}
+    for task, row, extra in (("camelyon17", "MAP", {}), ("camelyon17", "BBB", {}), ("fmow", "MCD", {}),
+                             ("fmow", "MAP", {}), ("fmow", "MAP", {"conv_remat": "none"}), ("fmow", "SVGD", {})):
+        label = f"{task} {row}" + (" remat none" if extra else (" remat layer" if task == "fmow" else ""))
+        torch.cuda.reset_peak_memory_stats()
+        built, config, batches = wilds_built(torch, wilds_task, task, row, **extra)
+        if (task, row) in (("camelyon17", "MAP"), ("camelyon17", "BBB"), ("fmow", "MCD")):
+            captured_vs_eager(torch, built, batches, f"{label} (DenseNet-121)")
+        if (task, row) in (("camelyon17", "BBB"), ("fmow", "MCD")):
+            figures["runner_vs_host"][label] = wilds_runner_vs_host(wilds_task, built, config, task, label)
+        if row != "MCD":
+            figures["steps"][label] = wilds_step_times(torch, built, batches, label, k=2)
+            figures["steps"][label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del built, batches
+        release()
+    figures["k1"] = image_k1_checks(torch, sampling, wilds_task, NoiseSource)
+    release()
+    figures["k2"] = k2_wilds_times(torch, svgd_kernel, image_k2_shapes(torch, wilds_task))
+    release()
+    figures["card_vs_cpu"] = image_card_vs_cpu(torch, wilds_task, NoiseSource, sampling)
     return figures
 
 
@@ -2863,13 +3290,13 @@ def main() -> int:
     from beyond_deep_ensembles_tpu_torch.ops import _cuda_build, sampling, svgd_kernel
     from beyond_deep_ensembles_tpu_torch.ops import attention as att
 
-    t_start = time.perf_counter()
+    global CARD, T_START
+    t_start = T_START = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi)
-    global CARD
     CARD = smi
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {count} card(s): {name}")
@@ -2970,6 +3397,14 @@ def main() -> int:
     wilds_counts = {name: sum(row["counts"][name] for rows in wilds["rows"].values() for row in rows.values())
                     for name in kernels}
 
+    phase("WILDS image tasks: configs/camelyon.yaml and configs/fmow.yaml through the CLI")
+    image = image_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
+    print(json.dumps({"card": CARD, "image": image}))
+    image_counts = {name: sum(row["counts"][name] for rows in image["rows"].values() for row in rows.values())
+                    for name in kernels}
+    check(image_counts["k3a_attention_forward"] == image_counts["k3b_attention_backward"] == 0,
+          "K3 never launched on the image rows")
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(CARD)
     print(json.dumps({"kernels": [
@@ -3021,6 +3456,15 @@ def main() -> int:
             "wilds_launches": wilds_counts["k1_gaussian_sample"],
             "wilds_backward_launches": wilds_counts["k1_gaussian_sample_backward"],
             "wilds_head_max_abs_err": wilds["k1_head"]["max_abs_err"],
+            # the image phase: host counts over both image yamls' rows
+            # through run.main (camelyon17 BBB: 121 a forward, 121 backward a
+            # step, 121 a forward of the eval runner's warm-ups and capture;
+            # fmow BBB: 1), and one camelyon17 BBB train forward's 121
+            # launches (batch 32, 96x96) against the plain version and the
+            # byte bound, forward and backward
+            "image_launches": image_counts["k1_gaussian_sample"],
+            "image_backward_launches": image_counts["k1_gaussian_sample_backward"],
+            "image_forward": image["k1"],
         },
         {
             "name": "k2_svgd_gram",
@@ -3047,6 +3491,11 @@ def main() -> int:
             # LL_SVGD, once a step), and K2 at their shapes beside torch.mm
             "wilds_launches": wilds_counts["k2_svgd_gram"],
             "wilds_shapes": wilds["k2"],
+            # the image phase: camelyon17's and fmow's SVGD rows (3 and 5
+            # particles of DenseNet-121, once a step) and K2 at their shapes
+            # beside torch.mm
+            "image_launches": image_counts["k2_svgd_gram"],
+            "image_shapes": image["k2"],
         },
         *(
             {

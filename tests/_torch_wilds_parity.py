@@ -1,7 +1,8 @@
-"""The WILDS text rows through the JAX package's and the port's engines
+"""The WILDS rows through the JAX package's and the port's engines
 (``experiments/wilds_task.py``), from one state and with JAX's draws.
 
-:func:`run_both` builds a row on both sides at TINY_CONFIG's width, carries
+:func:`run_both` builds a row on both sides at TINY_CONFIG's width (the text
+tasks) or the ``tiny`` DenseNet's on 32x32 crops (the image tasks), carries
 JAX's initial state across (``models/jax_convert.py``), runs JAX's
 ``train`` (three updates) and ``eval_task`` (host loop) while every
 ``jax.random.normal`` and ``jax.random.bernoulli`` the engine makes is
@@ -18,7 +19,9 @@ Where the two programs draw in another order, :func:`port_draws` converts:
   * a tree of per-leaf normals (iVON's ``normal_like``, in sorted-leaf
     order) is one flat vector in the port's parameter order, a SWAG draw's
     ``z2`` (JAX's flat order) too; a JAX leaf of zero size (a last-layer
-    placeholder) has no counterpart.
+    placeholder) has no counterpart;
+  * an image task's activation draws (BBB conv noise, dropout masks) are
+    NHWC, or HWC for a frozen row at eval: NCHW and CHW on the port.
 """
 from pathlib import Path
 
@@ -90,10 +93,34 @@ def record_draws(monkeypatch) -> list:
     return RECORDED
 
 
+def image_task(task) -> bool:
+    return task in wilds_task.IMAGE_TASKS
+
+
 def data(task):
+    """JAX's train and test splits, cut in size (the text to its first SEQ
+    tokens, the images to 32x32, as the engines' ``tiny`` cuts them)."""
     x, y, _ = wilds_data.load_wilds(task, "train", subsample=N_TRAIN)
     xt, yt, mt = wilds_data.load_wilds(task, "test", subsample=N_TEST)
+    if image_task(task):
+        return x[:, :32, :32], y, xt[:, :32, :32], yt, mt
     return x[:, :SEQ], y, xt[:, :SEQ], yt, mt
+
+
+def row_config(task, row) -> dict:
+    """A yaml row cut in size only, at the tiny width (JAX's config; the
+    port takes the same)."""
+    width = {"tiny": True} if image_task(task) else {"bert_config": BERT}
+    config = {**jax_wilds.DEFAULT_CONFIG, **row, **CUT, **width, "seed": 0}
+    if row.get("model") == "sngp":
+        config["eval_samples"] = row["eval_samples"]
+    return config
+
+
+def _nchw(draws):
+    """An image task's activation draws, NHWC (HWC) -> NCHW (CHW)."""
+    perm = {4: (0, 3, 1, 2), 3: (2, 0, 1)}
+    return [d.permute(*perm[d.ndim]).contiguous() if d.ndim in perm else d for d in draws]
 
 
 def _units(draws, n_units):
@@ -149,6 +176,8 @@ def _convert(draws, tree_leaves, template, module, swag):
 
 def _head_module(built):
     state = built.state
+    if isinstance(state, EnsembleState):  # the members share their layout
+        state = state.members[0]
     return state.inner.params if isinstance(state, LastLayerState) else state.params
 
 
@@ -164,6 +193,8 @@ def port_draws(config, jbuilt, built, train_draws, eval_draws, steps, eval_batch
     inner = getattr(jbuilt.state, "inner", jbuilt.state)
     full_leaves = len(jax.tree.leaves(inner.params))
     template = _jax_head_tree(jbuilt.state)
+    if config["members"] > 1:  # one member's tree (the draws are per member)
+        template = jax.tree.map(lambda leaf: leaf[0], template)
     module = _head_module(built)
     ivon = model in ("ivon", "ll_ivon")
     swag = model in ("swag", "swag_ll")
@@ -209,22 +240,31 @@ def _flat_layouts(state, prefix=""):
     return {prefix: [(n, p.numel()) for n, p in state.params.named_parameters()]}
 
 
+# parameters whose gradient is zero in exact arithmetic: DistilBERT's k_lin
+# biases (the softmax is blind to a shift of a row of scores) and the
+# DenseNet stem norm's scale (every consumer of the stem's channels is a
+# static BN, blind to a per-channel scale, and the ReLU and the max pool
+# before them are positively homogeneous)
+ZERO_GRADIENT = ("k_lin.bias", "DenseNet_0._BN_0.StaticBatchNorm_0.scale")
+
+
 def _k_lin_elements(layouts, key):
     """A bool vector over the flat tensor ``key`` (or None): True on the
-    ``k_lin`` biases' elements."""
+    elements of the :data:`ZERO_GRADIENT` parameters."""
     for prefix, layout in layouts.items():
         rest = key[len(prefix):]
         if key.startswith(prefix) and rest.split(".")[0] in ("opt", "swag", "ivon"):
-            return torch.cat([torch.full((size,), name.endswith("k_lin.bias")) for name, size in layout])
+            return torch.cat([torch.full((size,), name.endswith(ZERO_GRADIENT)) for name, size in layout])
     return None
 
 
 def compare_states(built, want, config, atol=STATE_ATOL):
     """Every float tensor of the port's state within ``atol`` of ``want``
-    (JAX's state as a state_dict), the counters equal. A ``k_lin`` bias has
-    a zero gradient in exact arithmetic (the softmax is blind to a shift of
-    a row of scores): Adam turns each side's rounding-level gradient into
-    steps of up to lr either way, so those parameters, and their elements of
+    (JAX's state as a state_dict), the counters equal. A ``k_lin`` bias (or
+    another of :data:`ZERO_GRADIENT`) has a zero gradient in exact
+    arithmetic (the softmax is blind to a shift of a row of scores): Adam
+    turns each side's rounding-level gradient into steps of up to lr either
+    way, so those parameters, and their elements of
     every flat vector, are held to 6 lr of each other instead
     (tests/test_torch_bert.py). The same holds for any element whose
     gradient in one step happens to fall to rounding size (Adam's first step
@@ -246,7 +286,7 @@ def compare_states(built, want, config, atol=STATE_ATOL):
         if k.endswith("opt.flat"):
             continue
         diff = (g.double() - w.double()).abs()
-        if k.endswith("k_lin.bias"):
+        if k.endswith(ZERO_GRADIENT):
             assert diff.max() <= loose, k
             continue
         mask = _k_lin_elements(layouts, k)
@@ -292,6 +332,31 @@ def _hold_sngp_precision(built, want, precisions):
         built.state.state_dict()[key].copy_(want[key])
 
 
+def jax_config(config) -> dict:
+    """The config the JAX engine runs: without the multi-device flags (under
+    tests/conftest.py JAX sees 8 virtual CPU devices, where they would
+    shard; JAX's tests/test_engine_parallel.py holds the sharded runs equal
+    to the plain ones) and without remat (exact in JAX, and its recompute
+    would record each draw of a rematerialized layer again)."""
+    out = {k: v for k, v in config.items() if k not in ("data_parallel", "ring_shard")}
+    out["conv_remat"] = "none"
+    return out
+
+
+def _hold_full_laplace(fitted, jfit):
+    """A full-Hessian fit: the MAP vector, the prior precision and the
+    covariance ``L L^T`` (within 1e-3 of its largest entry). The prior
+    precision is the argmax of a marginal likelihood that is flat near it
+    (32 golden-section steps pin each side's argmax to 1e-7): the GGNs'
+    fp32 rounding moves it by a few 1e-4 relative, held to 1e-3. The port
+    then evaluates JAX's fit."""
+    assert_close(fitted.ll_mean.numpy(), np.asarray(jfit.ll_mean), rtol=0, atol=STATE_ATOL, err_msg="ll_mean")
+    assert_close(float(fitted.prior_prec), float(jfit.prior_prec), rtol=1e-3, atol=0, err_msg="prior_prec")
+    got_l, want_l = fitted.scale_tril.double().numpy(), np.asarray(jfit.scale_tril, np.float64)
+    want_cov = want_l @ want_l.T
+    assert_close(got_l @ got_l.T, want_cov, rtol=0, atol=1e-3 * np.abs(want_cov).max(), err_msg="covariance")
+
+
 def run_both(task, row, monkeypatch, fit_laplace=False):
     """JAX's and the port's build -> train (3 updates) -> eval_task of
     ``row`` from JAX's initial state with JAX's draws, the states held
@@ -302,12 +367,11 @@ def run_both(task, row, monkeypatch, fit_laplace=False):
     evaluates JAX's fitted state, whose draws it is given. Returns (JAX's
     metrics, the port's, JAX's built, the port's built)."""
     x, y, xt, yt, mt = data(task)
-    config = {**jax_wilds.DEFAULT_CONFIG, **row, **CUT, "bert_config": BERT, "seed": 0}
-    if row.get("model") == "sngp":
-        config["eval_samples"] = row["eval_samples"]
+    config = row_config(task, row)
     config["dataset_size"] = x.shape[0]
     config["steps_per_epoch"] = steps = x.shape[0] // config["batch_size"]
-    jbuilt = jax_wilds.build(task, config, jax.random.key(config["seed"]), steps)
+    jconfig = jax_config(config)
+    jbuilt = jax_wilds.build(task, jconfig, jax.random.key(config["seed"]), steps)
     built = wilds_task.build(task, config, torch.Generator().manual_seed(0), steps, device="cpu")
     load_jax_state(built, jbuilt, config)
 
@@ -317,7 +381,7 @@ def run_both(task, row, monkeypatch, fit_laplace=False):
         jbuilt.method = _record_precision(jbuilt.method, lambda s: s.model_state["sngp"]["SNGPHead_0"]["precision"], jax_p)
         built.method = _record_precision(built.method, lambda s: s.params.SNGPHead_0.precision, port_p)
     record_draws(monkeypatch)
-    jbuilt = jax_wilds.train(jbuilt, config, x, y)
+    jbuilt = jax_wilds.train(jbuilt, jconfig, x, y)
     jax.effects_barrier()
     train_draws = list(RECORDED)
     trained = jax_state_dict(built, jbuilt, config)
@@ -326,13 +390,15 @@ def run_both(task, row, monkeypatch, fit_laplace=False):
         lap = jax_laplace_method(jbuilt.model, hessian=config["ll_hessian"], regression=False, inner=jbuilt.method)
         jbuilt.state = lap.fit(jbuilt.state, (jnp.asarray(x), jnp.asarray(y)))
         jbuilt.method = lap
-    want = jax_wilds.eval_task(jbuilt, task, config, xt, yt, mt)
+    want = jax_wilds.eval_task(jbuilt, task, jconfig, xt, yt, mt)
     jax.effects_barrier()
     eval_draws = list(RECORDED)
 
     n_batches = -(-xt.shape[0] // config["eval_batch_size"])
-    given = NoiseSource(given=port_draws(config, jbuilt, built, train_draws, eval_draws, steps, n_batches))
+    draws = port_draws(config, jbuilt, built, train_draws, eval_draws, steps, n_batches)
+    given = NoiseSource(given=_nchw(draws) if image_task(task) else draws)
     monkeypatch.setattr(wilds_task, "NoiseSource", lambda **kw: given)
+    x, xt = wilds_task.task_images(task, config, x), wilds_task.task_images(task, config, xt)
     built = wilds_task.train(built, config, x, y)
     if sngp:
         _hold_sngp_precision(built, trained, (jax_p[0], port_p[0]))
@@ -340,7 +406,9 @@ def run_both(task, row, monkeypatch, fit_laplace=False):
     if fit_laplace:
         wilds_task._fit_laplace(built, config, x, y)
         fitted, jfit = built.state, jbuilt.state
-        for s, u, name in (("kron_sa", "kron_ua", "A"), ("kron_sb", "kron_ub", "B")):
+        if config["ll_hessian"] == "full":
+            _hold_full_laplace(fitted, jfit)
+        for s, u, name in (("kron_sa", "kron_ua", "A"), ("kron_sb", "kron_ub", "B"))[:2 * (config["ll_hessian"] == "kron")]:
             ws, wu = np.asarray(getattr(jfit, s)), np.asarray(getattr(jfit, u))
             gs, gu = getattr(fitted, s).numpy(), getattr(fitted, u).numpy()
             assert_close(gs, ws, rtol=1e-5, atol=1e-6 * np.abs(ws).max(), err_msg=f"eigenvalues {name}")

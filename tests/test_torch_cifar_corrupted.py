@@ -175,10 +175,12 @@ def test_scan_steps_equal_single_steps_on_a_deterministic_run(no_data):
     assert torch.equal(runs[0], runs[1])
 
 
-def test_unported_keys_still_raise():
+def test_unported_keys_still_raise(monkeypatch):
     """Options whose paths are not ported raise before any work is done
     (``checkpoint_dir`` and ``members`` > 1 are ported: see
-    test_torch_checkpoint.py and test_torch_cifar_multix.py)."""
+    test_torch_checkpoint.py and test_torch_cifar_multix.py;
+    ``data_parallel`` where the process sees a second card)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     for config in ({"model": "bbb", "use_hmc_baseline": True}, {"model": "bbb", "data_parallel": True},
                    {"model": "svgd", "members": 2}):
         with pytest.raises(NotImplementedError):

@@ -216,21 +216,27 @@ def test_build_heads_and_frozen_encoder():
     "task,override",
     [
         ("iwildcam", {}),
-        ("camelyon17", {}),
-        ("fmow", {}),
+        ("camelyon17", {"compute_dtype": "bf16"}),
+        ("fmow", {"lr_schedule_kind": "cosine_warmup"}),
         ("rxrx1", {}),
         ("poverty", {}),
         ("amazon", {"compute_dtype": "bf16"}),
         ("amazon", {"lr_schedule_kind": "cosine_warmup"}),
-        ("amazon", {"lr_schedule_kind": "exponential"}),
-        ("amazon", {"data_parallel": True}),
-        ("civilcomments", {"model": "swag", "ring_shard": True}),
+        ("amazon", {"data_parallel": True, "visible_cards": 2}),
+        ("camelyon17", {"static_bn": False}),
+        ("civilcomments", {"model": "swag", "ring_shard": True, "visible_cards": 2}),
         ("amazon", {"model": "svgd", "members": 2}),
         ("amazon", {"pretrained_path": "/nonexistent"}),
         ("amazon", {"tiny": False, "bert_remat": True}),
     ],
 )
-def test_unported_options_raise(task, override):
+def test_unported_options_raise(task, override, monkeypatch):
+    """``visible_cards``: the process sees that many cards (the multi-device
+    flags are no-ops on one, tests/test_torch_multi_device.py)."""
+    override = dict(override)
+    cards = override.pop("visible_cards", None)
+    if cards is not None:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     config = {**wilds_task.DEFAULT_CONFIG, **TINY, "model": "map", **override}
     with pytest.raises(NotImplementedError):
         wilds_task.build(task, config, torch.Generator(), device="cpu")
@@ -246,3 +252,16 @@ def test_pretrained_weights_on_disk_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError):
         wilds_task.build("amazon", config, torch.Generator(), device="cpu")
     wilds_task.build("amazon", {**config, "pretrained": False}, torch.Generator(), device="cpu")
+
+
+def test_pretrained_densenet_on_disk_raise(tmp_path, monkeypatch):
+    """Where the JAX package would load fmow's staged densenet121.pth, the
+    port refuses; camelyon17 trains from scratch whatever is staged."""
+    monkeypatch.setenv("BDE_DATA_DIR", str(tmp_path))
+    (tmp_path / "pretrained").mkdir()
+    (tmp_path / "pretrained" / "densenet121.pth").write_bytes(b"")
+    config = {**wilds_task.DEFAULT_CONFIG, "tiny": True, "model": "map", "dataset_size": 8}
+    with pytest.raises(NotImplementedError):
+        wilds_task.build("fmow", config, torch.Generator(), device="cpu")
+    wilds_task.build("fmow", {**config, "pretrained": False}, torch.Generator(), device="cpu")
+    wilds_task.build("camelyon17", config, torch.Generator(), device="cpu")

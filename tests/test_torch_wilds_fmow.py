@@ -1,0 +1,27 @@
+"""PyTorch port, experiments/wilds_task.py: the MAP, MCD, SWAG, SWAG_PODS,
+SWAG_LL, BBB and Laplace rows of ``configs/fmow.yaml`` (Adam under the
+exponential schedule, ``conv_remat: layer`` on the port) held against the
+JAX package's engine on the CPU (``_torch_wilds_parity.check_row``):
+``build`` from JAX's initial state, three ``train`` updates and
+``eval_task`` with JAX's draws given, at the tiny DenseNet width (growth 4,
+blocks (2, 2), 8 initial features, bn_size 2) on 32x32 crops; JAX runs the
+row without ``conv_remat`` and without the multi-device flags
+(``jax_config``).
+
+Tolerances: every state tensor (parameters, optimizer buffers, SWAG's
+moments and ring, iVON's vectors) within 2e-6 after the three updates (SVGD
+2e-5; under Adam, a parameter whose gradient is zero in exact arithmetic,
+the stem norm's scale, within 6 lr); the Laplace fit (``kron``) by its
+Kronecker factors, JAX's fit then evaluated; every float metric within 1e-5,
+relative or absolute."""
+import pytest
+
+from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+from _torch_wilds_parity import check_row, yaml_row
+
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
+
+
+@pytest.mark.parametrize("name", ["MAP", "MCD", "SWAG", "SWAG_PODS", "SWAG_LL", "BBB", "Laplace"])
+def test_fmow_row_matches_jax(name, monkeypatch):
+    check_row("fmow", yaml_row("fmow", name), monkeypatch)
