@@ -13,6 +13,7 @@ package's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import zlib
 from typing import Optional, Tuple
@@ -147,7 +148,15 @@ def load_wilds(
     if subsample is not None:
         n = min(n, int(n * subsample) if subsample <= 1 else int(subsample))
     salt = zlib.crc32(f"{task}/{split}/{fold}".encode()) % 1000
-    return _synthetic(spec, n, seed + salt)
+    return tuple(a.copy() for a in _synthetic_cached(task, n, seed + salt))
+
+
+@functools.lru_cache(maxsize=4)
+def _synthetic_cached(task: str, n: int, seed: int):
+    """:func:`_synthetic`, kept for the next call with the same arguments (a
+    sweep's rows and phases load the same splits in one process; a 448x448
+    split of 64 images takes seconds to draw). Callers get copies."""
+    return _synthetic(TASKS[task], n, seed)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """Classification calibration metrics.
 
 Counterpart of ``beyond_deep_ensembles_tpu/evals/calibration.py`` (reference
-src/eval/calibration.py): per-bin sums by ``index_add_``, so the metric runs
-on the device in O(N). ``correct`` is the per-point correctness indicator
-(the reference calls it ``errors``).
+src/eval/calibration.py): per-bin sums as a sum over the points of a one-hot
+bin matrix, so the metric runs on the device in O(N B) and is deterministic
+there (``index_add_`` adds on a card by atomics, in an order that varies
+from run to run: the same log-probs gave ECEs 1e-5 apart). ``correct`` is
+the per-point correctness indicator (the reference calls it ``errors``).
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ def _adaptive_bin_ids(confidences: torch.Tensor, bin_count: int):
 
 
 def _bin_stats(bin_ids, correct, confidences, bin_count):
+    one_hot = torch.nn.functional.one_hot(bin_ids, bin_count).to(torch.float32)
+
     def seg_sum(values):
-        out = torch.zeros(bin_count, dtype=torch.float32, device=values.device)
-        return out.index_add_(0, bin_ids, values.float())
+        return torch.sum(one_hot * values.float()[:, None], dim=0)
 
     counts = seg_sum(torch.ones_like(confidences))
     acc_sum = seg_sum(correct)

@@ -148,10 +148,11 @@ def _base_tx(config, steps_per_epoch: int):
     def tx(params):
         schedule = None
         if config.get("lr_schedule", True):
-            schedule = wilson_schedule(config["epochs"], lr, config.get("swag_lr"))
+            factor = wilson_schedule(config["epochs"], lr, config.get("swag_lr"))
+            schedule = lambda count: lr * factor(count // steps_per_epoch)  # noqa: E731
         optimizer = SGD(
             params, lr, momentum=config["momentum"], nesterov=config["nesterov"],
-            weight_decay=config.get("weight_decay", 0.0), schedule=schedule, steps_per_epoch=steps_per_epoch,
+            weight_decay=config.get("weight_decay", 0.0), schedule=schedule,
         )
         return optimizer, None
 

@@ -1,47 +1,53 @@
 """WILDS experiment runner: the DistilBERT text tasks, Amazon and
-CivilComments, and the DenseNet-121 image tasks, Camelyon17 and FMoW, under
-every method of ``configs/{amazon,civilcomments,camelyon,fmow}.yaml``.
+CivilComments, the DenseNet-121 image tasks, Camelyon17 and FMoW, and the
+ResNet-50 image tasks, iWildCam and RxRx1, under every method of
+``configs/{amazon,civilcomments,camelyon,fmow,iwildcam,rxrx1}.yaml``.
 
 Counterpart of ``beyond_deep_ensembles_tpu/experiments/wilds_task.py``
-(reference experiments/{amazon,civilcomments,camelyon,fmow}/{*.py,models.py,
-*.yaml}), for ``task`` ``amazon`` (L = 512, 5 classes, the 10th-percentile
-user accuracy), ``civilcomments`` (L = 300, 2 classes, the worst-group
-accuracy), ``camelyon17`` (96x96, 2 classes, a from-scratch DenseNet-121
-under SGD with momentum, BBB and Rank-1 variational throughout, frozen
-dropout masks at eval) and ``fmow`` (224x224, 62 classes, the worst-region
-accuracy, Adam under the ``exponential`` schedule, BBB and Rank-1 on the
-head only unless ``all_layers_bbb``). Ported: ``build`` -> ``train`` ->
-``eval_task`` / ``run_single`` with ``model`` ``map``, ``mcd``
-(``dropout_p``; ``last_layer_mcd`` keeps the encoder's dropouts off at
-eval), ``swag``, ``bbb``, ``rank1``, ``svgd``, ``ivon``, ``sngp`` (a
-spectral DenseNet under the SNGP head for the images), ``laplace``
-(``ll_hessian``) and the last-layer ``swag_ll``, ``ll_bbb``, ``ll_ivon`` and
-``ll_svgd`` (``methods/last_layer.py``; the text head is both dense layers,
-the image head the DenseNet's ``Dense_0``), each with ``members`` > 1 as a
-``deep_ensemble`` (``svgd`` with one: its particles are its ensemble);
-``ring_dtype``; DenseNet's ``conv_remat``, ``densenet_incremental_bn`` and
-``densenet_concat_mode``; the ``exponential`` schedule (Adam's, SGD's and
-iVON's lr from the device count); periodic checkpoints with auto-resume and
-the ``{model}_final`` artifact (``checkpoint_dir``,
-``checkpoint_interval``); the device-resident epoch (``device_data``), K
-steps per call (``scan_steps``) and the device-resident eval
-(``device_eval``), whose runners replay CUDA graphs on a card
-(``parallel/multistep.py``); ``eval_while_train``; and the phases
-``fit_laplace_phase``, ``eval_only_phase``, ``sweep_drop_rates_phase`` and
-``multix_phase``. The optimizer is the JAX package's ``_tx``: weight decay
-added to the gradient, then Adam or SGD with momentum (the port's
+(reference experiments/{amazon,civilcomments,camelyon,fmow,iwildcam,rxrx1}/
+{*.py,models.py,*.yaml}), for ``task`` ``amazon`` (L = 512, 5 classes, the
+10th-percentile user accuracy), ``civilcomments`` (L = 300, 2 classes, the
+worst-group accuracy), ``camelyon17`` (96x96, 2 classes, a from-scratch
+DenseNet-121 under SGD with momentum, BBB and Rank-1 variational throughout,
+frozen dropout masks at eval), ``fmow`` (224x224, 62 classes, the
+worst-region accuracy, Adam under the ``exponential`` schedule),
+``iwildcam`` (448x448, 182 classes, macro-F1, Adam at a constant rate) and
+``rxrx1`` (256x256, 1139 classes, Adam under ``cosine_warmup``, the linear
+warmup and cosine decay stepped per batch); on fmow, iwildcam and rxrx1 BBB
+and Rank-1 sit on the head only unless ``all_layers_bbb``. Ported: ``build``
+-> ``train`` -> ``eval_task`` / ``run_single`` with ``model`` ``map``,
+``mcd`` (``dropout_p``; ``last_layer_mcd`` keeps the encoder's dropouts off
+at eval), ``swag``, ``bbb``, ``rank1``, ``svgd``, ``ivon``, ``sngp`` (a
+spectral DenseNet or ResNet-50 under the SNGP head for the images),
+``laplace`` (``ll_hessian``) and the last-layer ``swag_ll``, ``ll_bbb``,
+``ll_ivon`` and ``ll_svgd`` (``methods/last_layer.py``; the text head is both
+dense layers, the image head the backbone's ``Dense_0``), each with
+``members`` > 1 as a ``deep_ensemble`` (``svgd`` with one: its particles are
+its ensemble); ``ring_dtype``; DenseNet's ``conv_remat``,
+``densenet_incremental_bn`` and ``densenet_concat_mode``; ResNet-50's
+``torchvision_arch`` and a staged ``$BDE_DATA_DIR/pretrained/resnet50.pth``
+(``models/torch_convert.py``; ``torchvision_arch`` then defaults on); the
+``exponential`` and ``cosine_warmup`` schedules (Adam's, SGD's and iVON's lr
+from the device count); periodic checkpoints with auto-resume and the
+``{model}_final`` artifact (``checkpoint_dir``, ``checkpoint_interval``); the
+device-resident epoch (``device_data``), K steps per call (``scan_steps``)
+and the device-resident eval (``device_eval``), whose runners replay CUDA
+graphs on a card (``parallel/multistep.py``); ``eval_while_train``; and the
+phases ``fit_laplace_phase``, ``eval_only_phase``, ``sweep_drop_rates_phase``
+and ``multix_phase``. The optimizer is the JAX package's ``_tx``: weight
+decay added to the gradient, then Adam or SGD with momentum (the port's
 ``utils/optim.py``, whose state lives on the device, so a CUDA graph can
 capture a step). Every path draws its noise in key mode from
 ``keys.fold_in`` of the seed: per step, per epoch, per eval batch.
 ``data_parallel`` and ``ring_shard`` are no-ops on one device, as in JAX,
 and raise with more than one visible card (ROADMAP item 18).
 
-Not ported yet, each raising ``NotImplementedError``: iwildcam and rxrx1
-(ResNet-50, ROADMAP item 15b), poverty (ResNet-18 and the regression eval,
-item 15d), pretrained weights (DistilBERT's ``load_hf_weights`` and fmow's
-``densenet121.pth``, items 15b and 15e), the ``cosine_warmup`` schedule
-(item 15b), bf16 compute (item 13), DistilBERT remat, and the DenseNet's
-running-statistics BatchNorm (``static_bn: false``).
+Not ported yet, each raising ``NotImplementedError``: poverty (ResNet-18 and
+the regression eval, ROADMAP item 15d), the other pretrained weights
+(DistilBERT's ``load_hf_weights`` and fmow's ``densenet121.pth``, item 15e),
+bf16 compute (item 13), DistilBERT remat, ResNet-50 remat, the DenseNet's
+running-statistics BatchNorm (``static_bn: false``) and the benchmark knob
+``no_norm``.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed. The text data
 sets move to the device once and each step gathers its batch there; an image
@@ -80,13 +86,15 @@ from ..methods.svgd import svgd_method
 from ..methods.swag import swag_method
 from ..models.bert import TINY_CONFIG, BertClassifier, BertSNGP, DistilBertConfig
 from ..models.densenet import DenseNetClassifier, DenseNetSNGP
+from ..models.resnet import ResNet50, ResNet50SNGP
+from ..models.torch_convert import load_torch_backbone
 from ..nn.base import Model
 from ..nn.gaussian import NoiseSource
 from ..parallel.multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches
 from ..utils import checkpoint as ckpt
 from ..utils.device import refuse_multi_device, resolve_device
 from ..utils.optim import SGD, Adam
-from ..utils.schedules import exponential_schedule
+from ..utils.schedules import cosine_with_warmup, exponential_schedule
 from . import phases
 
 DEFAULT_CONFIG = {
@@ -128,9 +136,14 @@ DEFAULT_CONFIG = {
 # BN the batches decide the statistics, so both engines cut the same ones
 LAPLACE_BATCH = 256
 TEXT_TASKS = ("amazon", "civilcomments")
-IMAGE_TASKS = ("camelyon17", "fmow")
-_WAITING = {"iwildcam": "ResNet-50, ROADMAP item 15b", "rxrx1": "ResNet-50, ROADMAP item 15b",
-            "poverty": "ResNet-18 and the regression eval, ROADMAP item 15d"}
+DENSENET_TASKS = ("camelyon17", "fmow")
+RESNET50_TASKS = ("iwildcam", "rxrx1")
+IMAGE_TASKS = DENSENET_TASKS + RESNET50_TASKS
+# the pretrained-backbone tasks put BBB and Rank-1 on the head of a plain net
+# (JAX :453-483; reference iwildcam/models.py:101-114, rxrx1/models.py:82-92,
+# fmow/models.py:92-102) unless all_layers_bbb (BBB only)
+HEAD_ONLY_TASKS = ("iwildcam", "rxrx1", "fmow")
+_WAITING = {"poverty": "ResNet-18 and the regression eval, ROADMAP item 15d"}
 MODELS = ("map", "mcd", "swag", "bbb", "rank1", "svgd", "ivon", "sngp", "laplace",
           "swag_ll", "ll_bbb", "ll_ivon", "ll_svgd")
 
@@ -158,25 +171,29 @@ def _not_ported(task: str, config: dict) -> None:
         raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
     if config.get("compute_dtype", "fp32") not in ("fp32", "float32"):
         raise NotImplementedError("bf16 compute: not ported yet (ROADMAP item 13)")
-    if config.get("lr_schedule_kind", "none") not in ("none", "exponential"):
-        raise NotImplementedError(f"lr schedule {config['lr_schedule_kind']!r}: not ported yet (ROADMAP item 15b)")
+    if config.get("lr_schedule_kind", "none") not in ("none", "exponential", "cosine_warmup"):
+        raise ValueError(f"unknown lr_schedule_kind {config['lr_schedule_kind']!r}")
     refuse_multi_device(config)
-    if _pretrained_path(task, config):
-        raise NotImplementedError(f"pretrained {task} weights: not ported yet (ROADMAP items 15b and 15e)")
+    if _pretrained_path(task, config) and task not in RESNET50_TASKS:
+        raise NotImplementedError(f"pretrained {task} weights: not ported yet (ROADMAP item 15e)")
 
 
 def _pretrained_path(task: str, config: dict):
-    """Where the JAX package would load pretrained weights from (JAX
+    """Where the JAX package loads pretrained weights from (JAX
     ``_pretrained_path``, :337-363): ``pretrained_path``, else, unless
-    ``pretrained: false``, fmow's ``$BDE_DATA_DIR/pretrained/densenet121.pth``
-    or the text tasks' ``$BDE_DATA_DIR/distilbert-base-uncased/
-    pytorch_model.bin`` where the file exists. camelyon17 trains from
-    scratch."""
+    ``pretrained: false``, iwildcam's and rxrx1's
+    ``$BDE_DATA_DIR/pretrained/resnet50.pth``, fmow's
+    ``$BDE_DATA_DIR/pretrained/densenet121.pth`` or the text tasks'
+    ``$BDE_DATA_DIR/distilbert-base-uncased/pytorch_model.bin`` where the
+    file exists. camelyon17 trains from scratch. The port loads the
+    ResNet-50 file (``models/torch_convert.py``) and refuses the others."""
     if config.get("pretrained_path"):
         return config["pretrained_path"]
     if not config.get("pretrained", True):
         return None
-    if task == "fmow":
+    if task in RESNET50_TASKS:
+        path = os.path.join(data_dir(), "pretrained", "resnet50.pth")
+    elif task == "fmow":
         path = os.path.join(data_dir(), "pretrained", "densenet121.pth")
     elif task in TEXT_TASKS:
         path = os.path.join(data_dir(), "distilbert-base-uncased", "pytorch_model.bin")
@@ -211,6 +228,11 @@ def _densenet_kwargs(task: str, config: dict) -> dict:
     )
 
 
+def _resnet50_stages(config: dict):
+    """ResNet-50's (3, 4, 6, 3), or (1, 1) under ``tiny`` (JAX :176)."""
+    return (1, 1) if config.get("tiny", False) else (3, 4, 6, 3)
+
+
 def _make_backbone(task: str, config: dict, generator: torch.Generator, kind: str = "plain",
                    head_kind: Optional[str] = None, dropout_p=None) -> nn.Module:
     """The task's classifier with layers of ``kind`` and a head of
@@ -220,10 +242,27 @@ def _make_backbone(task: str, config: dict, generator: torch.Generator, kind: st
     ``drop`` head, whose encoder dropouts sample at eval too unless
     ``last_layer_mcd`` (reference amazon/models.py:67-73). Images: the
     DenseNet classifier (``dropout_freeze_eval`` on camelyon17 only,
-    ``remat`` from ``conv_remat``)."""
+    ``remat`` from ``conv_remat``), or ResNet-50 for iwildcam and rxrx1
+    (``batch_static`` norms under ``static_bn``, else FRN; the torchvision
+    topology under ``torchvision_arch``; rescaled per-example dropout at
+    eval, reference iwildcam/models.py:75; JAX :162-186)."""
     components = config.get("rank1_components", 1)
     classes = wilds_data.TASKS[task].classes
-    if task in IMAGE_TASKS:
+    if task in RESNET50_TASKS:
+        return ResNet50(
+            classes,
+            norm="none" if config.get("no_norm") else "batch_static" if config.get("static_bn", True) else "frn",
+            conv_kind=kind,
+            head_kind=head_kind,
+            components=components,
+            dropout_p=dropout_p,
+            stage_sizes=_resnet50_stages(config),
+            torchvision=config.get("torchvision_arch", False),
+            dropout_freeze_eval=False,
+            remat=config.get("conv_remat", "none"),
+            generator=generator,
+        )
+    if task in DENSENET_TASKS:
         return DenseNetClassifier(
             classes,
             head_kind=head_kind or kind,
@@ -250,10 +289,14 @@ def _make_backbone(task: str, config: dict, generator: torch.Generator, kind: st
 
 
 def _make_sngp(task: str, config: dict, generator: torch.Generator) -> nn.Module:
-    """The SNGP model (JAX ``_make_sngp``): DistilBERT or a spectral DenseNet
-    under the SNGP head."""
+    """The SNGP model (JAX ``_make_sngp``): DistilBERT, a spectral DenseNet
+    or a spectral ResNet-50 (its default ``batch_static`` norms whatever
+    ``static_bn`` says, never the torchvision topology, JAX :585-620) under
+    the SNGP head."""
     classes = wilds_data.TASKS[task].classes
-    if task in IMAGE_TASKS:
+    if task in RESNET50_TASKS:
+        return ResNet50SNGP(classes, config["sngp"], generator=generator, stage_sizes=_resnet50_stages(config))
+    if task in DENSENET_TASKS:
         return DenseNetSNGP(classes, config["sngp"], generator=generator, **_densenet_kwargs(task, config))
     return BertSNGP(classes, _bert_config(config), config["sngp"], generator=generator)
 
@@ -283,25 +326,25 @@ def _predict_fn(model: Model):
     return apply_fn
 
 
-def _schedule(config: dict):
-    """``(factor of the epoch, steps_per_epoch)`` of ``lr_schedule_kind``
-    ``exponential`` (the staircase decay by ``lr_decay_rate`` once an epoch,
-    JAX ``_scheduled_lr``, :272-293), or ``(None, 1)`` for a constant
-    rate."""
-    if config.get("lr_schedule_kind", "none") == "exponential":
-        return exponential_schedule(config.get("lr_decay_rate", 0.96)), config.get("steps_per_epoch", 1000)
-    return None, 1
-
-
 def _scheduled_lr(config: dict, lr: float):
-    """``lr`` under the task's schedule, as a function of an update count
-    (a device tensor), or the constant ``lr``: iVON's rate (JAX
-    ``_scheduled_lr(config, ivon_lr)``, which the reference's fmow decays
-    like the backbone's, fmow.py:154-158)."""
-    factor, steps = _schedule(config)
-    if factor is None:
-        return lr
-    return lambda count: lr * factor(count // steps)
+    """``lr`` under ``lr_schedule_kind`` as a function of an update count (a
+    device tensor), or the constant ``lr`` (JAX ``_scheduled_lr``,
+    :272-293): ``exponential``, the staircase decay by ``lr_decay_rate`` once
+    an epoch, ``lr * factor(count // steps_per_epoch)``; ``cosine_warmup``,
+    the linear warmup and cosine decay stepped per batch over ``total =
+    steps_per_epoch * epochs`` updates, ``warmup_steps`` (default ``total //
+    20``) of them warmup. One schedule drives every optimizer of a
+    composition: the backbone's Adam or SGD and iVON's rate (the reference's
+    fmow decays both, fmow.py:154-158)."""
+    kind = config.get("lr_schedule_kind", "none")
+    steps = config.get("steps_per_epoch", 1000)
+    if kind == "exponential":
+        factor = exponential_schedule(config.get("lr_decay_rate", 0.96))
+        return lambda count: lr * factor(count // steps)
+    if kind == "cosine_warmup":
+        total = steps * config["epochs"]
+        return cosine_with_warmup(lr, config.get("warmup_steps", total // 20), total)
+    return lr
 
 
 def _tx(config: dict):
@@ -309,18 +352,19 @@ def _tx(config: dict):
     as the port's ``Adam`` and ``SGD`` (``utils/optim.py``): weight decay
     added to the gradient before the moments, so torch ``Adam``, not
     ``AdamW``; Adam's defaults (betas 0.9, 0.999, eps 1e-8) are optax's; the
-    lr under :func:`_schedule`, computed on the device from the optimizer's
-    count. ``train_all_layers: false`` freezes the encoder in ``build`` (no
-    gradient, so no step and no decay, as optax's ``set_to_zero`` leaves
-    it). Returns ``tx(params) -> (optimizer, None)``."""
+    lr under :func:`_scheduled_lr`, computed on the device from the
+    optimizer's count. ``train_all_layers: false`` freezes the encoder in
+    ``build`` (no gradient, so no step and no decay, as optax's
+    ``set_to_zero`` leaves it). Returns ``tx(params) -> (optimizer,
+    None)``."""
     lr, wd = config["lr"], config.get("weight_decay", 0.0)
-    schedule, steps = _schedule(config)
+    scheduled = _scheduled_lr(config, lr)
+    schedule = scheduled if callable(scheduled) else None
 
     def tx(params):
         if config.get("optimizer_kind", "sgd") == "adam":
-            return Adam(params, lr, weight_decay=wd, schedule=schedule, steps_per_epoch=steps), None
-        return SGD(params, lr, momentum=config.get("momentum", 0.9), weight_decay=wd, schedule=schedule,
-                   steps_per_epoch=steps), None
+            return Adam(params, lr, weight_decay=wd, schedule=schedule), None
+        return SGD(params, lr, momentum=config.get("momentum", 0.9), weight_decay=wd, schedule=schedule), None
 
     return tx
 
@@ -367,6 +411,9 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
     device = resolve_device(device)
     config = {**DEFAULT_CONFIG, **config}
     _not_ported(task, config)
+    pre_path = _pretrained_path(task, config)
+    if pre_path:  # a ResNet-50 task (_not_ported refuses the others)
+        config.setdefault("torchvision_arch", True)
     name, members = config["model"], config.get("members", 1)
     steps_per_epoch = steps_per_epoch or config.get("steps_per_epoch", 1)
     tx = _tx(config)
@@ -395,11 +442,19 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
                                           dataset_size=config["dataset_size"], l2_reg=config["svgd_reg_scale"])
         raise ValueError(inner_name)
 
+    def made(module):
+        """``module`` on the device, every member and particle from the
+        pretrained backbone where there is one (JAX :529-537: heads and
+        variational std leaves keep their init)."""
+        if pre_path:
+            load_torch_backbone(pre_path, module)
+        return module.to(device)
+
     def modules(make):
-        return [make().to(device) for _ in range(members)]
+        return [made(make()) for _ in range(members)]
 
     if name == "svgd":
-        particles = nn.ModuleList(_make_backbone(task, config, generator)
+        particles = nn.ModuleList(made(_make_backbone(task, config, generator))
                                   for _ in range(config["svgd_particles"])).to(device)
         model = Model(particles[0])
         method = inner_factory_for("svgd")(_loss_fn_for(model))
@@ -410,11 +465,10 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
         made = modules(lambda: _make_sngp(task, config, generator))
     elif name in ("bbb", "rank1"):
         # the variational scope follows the reference per task (JAX
-        # :453-483): fmow's pretrained-backbone protocol puts the layer on
-        # the head of a plain net (fmow/models.py:92-102) unless
-        # all_layers_bbb (BBB only); camelyon17's from-scratch net and the
-        # text heads take it throughout
-        head_only = task == "fmow" and not (name == "bbb" and config.get("all_layers_bbb", False))
+        # :453-483): the pretrained-backbone protocol puts the layer on the
+        # head of a plain net unless all_layers_bbb (BBB only);
+        # camelyon17's from-scratch net and the text heads take it throughout
+        head_only = task in HEAD_ONLY_TASKS and not (name == "bbb" and config.get("all_layers_bbb", False))
         made = modules(lambda: _make_backbone(task, config, generator, "plain" if head_only else name,
                                               head_kind=name))
     elif name == "mcd":
@@ -675,7 +729,7 @@ def _build_for(task: str, config: dict, device) -> BuiltExperiment:
 def _fit_laplace(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray) -> None:
     """``built``'s trained MAP state (or MAP ensemble) replaced by its
     last-layer Laplace posterior (the text head's ``Dense_1``, the
-    DenseNet's ``Dense_0``), fitted on ``(x, y)`` with ``ll_hessian`` (JAX
+    DenseNet's or ResNet-50's ``Dense_0``), fitted on ``(x, y)`` with ``ll_hessian`` (JAX
     :1055-1063); with ``members`` > 1 a ``deep_ensemble`` over the fitted
     members. Under :func:`_host_data` the fit's batches move one at a
     time."""

@@ -67,15 +67,34 @@ def _mix32(x: Key) -> Key:
     return (x >> 16) ^ x
 
 
+def _as_int32(v: Key) -> Key:
+    """A value in [0, 2^32) as the int32 that holds its 32 bits."""
+    v = ((v & _M32) ^ (1 << 31)) - (1 << 31)
+    return v.to(torch.int32) if isinstance(v, torch.Tensor) else v
+
+
+def _mix32_int32(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_mix32` on int32 tensors holding 32-bit values: the shifts made
+    logical by a mask, the products wrapping at 2^32 (the int64 form's ``&
+    _M32``), so every bit is the int64 form's, at half its memory traffic."""
+    x = (((x >> 16) & 0xFFFF) ^ x) * _MIX
+    x = (((x >> 16) & 0xFFFF) ^ x) * _MIX
+    return ((x >> 16) & 0xFFFF) ^ x
+
+
 def bits(key: Key, stream: int, n: int, device=None) -> torch.Tensor:
     """``n`` values in [0, 2^32) (int64), value i a function of (key,
     ``stream``, i) alone, i < 2^32: ``mix(mix(i ^ key_lo) ^ key_hi ^
     mix(stream))``. For a fixed key and stream the map from i is a
     bijection, so the values are distinct. ``key``: a host int or a 0-dim
-    int64 tensor (whose device the values take)."""
+    int64 tensor (whose device the values take). Below 2^31 values the hash
+    runs on int32 tensors (the same bits)."""
     if isinstance(key, torch.Tensor):
         device = key.device
     lo, hi = key & _M32, (key >> 32) ^ _mix32(stream & _M32)
+    if n < 1 << 31:
+        x = _mix32_int32(torch.arange(n, dtype=torch.int32, device=device) ^ _as_int32(lo))
+        return _mix32_int32(x ^ _as_int32(hi)).to(torch.int64) & _M32
     x = _mix32(torch.arange(n, dtype=torch.int64, device=device) ^ lo)
     return _mix32(x ^ hi)
 

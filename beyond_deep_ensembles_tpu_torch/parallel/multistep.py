@@ -13,7 +13,7 @@ draws afresh once the key has moved on, and an eager run from the same key
 gives the same bits (:func:`eager_steps`, which the CPU takes).
 
 Capture, on a card:
-  * warm-up: two updates on a side stream, so that cuDNN and cuBLAS have
+  * warm-up: one update on a side stream, so that cuDNN and cuBLAS have
     chosen their algorithms and workspaces, Triton has compiled K1 and K2's
     counter is zeroed (``ops/svgd_kernel.py``) before capture; the warm-up
     changes the state, so every tensor the update writes, as the state
@@ -43,7 +43,9 @@ import torch
 from .. import keys
 from ..nn.gaussian import NoiseSource
 
-_WARMUP = 2
+# eager calls before a capture: one makes every first call (cuDNN, cuBLAS,
+# Triton's compile, K2's counter word) outside the capture
+_WARMUP = 1
 
 
 def stack_batches(batches: Sequence[Tuple[torch.Tensor, ...]]) -> Tuple[torch.Tensor, ...]:

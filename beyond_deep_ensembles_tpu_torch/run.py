@@ -8,8 +8,9 @@ protocol ``python3 {task}.py {task}.yaml``):
         [--leave-out K] [--wandb] [--device cuda|cpu]
 
 Tasks: ``uci``, ``cifar`` and the WILDS tasks (the text tasks ``amazon``
-and ``civilcomments`` are ported, every model of their yamls; the image
-tasks raise in ``experiments/wilds_task.py``). Each
+and ``civilcomments`` and the image tasks ``camelyon17``, ``fmow``,
+``iwildcam`` and ``rxrx1`` are ported, every model of their yamls;
+``poverty`` raises in ``experiments/wilds_task.py``). Each
 variant x repetition trains, evaluates and appends its records to
 ``<out>/<name>_<variant>/rep_<k>/metrics.jsonl``. The checkpoint-driven
 phases read the ``{model}_final`` states a train phase wrote:

@@ -14,7 +14,8 @@ on every parameter but the ``__mle`` ones and ``sgd(var_lr)`` on those (UCI,
 the momentum (optax's ``trace``, zeros at the start, so the first step is
 the steady formula) in another and the update count in an int64 tensor,
 all on the parameters' device. The learning rate is computed there from the
-count, ``lr * factor(count // steps_per_epoch)``, never read on the host. A
+count by the optimizer's ``schedule`` (count -> rate, as an optax schedule),
+never read on the host. A
 step is a few elementwise passes over the flat buffers whatever the number
 of parameter tensors, and :meth:`SGD.step` with a predicate keeps the old
 parameters, momentum and count where it is false (``tree_where``), so a CUDA
@@ -56,8 +57,10 @@ class SGD:
         trace = g + momentum * trace
         p = p - lr * (g + momentum * trace if nesterov else trace)
 
-    with lr = ``lr * schedule(count // steps_per_epoch)`` at the count before
-    the step (constant without a schedule). A parameter without a gradient
+    with lr = ``schedule(count)`` at the count before the step (an optax
+    schedule: the rate itself, e.g. ``lr * factor(count // steps_per_epoch)``
+    of an epoch schedule, or ``utils/schedules.py::cosine_with_warmup``), the
+    constant ``lr`` without one. A parameter without a gradient
     takes a zero one, as JAX's ``grad`` gives. Parameters are rebound as
     views of :attr:`flat`, in the order given, so build the optimizer after
     the module has moved to its device."""
@@ -70,13 +73,12 @@ class SGD:
         nesterov: bool = False,
         weight_decay: float = 0.0,
         schedule: Optional[Callable] = None,
-        steps_per_epoch: int = 1,
     ):
         self.params = list(params)
         if not self.params:
             raise ValueError("SGD got no parameters")
         self.lr0, self.momentum, self.nesterov = lr, momentum, nesterov
-        self.weight_decay, self.schedule, self.steps_per_epoch = weight_decay, schedule, steps_per_epoch
+        self.weight_decay, self.schedule = weight_decay, schedule
         self.flat = flatten_parameters(self.params)
         self.trace = torch.zeros_like(self.flat)
         self.count = torch.zeros((), dtype=torch.int64, device=self.flat.device)
@@ -109,7 +111,7 @@ class SGD:
         """The learning rate of the next step, an fp32 tensor on the device."""
         if self.schedule is None:
             return torch.full((), self.lr0, dtype=torch.float32, device=self.flat.device)
-        return self.lr0 * self.schedule(self.count // self.steps_per_epoch)
+        return self.schedule(self.count)
 
     @torch.no_grad()
     def step(self, ok: Optional[torch.Tensor] = None) -> None:
@@ -139,9 +141,9 @@ class Adam:
 
     with t the count after the step, ``b^t`` in fp32 on the device, as optax
     takes it (fp64 bias corrections, ``torch.optim.Adam``'s, differ from it
-    by about 4e-5 lr a step). With a ``schedule`` the lr is ``lr *
-    schedule(count // steps_per_epoch)`` at the count before the step, on the
-    device (optax's ``scale_by_schedule``), as :class:`SGD`'s. The moments
+    by about 4e-5 lr a step). With a ``schedule`` the lr is
+    ``schedule(count)`` at the count before the step, on the device (optax's
+    ``scale_by_schedule``), as :class:`SGD`'s. The moments
     and the int64 count live on the parameters' device, the parameters are
     rebound as views of :attr:`flat` (as :class:`SGD`'s), and :meth:`step`
     takes the posterior methods' guard, so a CUDA graph can capture the whole
@@ -156,13 +158,12 @@ class Adam:
         eps: float = 1e-8,
         weight_decay: float = 0.0,
         schedule: Optional[Callable] = None,
-        steps_per_epoch: int = 1,
     ):
         self.params = list(params)
         if not self.params:
             raise ValueError("Adam got no parameters")
         self.lr0, self.b1, self.b2, self.eps, self.weight_decay = lr, b1, b2, eps, weight_decay
-        self.schedule, self.steps_per_epoch = schedule, steps_per_epoch
+        self.schedule = schedule
         self.flat = flatten_parameters(self.params)
         self.mu = torch.zeros_like(self.flat)
         self.nu = torch.zeros_like(self.flat)
@@ -208,7 +209,7 @@ class Adam:
         if self.schedule is None:
             new_flat = self.flat + update * -self.lr0
         else:
-            new_flat = self.flat + update * -(self.lr0 * self.schedule(self.count // self.steps_per_epoch))
+            new_flat = self.flat + update * -self.schedule(self.count)
         new = [new_flat, mu, nu, count]
         if ok is not None:
             new = tree_where(ok, new, self.tensors())

@@ -101,7 +101,7 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      seed) through ``experiments/wilds_task.py`` ``build`` -> ``train`` (10
      steps at batch 8 on synthetic Amazon) -> ``eval_task`` (32 reviews, eval
      batch 16, 10 samples), K3a launched 6 times per forward and K3b 6 times
-     per step, exactly; 20 steady steps and a profile of 3; then the ``MAP``
+     per step, exactly; 10 steady steps and a profile of 3; then the ``MAP``
      variant the same way; the card's MCD logits and one Adam step held
      against the CPU path with the same weights and masks;
   9. UCI regression (``experiments/uci.py`` through the CLI): configs/uci.yaml
@@ -127,14 +127,14 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      host-seed launch; K3 and SDPA at CivilComments' (16, 12, 300, 64); K2
      at (5, 66,957,317) and (5, 592,130) beside torch.mm; every row of
      configs/amazon.yaml and configs/civilcomments.yaml through ``run.main``
-     at distilbert-base's width, cut to one epoch of 8 steps and 64 test
+     at distilbert-base's width, cut to one epoch of 4 steps and 64 test
      examples (SWAG's collections in proportion), a row at a time with
      every count set to 0 just before and read just after, exact; the
      ``eval``, ``fit_laplace``, ``drop_rates`` and ``multix`` phases on the
      written checkpoints against the runs' own evals; a captured DistilBERT
      MCD step against an eager one bit for bit, a captured loss forward
-     under two keys, the eval runner against the host loop; 12 captured and
-     5 eager steady steps of MAP, MCD, SVGD and LL_SVGD; one step of each
+     under two keys, the eval runner against the host loop; 8 captured and
+     4 eager steady steps of MAP, MCD, SVGD and LL_SVGD; one step of each
      new method on the card against the CPU at one layer of the same width;
  11. the WILDS image tasks: every row of configs/camelyon.yaml and
      configs/fmow.yaml through ``run.main`` at DenseNet-121's full width
@@ -147,8 +147,8 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      and peak memory; the four phases on the written checkpoints against the
      runs' own evals; 4 captured steps against 4 eager ones bit for bit
      (camelyon17 MAP and BBB, fmow MCD under remat ``layer``); the eval
-     runner against the host loop (camelyon17 BBB, fmow MCD); 20 captured
-     and 10 eager steady steps (camelyon17 MAP and BBB, fmow MAP with remat
+     runner against the host loop (camelyon17 BBB, fmow MCD); 8 captured
+     and 4 eager steady steps (camelyon17 MAP and BBB, fmow MAP with remat
      ``layer`` and ``none``, fmow SVGD); K1 on the 121 planes of one
      camelyon17 BBB train forward (batch 32) against its plain version, its
      forward and backward launches timed against the byte bound; K2 at (3,
@@ -156,10 +156,31 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      camelyon17 MAP, BBB (K1, given noise) and Rank1, fmow MAP (remat), SNGP
      and two Adam steps across the schedule's epoch boundary on the card
      against the CPU at batch 4;
- 12. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
-     UCI figures, the WILDS figures and the image figures as JSON lines, the
-     card's name and power limit, one JSON line of kernel figures (K1, K2,
-     K3a, K3b), then the result line ``{"ok": true, "device": {...}}``.
+ 12. the WILDS ResNet-50 tasks: every row of configs/iwildcam.yaml and
+     configs/rxrx1.yaml through ``run.main`` at ResNet-50's full width (stage
+     sizes (3, 4, 6, 3); the yamls' batch 16 / 75, input 448x448 / 256x256,
+     eval batch, lr, S and schedule; synthetic images of the true shapes),
+     cut to one epoch of 4 steps (rxrx1 with ``warmup_steps`` 1, so
+     that the warmup and the cosine both run) and 64 test images,
+     SWAG_LL collecting at every step, MAP twice, a row at a time with every
+     count set to 0 just before and read just after, exact (K2 once an
+     LL_SVGD step; K1 and K3 never); each row's wall time and peak memory,
+     its metrics finite and in range (``macro_f1`` included); the four
+     phases on iwildcam's checkpoints against the runs' own evals; 4
+     captured iwildcam MAP steps against 4 eager ones bit for bit; the eval
+     runner against the host loop (rxrx1 MAP: one padded batch of 75); 8
+     captured and 4 eager steady steps of iwildcam MAP and rxrx1 MAP; K1 on
+     the 54 planes of one iwildcam train forward with every layer
+     variational (``all_layers_bbb``, batch 16) against its plain version,
+     forward and backward timed against the byte bound; K2 at (5, 372,918)
+     beside ``torch.mm``; one step of iwildcam MAP and SNGP and two rxrx1 MAP
+     steps across the warmup's end on the card against the CPU and float64
+     at batch 2;
+ 13. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
+     UCI figures, the WILDS figures, the image figures and the ResNet-50
+     figures as JSON lines, the card's name and power limit, one JSON line
+     of kernel figures (K1, K2, K3a, K3b), then the result line ``{"ok":
+     true, "device": {...}}``.
 Every phase heading prints the seconds since the script started.
 Exits non-zero and prints no result without CUDA or without the package
 beside this file.
@@ -212,9 +233,11 @@ PROFILE_PAD_S = 0.1
 # the Multi-X phase: configs/cifar.yaml's variants (DEFAULT's lr, weight
 # decay and schedule are the port's DEFAULT_CONFIG), each through run_single
 # with device_data, cut to MULTIX (epochs and data size only): 1 epoch of 20
-# steps at batch 128, the test split and five corrupted splits of 250
-# images at S = 50; SWAG's start epoch cut in proportion (250 of 300 -> 0 of
-# 1), so each member collects the epoch's 20 steps
+# steps at batch 128, the test split and two corrupted splits of 250
+# images at S = 50 (intensities 0 and 4, the first and last of DEFAULT's
+# five: a depth cut that pays for the ResNet-50 phase; the runner phase keeps
+# all five); SWAG's start epoch cut in proportion (250 of 300 -> 0 of 1), so
+# each member collects the epoch's 20 steps
 MULTIX_VARIANTS = [
     ("DeepEnsemble", {"model": "map", "members": 5}),
     ("MultiBBB", {"model": "bbb", "members": 5, "prior_std": 1.0, "weight_decay": 0.0, "bbb_mc_samples": 2,
@@ -226,9 +249,10 @@ MULTIX_VARIANTS = [
     ("SWAG", {"model": "swag", "members": 1, "swag_deviation_samples": 30, "swag_start_epoch": 250,
               "swag_lr": 0.0005}),
 ]
-MULTIX = {"epochs": 1, "subsample": 20 * 128, "test_subsample": 250, "seed": 0, "device_data": True}
+MULTIX = {"epochs": 1, "subsample": 20 * 128, "test_subsample": 250, "seed": 0, "device_data": True,
+          "corrupted_intensities": [0, 4]}
 MULTIX_SWAG_START = MULTIX["epochs"] * 250 // 300
-MULTIX_EAGER_STEPS = 5  # an eager MultiBBB step takes about a second
+MULTIX_EAGER_STEPS = 3  # an eager MultiBBB step takes about a second
 # resume: MultiSWAG over 3 epochs of 10 steps, collecting from epoch 1;
 # multix: three MAP runs of one epoch of 10 steps, the test split only
 RESUME = {"epochs": 3, "subsample": 10 * 128, "test_subsample": 100, "seed": 0, "device_data": True,
@@ -238,8 +262,8 @@ MULTIX_CHECK = {"epochs": 1, "subsample": 10 * 128, "test_subsample": 250, "seed
 # the rest of CIFAR: configs/cifar.yaml's rows Rank1, iVON, MultiiVON, SNGP,
 # Laplace and MultiLaplace (DEFAULT's lr, weight decay and schedule are the
 # port's DEFAULT_CONFIG), each through run_single with device_data at the
-# MULTIX cut (1 epoch of 20 steps, six splits of 250 images, S = 50, SNGP's
-# row S = 1)
+# MULTIX cut (1 epoch of 20 steps, three splits of 250 images, S = 50,
+# SNGP's row S = 1)
 SNGP_HEAD = {"num_random_features": 1024, "num_gp_features": -1, "normalize_gp_features": False,
              "ridge_penalty": 1.0, "mean_field_factor": 20.0, "feature_scale": 1.0, "rff_init_std": 0.05}
 IVON_ROW = {"model": "ivon", "members": 1, "lr_schedule": False, "ivon_lr": 0.0001, "ivon_prior_prec": 50,
@@ -889,21 +913,29 @@ def run_slice(torch, cifar, NoiseSource, kernels, variant, label):
         built.state, m = built.method.update(built.state, noise, (xd[idx], yd[idx]))
         return m["loss"]
 
-    steady_steps(torch, step, label, 128)
+    steady_steps(torch, step, label, 128, count=TRAIN_STEPS)
     return built, counts, config, step
+
+
+def per_capture():
+    """The host launches of one runner capture in units of the captured work:
+    ``multistep._WARMUP`` warm-up calls (one), then the capture itself."""
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    return multistep._WARMUP + 1
 
 
 def runner_counts_check(label, counts, config):
     """Host launch counts of the runner phase's run_single: the runners'
-    warm-ups and captures launch through the wrappers (two warm-ups and one
+    warm-ups and captures launch through the wrappers (the warm-up and the
     capture of the step, the same of the eval batch), replays never."""
-    per_capture = 1 + 2  # multistep._WARMUP updates, then the capture
+    captures = per_capture()
     forward = len(bbb_shapes(1))
     if config["model"] == "bbb":
-        want = {"k1_gaussian_sample": per_capture * (config["bbb_mc_samples"] + config["eval_samples"]) * forward,
-                "k1_gaussian_sample_backward": per_capture * config["bbb_mc_samples"] * forward, "k2_svgd_gram": 0}
+        want = {"k1_gaussian_sample": captures * (config["bbb_mc_samples"] + config["eval_samples"]) * forward,
+                "k1_gaussian_sample_backward": captures * config["bbb_mc_samples"] * forward, "k2_svgd_gram": 0}
     else:
-        want = {"k1_gaussian_sample": 0, "k1_gaussian_sample_backward": 0, "k2_svgd_gram": per_capture}
+        want = {"k1_gaussian_sample": 0, "k1_gaussian_sample_backward": 0, "k2_svgd_gram": captures}
     want.update({"k3a_attention_forward": 0, "k3b_attention_backward": 0})
     check(counts == want, f"{label} runner path: host launch counts {counts} (warm-ups and captures; replays "
           f"launch no wrapper)")
@@ -1025,7 +1057,7 @@ def runner_phase(torch, cifar, kernels, variant, label, ours):
         return m["loss"]
 
     captured_step(0)  # the capture
-    times = {"eager": steady_steps(torch, eager_step, f"{label} eager", bs, count=TIMED_STEPS),
+    times = {"eager": steady_steps(torch, eager_step, f"{label} eager", bs, count=TIMED_STEPS // 2),
              "captured": steady_steps(torch, captured_step, f"{label} captured", bs, count=TIMED_STEPS)}
     profiles = {"eager": profile_steps(torch, eager_step, ours, label="eager steps"),
                 "captured": profile_steps(torch, captured_step, ours, label="captured steps (graph replays)")}
@@ -1073,13 +1105,13 @@ def runner_phase(torch, cifar, kernels, variant, label, ours):
 
 def _variant_runs(torch, cifar, kernels, variants=MULTIX_VARIANTS):
     """The variants through ``run_single`` (MULTIX cut, device_data, the
-    test split and DEFAULT's five corrupted splits of 250 images, S = 50,
+    test split and MULTIX's two corrupted splits of 250 images, S = 50,
     or the row's own S), every count set to 0 just before each and read just
     after; SWAG's ``updates`` per member read from the run's saved
     ``swag_final``. Returns {label: {"wall_s", "host_counts", "updates"}}."""
     runs = {}
     per_forward = len(bbb_shapes(1))
-    splits = ["test"] + [f"corrupted{i}" for i in YAML_DEFAULT["corrupted_intensities"]]
+    splits = ["test"] + [f"corrupted{i}" for i in MULTIX["corrupted_intensities"]]
     for label, variant in variants:
         config = {**cifar.DEFAULT_CONFIG, **YAML_DEFAULT, **variant, **MULTIX}
         if "swag_start_epoch" in variant:
@@ -1102,10 +1134,10 @@ def _variant_runs(torch, cifar, kernels, variants=MULTIX_VARIANTS):
         members = config["members"]
         want = {name: 0 for name in kernels}
         if config["model"] == "bbb":
-            # host counts: the step graph's two warm-ups and capture (every
+            # host counts: the step graph's warm-up and capture (every
             # member, mc forwards each) and the eval graph's (S forwards)
-            train_forwards = (1 + 2) * members * config["bbb_mc_samples"]
-            want["k1_gaussian_sample"] = (train_forwards + (1 + 2) * config["eval_samples"]) * per_forward
+            train_forwards = per_capture() * members * config["bbb_mc_samples"]
+            want["k1_gaussian_sample"] = (train_forwards + per_capture() * config["eval_samples"]) * per_forward
             want["k1_gaussian_sample_backward"] = train_forwards * per_forward
         check(counts == want, f"{label} run_single: host launch counts {counts} (warm-ups and captures; replays launch "
                               f"no wrapper)")
@@ -1116,7 +1148,7 @@ def _variant_runs(torch, cifar, kernels, variants=MULTIX_VARIANTS):
             check(len(updates) == members and min(updates) >= 2,
                   f"{label}: SWAG collections per member {updates} (each at least 2)")
         print(f"{label} run_single: {MULTIX['epochs']} epochs x {MULTIX['subsample'] // config['batch_size']} replayed "
-              f"steps x {members} member(s) + 6 splits x {MULTIX['test_subsample']} images x S "
+              f"steps x {members} member(s) + {len(splits)} splits x {MULTIX['test_subsample']} images x S "
               f"{config['eval_samples']} in {wall:.1f} s [{CARD}]")
         runs[label] = {"wall_s": wall, "host_counts": counts, "updates": updates}
         torch.cuda.empty_cache()
@@ -1175,11 +1207,15 @@ def captured_vs_eager(torch, built, batches, label):
 
 def eval_runner_vs_host(torch, cifar, built, config, test, label):
     """The eval runner against the host loop on the same keys, warm (each
-    run twice, in the order runner, host, host, runner): metrics within
-    1e-5 relative, and samples/s of each."""
+    run twice, in the order runner, host, host, runner), on cuDNN's
+    deterministic algorithms, so that both paths run the same convolution
+    algorithms (and the metrics' bin sums are deterministic,
+    ``evals/calibration.py``: they were atomics that moved an ECE by up to
+    1.6e-5): metrics within 1e-5 relative, and samples/s of each."""
     x_test, y_test = test
     evals, rates = {}, {}
     n_samples = x_test.shape[0] * config["eval_samples"]
+    torch.backends.cudnn.deterministic = True
     for mode, device_eval in (("runner", True), ("host loop", False), ("host loop", False), ("runner", True)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1188,6 +1224,7 @@ def eval_runner_vs_host(torch, cifar, built, config, test, label):
         if mode in evals:
             rates[mode] = n_samples / (time.perf_counter() - t0)
         evals[mode] = result
+    torch.backends.cudnn.deterministic = False
     diff = max(abs(evals["runner"][m] - evals["host loop"][m]) / max(abs(evals["host loop"][m]), 1e-30)
                for m in evals["runner"])
     check(diff <= 1e-5, f"{label}: eval runner = host eval loop on the same keys (metrics max rel diff {diff:.2g} "
@@ -1348,7 +1385,7 @@ def multi_x_phase(torch, cifar, kernels, NoiseSource, single_bbb):
     member. Returns the figures."""
     print(f"cut: {MULTIX['epochs']} epochs of {MULTIX['subsample']} synthetic images at batch 128 (configs/cifar.yaml: "
           f"{cifar.DEFAULT_CONFIG['epochs']} epochs of 50,000), each eval split {MULTIX['test_subsample']} images "
-          f"(10,000); widths, batch, eval batch and S as the yaml writes them")
+          f"(10,000), corrupted intensities {MULTIX['corrupted_intensities']} (0-4); widths, batch, eval batch and S as the yaml writes them")
     figures = {"runs": _variant_runs(torch, cifar, kernels)}
     variants = dict(MULTIX_VARIANTS)
     bitwise = {}
@@ -1553,7 +1590,7 @@ def rest_phase(torch, cifar, kernels, NoiseSource):
     figures."""
     print(f"cut: {MULTIX['epochs']} epochs of {MULTIX['subsample']} synthetic images at batch 128 (configs/cifar.yaml: "
           f"{cifar.DEFAULT_CONFIG['epochs']} epochs of 50,000), each eval split {MULTIX['test_subsample']} images "
-          f"(10,000); widths, batch, eval batch and S as the yaml writes them; MultiiVON and MultiLaplace 5 members")
+          f"(10,000), corrupted intensities {MULTIX['corrupted_intensities']} (0-4); widths, batch, eval batch and S as the yaml writes them; MultiiVON and MultiLaplace 5 members")
     figures = {"runs": _variant_runs(torch, cifar, kernels, REST_VARIANTS)}
     variants = dict(REST_VARIANTS)
     bitwise = {}
@@ -2290,13 +2327,13 @@ def run_bert_slice(torch, wilds_task, kernels, variant, label):
 
 # The WILDS text phase: configs/amazon.yaml and configs/civilcomments.yaml
 # through run.main at distilbert-base's full width, each row cut in data
-# and epochs only: one epoch of 8 steps (64 Amazon reviews at batch 8, 128
-# comments at batch 16), 64 test examples (4 Amazon eval batches of 16, 2
-# CivilComments batches of 32) at the rows' S; SWAG's collections in
-# proportion (3 of 5 epochs -> from the cut's first step; 50 collections
-# over 2 epochs -> 4 over 8 steps); MAP run twice (repetitions 2) for the
-# multix phase, every other row once
-WILDS_STEPS = 8
+# and epochs only: one epoch of 4 steps (32 Amazon reviews at batch 8, 64
+# comments at batch 16), 64 test examples (4 Amazon
+# eval batches of 16, 2 CivilComments batches of 32) at the rows' S; SWAG's
+# collections in proportion (3 of 5 epochs -> from the cut's first step; 50
+# collections over 2 epochs -> 4 over 4 steps); MAP run twice (repetitions
+# 2) for the multix phase, every other row once
+WILDS_STEPS = 4
 WILDS_TEST = 64
 WILDS_SWAG = {"swag_start_epoch": 0, "swag_updates": 4}
 WILDS_ROWS = {
@@ -2348,13 +2385,13 @@ def wilds_expected_counts(config, layers):
     train (one update per call: every forward launches K3a once a layer and
     its backward K3b once a layer; BBB's two head layers K1 forward and
     backward; K2 once an SVGD step), the Laplace fit's one forward pass
-    (K3a), and eval through the eval runner, whose host counters see its two
-    warm-ups and its capture, never a replay (S forwards a batch, one for
+    (K3a), and eval through the eval runner, whose host counters see its
+    warm-up and its capture, never a replay (S forwards a batch, one for
     SNGP's multisample; BBB's head K1 frozen, twice a forward)."""
     model = config["model"]
     forwards = {"svgd": config["svgd_particles"], "ll_svgd": config["svgd_particles"],
                 "ivon": config["ivon_mc_samples"], "ll_ivon": config["ivon_mc_samples"]}.get(model, 1)
-    eval_forwards = 3 * (1 if model == "sngp" else config["eval_samples"])
+    eval_forwards = per_capture() * (1 if model == "sngp" else config["eval_samples"])
     k3a = WILDS_STEPS * forwards * layers + (layers if model == "laplace" else 0) + eval_forwards * layers
     bbb = model in ("bbb", "ll_bbb")
     return {
@@ -2575,19 +2612,19 @@ def k2_wilds_times(torch, svgd_kernel, shapes=((5, 66_957_317), (5, 592_130))):
     return rows
 
 
-def wilds_built(torch, wilds_task, task, row, **extra):
+def wilds_built(torch, wilds_task, task, row, n_batches=WILDS_STEPS, **extra):
     """``row`` of configs/<task>.yaml built at full width on the card, with
-    WILDS_STEPS batches of its train split there (an image task's NCHW)."""
+    ``n_batches`` batches of its train split there (an image task's NCHW)."""
     from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
 
     docs = {d["name"]: d.get("params", {}) for d in wilds_yaml_docs(task)}
     bs = docs["DEFAULT"]["batch_size"]
-    x, y, _ = load_wilds(task, "train", subsample=WILDS_STEPS * bs)
+    x, y, _ = load_wilds(task, "train", subsample=n_batches * bs)
     config = {**wilds_task.DEFAULT_CONFIG, **docs["DEFAULT"], **docs[row], "dataset_size": x.shape[0],
               "steps_per_epoch": WILDS_STEPS, "epochs": 1, **extra}
     built = wilds_task.build(task, config, torch.Generator().manual_seed(0), WILDS_STEPS)
     xd, yd = wilds_task._to_device(built, wilds_task.task_images(task, config, x), y)
-    batches = [(xd[i * bs : (i + 1) * bs].clone(), yd[i * bs : (i + 1) * bs].clone()) for i in range(WILDS_STEPS)]
+    batches = [(xd[i * bs : (i + 1) * bs].clone(), yd[i * bs : (i + 1) * bs].clone()) for i in range(n_batches)]
     return built, config, batches
 
 
@@ -2662,13 +2699,18 @@ def wilds_mcd_capture(torch, wilds_task):
 
 def wilds_runner_vs_host(wilds_task, built, config, task, label):
     """``eval_task`` of WILDS_TEST test examples through the eval runner
-    against the host loop on the same keys: metrics within 1e-5 relative."""
+    against the host loop on the same keys, on cuDNN's deterministic
+    algorithms (``eval_runner_vs_host``): metrics within 1e-5 relative."""
+    import torch
+
     from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
 
     xt, yt, mt = load_wilds(task, "test", subsample=WILDS_TEST)
     xt = wilds_task.task_images(task, config, xt)
+    torch.backends.cudnn.deterministic = True
     evals = {mode: wilds_task.eval_task(built, task, {**config, "device_eval": mode}, xt, yt, mt)
              for mode in (True, False)}
+    torch.backends.cudnn.deterministic = False
     diff = max(abs(evals[True][m] - evals[False][m]) / max(abs(evals[False][m]), 1e-30) for m in evals[False]
                if isinstance(evals[False][m], float))
     check(diff <= 1e-5, f"{label}: eval runner = host eval loop on the same keys (metrics max rel diff "
@@ -2888,12 +2930,12 @@ def wilds_phase(torch, kernels, att, sampling, svgd_kernel, wilds_task, NoiseSou
         os.makedirs(out)
     shutil.rmtree(out, ignore_errors=True)
     built, batches = wilds_mcd_capture(torch, wilds_task)
-    figures["steps"] = {"MCD": wilds_step_times(torch, built, batches, "Amazon MCD", captured=12, eager=5)}
+    figures["steps"] = {"MCD": wilds_step_times(torch, built, batches, "Amazon MCD", captured=8, eager=4)}
     del built
     torch.cuda.empty_cache()
     for row, task in (("MAP", "amazon"), ("SVGD", "amazon"), ("LL_SVGD", "civilcomments")):
         built, _, batches = wilds_built(torch, wilds_task, task, row)
-        figures["steps"][row] = wilds_step_times(torch, built, batches, f"{task} {row}", captured=12, eager=5)
+        figures["steps"][row] = wilds_step_times(torch, built, batches, f"{task} {row}", captured=8, eager=4)
         del built, batches
         torch.cuda.empty_cache()
     figures["card_vs_cpu"] = wilds_card_vs_cpu(torch, wilds_task, NoiseSource)
@@ -2906,15 +2948,21 @@ def wilds_phase(torch, kernels, att, sampling, svgd_kernel, wilds_task, NoiseSou
 # shapes; cut in depth only: IMAGE_STEPS steps a row (one epoch), 64 test
 # images, SWAG collecting at every step from the first (its start epoch 0),
 # MultiSWAG at its 5 members, MAP twice (multix)
-IMAGE_STEPS = {"camelyon17": 8, "fmow": 4}
+IMAGE_STEPS = {"camelyon17": 8, "fmow": 4, "iwildcam": 4, "rxrx1": 4}
 IMAGE_ROWS = {
     "camelyon17": ["MAP", "MCD", "SWAG", "MultiSWAG", "BBB", "Rank1", "iVON", "SVGD", "Laplace"],
     "fmow": ["MAP", "MCD", "SWAG", "SWAG_PODS", "SWAG_LL", "BBB", "Rank1", "SVGD", "iVON", "LL_iVON", "Laplace",
              "SNGP"],
 }
 # K1 launches a forward of each task's BBB row: camelyon17's DenseNet-121 is
-# variational throughout (120 convs and the head), fmow's on the head only
-IMAGE_K1_PER_FORWARD = {"camelyon17": 121, "fmow": 1}
+# variational throughout (120 convs and the head), fmow's on the head only;
+# iwildcam and rxrx1 have no BBB row
+IMAGE_K1_PER_FORWARD = {"camelyon17": 121, "fmow": 1, "iwildcam": 0, "rxrx1": 0}
+# the sweep's keys beyond the cut: rxrx1's cosine_warmup over its 4 steps
+# with one step of warmup (its default, 4 // 20, is none), so that the
+# warmup branch (lr 0) and the cosine (lr, then 3/4 and 1/4 of it) both run
+# on the card
+IMAGE_EXTRA = {"rxrx1": {"warmup_steps": 1}}
 # K2's shapes: SVGD's particles x the DenseNet-121 classifier's parameters
 K2_IMAGE_SHAPES = {"camelyon17": (3, 6_955_906), "fmow": (5, 7_017_406)}
 # the card-against-CPU steps: full width at this batch (at least 2: the
@@ -2930,11 +2978,11 @@ def image_sweep_file(task, path):
     docs = wilds_yaml_docs(task)
     default, steps = docs[0], IMAGE_STEPS[task]
     batch = default["params"]["batch_size"]
-    cut = {"epochs": 1, "subsample": steps * batch, "test_subsample": WILDS_TEST}
+    cut = {"epochs": 1, "subsample": steps * batch, "test_subsample": WILDS_TEST, **IMAGE_EXTRA.get(task, {})}
     swag = {"swag_start_epoch": 0, "swag_updates": steps}
     print(f"{task} cut: epochs {default['params']['epochs']} -> 1, subsample -> {cut['subsample']} ({steps} steps of "
           f"{batch}), test_subsample -> {WILDS_TEST}, repetitions {default['repetitions']} -> 1 (MAP 2); SWAG {swag}; "
-          f"the rows' other params kept: {json.dumps(default['params'])}")
+          f"{json.dumps(IMAGE_EXTRA.get(task, {}))}; the rows' other params kept: {json.dumps(default['params'])}")
     out = [{**default, "repetitions": 1, "params": {**default["params"], **cut}}]
     for doc in docs[1:]:
         params = dict(doc["params"])
@@ -2949,21 +2997,22 @@ def image_sweep_file(task, path):
 def image_expected_counts(task, config):
     """The exact host launch counts of one image row's run_single on the card:
     K1 in BBB (IMAGE_K1_PER_FORWARD a forward at mc 1; its backward as many
-    a step), in training and in the eval runner's two warm-ups and capture
-    (S forwards each, never a replay); K2 once an SVGD step; K3 never."""
+    a step), in training and in the eval runner's warm-up and capture
+    (S forwards each, never a replay); K2 once an SVGD or LL_SVGD step; K3
+    never."""
     steps, model = IMAGE_STEPS[task], config["model"]
     per = IMAGE_K1_PER_FORWARD[task] if model == "bbb" else 0
     mc = config.get("bbb_mc_samples", 1)
     return {
-        "k1_gaussian_sample": steps * mc * per + 3 * config["eval_samples"] * per,
+        "k1_gaussian_sample": steps * mc * per + per_capture() * config["eval_samples"] * per,
         "k1_gaussian_sample_backward": steps * mc * per,
-        "k2_svgd_gram": steps if model == "svgd" else 0,
+        "k2_svgd_gram": steps if model in ("svgd", "ll_svgd") else 0,
         "k3a_attention_forward": 0,
         "k3b_attention_backward": 0,
     }
 
 
-def image_cli_rows(torch, task, kernels, out):
+def image_cli_rows(torch, task, kernels, out, names=None):
     """Every row of configs/<task>.yaml through ``run.main`` (``--name`` a
     row at a time), every count set to 0 just before and read just after:
     the counts exact (``image_expected_counts``), the metrics finite and in
@@ -2977,7 +3026,7 @@ def image_cli_rows(torch, task, kernels, out):
     sweep = os.path.join(out, f"{task}.yaml")
     rows = image_sweep_file(task, sweep)
     figures, results = {}, {}
-    for name in IMAGE_ROWS[task]:
+    for name in names or IMAGE_ROWS[task]:
         config = {**wilds_task.DEFAULT_CONFIG, **rows[name]}
         for fn in kernels.values():
             fn.launches = 0
@@ -2993,10 +3042,11 @@ def image_cli_rows(torch, task, kernels, out):
         run_dir = os.path.join(out, f"{name}_0", "rep_0")
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
             result = {k: v for k, v in json.loads(f.read().splitlines()[-1]).items() if not k.startswith("_")}
+        shown = [k for k in ("accuracy", "avg_log_likelihood", "ece", "macro_f1") if k in result]
         check(all(math.isfinite(v) for v in result.values() if isinstance(v, (int, float)))
-              and 0.0 <= result["accuracy"] <= 1.0 and result["avg_log_likelihood"] < 0.0,
-              f"{task} {name}: metrics finite and in range: "
-              f"{json.dumps({k: result[k] for k in ('accuracy', 'avg_log_likelihood', 'ece')})}")
+              and 0.0 <= result["accuracy"] <= 1.0 and result["avg_log_likelihood"] < 0.0
+              and 0.0 <= result.get("macro_f1", 0.0) <= 1.0,
+              f"{task} {name}: metrics finite and in range: {json.dumps({k: result[k] for k in shown})}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         figures[name] = {"wall_s": wall, "peak_gib": peak, "counts": counts}
         results[name] = result
@@ -3024,7 +3074,7 @@ def recorded_noise(torch, NoiseSource, seed):
     return source
 
 
-def image_card_vs_cpu(torch, wilds_task, NoiseSource, sampling):
+def image_card_vs_cpu(torch, wilds_task, NoiseSource, sampling, cases=None, width="DenseNet-121"):
     """One update (two for the epoch boundary) of camelyon17's MAP, BBB and
     Rank1 and fmow's MAP (remat ``layer``), SNGP (the spectral DenseNet) and
     MAP across the schedule's epoch boundary (steps_per_epoch 1: the second
@@ -3057,15 +3107,15 @@ def image_card_vs_cpu(torch, wilds_task, NoiseSource, sampling):
             return sampling.gaussian_sample_plain(act_mean, act_var, b_mean, b_var, eps)
 
     figures = {}
-    cases = [("camelyon17", "MAP", {}, 1), ("camelyon17", "BBB", {}, 1), ("camelyon17", "Rank1", {}, 1),
-             ("fmow", "MAP", {}, 1), ("fmow", "SNGP", {}, 1), ("fmow", "MAP", {"steps_per_epoch": 1}, 2)]
+    cases = cases or [("camelyon17", "MAP", {}, 1), ("camelyon17", "BBB", {}, 1), ("camelyon17", "Rank1", {}, 1),
+                      ("fmow", "MAP", {}, 1), ("fmow", "SNGP", {}, 1), ("fmow", "MAP", {"steps_per_epoch": 1}, 2)]
     for task, row, extra, steps in cases:
         docs = {d["name"]: d.get("params", {}) for d in wilds_yaml_docs(task)}
         config = {**wilds_task.DEFAULT_CONFIG, **docs["DEFAULT"], **docs[row], "dataset_size": 64,
                   "steps_per_epoch": 8, **extra}
         x, y, _ = load_wilds(task, "train", subsample=IMAGE_CPU_BATCH)
         x, y = torch.from_numpy(wilds_task.task_images(task, config, x)), torch.from_numpy(y)
-        label = f"{task} {row}" + (" across the epoch boundary" if steps > 1 else "")
+        label = f"{task} {row}" + (f" over {steps} steps of the schedule" if steps > 1 else "")
         sides, recorded, before = {}, {}, None
         t0 = time.perf_counter()
         for side, device, dtype in (("cpu", "cpu", torch.float32), ("cuda", "cuda", torch.float32),
@@ -3109,7 +3159,7 @@ def image_card_vs_cpu(torch, wilds_task, NoiseSource, sampling):
         check(err["cuda"] <= max(3 * err["cpu"], 1e-2) and loss_err["cuda"] <= max(3 * loss_err["cpu"], 1e-5)
               and counters,
               f"{label}: the update on the card against the float64 step within 3 x the CPU's own fp32 error or 1 %, "
-              f"at DenseNet-121's width, batch {IMAGE_CPU_BATCH} (state change rel L2 err card {err['cuda']:.3g}, CPU "
+              f"at {width}'s width, batch {IMAGE_CPU_BATCH} (state change rel L2 err card {err['cuda']:.3g}, CPU "
               f"{err['cpu']:.3g}; first loss rel err card {loss_err['cuda']:.3g}, CPU {loss_err['cpu']:.3g}, within "
               f"3 x or 1e-5; counters equal)")
         figures[label] = {"card_rel_err": err["cuda"], "cpu_rel_err": err["cpu"], "card_loss_rel_err": loss_err["cuda"],
@@ -3118,10 +3168,12 @@ def image_card_vs_cpu(torch, wilds_task, NoiseSource, sampling):
     return figures
 
 
-def image_k1_checks(torch, sampling, wilds_task, NoiseSource):
-    """K1 at the planes of one camelyon17 BBB train forward (DenseNet-121,
-    batch 32, 96x96: 120 convs and the head, 121 launches; the planes
-    recorded from the model's own forward on the card): outputs against
+def image_k1_checks(torch, sampling, wilds_task, NoiseSource, task="camelyon17", row="BBB", extra=None, planes_want=121,
+                    what="camelyon17 BBB", layers="120 convs and the head"):
+    """K1 at the planes of one ``what`` train forward (by default camelyon17's
+    BBB: DenseNet-121, batch 32, 96x96: 120 convs and the head, 121
+    launches; the planes recorded from the model's own forward on the card,
+    row ``row`` of configs/<task>.yaml with ``extra``): outputs against
     ``gaussian_sample_plain`` with given noise (1e-6 absolute), gradients
     against the plain autograd (1e-5 relative), a DeviceSeed draw against
     the same z given, bit for bit; then the 121 forward launches and the 121
@@ -3139,13 +3191,13 @@ def image_k1_checks(torch, sampling, wilds_task, NoiseSource):
                            None if b_var is None else b_var.detach().clone()))
             return super().gaussian(act_mean, act_var, b_mean, b_var, train, freeze_on_eval)
 
-    built, config, batches = wilds_built(torch, wilds_task, "camelyon17", "BBB")
+    built, config, batches = wilds_built(torch, wilds_task, task, row, **(extra or {}))
     with torch.no_grad():
         built.model.apply(built.state.params, {}, Recording(key=keys.as_key(1, "cuda")), batches[0][0], train=True)
+    batch = batches[0][0].shape[0]
     del built, batches
     torch.cuda.empty_cache()
-    check(len(planes) == IMAGE_K1_PER_FORWARD["camelyon17"],
-          f"K1: one camelyon17 BBB train forward hands K1 {len(planes)} planes (120 convs and the head)")
+    check(len(planes) == planes_want, f"K1: one {what} train forward hands K1 {len(planes)} planes ({layers})")
     n_elem = sum(m.numel() for m, _, _, _ in planes)
     n_bytes = sum(12 * m.numel() + (8 * m.shape[1] if bm is not None else 0) for m, _, bm, _ in planes)
     dev = torch.device("cuda")
@@ -3170,7 +3222,7 @@ def image_k1_checks(torch, sampling, wilds_task, NoiseSource):
         got = torch.autograd.grad((drawn * g).sum(), flat)
         bitwise &= torch.equal(drawn, given) and all(torch.equal(a, b) for a, b in zip(got, want))
     check(worst <= 1e-6 * scale and grad_worst <= 1e-5 and bitwise,
-          f"K1 at one camelyon17 BBB forward's 121 planes ([32, C, H, W], {n_elem} elements) = plain (max abs err "
+          f"K1 at one {what} forward's {len(planes)} planes ([{batch}, C, H, W], {n_elem} elements) = plain (max abs err "
           f"{worst:.3g} <= 1e-6 of the largest output, {scale:.3g}, as the planes' outputs exceed 1; gradients rel "
           f"err {grad_worst:.3g} <= 1e-5); DeviceSeed draws and gradients = the same z given, bit for bit")
     layers = planes
@@ -3194,7 +3246,7 @@ def image_k1_checks(torch, sampling, wilds_task, NoiseSource):
                           "backward": lambda: graph_ms(torch, kernel_backward, reps=10)}, rounds=1)
     bound = k1_bound_ms(n_elem, n_bytes)
     ms, plain_ms, back_ms = times["kernel"][0], times["plain"][0], times["backward"][0]
-    print(f"K1 one camelyon17 BBB train forward at batch 32 ({len(layers)} launches, {n_elem} elements, {n_bytes} "
+    print(f"K1 one {what} train forward at batch {batch} ({len(layers)} launches, {n_elem} elements, {n_bytes} "
           f"bytes): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, backward kernels {back_ms:.4f} ms, bound "
           f"{bound:.4f} ms (forward at {100 * bound / ms:.0f}% of it, backward {100 * bound / back_ms:.0f}%) [{CARD}]")
     return {"launches_per_forward": len(layers), "elements": n_elem, "bytes": n_bytes, "max_abs_err": worst,
@@ -3251,13 +3303,14 @@ def image_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
                              ("fmow", "MAP", {}), ("fmow", "MAP", {"conv_remat": "none"}), ("fmow", "SVGD", {})):
         label = f"{task} {row}" + (" remat none" if extra else (" remat layer" if task == "fmow" else ""))
         torch.cuda.reset_peak_memory_stats()
-        built, config, batches = wilds_built(torch, wilds_task, task, row, **extra)
+        # the rows' train split (IMAGE_STEPS batches), which the loader keeps
+        built, config, batches = wilds_built(torch, wilds_task, task, row, n_batches=IMAGE_STEPS[task], **extra)
         if (task, row) in (("camelyon17", "MAP"), ("camelyon17", "BBB"), ("fmow", "MCD")):
             captured_vs_eager(torch, built, batches, f"{label} (DenseNet-121)")
         if (task, row) in (("camelyon17", "BBB"), ("fmow", "MCD")):
             figures["runner_vs_host"][label] = wilds_runner_vs_host(wilds_task, built, config, task, label)
         if row != "MCD":
-            figures["steps"][label] = wilds_step_times(torch, built, batches, label, k=2)
+            figures["steps"][label] = wilds_step_times(torch, built, batches, label, captured=8, eager=4, k=2)
             figures["steps"][label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         del built, batches
         release()
@@ -3266,6 +3319,107 @@ def image_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
     figures["k2"] = k2_wilds_times(torch, svgd_kernel, image_k2_shapes(torch, wilds_task))
     release()
     figures["card_vs_cpu"] = image_card_vs_cpu(torch, wilds_task, NoiseSource, sampling)
+    return figures
+
+
+# the ResNet-50 phase (phase 12): configs/iwildcam.yaml and configs/rxrx1.yaml
+# at ResNet-50's full width (stage sizes (3, 4, 6, 3)), the yamls' batch
+# (16 / 75) and input (448x448 / 256x256), eval batch, lr, S and schedule,
+# synthetic data of the true shapes; cut in depth only (IMAGE_STEPS steps a
+# row, one epoch, 64 test images, SWAG_LL collecting from the first step, MAP
+# twice, rxrx1's warmup_steps 1: IMAGE_EXTRA)
+RESNET_ROWS = {
+    "iwildcam": ["MAP", "MCD", "SWAG_LL", "SWAG_LL_PODS", "LL_SVGD", "LL_iVON", "SNGP", "Laplace"],
+    "rxrx1": ["MAP", "MCD", "SWAG_LL", "LL_iVON", "SNGP", "Laplace"],
+}
+# K1 on one iwildcam BBB train forward with every layer variational (the
+# engine's all_layers_bbb, which no yaml row sets): 53 convs and the head
+RESNET_K1_PER_FORWARD = 54
+# K2's shape in iwildcam's LL_SVGD: 5 head particles x ResNet-50's Dense_0
+# (2048 -> 182)
+K2_RESNET_SHAPE = (5, 372_918)
+
+
+def resnet_k2_shapes(torch):
+    """K2's ResNet-50 shape, its P counted from the port's iwildcam head."""
+    from beyond_deep_ensembles_tpu_torch.models.resnet import ResNet50
+
+    head = ResNet50(182, stage_sizes=(1, 1), generator=torch.Generator()).Dense_0
+    p = sum(q.numel() for q in head.parameters()) - 182 * 512 + 182 * 2048
+    check(p == K2_RESNET_SHAPE[1], f"iwildcam LL_SVGD: a head particle is ResNet-50's Dense_0, {p} parameters = "
+                                   f"K2's P {K2_RESNET_SHAPE[1]}")
+    return [K2_RESNET_SHAPE]
+
+
+def keys_card_check(torch):
+    """``keys.bits`` on the card (its int32 hash: the dropout
+    masks of the MCD rows) against its int64 form on the card and against
+    the CPU's values, for a device key and a host key with their high bits
+    set and a stream past 2^31: bit for bit."""
+    from beyond_deep_ensembles_tpu_torch import keys
+
+    key, stream, n = keys.fold_in(keys.MASK, 5), (1 << 31) + 7, 10_000_019
+    lo, hi = key & keys._M32, (key >> 32) ^ keys._mix32(stream & keys._M32)
+    want = keys._mix32(keys._mix32(torch.arange(n, dtype=torch.int64, device="cuda") ^ lo) ^ hi)
+    got = [keys.bits(keys.as_key(key, "cuda"), stream, n), keys.bits(key, stream, n, device="cuda")]
+    cpu = keys.bits(key, stream, n)
+    check(all(torch.equal(g, want) for g in got) and torch.equal(got[0].cpu(), cpu),
+          f"keys.bits on the card (int32 hash) = its int64 form and = the CPU's, bit for bit ({n} values)")
+
+
+def resnet_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
+    """Both ResNet-50 yamls through run.main at full width with exact launch
+    counts, the checkpoint phases on iwildcam, captured steps against eager
+    ones (iwildcam MAP), the eval runner against the host loop (rxrx1 MAP:
+    one padded batch of 75), steady steps (iwildcam MAP, rxrx1 MAP), K1 at
+    one all-layers-BBB iwildcam forward's planes, K2 at iwildcam LL_SVGD's
+    shape, and one step of iwildcam MAP, rxrx1 MAP under its schedule and
+    iwildcam SNGP against the CPU and float64."""
+    import gc
+    import shutil
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"(at {time.perf_counter() - T_START:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB held)")
+
+    out = os.path.join(BUILD, "resnet_cli")
+    figures = {"rows": {}, "phases": {}, "steps": {}, "runner_vs_host": {}}
+    keys_card_check(torch)
+    release()
+    for task, names in RESNET_ROWS.items():
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        rows, results, row_figures = image_cli_rows(torch, task, kernels, out, names)
+        figures["rows"][task] = row_figures
+        if task == "iwildcam":
+            figures["phases"][task] = wilds_phases(torch, task, rows, results, out)
+        print(f"{task} rows{' and phases' if task == 'iwildcam' else ''}: {time.perf_counter() - t0:.1f} s [{CARD}]")
+        release()
+    shutil.rmtree(out, ignore_errors=True)
+    for task in RESNET_ROWS:
+        label = f"{task} MAP"
+        torch.cuda.reset_peak_memory_stats()
+        built, config, batches = wilds_built(torch, wilds_task, task, "MAP", n_batches=IMAGE_STEPS[task])
+        if task == "iwildcam":
+            captured_vs_eager(torch, built, batches, f"{label} (ResNet-50)")
+        else:
+            figures["runner_vs_host"][label] = wilds_runner_vs_host(wilds_task, built, config, task, label)
+        figures["steps"][label] = wilds_step_times(torch, built, batches, label, captured=8, eager=4, k=2)
+        figures["steps"][label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del built, batches
+        release()
+    figures["k1"] = image_k1_checks(torch, sampling, wilds_task, NoiseSource, task="iwildcam", row="MAP",
+                                    extra={"model": "bbb", "all_layers_bbb": True, "n_batches": IMAGE_STEPS["iwildcam"]}, planes_want=RESNET_K1_PER_FORWARD,
+                                    what="iwildcam all-layers BBB", layers="53 convs and the head")
+    release()
+    figures["k2"] = k2_wilds_times(torch, svgd_kernel, resnet_k2_shapes(torch))
+    release()
+    figures["card_vs_cpu"] = image_card_vs_cpu(
+        torch, wilds_task, NoiseSource, sampling, width="ResNet-50",
+        cases=[("iwildcam", "MAP", {}, 1), ("iwildcam", "SNGP", {}, 1),
+               ("rxrx1", "MAP", {"steps_per_epoch": 1, "epochs": 2, "warmup_steps": 1}, 2)])
     return figures
 
 
@@ -3381,7 +3535,7 @@ def main() -> int:
         check(all(counts[name] == c for name, c in no_k1.items()) and counts["k2_svgd_gram"] == (0, 0),
               f"{label}: K1 and K2 not launched")
         if variant is MCD_VARIANT:
-            steady_steps(torch, step, label, config["batch_size"])
+            steady_steps(torch, step, label, config["batch_size"], count=TRAIN_STEPS)
             profile_steps(torch, step, ours=("attn_forward", "attn_backward"))
         del built, step
         torch.cuda.empty_cache()
@@ -3404,6 +3558,15 @@ def main() -> int:
                     for name in kernels}
     check(image_counts["k3a_attention_forward"] == image_counts["k3b_attention_backward"] == 0,
           "K3 never launched on the image rows")
+
+    phase("WILDS ResNet-50 tasks: configs/iwildcam.yaml and configs/rxrx1.yaml through the CLI")
+    resnet = resnet_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
+    print(json.dumps({"card": CARD, "resnet": resnet}))
+    resnet_counts = {name: sum(row["counts"][name] for rows in resnet["rows"].values() for row in rows.values())
+                     for name in kernels}
+    check(resnet_counts["k3a_attention_forward"] == resnet_counts["k3b_attention_backward"] == 0
+          and resnet_counts["k1_gaussian_sample"] == resnet_counts["k1_gaussian_sample_backward"] == 0,
+          "K1 and K3 never launched on the ResNet-50 rows (no row is BBB)")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(CARD)
@@ -3465,6 +3628,12 @@ def main() -> int:
             "image_launches": image_counts["k1_gaussian_sample"],
             "image_backward_launches": image_counts["k1_gaussian_sample_backward"],
             "image_forward": image["k1"],
+            # the ResNet-50 phase: no yaml row is BBB (0 launches over both
+            # yamls' rows); one iwildcam train forward with every layer
+            # variational (all_layers_bbb: 53 convs and the head, batch 16,
+            # 448x448) against the plain version and the byte bound
+            "resnet_launches": resnet_counts["k1_gaussian_sample"],
+            "resnet_forward": resnet["k1"],
         },
         {
             "name": "k2_svgd_gram",
@@ -3496,6 +3665,10 @@ def main() -> int:
             # beside torch.mm
             "image_launches": image_counts["k2_svgd_gram"],
             "image_shapes": image["k2"],
+            # the ResNet-50 phase: iwildcam's LL_SVGD (5 head particles of
+            # Dense_0, once a step) and K2 at its shape beside torch.mm
+            "resnet_launches": resnet_counts["k2_svgd_gram"],
+            "resnet_shapes": resnet["k2"],
         },
         *(
             {

@@ -139,7 +139,7 @@ def test_unported_phases_and_missing_card(tmp_path):
     log = VoidLog()
     for phase in ("fit_laplace", "drop_rates", "eval", "multix"):
         with pytest.raises(NotImplementedError, match="item 15"):
-            run.run_phase("iwildcam", phase, {"model": "map"}, [str(tmp_path)], log)
+            run.run_phase("poverty", phase, {"model": "map"}, [str(tmp_path)], log)
     with pytest.raises(ValueError, match="not supported"):
         run.run_phase("uci", "multix", {}, [str(tmp_path)], log)
     with pytest.raises(ValueError, match="unknown task"):

@@ -37,6 +37,13 @@ from beyond_deep_ensembles_tpu_torch.utils.schedules import exponential_schedule
 LR, DECAY, SPE, STEPS, WD = 1e-2, 0.5, 3, 8, 1e-3
 
 
+def _staircase():
+    """Adam's schedule (count -> lr): ``LR`` times the staircase factor of
+    the epoch, as the WILDS engine's ``_scheduled_lr`` makes it."""
+    factor = exponential_schedule(DECAY)
+    return lambda count: LR * factor(count // SPE)
+
+
 def _grads(d=37):
     rng = np.random.RandomState(5)
     return rng.standard_normal(d).astype(np.float32), [rng.standard_normal(d).astype(np.float32) for _ in range(STEPS)]
@@ -60,7 +67,7 @@ def test_adam_with_schedule_matches_optax():
     jp, st = jnp.asarray(p0), None
     st = tx.init(jp)
     param = torch.nn.Parameter(torch.from_numpy(p0.copy()))
-    opt = Adam([param], LR, weight_decay=WD, schedule=exponential_schedule(DECAY), steps_per_epoch=SPE)
+    opt = Adam([param], LR, weight_decay=WD, schedule=_staircase())
     for g in grads:
         upd, st = tx.update(jnp.asarray(g), st, jp)
         jp = optax.apply_updates(jp, upd)
@@ -78,7 +85,7 @@ def test_adam_schedule_reads_the_device_count_in_the_runner():
 
     def make():
         param = torch.nn.Parameter(torch.from_numpy(p0.copy()))
-        return param, Adam([param], LR, weight_decay=WD, schedule=exponential_schedule(DECAY), steps_per_epoch=SPE)
+        return param, Adam([param], LR, weight_decay=WD, schedule=_staircase())
 
     def update(state, noise, batch):
         param, opt = state

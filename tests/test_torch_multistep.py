@@ -328,11 +328,11 @@ def test_nonfinite_batch_keeps_params_momentum_and_count(model):
 @pytest.mark.parametrize("kind", [{"model": "swag"}, {"model": "map", "members": 2}, {"model": "swag", "members": 2}],
                          ids=["swag", "deep_ensemble", "multiswag"])
 def test_warm_up_leaves_the_state_as_it_found_it(kind):
-    """A capture's warm-up (two updates) writes back every tensor the
-    update wrote, as the state lists them: SWAG's moments, ring and
-    counters (collecting from the first step here), every member's
-    parameters and optimizer; ``step`` too. The same two updates without
-    the write-back do move all of them."""
+    """A capture's warm-up (``multistep._WARMUP`` updates) writes back every
+    tensor the update wrote, as the state lists them: SWAG's moments, ring
+    and counters (collecting from the first step here), every member's
+    parameters and optimizer; ``step`` too. Two updates without the
+    write-back do move all of them."""
     config = {**cifar.DEFAULT_CONFIG, **kind, "swag_start_epoch": 0, "epochs": 1, "dataset_size": 100,
               "augment": False}
     built = cifar.build(config, torch.Generator().manual_seed(0), 1, device="cpu")

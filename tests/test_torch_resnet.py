@@ -15,7 +15,7 @@ from _torch_parity import assert_close, install_feed, load_jax_params, nchw, ran
 from beyond_deep_ensembles_tpu.models.resnet import ResNet20 as JaxResNet20
 from beyond_deep_ensembles_tpu.nn.base import Model as JaxModel
 from beyond_deep_ensembles_tpu_torch.models.jax_convert import params_from_jax
-from beyond_deep_ensembles_tpu_torch.models.resnet import ResNet20
+from beyond_deep_ensembles_tpu_torch.models.resnet import ResNet20, ResNet50
 from beyond_deep_ensembles_tpu_torch.nn.base import Model
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 
@@ -77,8 +77,10 @@ def test_state_dict_keys_are_flax_paths(jax_model_and_params):
 
 
 def test_not_ported_kinds_raise():
+    """relu and batch_static are ported with ResNet-50 (tests/test_torch_resnet50.py);
+    the norm 'none' (the JAX package's benchmark knob) and ResNet-50's remat are not."""
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError):
-        ResNet20(10, "relu", "frn", "rank1", components=4, generator=gen)
+        ResNet20(10, "relu", "none", "rank1", components=4, generator=gen)
     with pytest.raises(NotImplementedError):
-        ResNet20(10, "swish", "batch_static", "bbb", generator=gen)
+        ResNet50(10, stage_sizes=(1, 1), remat="stage", generator=gen)

@@ -215,13 +215,13 @@ def test_build_heads_and_frozen_encoder():
 @pytest.mark.parametrize(
     "task,override",
     [
-        ("iwildcam", {}),
+        ("iwildcam", {"compute_dtype": "bf16"}),
         ("camelyon17", {"compute_dtype": "bf16"}),
-        ("fmow", {"lr_schedule_kind": "cosine_warmup"}),
-        ("rxrx1", {}),
+        ("fmow", {"no_norm": True}),
+        ("rxrx1", {"conv_remat": "block"}),
         ("poverty", {}),
         ("amazon", {"compute_dtype": "bf16"}),
-        ("amazon", {"lr_schedule_kind": "cosine_warmup"}),
+        ("camelyon17", {"pretrained_path": "/nonexistent"}),
         ("amazon", {"data_parallel": True, "visible_cards": 2}),
         ("camelyon17", {"static_bn": False}),
         ("civilcomments", {"model": "swag", "ring_shard": True, "visible_cards": 2}),
