@@ -1,11 +1,12 @@
 """WILDS experiment runner: the DistilBERT text tasks, Amazon and
-CivilComments, the DenseNet-121 image tasks, Camelyon17 and FMoW, and the
-ResNet-50 image tasks, iWildCam and RxRx1, under every method of
-``configs/{amazon,civilcomments,camelyon,fmow,iwildcam,rxrx1}.yaml``.
+CivilComments, the DenseNet-121 image tasks, Camelyon17 and FMoW, the
+ResNet-50 image tasks, iWildCam and RxRx1, and PovertyMap's ResNet-18
+regression, under every method of
+``configs/{amazon,civilcomments,camelyon,fmow,iwildcam,rxrx1,poverty}.yaml``.
 
 Counterpart of ``beyond_deep_ensembles_tpu/experiments/wilds_task.py``
-(reference experiments/{amazon,civilcomments,camelyon,fmow,iwildcam,rxrx1}/
-{*.py,models.py,*.yaml}), for ``task`` ``amazon`` (L = 512, 5 classes, the
+(reference experiments/{amazon,civilcomments,camelyon,fmow,iwildcam,rxrx1,
+poverty}/{*.py,models.py,*.yaml}), for ``task`` ``amazon`` (L = 512, 5 classes, the
 10th-percentile user accuracy), ``civilcomments`` (L = 300, 2 classes, the
 worst-group accuracy), ``camelyon17`` (96x96, 2 classes, a from-scratch
 DenseNet-121 under SGD with momentum, BBB and Rank-1 variational throughout,
@@ -13,7 +14,10 @@ frozen dropout masks at eval), ``fmow`` (224x224, 62 classes, the
 worst-region accuracy, Adam under the ``exponential`` schedule),
 ``iwildcam`` (448x448, 182 classes, macro-F1, Adam at a constant rate) and
 ``rxrx1`` (256x256, 1139 classes, Adam under ``cosine_warmup``, the linear
-warmup and cosine decay stepped per batch); on fmow, iwildcam and rxrx1 BBB
+warmup and cosine decay stepped per batch) and ``poverty`` (224x224x8, one
+Gaussian output per image from a from-scratch ResNet-18 under GaussLayer,
+the NLL loss, ``RegressionResults`` and the worst urban/rural Pearson r,
+one fold of five per run); on fmow, iwildcam and rxrx1 BBB
 and Rank-1 sit on the head only unless ``all_layers_bbb``. Ported: ``build``
 -> ``train`` -> ``eval_task`` / ``run_single`` with ``model`` ``map``,
 ``mcd`` (``dropout_p``; ``last_layer_mcd`` keeps the encoder's dropouts off
@@ -24,9 +28,13 @@ spectral DenseNet or ResNet-50 under the SNGP head for the images),
 dense layers, the image head the backbone's ``Dense_0``), each with
 ``members`` > 1 as a ``deep_ensemble`` (``svgd`` with one: its particles are
 its ensemble); ``ring_dtype``; DenseNet's ``conv_remat``,
-``densenet_incremental_bn`` and ``densenet_concat_mode``; ResNet-50's
-``torchvision_arch`` and a staged ``$BDE_DATA_DIR/pretrained/resnet50.pth``
-(``models/torch_convert.py``; ``torchvision_arch`` then defaults on); the
+``densenet_incremental_bn`` and ``densenet_concat_mode``; DistilBERT's
+``bert_remat``; ResNet-50's ``torchvision_arch``; the staged weights the
+JAX package loads, ``$BDE_DATA_DIR/pretrained/resnet50.pth`` (iwildcam,
+rxrx1; ``torchvision_arch`` then defaults on) and ``densenet121.pth``
+(fmow) through ``models/torch_convert.py``, and
+``$BDE_DATA_DIR/distilbert-base-uncased/pytorch_model.bin`` (the text
+tasks) through ``models/bert.py::load_hf_weights``; the
 ``exponential`` and ``cosine_warmup`` schedules (Adam's, SGD's and iVON's lr
 from the device count); periodic checkpoints with auto-resume and the
 ``{model}_final`` artifact (``checkpoint_dir``, ``checkpoint_interval``); the
@@ -42,12 +50,11 @@ capture a step). Every path draws its noise in key mode from
 ``data_parallel`` and ``ring_shard`` are no-ops on one device, as in JAX,
 and raise with more than one visible card (ROADMAP item 18).
 
-Not ported yet, each raising ``NotImplementedError``: poverty (ResNet-18 and
-the regression eval, ROADMAP item 15d), the other pretrained weights
-(DistilBERT's ``load_hf_weights`` and fmow's ``densenet121.pth``, item 15e),
-bf16 compute (item 13), DistilBERT remat, ResNet-50 remat, the DenseNet's
-running-statistics BatchNorm (``static_bn: false``) and the benchmark knob
-``no_norm``.
+Not ported yet, each raising ``NotImplementedError``: bf16 compute (ROADMAP
+item 13), ResNet-50 remat, the DenseNet's running-statistics BatchNorm
+(``static_bn: false``) and the benchmark knob ``no_norm``. ``model: sngp``
+on poverty raises too: the JAX package's own run fails there (its SNGP
+head's one output meets the regression eval), so there is no reference.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed. The text data
 sets move to the device once and each step gathers its batch there; an image
@@ -74,6 +81,7 @@ from ..data import wilds as wilds_data
 from ..data.native_loader import shuffled_indices
 from ..data.uci import data_dir
 from ..evals.classification import EvalResult, analyze_output, bayesian_model_average
+from ..evals.regression import RegressionResults, nll_loss
 from ..methods.api import GaussianPrior, LossOutput, PosteriorMethod
 from ..methods.bbb import bbb_method
 from ..methods.ensemble import EnsembleState, deep_ensemble, predict
@@ -84,11 +92,12 @@ from ..methods.map import map_method
 from ..methods.sngp import sngp_method
 from ..methods.svgd import svgd_method
 from ..methods.swag import swag_method
-from ..models.bert import TINY_CONFIG, BertClassifier, BertSNGP, DistilBertConfig
+from ..models.bert import TINY_CONFIG, BertClassifier, BertSNGP, DistilBertConfig, load_hf_weights
 from ..models.densenet import DenseNetClassifier, DenseNetSNGP
-from ..models.resnet import ResNet50, ResNet50SNGP
+from ..models.resnet import ResNet18, ResNet50, ResNet50SNGP
 from ..models.torch_convert import load_torch_backbone
-from ..nn.base import Model
+from ..nn.base import Model, add_auto_named
+from ..nn.gauss import GaussLayer
 from ..nn.gaussian import NoiseSource
 from ..parallel.multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches
 from ..utils import checkpoint as ckpt
@@ -138,12 +147,11 @@ LAPLACE_BATCH = 256
 TEXT_TASKS = ("amazon", "civilcomments")
 DENSENET_TASKS = ("camelyon17", "fmow")
 RESNET50_TASKS = ("iwildcam", "rxrx1")
-IMAGE_TASKS = DENSENET_TASKS + RESNET50_TASKS
+IMAGE_TASKS = DENSENET_TASKS + RESNET50_TASKS + ("poverty",)
 # the pretrained-backbone tasks put BBB and Rank-1 on the head of a plain net
 # (JAX :453-483; reference iwildcam/models.py:101-114, rxrx1/models.py:82-92,
 # fmow/models.py:92-102) unless all_layers_bbb (BBB only)
 HEAD_ONLY_TASKS = ("iwildcam", "rxrx1", "fmow")
-_WAITING = {"poverty": "ResNet-18 and the regression eval, ROADMAP item 15d"}
 MODELS = ("map", "mcd", "swag", "bbb", "rank1", "svgd", "ivon", "sngp", "laplace",
           "swag_ll", "ll_bbb", "ll_ivon", "ll_svgd")
 
@@ -162,10 +170,14 @@ def _bert_config(config: dict) -> DistilBertConfig:
 def _not_ported(task: str, config: dict) -> None:
     if task not in wilds_data.TASKS:
         raise ValueError(f"unknown task {task!r}")
-    if task in _WAITING:
-        raise NotImplementedError(f"task {task!r}: not ported yet ({_WAITING[task]})")
     if config["model"] not in MODELS:
         raise ValueError(f"unknown model {config['model']!r}")
+    if task == "poverty" and config["model"] == "sngp":
+        # no configs/poverty.yaml row asks for it
+        raise NotImplementedError(
+            "model 'sngp' on poverty: the JAX package's own run fails there (its SNGP head's single output "
+            "meets the regression eval, which wants GaussLayer's (mean, std) pair: \"TypeError: sub got "
+            "incompatible shapes for broadcasting: (8, 1), (2, 8)\"), so it has no reference to port")
     if config["model"] == "svgd" and config.get("members", 1) != 1:
         # the JAX build ignores members for svgd; the port refuses
         raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
@@ -174,8 +186,6 @@ def _not_ported(task: str, config: dict) -> None:
     if config.get("lr_schedule_kind", "none") not in ("none", "exponential", "cosine_warmup"):
         raise ValueError(f"unknown lr_schedule_kind {config['lr_schedule_kind']!r}")
     refuse_multi_device(config)
-    if _pretrained_path(task, config) and task not in RESNET50_TASKS:
-        raise NotImplementedError(f"pretrained {task} weights: not ported yet (ROADMAP item 15e)")
 
 
 def _pretrained_path(task: str, config: dict):
@@ -183,23 +193,34 @@ def _pretrained_path(task: str, config: dict):
     ``_pretrained_path``, :337-363): ``pretrained_path``, else, unless
     ``pretrained: false``, iwildcam's and rxrx1's
     ``$BDE_DATA_DIR/pretrained/resnet50.pth``, fmow's
-    ``$BDE_DATA_DIR/pretrained/densenet121.pth`` or the text tasks'
-    ``$BDE_DATA_DIR/distilbert-base-uncased/pytorch_model.bin`` where the
-    file exists. camelyon17 trains from scratch. The port loads the
-    ResNet-50 file (``models/torch_convert.py``) and refuses the others."""
+    ``$BDE_DATA_DIR/pretrained/densenet121.pth`` or, for the text tasks,
+    the directory ``$BDE_DATA_DIR/distilbert-base-uncased`` where it holds
+    ``pytorch_model.bin``, each where the file exists. camelyon17 and
+    poverty train from scratch."""
     if config.get("pretrained_path"):
         return config["pretrained_path"]
     if not config.get("pretrained", True):
         return None
-    if task in RESNET50_TASKS:
-        path = os.path.join(data_dir(), "pretrained", "resnet50.pth")
-    elif task == "fmow":
-        path = os.path.join(data_dir(), "pretrained", "densenet121.pth")
-    elif task in TEXT_TASKS:
-        path = os.path.join(data_dir(), "distilbert-base-uncased", "pytorch_model.bin")
-    else:
+    if task in TEXT_TASKS:
+        path = os.path.join(data_dir(), "distilbert-base-uncased")
+        return path if os.path.exists(os.path.join(path, "pytorch_model.bin")) else None
+    name = {"iwildcam": "resnet50.pth", "rxrx1": "resnet50.pth", "fmow": "densenet121.pth"}.get(task)
+    if name is None:
         return None
+    path = os.path.join(data_dir(), "pretrained", name)
     return path if os.path.exists(path) else None
+
+
+def _load_pretrained(task: str, module: nn.Module, path: str) -> None:
+    """``module`` filled in place from ``path`` (JAX ``_load_pretrained``,
+    :366-373): a text task's encoder from the HuggingFace checkpoint in the
+    directory ``path`` (``models/bert.py::load_hf_weights``), an image
+    backbone from a torchvision-layout state dict
+    (``models/torch_convert.py::load_torch_backbone``)."""
+    if task in TEXT_TASKS:
+        load_hf_weights(module, path)
+    else:
+        load_torch_backbone(path, module)
 
 
 def task_images(task: str, config: dict, x: np.ndarray) -> np.ndarray:
@@ -233,6 +254,29 @@ def _resnet50_stages(config: dict):
     return (1, 1) if config.get("tiny", False) else (3, 4, 6, 3)
 
 
+class PovertyNet(nn.Module):
+    """PovertyMap's regression net (JAX ``_make_backbone``'s ``PovertyNet``,
+    :187-207; reference poverty/models.py:47): a ``ResNet18_0`` of one
+    output on 8 channels, ``batch_static`` norms, layers of ``kind``, under
+    ``GaussLayer_0(init_std, learn_var)``, whose ``rho__mle`` the SVGD,
+    iVON, SWAG and BBB methods leave out of their posteriors.
+    ``forward(x, noise, train, component)`` -> ``[B, 1, 2]`` (mean,
+    std)."""
+
+    def __init__(self, kind: str, components: int, dropout_p, init_std: float, learn_var: bool, *,
+                 generator: torch.Generator):
+        super().__init__()
+        net = add_auto_named(self, ResNet18(1, norm="batch_static", conv_kind=kind, components=components,
+                                            dropout_p=dropout_p, generator=generator))
+        gauss = add_auto_named(self, GaussLayer(std_init=init_std, learn_var=learn_var))
+        # a tuple keeps the references out of the state_dict (one key per parameter)
+        self._layers = (net, gauss)
+
+    def forward(self, x, noise, train: bool = True, component=None):
+        net, gauss = self._layers
+        return gauss(net(x, noise, train=train, component=component), noise, train=train)
+
+
 def _make_backbone(task: str, config: dict, generator: torch.Generator, kind: str = "plain",
                    head_kind: Optional[str] = None, dropout_p=None) -> nn.Module:
     """The task's classifier with layers of ``kind`` and a head of
@@ -245,9 +289,14 @@ def _make_backbone(task: str, config: dict, generator: torch.Generator, kind: st
     ``remat`` from ``conv_remat``), or ResNet-50 for iwildcam and rxrx1
     (``batch_static`` norms under ``static_bn``, else FRN; the torchvision
     topology under ``torchvision_arch``; rescaled per-example dropout at
-    eval, reference iwildcam/models.py:75; JAX :162-186)."""
+    eval, reference iwildcam/models.py:75; JAX :162-186), or poverty's
+    :class:`PovertyNet` (layers of ``kind`` throughout, ``head_kind``
+    unused, as in JAX)."""
     components = config.get("rank1_components", 1)
     classes = wilds_data.TASKS[task].classes
+    if task == "poverty":
+        return PovertyNet(kind, components, dropout_p, config.get("init_std", 0.1), config.get("learn_var", True),
+                          generator=generator)
     if task in RESNET50_TASKS:
         return ResNet50(
             classes,
@@ -301,11 +350,16 @@ def _make_sngp(task: str, config: dict, generator: torch.Generator) -> nn.Module
     return BertSNGP(classes, _bert_config(config), config["sngp"], generator=generator)
 
 
-def _loss_fn_for(model: Model):
+def _loss_fn_for(model: Model, regression: bool):
+    """The cross-entropy and its ``acc`` metric, or under ``regression`` the
+    GaussLayer's ``nll_loss`` and no metric (JAX :231-245)."""
+
     def loss_fn(params, model_state, noise, batch, component=None):
         x, y = batch
         kwargs = {} if component is None else {"component": component}
         out, kl, new_state = model.apply(params, model_state, noise, x, train=True, **kwargs)
+        if regression:
+            return LossOutput(loss=nll_loss(out, y), kl=kl, model_state=new_state, metrics={})
         logp = F.log_softmax(out, dim=-1)
         loss = -torch.mean(torch.gather(logp, 1, y[:, None]))
         acc = torch.mean((torch.argmax(out, dim=-1) == y).float())
@@ -314,14 +368,15 @@ def _loss_fn_for(model: Model):
     return loss_fn
 
 
-def _predict_fn(model: Model):
+def _predict_fn(model: Model, regression: bool):
     """``apply_fn(params, model_state, noise, x, **kwargs)``: log-probs of one
-    forward at eval, ``kwargs`` a Rank-1 model's joint ``component`` or an
+    forward at eval, or under ``regression`` the raw ``(mean, std)`` output
+    (JAX :248-262); ``kwargs`` a Rank-1 model's joint ``component`` or an
     SNGP model's ``n_samples``."""
 
     def apply_fn(params, model_state, noise, x, **kwargs):
         out, _, _ = model.apply(params, model_state, noise, x, train=False, **kwargs)
-        return F.log_softmax(out, dim=-1)
+        return out if regression else F.log_softmax(out, dim=-1)
 
     return apply_fn
 
@@ -397,6 +452,7 @@ class BuiltExperiment:
     apply_fn: Callable
     device: torch.device
     task: str = ""
+    regression: bool = False
     # eval runners by (test points, eval batch, samples): captured once for
     # every eval_while_train epoch of one split (JAX :923-932)
     eval_runners: dict = dataclasses.field(default_factory=dict)
@@ -412,9 +468,10 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
     config = {**DEFAULT_CONFIG, **config}
     _not_ported(task, config)
     pre_path = _pretrained_path(task, config)
-    if pre_path:  # a ResNet-50 task (_not_ported refuses the others)
+    if pre_path and task in RESNET50_TASKS:
         config.setdefault("torchvision_arch", True)
     name, members = config["model"], config.get("members", 1)
+    regression = wilds_data.TASKS[task].classes == 1
     steps_per_epoch = steps_per_epoch or config.get("steps_per_epoch", 1)
     tx = _tx(config)
     prior = GaussianPrior(0.0, config["prior_std"])
@@ -447,7 +504,7 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
         pretrained backbone where there is one (JAX :529-537: heads and
         variational std leaves keep their init)."""
         if pre_path:
-            load_torch_backbone(pre_path, module)
+            _load_pretrained(task, module, pre_path)
         return module.to(device)
 
     def modules(make):
@@ -457,9 +514,9 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
         particles = nn.ModuleList(made(_make_backbone(task, config, generator))
                                   for _ in range(config["svgd_particles"])).to(device)
         model = Model(particles[0])
-        method = inner_factory_for("svgd")(_loss_fn_for(model))
+        method = inner_factory_for("svgd")(_loss_fn_for(model, regression))
         state = method.init(particles, {})
-        return BuiltExperiment(model, method, state, _predict_fn(model), device, task)
+        return BuiltExperiment(model, method, state, _predict_fn(model, regression), device, task, regression)
 
     if name == "sngp":
         made = modules(lambda: _make_sngp(task, config, generator))
@@ -481,7 +538,7 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
         for module in made:  # reference civilcomments/models.py:165-176
             module.bert.requires_grad_(False)
     model = Model(made[0])
-    loss_fn = _loss_fn_for(model)
+    loss_fn = _loss_fn_for(model, regression)
     if name in ("map", "mcd", "laplace"):
         method = map_method(loss_fn, tx)
     elif name in ("swag", "bbb", "ivon"):
@@ -504,12 +561,18 @@ def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: 
         state = method.init(made)
     else:
         state = method.init(made[0], {})
-    return BuiltExperiment(model, method, state, _predict_fn(model), device, task)
+    return BuiltExperiment(model, method, state, _predict_fn(model, regression), device, task, regression)
+
+
+def _targets(regression: bool, y: np.ndarray) -> np.ndarray:
+    """Labels as int64, or a regression task's ``[N, 1]`` targets as
+    float32."""
+    return np.asarray(y, np.float32 if regression else np.int64)
 
 
 def _to_device(built: BuiltExperiment, x: np.ndarray, y: np.ndarray):
     return (torch.from_numpy(np.ascontiguousarray(x)).to(built.device),
-            torch.from_numpy(np.asarray(y, np.int64)).to(built.device))
+            torch.from_numpy(_targets(built.regression, y)).to(built.device))
 
 
 def _host_data(task: str) -> bool:
@@ -535,7 +598,7 @@ class _HostBatches:
     def __iter__(self):
         for i in range(0, self.x.shape[0], self.bs):
             yield (torch.from_numpy(np.ascontiguousarray(self.x[i : i + self.bs])).to(self.device),
-                   torch.from_numpy(np.asarray(self.y[i : i + self.bs], np.int64)).to(self.device))
+                   torch.from_numpy(self.y[i : i + self.bs]).to(self.device))
 
 
 def _end_epoch(state, method, epoch: int, epoch_loss: float, log):
@@ -574,7 +637,7 @@ def train(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray,
     seed, bs, n = config["seed"], config["batch_size"], x.shape[0]
     host = _host_data(built.task) and not config.get("device_data")
     if host:
-        yh = np.asarray(y, np.int64)
+        yh = _targets(built.regression, y)
 
         def gather(order, s):
             idx = order[s * bs : (s + 1) * bs]
@@ -655,12 +718,16 @@ def eval_metrics(log_marginal: torch.Tensor, targets: torch.Tensor, bin_count: i
 
 
 def eval_task(built: BuiltExperiment, task: str, config: dict, x: np.ndarray, y: np.ndarray,
-              meta: np.ndarray, seed: int = 42) -> dict:
+              meta: np.ndarray, seed: int = 42, z: Optional[torch.Tensor] = None) -> dict:
     """Posterior-predictive eval and the task's official WILDS metrics (JAX
     ``eval_task``, :868-1021): batch i under ``fold_in(seed, i)``, S samples
     each (a Rank-1 model's sample i on the joint component ``i %
     rank1_components``), the log-space model average per example, then
-    :func:`eval_metrics` and ``evaluate_task``. With ``device_eval`` (the
+    :func:`eval_metrics` and ``evaluate_task``. A regression task (poverty)
+    keeps the S ``(mean, std)`` outputs ``[S, N, 1, 2]`` instead: its
+    metrics are ``RegressionResults`` (the quantile draw ``z`` given, or
+    from ``seed + 1``) and the worst urban/rural Pearson r of the sample
+    means (JAX :994-1009). With ``device_eval`` (the
     default on a card, or under ``device_data``, for a test set of at most
     2 GiB) the whole set goes through the eval runner, cached on ``built``
     per (points, eval batch, S) and method; else a host loop over the same batches and
@@ -669,17 +736,16 @@ def eval_task(built: BuiltExperiment, task: str, config: dict, x: np.ndarray, y:
     trimmed, so every example counts once (and, under static BN, the padded
     batch's statistics are the same on both paths). An image task's ``x``
     is NCHW (:func:`task_images`)."""
-    if wilds_data.TASKS[task].classes == 1:
-        raise NotImplementedError("the regression eval (poverty): not ported yet (ROADMAP item 15d)")
     method, state = built.method, built.state
     bs, n_samples = config["eval_batch_size"], config["eval_samples"]
     components = config.get("rank1_components", 1) if config.get("model") == "rank1" else 1
     n = x.shape[0]
 
     def predict_batch(state, key, xb):
-        log_probs = predict(method, state, built.apply_fn, xb, n_samples=n_samples, noise=NoiseSource(key=key),
-                            components=components)
-        return bayesian_model_average(log_probs)
+        out = predict(method, state, built.apply_fn, xb, n_samples=n_samples, noise=NoiseSource(key=key),
+                      components=components)
+        # the runner and the host loop cut and join along the batch
+        return out.transpose(0, 1) if built.regression else bayesian_model_average(out)
 
     device_eval = config.get(
         "device_eval", (bool(config.get("device_data")) or built.device.type == "cuda") and x.nbytes <= 2 << 30)
@@ -691,7 +757,7 @@ def eval_task(built: BuiltExperiment, task: str, config: dict, x: np.ndarray, y:
             if cached is not method:
                 runner = make_eval_runner(predict_batch, n, bs)
                 built.eval_runners[(n, bs, n_samples)] = (method, runner)
-            log_marginal = runner(state, seed, _to_device(built, x, y)[0])
+            outputs = runner(state, seed, _to_device(built, x, y)[0])
         else:
             outs = []
             for i, start in enumerate(range(0, n, bs)):
@@ -701,11 +767,19 @@ def eval_task(built: BuiltExperiment, task: str, config: dict, x: np.ndarray, y:
                     xb = torch.cat([xb, xb[-1:].expand(bs - valid, *xb.shape[1:])])
                 key = keys.as_key(keys.fold_in(seed, i), built.device)
                 outs.append(predict_batch(state, key, xb)[:valid])
-            log_marginal = torch.cat(outs)
-        yd = torch.from_numpy(np.asarray(y, np.int64)).to(built.device)
-        result = eval_metrics(log_marginal, yd, config["ece_bins"])
-    preds = log_marginal.argmax(dim=1).cpu().numpy()
+            outputs = torch.cat(outs)
+        yd = torch.from_numpy(_targets(built.regression, y)).to(built.device)
+        if built.regression:
+            samples = outputs.transpose(0, 1)  # [S, N, 1, 2]
+            res = RegressionResults.create(samples, yd, key=seed + 1, z=z)
+            preds = samples[..., 0].cpu().numpy().mean(axis=0)  # numpy's float32 sum order, as JAX's
+        else:
+            result = eval_metrics(outputs, yd, config["ece_bins"])
+            preds = outputs.argmax(dim=1).cpu().numpy()
     official = wilds_data.evaluate_task(task, preds, np.asarray(y), meta[: len(preds)])
+    if built.regression:
+        return {"avg_lml": float(res.average_lml), "avg_ll": float(res.average_log_likelihood),
+                "mse": float(res.mse_of_means), "qce": float(res.qce), "sqce": float(res.sqce), **official}
     return {**result.as_dict(), **official}
 
 
@@ -729,14 +803,15 @@ def _build_for(task: str, config: dict, device) -> BuiltExperiment:
 def _fit_laplace(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray) -> None:
     """``built``'s trained MAP state (or MAP ensemble) replaced by its
     last-layer Laplace posterior (the text head's ``Dense_1``, the
-    DenseNet's or ResNet-50's ``Dense_0``), fitted on ``(x, y)`` with ``ll_hessian`` (JAX
-    :1055-1063); with ``members`` > 1 a ``deep_ensemble`` over the fitted
-    members. Under :func:`_host_data` the fit's batches move one at a
-    time."""
-    lap = laplace_method(built.model, hessian=config["ll_hessian"], regression=False, inner=built.method,
-                         batch_size=LAPLACE_BATCH)
+    DenseNet's, ResNet-50's or ResNet-18's ``Dense_0``), fitted on ``(x,
+    y)`` with ``ll_hessian`` (JAX :1055-1063, :1090-1095; a regression
+    task's GGN is ``I / sigma^2`` on GaussLayer's mean channel); with
+    ``members`` > 1 a ``deep_ensemble`` over the fitted members. Under
+    :func:`_host_data` the fit's batches move one at a time."""
+    lap = laplace_method(built.model, hessian=config["ll_hessian"], regression=built.regression,
+                         inner=built.method, batch_size=LAPLACE_BATCH)
     if _host_data(built.task):
-        data = _HostBatches(x, y, LAPLACE_BATCH, built.device)
+        data = _HostBatches(x, _targets(built.regression, y), LAPLACE_BATCH, built.device)
     else:
         data = _to_device(built, x, y)
     built.state = lap.fit(built.state, data)
@@ -756,9 +831,10 @@ def _rebuild(task: str, config: dict, device=None):
 def run_single(task: str, config: dict, log=None, device=None) -> dict:
     """Train, then evaluate on the test split; returns the metric dict. With
     ``checkpoint_dir`` the trained state is saved there as
-    ``{model}_final``; ``laplace`` fits its posterior on the training split
-    after the save; ``eval_while_train`` evaluates the val split every
-    ``eval_interval`` epochs."""
+    ``{model}_final`` (its file written behind the Laplace fit and the
+    evaluation, and waited for before this returns); ``laplace`` fits its
+    posterior on the training split after the save; ``eval_while_train``
+    evaluates the val split every ``eval_interval`` epochs."""
     config, built, (x, y), (xt, yt, mt) = _rebuild(task, config, device)
     epoch_callback = None
     if config.get("eval_while_train"):
@@ -773,11 +849,16 @@ def run_single(task: str, config: dict, log=None, device=None) -> dict:
                     log(f"  val@{epoch}: " + ", ".join(f"{k}={v:.4f}" for k, v in val.items() if isinstance(v, float)))
 
     built = train(built, config, x, y, log=log, epoch_callback=epoch_callback)
-    if config.get("checkpoint_dir"):
-        ckpt.save_final(config["checkpoint_dir"], config["model"], built.state)
-    if config["model"] == "laplace":
-        _fit_laplace(built, config, x, y)
-    return eval_task(built, task, config, xt, yt, mt)
+    ckpt_dir = config.get("checkpoint_dir")
+    if ckpt_dir:
+        ckpt.save_final(ckpt_dir, config["model"], built.state, async_save=True)
+    try:
+        if config["model"] == "laplace":
+            _fit_laplace(built, config, x, y)
+        return eval_task(built, task, config, xt, yt, mt)
+    finally:
+        if ckpt_dir:
+            ckpt.wait_for_async_saves(ckpt_dir)
 
 
 def fit_laplace_phase(task: str, config: dict, run_dir: str, log=None, device=None) -> dict:

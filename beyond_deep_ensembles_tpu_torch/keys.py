@@ -22,6 +22,8 @@ in-kernel by Philox, from the key plus a draw index (``ops/sampling.py``).
 """
 from __future__ import annotations
 
+import math
+import struct
 from typing import Union
 
 import torch
@@ -82,6 +84,16 @@ def _mix32_int32(x: torch.Tensor) -> torch.Tensor:
     return ((x >> 16) & 0xFFFF) ^ x
 
 
+def _bits_int32(key: Key, stream: int, n: int, device=None) -> torch.Tensor:
+    """:func:`bits` for ``n`` < 2^31, as the int32 tensor holding each
+    value's 32 bits."""
+    if isinstance(key, torch.Tensor):
+        device = key.device
+    lo, hi = key & _M32, (key >> 32) ^ _mix32(stream & _M32)
+    x = _mix32_int32(torch.arange(n, dtype=torch.int32, device=device) ^ _as_int32(lo))
+    return _mix32_int32(x ^ _as_int32(hi))
+
+
 def bits(key: Key, stream: int, n: int, device=None) -> torch.Tensor:
     """``n`` values in [0, 2^32) (int64), value i a function of (key,
     ``stream``, i) alone, i < 2^32: ``mix(mix(i ^ key_lo) ^ key_hi ^
@@ -89,14 +101,29 @@ def bits(key: Key, stream: int, n: int, device=None) -> torch.Tensor:
     bijection, so the values are distinct. ``key``: a host int or a 0-dim
     int64 tensor (whose device the values take). Below 2^31 values the hash
     runs on int32 tensors (the same bits)."""
+    if n < 1 << 31:
+        return _bits_int32(key, stream, n, device).to(torch.int64) & _M32
     if isinstance(key, torch.Tensor):
         device = key.device
     lo, hi = key & _M32, (key >> 32) ^ _mix32(stream & _M32)
-    if n < 1 << 31:
-        x = _mix32_int32(torch.arange(n, dtype=torch.int32, device=device) ^ _as_int32(lo))
-        return _mix32_int32(x ^ _as_int32(hi)).to(torch.int64) & _M32
     x = _mix32(torch.arange(n, dtype=torch.int64, device=device) ^ lo)
     return _mix32(x ^ hi)
+
+
+def keep_mask(key: Key, stream: int, shape, rate: float, device=None) -> torch.Tensor:
+    """A dropout keep mask of ``shape`` (bool): ``u >= rate`` for u the top
+    24 of :func:`bits` as a float in [0, 1), ``(h >> 8) * 2^-24``, against
+    ``rate`` rounded to fp32 (as a tensor compares with a Python float).
+    Taken as the integer comparison ``h >> 8 >= ceil(fp32(rate) 2^24)``,
+    exact and the same mask, on the int32 hash (the int64 and float passes
+    were most of a mask's memory traffic after the hash)."""
+    n = math.prod(shape)
+    threshold = math.ceil(struct.unpack("f", struct.pack("f", rate))[0] * 2**24)
+    if n < 1 << 31:
+        top = (_bits_int32(key, stream, n, device) >> 8) & 0xFFFFFF
+    else:
+        top = bits(key, stream, n, device) >> 8
+    return (top >= threshold).reshape(tuple(shape))
 
 
 def normal(key: Key, stream: int, n: int, device=None) -> torch.Tensor:

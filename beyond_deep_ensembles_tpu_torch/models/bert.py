@@ -25,12 +25,18 @@ two layers of one kind (``models/layers.py::make_dense``: plain, BBB or
 Rank-1 with ``components``), named as flax names them (``Dense_0``,
 ``BBBDense_1``, ``Rank1Dense_0``), kept in fp32. :class:`BertSNGP` is the
 encoder under an ``SNGPHead`` on the first token (the JAX package's text
-``BertSNGP``, ``experiments/wilds_task.py:568-583``). ``remat``, a bf16
-compute dtype and ``load_hf_weights`` are not ported yet and raise.
+``BertSNGP``, ``experiments/wilds_task.py:568-583``). ``remat`` (JAX
+``nn.remat`` of each block, ``bert_remat``) runs each transformer block in
+training under ``torch.utils.checkpoint`` with ``NoiseSource.replay``, so
+the recompute in the backward draws the forward's masks and K3 seeds:
+outputs and gradients equal the plain form's. :func:`load_hf_weights` fills
+the encoder from a staged HuggingFace ``pytorch_model.bin``. A bf16 compute
+dtype is not ported yet and raises.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -42,7 +48,7 @@ from ..nn.dropout import FixableDropout, dropout
 from ..nn.plain import Dense, LayerNorm
 from ..nn.sngp import SNGPHead
 from ..ops.attention import fused_dropout_attention
-from .layers import call_layer, make_dense
+from .layers import call_layer, make_dense, rematerialized
 
 
 class DistilBertConfig:
@@ -58,8 +64,7 @@ class DistilBertConfig:
         attention_dropout: float = 0.1,
         remat: bool = False,
     ):
-        if remat:
-            raise NotImplementedError("remat of the transformer blocks: not ported yet")
+        self.remat = remat
         self.vocab_size = vocab_size
         self.dim = dim
         self.n_layers = n_layers
@@ -145,8 +150,15 @@ class DistilBertEncoder(nn.Module):
         h = self.embed_layer_norm(self.word_embeddings(input_ids) + self.position_embeddings(pos)[None])
         if cfg.dropout > 0 and (train or self.mc_dropout):
             h = dropout(h, cfg.dropout, noise)
+        # remat only where a backward follows: not at eval, not under
+        # torch.func (the Laplace GGN's jacrev takes no checkpoint)
+        remat = cfg.remat and train and torch.is_grad_enabled()
         for i in range(cfg.n_layers):
-            h = getattr(self, f"layer_{i}")(h, attention_mask, noise, train)
+            block = getattr(self, f"layer_{i}")
+            if remat:
+                h = rematerialized(lambda h, block=block: block(h, attention_mask, noise, train), noise, h)
+            else:
+                h = block(h, attention_mask, noise, train)
         return h
 
 
@@ -207,3 +219,40 @@ class BertSNGP(nn.Module):
     def forward(self, packed_input, noise=None, train: bool = True, n_samples: int = 1):
         hidden = self.bert(packed_input[:, :, 0], packed_input[:, :, 1], noise, train)
         return self.SNGPHead_0(hidden[:, 0], noise, train=train, n_samples=n_samples)
+
+
+# HF DistilBERT's names for the encoder's layers (JAX ``load_hf_weights``)
+_HF_LAYER = (("q_lin", "attention.q_lin"), ("k_lin", "attention.k_lin"), ("v_lin", "attention.v_lin"),
+             ("out_lin", "attention.out_lin"), ("lin1", "ffn.lin1"), ("lin2", "ffn.lin2"),
+             ("sa_layer_norm", "sa_layer_norm"), ("output_layer_norm", "output_layer_norm"))
+
+
+@torch.no_grad()
+def load_hf_weights(module: nn.Module, hf_dir: str) -> nn.Module:
+    """``module.bert`` (a :class:`BertClassifier`'s or :class:`BertSNGP`'s
+    encoder) filled in place from the HuggingFace distilbert-base-uncased
+    checkpoint ``<hf_dir>/pytorch_model.bin`` (JAX ``models/bert.py::
+    load_hf_weights``): the embeddings, the embedding LayerNorm and every
+    block's linears and LayerNorms, with or without the ``distilbert.``
+    prefix; the head keeps its init. torch's ``Linear.weight`` is the port's
+    ``[out, in]`` kernel, so a tensor moves as it is. Read with
+    ``torch.load(weights_only=True)``."""
+    sd = torch.load(os.path.join(hf_dir, "pytorch_model.bin"), map_location="cpu", weights_only=True)
+    pre = "distilbert." if any(k.startswith("distilbert.") for k in sd) else ""
+    enc = module.bert
+    pairs = [(enc.word_embeddings.embedding, "embeddings.word_embeddings.weight"),
+             (enc.position_embeddings.embedding, "embeddings.position_embeddings.weight"),
+             (enc.embed_layer_norm.scale, "embeddings.LayerNorm.weight"),
+             (enc.embed_layer_norm.bias, "embeddings.LayerNorm.bias")]
+    for i in range(enc.config.n_layers):
+        block = getattr(enc, f"layer_{i}")
+        for ours, theirs in _HF_LAYER:
+            layer = getattr(block, ours)
+            first = layer.kernel if hasattr(layer, "kernel") else layer.scale
+            pairs += [(first, f"transformer.layer.{i}.{theirs}.weight"), (layer.bias, f"transformer.layer.{i}.{theirs}.bias")]
+    for param, key in pairs:
+        value = sd[pre + key]
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{key}: {tuple(value.shape)} does not fit {tuple(param.shape)}")
+        param.copy_(value.to(param.dtype))
+    return module

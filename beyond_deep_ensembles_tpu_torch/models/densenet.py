@@ -42,13 +42,12 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..nn.base import add_auto_named
 from ..nn.dropout import FixableDropout
 from ..nn.norm import StaticBatchNorm, channel_stats
 from ..nn.sngp import SNGPHead
-from .layers import call_layer, make_conv, make_dense
+from .layers import call_layer, make_conv, make_dense, rematerialized
 
 REMAT_MODES = ("none", "layer", "block")
 CONCAT_MODES = ("concat", "buffer")
@@ -102,22 +101,6 @@ class DenseLayer(nn.Module):
         h = F.relu(bn2(h))
         h = call_layer(conv2, h, noise, train, component)
         return _drop(drop2, h, noise, train)
-
-
-def _rematerialized(fn, noise, *args):
-    """``fn(*args)`` under a non-reentrant ``checkpoint``: the recompute in
-    the backward draws from ``noise`` what the forward drew."""
-    mark = None if noise is None else noise.mark()
-    calls = [0]
-
-    def run(*a):
-        calls[0] += 1
-        if calls[0] == 1 or noise is None:
-            return fn(*a)
-        with noise.replay(mark):
-            return fn(*a)
-
-    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class DenseNet(nn.Module):
@@ -200,7 +183,7 @@ class DenseNet(nn.Module):
         for layer in layers:
             cur = buf[:, :c] if buffer else h
             if remat_layers:
-                new = _rematerialized(
+                new = rematerialized(
                     lambda x, s, layer=layer: layer(x, noise, train=train, component=component, bn_stats=s),
                     noise, cur, stats)
             else:
@@ -225,7 +208,7 @@ class DenseNet(nn.Module):
         for i, layers in enumerate(blocks):
             stats0 = channel_stats(h) if self.incremental_bn else None
             if remat == "block":
-                h, stats = _rematerialized(
+                h, stats = rematerialized(
                     lambda x, s, layers=layers: self._block(layers, False, noise, train, component, x, s),
                     noise, h, stats0)
             else:

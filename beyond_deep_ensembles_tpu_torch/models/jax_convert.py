@@ -188,17 +188,19 @@ def _is_mle(name: str) -> bool:
 
 def _adam_from_jax(module: torch.nn.Module, opt_state, named: dict, lr: float, var_lr: float,
                    stacked: bool) -> dict:
-    """The UCI optimizer's state (``utils/optim.py``: ``Adam`` over every
-    parameter but the ``__mle`` ones, a momentum-free ``SGD`` over those, a
-    ``Split`` when there are both) from a JAX ``multi_transform`` state
-    whose ``main`` partition holds a ``ScaleByAdamState``. The SGD keeps no
-    state in JAX: its count is the Adam count (the two step together) and
-    its trace zeros."""
+    """An Adam state (``utils/optim.py``) from a JAX ``ScaleByAdamState``:
+    over every parameter (WILDS: poverty's ``__mle`` leaf too), or, from a
+    UCI ``multi_transform`` state whose ``main`` partition holds the Adam
+    moments, ``Adam`` over every parameter but the ``__mle`` ones, a
+    momentum-free ``SGD`` over those and a ``Split`` of the two. The SGD
+    keeps no state in JAX: its count is the Adam count (the two step
+    together) and its trace zeros."""
     names = [name for name, _ in module.named_parameters()]
-    main = [n for n in names if not _is_mle(n)]
-    mle = [n for n in names if _is_mle(n)]
     mu = _named_from(_numpy_tree(_unmasked(_field(opt_state, "mu"))), stacked)
     nu = _named_from(_numpy_tree(_unmasked(_field(opt_state, "nu"))), stacked)
+    main = [n for n in names if n in mu]
+    mle = [n for n in names if n not in mu]
+    assert all(_is_mle(n) for n in mle), mle
     count = torch.tensor(int(np.asarray(_field(opt_state, "count")).reshape(-1)[0]), dtype=torch.int64)
 
     def cat(tree, which):

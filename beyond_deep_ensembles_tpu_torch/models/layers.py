@@ -3,7 +3,8 @@
 Counterpart of ``beyond_deep_ensembles_tpu/models/layers.py``: a kind string
 selects the layer class so architectures stay agnostic: ``"plain"``,
 ``"bbb"``, ``"rank1"`` (with ``components``) and ``"spectral"`` (with
-``norm_bound``).
+``norm_bound``). :func:`rematerialized` is the port's remat, shared by the
+DenseNet and DistilBERT.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.bbb import BBBConv, BBBDense
 from ..nn.convops import Padding
@@ -82,3 +84,20 @@ def call_layer(layer: nn.Module, x, noise, train: bool, component=None):
     if isinstance(layer, (Rank1Dense, Rank1Conv)):
         return layer(x, noise, train=train, component=component)
     return layer(x, noise, train=train)
+
+
+def rematerialized(fn, noise, *args):
+    """``fn(*args)`` under a non-reentrant ``checkpoint`` (the DenseNet's
+    ``remat``, DistilBERT's ``remat``): the recompute in the backward draws
+    from ``noise`` what the forward drew (``NoiseSource.replay``)."""
+    mark = None if noise is None else noise.mark()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1 or noise is None:
+            return fn(*a)
+        with noise.replay(mark):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)

@@ -1,8 +1,9 @@
 """ResNets with swappable layer kinds, norms and activations: the CIFAR
-ResNet-20 and the bottleneck ResNet-50 of iWildCam and RxRx1.
+ResNet-20, the ResNet-18 of PovertyMap and the bottleneck ResNet-50 of
+iWildCam and RxRx1.
 
 Counterpart of ``beyond_deep_ensembles_tpu/models/resnet.py`` (``BasicBlock``,
-``ResNet20``, ``Bottleneck``, ``ResNet50``), in NCHW. Ported: ``conv_kind``
+``ResNet20``, ``ResNet18``, ``Bottleneck``, ``ResNet50``), in NCHW. Ported: ``conv_kind``
 ``"bbb"`` (variational FRN under ``norm="frn"``), ``"plain"``, ``"rank1"``
 (``components``, plain FRN, a ``Rank1Dense`` head; the forward's
 ``component`` goes to every layer, so one forward runs one joint component)
@@ -11,9 +12,10 @@ and ``"spectral"`` (``norm_bound``); the norms ``frn`` and ``batch_static``
 eval) and the activations ``swish`` and ``relu``; ``dropout_p`` (MC-Dropout:
 a ``FixableDropout(p)`` after the stem and after each conv of each block,
 the skip's included). As in JAX, ResNet-20 has no norm after the stem, an
-8x8 average pool and a dense head of the conv kind, on 32x32 inputs; the
-other architectures (``PreResNet20``, ``ResNet18``, ``WilsonResNet20``) are
-not ported yet.
+8x8 average pool and a dense head of the conv kind, on 32x32 inputs;
+:class:`ResNet18` has a stride-1 stem, an unpadded max pool, a global mean
+and ``features_only``. The other architectures (``PreResNet20``,
+``WilsonResNet20``) are not ported yet.
 
 :class:`ResNet50` is the JAX package's corrected bottleneck ResNet-50 (a
 7x7 stride-2 stem, a 3x3 stride-2 max pool, ``stage_sizes`` bottlenecks of
@@ -107,17 +109,19 @@ class BasicBlock(nn.Module):
         conv_kind: str,
         dropout_p: Optional[float] = None,
         components: int = 1,
+        norm_bound: float = 6.0,
         *,
         generator: torch.Generator,
     ):
         super().__init__()
         self.act = _activation(activation)
         nk = _norm_kind(norm, conv_kind)
+        kw = {"norm_bound": norm_bound} if conv_kind == "spectral" else {}
 
         def conv(cin, kernel, s, padding, use_bias=True):
             layer = make_conv(
                 conv_kind, cin, features, (kernel, kernel), strides=s, padding=padding,
-                use_bias=use_bias, components=components, generator=generator,
+                use_bias=use_bias, components=components, generator=generator, **kw,
             )
             return add_auto_named(self, layer)
 
@@ -226,6 +230,65 @@ class SNGPResNet20(nn.Module):
         stem, blocks, head = self._layers
         h = _features(blocks, call_layer(stem, x, noise, train), noise, train)
         return head(h, noise, train=train, n_samples=n_samples)
+
+
+class ResNet18(nn.Module):
+    """Reference ResNet18 (resnet.py:150-176; JAX ``models/resnet.py::
+    ResNet18``): a 3x3 stride-1 stem of 64, its dropout, a 3x3 stride-2 max
+    pool without padding, eight :class:`BasicBlock` of widths (64, 64, 128,
+    128, 256, 256, 512, 512), the first of each width past 64 of stride 2, a
+    global mean and a dense head of ``head_kind`` (default ``conv_kind``).
+    PovertyMap runs it on 8 channels with one output. ``forward(x, noise,
+    train, component)`` -> ``[B, classes]``, or the 512 pooled features
+    under ``features_only``; the spectral kind's ``norm_bound`` caps the stem
+    and every block."""
+
+    WIDTHS = ((64, 1), (64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2), (512, 1))
+
+    def __init__(
+        self,
+        classes: int,
+        activation: str = "relu",
+        norm: str = "batch_static",
+        dropout_p: Optional[float] = None,
+        conv_kind: str = "plain",
+        head_kind: Optional[str] = None,
+        components: int = 1,
+        features_only: bool = False,
+        dtype=None,
+        norm_bound: float = 6.0,
+        in_channels: int = 8,
+        *,
+        generator: torch.Generator,
+    ):
+        super().__init__()
+        if dtype not in (None, torch.float32):
+            raise NotImplementedError("a reduced-precision ResNet-18: not ported yet (ROADMAP item 13)")
+        kw = {"norm_bound": norm_bound} if conv_kind == "spectral" else {}
+        stem = add_auto_named(self, make_conv(conv_kind, in_channels, 64, (3, 3), strides=1, padding=1,
+                                              components=components, generator=generator, **kw))
+        drop = None if dropout_p is None else add_auto_named(self, FixableDropout(dropout_p))
+        blocks, cin = [], 64
+        for features, stride in self.WIDTHS:
+            blocks.append(add_auto_named(self, BasicBlock(
+                cin, features, stride, activation, norm, conv_kind, dropout_p, components, norm_bound,
+                generator=generator)))
+            cin = features
+        head = None
+        if not features_only:
+            head = add_auto_named(self, make_dense(head_kind or conv_kind, cin, classes, components=components,
+                                                   generator=generator))
+        # a tuple keeps the references out of the state_dict (one key per parameter)
+        self._layers = (stem, drop, tuple(blocks), head)
+
+    def forward(self, x, noise, train: bool = True, component=None):
+        stem, drop, blocks, head = self._layers
+        h = _drop(drop, call_layer(stem, x, noise, train, component), noise, train)
+        h = F.max_pool2d(h, 3, stride=2)
+        for block in blocks:
+            h = block(h, noise, train=train, component=component)
+        h = torch.mean(h, dim=(2, 3))
+        return h if head is None else call_layer(head, h, noise, train, component)
 
 
 class Bottleneck(nn.Module):

@@ -267,9 +267,9 @@ class NoiseSource:
         if self._given is not None:
             return self._take(shape).to(device=device, dtype=torch.bool)
         if self.key is not None:
-            h = keys.bits(self.key.reshape(()), self.draws, math.prod(shape))
+            mask = keys.keep_mask(self.key.reshape(()), self.draws, shape, rate)
             self.draws += 1
-            return ((h >> 8).to(torch.float32) * 2.0**-24 >= rate).reshape(tuple(shape))
+            return mask
         self.draws += 1
         return torch.rand(tuple(shape), generator=self._device_generator(device), device=device) >= rate
 

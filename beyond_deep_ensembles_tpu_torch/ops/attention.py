@@ -101,8 +101,7 @@ def key_keep_mask(shape, seed: DeviceSeed, dropout_p: float) -> torch.Tensor:
     """The plain version's mask for a device seed: ``u >= p`` for u the top
     24 of ``keys.bits`` on the key's stream ``index``, a function of (key,
     index) alone, on the key's device (``NoiseSource.keep_mask``'s draw)."""
-    h = keys.bits(seed.key.reshape(()), seed.index, math.prod(shape))
-    return ((h >> 8).to(torch.float32) * 2.0**-24 >= dropout_p).reshape(tuple(shape))
+    return keys.keep_mask(seed.key.reshape(()), seed.index, shape, dropout_p)
 
 
 def _plain_probs(q, k, key_mask, keep, dropout_p):

@@ -7,10 +7,10 @@ protocol ``python3 {task}.py {task}.yaml``):
         [--name VARIANT] [--rep K] [--out results/] [--phase PHASE]
         [--leave-out K] [--wandb] [--device cuda|cpu]
 
-Tasks: ``uci``, ``cifar`` and the WILDS tasks (the text tasks ``amazon``
-and ``civilcomments`` and the image tasks ``camelyon17``, ``fmow``,
-``iwildcam`` and ``rxrx1`` are ported, every model of their yamls;
-``poverty`` raises in ``experiments/wilds_task.py``). Each
+Tasks: ``uci``, ``cifar`` and the seven WILDS tasks (the text tasks
+``amazon`` and ``civilcomments``, the image tasks ``camelyon17``, ``fmow``,
+``iwildcam`` and ``rxrx1``, and ``poverty``, whose yaml's ``list: fold``
+expands each row to one run a fold; every model of their yamls). Each
 variant x repetition trains, evaluates and appends its records to
 ``<out>/<name>_<variant>/rep_<k>/metrics.jsonl``. The checkpoint-driven
 phases read the ``{model}_final`` states a train phase wrote:

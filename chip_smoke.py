@@ -4,6 +4,17 @@ CUDA card: the quickest proof that the port still starts on the GPU.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
+It runs as two processes on the one card (``supervise``): the first runs
+phases 1-8 and 10; once the kernels are built and timed (phases 2-5) it
+starts the second (this file with ``--second``), which runs phases 9 and
+11-14 beside it, its output in ``build/chip_smoke_second.log`` (printed by
+the first when it ends) and its figures handed back in
+``build/chip_smoke_second.json``. Every launch count is a process's own.
+A timed section (steady steps, CUDA-graph and event timings, profiles,
+eval rates, the Laplace fit) stops the other process while it runs
+(``alone``), so the times printed are taken alone; the wall times of rows
+and ``run_single`` calls are taken beside the other process.
+
 Phases (any failed check raises and exits non-zero; nothing is caught):
   1. the card's name and power limit, as nvidia-smi reports them;
   2. the CUDA C++ kernels K2 and K3 built at once (one nvcc each, by
@@ -105,13 +116,14 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      variant the same way; the card's MCD logits and one Adam step held
      against the CPU path with the same weights and masks;
   9. UCI regression (``experiments/uci.py`` through the CLI): configs/uci.yaml
-     written to a temporary file with its list of data sets cut to naval (the
-     largest), 1 epoch and 1 repetition, the grid's nine models and
+     written to a temporary file with its list of data sets cut to energy
+     (768 rows), 1 epoch and 1 repetition, the grid's nine models and
      DEFAULT's values kept, and driven through ``run.main`` (every count set
      to 0 just before and read just after: K1 on bbb and bbb_fixed_kl only,
      K2 once a svgd step), each run's five metrics finite and its wall time;
-     SVGD at 20 particles through ``run_single`` (K2 at n = 20) and map on
-     yacht with the gap splits; 16 steps of map, bbb and svgd through the
+     SVGD at 20 particles through ``run_single`` on energy (K2 at n = 20)
+     and map on yacht with the gap splits; then on naval (the largest data
+     set); 16 steps of map, bbb and svgd through the
      multi-step runner (two replays of a graph of 8) against 16 eager ones
      from one key, bit for bit; 20 steady steps eager and captured of map,
      bbb, svgd at 10 and 20 particles and ivon, with K1 and K2 launches per
@@ -127,28 +139,28 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      host-seed launch; K3 and SDPA at CivilComments' (16, 12, 300, 64); K2
      at (5, 66,957,317) and (5, 592,130) beside torch.mm; every row of
      configs/amazon.yaml and configs/civilcomments.yaml through ``run.main``
-     at distilbert-base's width, cut to one epoch of 4 steps and 64 test
+     at distilbert-base's width, cut to one epoch of 4 steps and 32 test
      examples (SWAG's collections in proportion), a row at a time with
      every count set to 0 just before and read just after, exact; the
      ``eval``, ``fit_laplace``, ``drop_rates`` and ``multix`` phases on the
      written checkpoints against the runs' own evals; a captured DistilBERT
      MCD step against an eager one bit for bit, a captured loss forward
-     under two keys, the eval runner against the host loop; 8 captured and
-     4 eager steady steps of MAP, MCD, SVGD and LL_SVGD; one step of each
+     under two keys, the eval runner against the host loop; 4 captured and
+     2 eager steady steps of MAP, MCD, SVGD and LL_SVGD; one step of each
      new method on the card against the CPU at one layer of the same width;
  11. the WILDS image tasks: every row of configs/camelyon.yaml and
      configs/fmow.yaml through ``run.main`` at DenseNet-121's full width
      (the yamls' batch and input sizes, lr, S and conv_remat; synthetic
      images of the true shapes), cut to one epoch of 8 (camelyon17) or 4
-     (fmow) steps and 64 test images, SWAG collecting at every step,
+     (fmow) steps and 32 test images, SWAG collecting at every step,
      MultiSWAG at 5 members, a row at a time with every count set to 0 just
      before and read just after, exact (K1 121 a camelyon17 BBB forward, 1 a
      fmow BBB forward; K2 once an SVGD step; K3 never); each row's wall time
      and peak memory; the four phases on the written checkpoints against the
      runs' own evals; 4 captured steps against 4 eager ones bit for bit
      (camelyon17 MAP and BBB, fmow MCD under remat ``layer``); the eval
-     runner against the host loop (camelyon17 BBB, fmow MCD); 8 captured
-     and 4 eager steady steps (camelyon17 MAP and BBB, fmow MAP with remat
+     runner against the host loop (camelyon17 BBB, fmow MCD); 4 captured
+     and 2 eager steady steps (camelyon17 MAP and BBB, fmow MAP with remat
      ``layer`` and ``none``, fmow SVGD); K1 on the 121 planes of one
      camelyon17 BBB train forward (batch 32) against its plain version, its
      forward and backward launches timed against the byte bound; K2 at (3,
@@ -161,35 +173,60 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      sizes (3, 4, 6, 3); the yamls' batch 16 / 75, input 448x448 / 256x256,
      eval batch, lr, S and schedule; synthetic images of the true shapes),
      cut to one epoch of 4 steps (rxrx1 with ``warmup_steps`` 1, so
-     that the warmup and the cosine both run) and 64 test images,
+     that the warmup and the cosine both run) and 32 test images,
      SWAG_LL collecting at every step, MAP twice, a row at a time with every
      count set to 0 just before and read just after, exact (K2 once an
      LL_SVGD step; K1 and K3 never); each row's wall time and peak memory,
      its metrics finite and in range (``macro_f1`` included); the four
-     phases on iwildcam's checkpoints against the runs' own evals; 4
+     phases on rxrx1's checkpoints against the runs' own evals; 4
      captured iwildcam MAP steps against 4 eager ones bit for bit; the eval
-     runner against the host loop (rxrx1 MAP: one padded batch of 75); 8
-     captured and 4 eager steady steps of iwildcam MAP and rxrx1 MAP; K1 on
+     runner against the host loop (rxrx1 MAP: one padded batch of 75); 4
+     captured and 2 eager steady steps of iwildcam MAP and rxrx1 MAP; K1 on
      the 54 planes of one iwildcam train forward with every layer
      variational (``all_layers_bbb``, batch 16) against its plain version,
      forward and backward timed against the byte bound; K2 at (5, 372,918)
      beside ``torch.mm``; one step of iwildcam MAP and SNGP and two rxrx1 MAP
      steps across the warmup's end on the card against the CPU and float64
      at batch 2;
- 13. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
-     UCI figures, the WILDS figures, the image figures and the ResNet-50
-     figures as JSON lines, the card's name and power limit, one JSON line
-     of kernel figures (K1, K2, K3a, K3b), then the result line ``{"ok":
-     true, "device": {...}}``.
+ 13. the WILDS PovertyMap task: every row of configs/poverty.yaml through
+     ``run.main`` at ResNet-18's full width on 8 channels (224x224, batch
+     64, Adam under the exponential schedule, S = 10; synthetic images of the
+     true shape) on fold A of its five, cut to one epoch of 3 steps and 32
+     test images, SWAG collecting at every step, MAP twice, a row at a time
+     with exact counts (K1 21 a forward in BBB, every layer variational; K2
+     once an SVGD step; K3 never); each row's wall time and peak memory, the
+     regression metrics finite and every Pearson r in [-1, 1]; the four
+     phases against the runs' own evals; 4 captured MAP steps against 4
+     eager ones bit for bit; the eval runner against the host loop on a
+     padded batch (80 test images at eval batch 64); 4 captured and 2 eager
+     steady MAP steps and the peak memory; K1 on the 21 planes of one BBB
+     train forward against its plain version and the byte bound; K2 at (5,
+     11,174,210) beside ``torch.mm``; one MAP step on the card against the
+     CPU and float64 at batch 2;
+ 14. the staged weights and DistilBERT remat: one amazon MAP update with
+     ``bert_remat`` against the same update without it, K3 live, bit for
+     bit; fmow's torchvision ``densenet121.pth`` and the text tasks'
+     HuggingFace ``pytorch_model.bin``, written into ``build/`` at full
+     width, loaded through ``build`` on the card, each tensor the file's;
+ 15. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
+     UCI figures, the WILDS figures, the image, ResNet-50 and poverty
+     figures and the staged-weight checks as JSON lines, the card's name and
+     power limit, one JSON line of kernel figures (K1, K2, K3a, K3b), then
+     the result line ``{"ok": true, "device": {...}}``.
 Every phase heading prints the seconds since the script started.
 Exits non-zero and prints no result without CUDA or without the package
 beside this file.
 """
+import contextlib
+import fcntl
+import functools
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -331,18 +368,104 @@ def noise_shapes(batch, train):
     return shapes if train else [s[1:] for s in shapes]
 
 
+# The script runs as two processes on the one card (``main``): the first,
+# run with no arguments, builds and times the kernels, then starts the second
+# (``--second``), which runs the phases of SECOND_PHASES while the first runs
+# the others, and hands its figures back in a JSON file. A timed section
+# (``alone``) takes a lock that lets one of the two time at a time and stops
+# the other process (SIGSTOP) until it ends, so that its figures are taken on
+# a card and host cores that nothing else of the script uses; the other's
+# work already queued on the card gets SETTLE_S to drain first.
+PEER = {"pid": None, "lock": None, "depth": 0, "child": None}
+SETTLE_S = 0.1
+SECOND_PHASES = "UCI, the WILDS image, ResNet-50 and poverty phases and the staged weights (9, 11-14)"
+# each process's CPU threads (torch's intra-op pool): half the host's cores
+# each, so that two CPU checks at once do not oversubscribe them
+CPU_THREADS = 4
+# each process's share of the card's memory (the caching allocator frees its
+# cache and retries at its cap), so that neither's cache starves the other:
+# the first's largest peak is a text row's, 27.8 GiB, the second's a poverty
+# row's, 17.7 GiB; what is left is the two CUDA contexts' and the kernels'
+MEMORY_FRACTION = {"first": 0.58, "second": 0.38}
+
+
+def _signal_peer(sig):
+    child = PEER["child"]
+    if child is not None and child.poll() is not None:
+        return False  # the second process has ended (and its pid may be another's)
+    try:
+        os.kill(PEER["pid"], sig)
+        return True
+    except ProcessLookupError:
+        return False
+
+
+@contextlib.contextmanager
+def alone_section():
+    """The other process stopped for the length of the block (re-entrant;
+    a plain block before the second process starts)."""
+    if PEER["pid"] is None or PEER["depth"]:
+        PEER["depth"] += 1
+        try:
+            yield
+        finally:
+            PEER["depth"] -= 1
+        return
+    fcntl.flock(PEER["lock"], fcntl.LOCK_EX)
+    PEER["depth"] += 1
+    stopped = False
+    try:
+        stopped = _signal_peer(signal.SIGSTOP)
+        if stopped:
+            time.sleep(SETTLE_S)
+        yield
+    finally:
+        PEER["depth"] -= 1
+        if stopped:
+            _signal_peer(signal.SIGCONT)
+        fcntl.flock(PEER["lock"], fcntl.LOCK_UN)
+
+
+def alone(fn):
+    """``fn`` as a timed section (``alone_section``)."""
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        with alone_section():
+            return fn(*args, **kwargs)
+    return timed
+
+
+def second_failed():
+    """In the first process: raise if the second has exited with an error."""
+    child = PEER["child"]
+    if child is not None and child.poll() not in (None, 0):
+        PEER["child"] = PEER["pid"] = None
+        with open(second_paths()[0]) as f:
+            print(f.read()[-20000:], file=sys.stderr)
+        raise RuntimeError(f"the second process ({SECOND_PHASES}) exited with {child.returncode}; the end of its "
+                           f"output is above, all of it in {second_paths()[0]}")
+
+
+def second_paths():
+    """The second process's output log and its JSON figures."""
+    return os.path.join(BUILD, "chip_smoke_second.log"), os.path.join(BUILD, "chip_smoke_second.json")
+
+
 def phase(title):
     """A phase's heading, with the seconds since the script started: every
     time printed under it was taken on this card."""
+    second_failed()
     print(f"== {title} [{CARD}] (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+    second_failed()
     print(f"ok: {what}")
 
 
+@alone
 def graph_ms(torch, fn, reps=20):
     """Device time of one call of ``fn``, replayed from a CUDA graph so that
     host launch overhead does not show."""
@@ -551,6 +674,7 @@ def k1_bound_ms(n_elem, n_bytes):
     return max(n_bytes / HBM_BYTES_PER_S, n_elem * K1_FLOPS_PER_ELEMENT / FP32_FLOPS_PER_S) * 1e3
 
 
+@alone
 def host_us(torch, fn, reps=200):
     """Host time of one eager call of ``fn`` (enqueue only, no sync), on
     calls small enough that the device keeps up."""
@@ -753,14 +877,15 @@ def profile_steps(torch, step, ours, steps=3, label="train steps"):
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         torch.zeros(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-        prof.step()  # the window: only what follows is reported
-        time.sleep(PROFILE_PAD_S)
-        t0 = time.perf_counter()
-        for i in range(steps):
-            step(i)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(PROFILE_PAD_S)
+        with alone_section():  # the window alone; the trace's parsing after it need not be
+            prof.step()  # the window: only what follows is reported
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            for i in range(steps):
+                step(i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
         prof.step()
     events = prof.events()
     window = [e.time_range for e in events if e.name.startswith("ProfilerStep") and "CPU" in str(e.device_type)]
@@ -803,6 +928,7 @@ def profile_steps(torch, step, ours, steps=3, label="train steps"):
             "busy": device_us / 1e3 / wall_ms}
 
 
+@alone
 def steady_steps(torch, step, label, batch, count=2 * TRAIN_STEPS):
     """``count`` steady train steps (``step(i)`` runs step i and returns its
     loss), timed one by one with CUDA events."""
@@ -1076,11 +1202,12 @@ def runner_phase(torch, cifar, kernels, variant, label, ours):
     n_samples = x_test.shape[0] * config["eval_samples"]
     for mode, device_eval in (("runner", True), ("host loop", False), ("host loop", False), ("runner", True)):
         eval_config = {**config, "device_eval": device_eval}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = cifar.eval_model(built, eval_config, x_test, y_test).as_dict()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        with alone_section():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = cifar.eval_model(built, eval_config, x_test, y_test).as_dict()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         if mode in evals:  # the second of each: warm
             figures[mode] = n_samples / seconds
         evals[mode] = result
@@ -1205,6 +1332,7 @@ def captured_vs_eager(torch, built, batches, label):
     return bitwise
 
 
+@alone
 def eval_runner_vs_host(torch, cifar, built, config, test, label):
     """The eval runner against the host loop on the same keys, warm (each
     run twice, in the order runner, host, host, runner), on cuDNN's
@@ -1505,6 +1633,7 @@ def rest_card_vs_cpu(torch, cifar, NoiseSource):
     return gaps
 
 
+@alone
 def sngp_finalize_ms(torch, built, reps=10):
     """Device time of SNGP's epoch boundary (``recompute_covariance_and_reset``
     of the 1024 x 1024 precision: Cholesky, solve, reset), CUDA events over
@@ -1540,11 +1669,12 @@ def laplace_figures(torch, cifar):
     lap.ggn(built.state, (data[0][:256], data[1][:256]))  # warm-up: cuDNN's and the jacrev's first calls
     times = {}
     for name, fn in (("ggn_s", lambda: lap.ggn(built.state, data)), ("fit_s", lambda: lap.fit(built.state, data))):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
+        with alone_section():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
     fitted = out
     print(f"Laplace fit of {x.shape[0]} images (full, D = 650): GGN pass {times['ggn_s']:.3f} s, whole fit "
           f"{times['fit_s']:.3f} s (the marginal-likelihood search and the posterior {times['fit_s'] - times['ggn_s']:.3f} "
@@ -1622,10 +1752,14 @@ def rest_phase(torch, cifar, kernels, NoiseSource):
 
 # the UCI phase: configs/uci.yaml through the CLI (run.main) with DEFAULT's
 # values (batch 32, eval_samples 1000, learn_var, lr 0.01, std_init 1.0) and
-# the grid's nine models; cut: the list of eight data sets to naval (the
-# largest: 14 inputs, 11,934 rows, 10,741 train and 1,193 test), epochs 100
-# -> 1, repetitions 5 -> 1
+# the grid's nine models; cut: the list of eight data sets to energy (768
+# rows, 22 steps an epoch at batch 32), epochs 100 -> 1, repetitions 5 -> 1;
+# SVGD at 20 particles on energy
+# too. The runners, steady steps, evaluate's rate, the card against the CPU
+# and K1 and K2 at the MLP's shapes run on naval (the largest: 14 inputs,
+# 11,934 rows, 10,741 train and 1,193 test)
 UCI_DATASET = "naval"
+UCI_CLI_DATASET = "energy"
 UCI_CUT_EPOCHS = 1
 UCI_STEPS = 20  # steady steps timed, each way
 UCI_COMPARE_STEPS = 16  # captured (two replays of a graph of 8) against eager
@@ -1646,19 +1780,19 @@ def uci_sweep_file(path):
     import yaml
 
     default, sweep = uci_yaml_docs()
-    print(f"cut: list dataset {sweep['list']['dataset']} -> [{UCI_DATASET!r}], epochs {default['params']['epochs']} "
+    print(f"cut: list dataset {sweep['list']['dataset']} -> [{UCI_CLI_DATASET!r}], epochs {default['params']['epochs']} "
           f"-> {UCI_CUT_EPOCHS}, repetitions {default['repetitions']} -> 1; grid {sweep['grid']['model']} and "
           f"DEFAULT's other params kept: {default['params']}")
     default = {**default, "repetitions": 1, "params": {**default["params"], "epochs": UCI_CUT_EPOCHS}}
-    sweep = {**sweep, "list": {"dataset": [UCI_DATASET]}}
+    sweep = {**sweep, "list": {"dataset": [UCI_CLI_DATASET]}}
     with open(path, "w") as f:
         yaml.safe_dump_all([default, sweep], f)
     return default["params"]
 
 
 def uci_cli_phase(torch, kernels):
-    """The CLI's nine naval runs on the card, every count set to 0 just
-    before ``run.main`` and read just after: K1 on bbb and bbb_fixed_kl
+    """The CLI's nine runs on UCI_CLI_DATASET on the card, every count set
+    to 0 just before ``run.main`` and read just after: K1 on bbb and bbb_fixed_kl
     only (mc 2 x 2 layers a step, forward and backward; S x 2 frozen at
     evaluate), K2 once a svgd step, K3 never. Each run's five metrics finite
     and QCE in [0, 1]; each run's wall time from its log record."""
@@ -1670,12 +1804,12 @@ def uci_cli_phase(torch, kernels):
     from beyond_deep_ensembles_tpu_torch.utils.config import load_sweep
 
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
-        path = os.path.join(tmp, "uci_naval.yaml")
+        path = os.path.join(tmp, "uci_cli.yaml")
         params = uci_sweep_file(path)
         specs = list(load_sweep(path))
         models = [spec["params"]["model"] for spec in specs]
-        check(models == list(uci.MODELS) and all(spec["params"]["dataset"] == UCI_DATASET for spec in specs),
-              f"the cut sweep holds the nine models on {UCI_DATASET}: {models}")
+        check(models == list(uci.MODELS) and all(spec["params"]["dataset"] == UCI_CLI_DATASET for spec in specs),
+              f"the cut sweep holds the nine models on {UCI_CLI_DATASET}: {models}")
         out = os.path.join(tmp, "results")
         for fn in kernels.values():
             fn.launches = 0
@@ -1692,9 +1826,9 @@ def uci_cli_phase(torch, kernels):
             (result,) = record["plain"]
             check(sorted(result) == ["avg_ll", "avg_lml", "mse", "qce", "sqce"]
                   and all(math.isfinite(v) for v in result.values()) and 0.0 <= result["qce"] <= 1.0,
-                  f"CLI {model} on {UCI_DATASET}: metrics finite, QCE in [0, 1]: {json.dumps(result)}")
+                  f"CLI {model} on {UCI_CLI_DATASET}: metrics finite, QCE in [0, 1]: {json.dumps(result)}")
             walls[model] = record["_t"]
-    n = UCI_SHAPES[UCI_DATASET][1]
+    n = UCI_SHAPES[UCI_CLI_DATASET][1]
     n_train = n - n // 10
     steps = UCI_CUT_EPOCHS * -(-n_train // params["batch_size"])
     mc, s = uci.DEFAULT_CONFIG["mc_samples"], params["eval_samples"]
@@ -1703,26 +1837,27 @@ def uci_cli_phase(torch, kernels):
     want["k1_gaussian_sample_backward"] = 2 * steps * mc * 2
     want["k2_svgd_gram"] = steps
     check(counts == want, f"CLI: launch counts {counts} = {want} ({steps} steps a run, mc {mc}, S {s}, 2 BBB layers)")
-    print(f"CLI runs on {UCI_DATASET}, wall time each (s) [{CARD}]: {json.dumps(walls)}; run.main {wall:.1f} s")
+    print(f"CLI runs on {UCI_CLI_DATASET}, wall time each (s) [{CARD}]: {json.dumps(walls)}; run.main {wall:.1f} s")
     return {"wall_s": wall, "run_wall_s": walls, "host_counts": counts, "steps_per_run": steps}
 
 
 def uci_svgd20_and_gap(torch, kernels, params):
-    """SVGD at 20 particles through run_single on naval (K2 at n = 20, once
-    a step), then ``run`` of map on yacht with the gap splits (6)."""
+    """SVGD at 20 particles through run_single on UCI_CLI_DATASET (K2 at n =
+    20, once a step), then ``run`` of map on yacht with the gap splits
+    (6)."""
     from beyond_deep_ensembles_tpu_torch.data.uci import UCI_SHAPES
     from beyond_deep_ensembles_tpu_torch.experiments import uci
 
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    res = uci.result_dict(uci.run_single({**params, "model": "svgd", "svgd_particles": 20, "dataset": UCI_DATASET,
+    res = uci.result_dict(uci.run_single({**params, "model": "svgd", "svgd_particles": 20, "dataset": UCI_CLI_DATASET,
                                           "epochs": 1}))
     wall = time.perf_counter() - t0
-    n = UCI_SHAPES[UCI_DATASET][1]
+    n = UCI_SHAPES[UCI_CLI_DATASET][1]
     steps = -(-(n - n // 10) // params["batch_size"])
     check(kernels["k2_svgd_gram"].launches == steps and kernels["k1_gaussian_sample"].launches == 0,
-          f"SVGD 20 particles, 1 epoch on {UCI_DATASET}: K2 launched {kernels['k2_svgd_gram'].launches} times "
+          f"SVGD 20 particles, 1 epoch on {UCI_CLI_DATASET}: K2 launched {kernels['k2_svgd_gram'].launches} times "
           f"({steps} steps), K1 never")
     check(all(math.isfinite(v) for v in res.values()) and 0.0 <= res["qce"] <= 1.0,
           f"SVGD 20 particles: metrics {json.dumps(res)} ({wall:.1f} s)")
@@ -1786,6 +1921,7 @@ def uci_captured_vs_eager(torch, built, batches, label):
     return bitwise
 
 
+@alone
 def uci_step_times(torch, built, batches, label):
     """UCI_STEPS steady steps eager and captured (a graph of one step,
     replayed), CUDA events; K1 and K2 host launches per eager step."""
@@ -1819,6 +1955,7 @@ def uci_step_times(torch, built, batches, label):
     return {**times, "k1_per_step": per_step[0], "k1_backward_per_step": per_step[1], "k2_per_step": per_step[2]}
 
 
+@alone
 def uci_eval_rate(torch, uci, built, config, ds):
     """``evaluate`` over the test split at the sweep's S, warm (the second of
     two calls): samples/s, and K1 launches per evaluate."""
@@ -1943,9 +2080,9 @@ def uci_kernel_checks(torch, sampling, svgd_kernel, p):
 
 
 def uci_phase(torch, kernels):
-    """UCI regression (configs/uci.yaml) on the card: the CLI's nine naval
-    runs, SVGD at 20 particles and a gap run, captured against eager for
-    map, bbb and svgd, steady steps of map, bbb, svgd (10 and 20), ivon,
+    """UCI regression (configs/uci.yaml) on the card: the CLI's nine runs
+    and SVGD at 20 particles on UCI_CLI_DATASET, a gap run, captured
+    against eager for map, bbb and svgd, steady steps of map, bbb, svgd (10 and 20), ivon,
     evaluate's rate, the card against the CPU, K1 and K2 at the slice's
     shapes. Returns the figures."""
     from beyond_deep_ensembles_tpu_torch.experiments import uci
@@ -1993,6 +2130,7 @@ def build_phase(torch, _cuda_build):
                 print(f"  nvcc {source}: {line.strip()}")
 
 
+@alone
 def events_ms(torch, fn, reps=30):
     """Device time of one call of ``fn`` between CUDA events after a warm-up,
     for calls that a CUDA graph cannot capture (autograd's backward); each
@@ -2043,6 +2181,7 @@ def k3_hold(torch, label, out, ref, grads, ref_grads):
     return err, gerr
 
 
+@alone
 def in_turns(timers, rounds=2):
     """Each of ``timers`` (name -> a function that returns one time in ms)
     run in turns, first to last and then last to first (kernel, library,
@@ -2328,13 +2467,13 @@ def run_bert_slice(torch, wilds_task, kernels, variant, label):
 # The WILDS text phase: configs/amazon.yaml and configs/civilcomments.yaml
 # through run.main at distilbert-base's full width, each row cut in data
 # and epochs only: one epoch of 4 steps (32 Amazon reviews at batch 8, 64
-# comments at batch 16), 64 test examples (4 Amazon
-# eval batches of 16, 2 CivilComments batches of 32) at the rows' S; SWAG's
+# comments at batch 16), 32 test examples (2 Amazon eval batches of 16, 1
+# CivilComments batch of 32) at the rows' S; SWAG's
 # collections in proportion (3 of 5 epochs -> from the cut's first step; 50
 # collections over 2 epochs -> 4 over 4 steps); MAP run twice (repetitions
 # 2) for the multix phase, every other row once
 WILDS_STEPS = 4
-WILDS_TEST = 64
+WILDS_TEST = 32
 WILDS_SWAG = {"swag_start_epoch": 0, "swag_updates": 4}
 WILDS_ROWS = {
     "amazon": ["MAP", "MCD", "SWAG", "SWAG_LL", "BBB", "Rank1", "SVGD", "iVON", "LL_iVON", "Laplace", "SNGP"],
@@ -2445,7 +2584,6 @@ def wilds_cli_rows(torch, task, kernels, out):
         print(f"{task} {name} through run.main: {wall:.1f} s, peak device memory {peak:.2f} GiB [{CARD}]")
         if name not in ("MAP", "MCD", "Laplace"):
             shutil.rmtree(os.path.join(out, f"{name}_0"), ignore_errors=True)
-        torch.cuda.empty_cache()
     run.main([task, sweep, "--name", "MAP", "--out", out, "--rep", "1"])  # multix's second member
     return rows, results, figures
 
@@ -2628,6 +2766,7 @@ def wilds_built(torch, wilds_task, task, row, n_batches=WILDS_STEPS, **extra):
     return built, config, batches
 
 
+@alone
 def wilds_step_times(torch, built, batches, label, captured=20, eager=10, k=WILDS_STEPS // 2):
     """Steady steps, ``captured`` replayed from one graph of ``k`` steps and
     ``eager`` one update per call, key mode both, CUDA events: ms a step
@@ -2648,6 +2787,7 @@ def wilds_step_times(torch, built, batches, label, captured=20, eager=10, k=WILD
     end.synchronize()
     captured_ms = start.elapsed_time(end) / captured
     check(bool(torch.isfinite(metrics["loss"])), f"{label}: captured steps' loss finite")
+    del multi  # the graph's memory back to the allocator before the eager steps
     built.state, _ = built.method.update(built.state, NoiseSource(key=keys.as_key(3, "cuda")), batches[0])
     torch.cuda.synchronize()
     start.record()
@@ -2673,7 +2813,7 @@ def wilds_mcd_capture(torch, wilds_task):
 
     built, config, batches = wilds_built(torch, wilds_task, "amazon", "MCD")
     captured_vs_eager(torch, built, batches, "DistilBERT MCD (device_data)")
-    loss_fn = wilds_task._loss_fn_for(built.model)
+    loss_fn = wilds_task._loss_fn_for(built.model, built.regression)
     static = torch.zeros((), dtype=torch.int64, device="cuda")
     batch = batches[0]
     with torch.no_grad():
@@ -2697,15 +2837,15 @@ def wilds_mcd_capture(torch, wilds_task):
     return built, batches
 
 
-def wilds_runner_vs_host(wilds_task, built, config, task, label):
-    """``eval_task`` of WILDS_TEST test examples through the eval runner
+def wilds_runner_vs_host(wilds_task, built, config, task, label, n_test=WILDS_TEST):
+    """``eval_task`` of ``n_test`` test examples through the eval runner
     against the host loop on the same keys, on cuDNN's deterministic
     algorithms (``eval_runner_vs_host``): metrics within 1e-5 relative."""
     import torch
 
     from beyond_deep_ensembles_tpu_torch.data.wilds import load_wilds
 
-    xt, yt, mt = load_wilds(task, "test", subsample=WILDS_TEST)
+    xt, yt, mt = load_wilds(task, "test", subsample=n_test)
     xt = wilds_task.task_images(task, config, xt)
     torch.backends.cudnn.deterministic = True
     evals = {mode: wilds_task.eval_task(built, task, {**config, "device_eval": mode}, xt, yt, mt)
@@ -2930,12 +3070,12 @@ def wilds_phase(torch, kernels, att, sampling, svgd_kernel, wilds_task, NoiseSou
         os.makedirs(out)
     shutil.rmtree(out, ignore_errors=True)
     built, batches = wilds_mcd_capture(torch, wilds_task)
-    figures["steps"] = {"MCD": wilds_step_times(torch, built, batches, "Amazon MCD", captured=8, eager=4)}
+    figures["steps"] = {"MCD": wilds_step_times(torch, built, batches, "Amazon MCD", captured=4, eager=2)}
     del built
     torch.cuda.empty_cache()
     for row, task in (("MAP", "amazon"), ("SVGD", "amazon"), ("LL_SVGD", "civilcomments")):
         built, _, batches = wilds_built(torch, wilds_task, task, row)
-        figures["steps"][row] = wilds_step_times(torch, built, batches, f"{task} {row}", captured=8, eager=4)
+        figures["steps"][row] = wilds_step_times(torch, built, batches, f"{task} {row}", captured=4, eager=2)
         del built, batches
         torch.cuda.empty_cache()
     figures["card_vs_cpu"] = wilds_card_vs_cpu(torch, wilds_task, NoiseSource)
@@ -2945,10 +3085,10 @@ def wilds_phase(torch, kernels, att, sampling, svgd_kernel, wilds_task, NoiseSou
 # the image phase (phase 11): configs/camelyon.yaml and configs/fmow.yaml at
 # DenseNet-121's full width (growth 32, blocks (6, 12, 24, 16)), the yamls'
 # batch and input sizes, lr, S and conv_remat, synthetic data of the true
-# shapes; cut in depth only: IMAGE_STEPS steps a row (one epoch), 64 test
+# shapes; cut in depth only: IMAGE_STEPS steps a row (one epoch), 32 test
 # images, SWAG collecting at every step from the first (its start epoch 0),
 # MultiSWAG at its 5 members, MAP twice (multix)
-IMAGE_STEPS = {"camelyon17": 8, "fmow": 4, "iwildcam": 4, "rxrx1": 4}
+IMAGE_STEPS = {"camelyon17": 8, "fmow": 4, "iwildcam": 4, "rxrx1": 4, "poverty": 3}
 IMAGE_ROWS = {
     "camelyon17": ["MAP", "MCD", "SWAG", "MultiSWAG", "BBB", "Rank1", "iVON", "SVGD", "Laplace"],
     "fmow": ["MAP", "MCD", "SWAG", "SWAG_PODS", "SWAG_LL", "BBB", "Rank1", "SVGD", "iVON", "LL_iVON", "Laplace",
@@ -2956,8 +3096,9 @@ IMAGE_ROWS = {
 }
 # K1 launches a forward of each task's BBB row: camelyon17's DenseNet-121 is
 # variational throughout (120 convs and the head), fmow's on the head only;
-# iwildcam and rxrx1 have no BBB row
-IMAGE_K1_PER_FORWARD = {"camelyon17": 121, "fmow": 1, "iwildcam": 0, "rxrx1": 0}
+# iwildcam and rxrx1 have no BBB row; poverty's ResNet-18 is variational
+# throughout (the stem, 16 block convs, 3 stride-2 shortcuts and the head)
+IMAGE_K1_PER_FORWARD = {"camelyon17": 121, "fmow": 1, "iwildcam": 0, "rxrx1": 0, "poverty": 21}
 # the sweep's keys beyond the cut: rxrx1's cosine_warmup over its 4 steps
 # with one step of warmup (its default, 4 // 20, is none), so that the
 # warmup branch (lr 0) and the cosine (lr, then 3/4 and 1/4 of it) both run
@@ -2979,10 +3120,14 @@ def image_sweep_file(task, path):
     default, steps = docs[0], IMAGE_STEPS[task]
     batch = default["params"]["batch_size"]
     cut = {"epochs": 1, "subsample": steps * batch, "test_subsample": WILDS_TEST, **IMAGE_EXTRA.get(task, {})}
+    folds = default.pop("list", {}).get("fold")
+    if folds:  # poverty's five folds: the first
+        cut["fold"] = folds[0]
     swag = {"swag_start_epoch": 0, "swag_updates": steps}
     print(f"{task} cut: epochs {default['params']['epochs']} -> 1, subsample -> {cut['subsample']} ({steps} steps of "
           f"{batch}), test_subsample -> {WILDS_TEST}, repetitions {default['repetitions']} -> 1 (MAP 2); SWAG {swag}; "
-          f"{json.dumps(IMAGE_EXTRA.get(task, {}))}; the rows' other params kept: {json.dumps(default['params'])}")
+          + (f"folds {folds} -> {folds[0]}; " if folds else "")
+          + f"{json.dumps(IMAGE_EXTRA.get(task, {}))}; the rows' other params kept: {json.dumps(default['params'])}")
     out = [{**default, "repetitions": 1, "params": {**default["params"], **cut}}]
     for doc in docs[1:]:
         params = dict(doc["params"])
@@ -3042,10 +3187,16 @@ def image_cli_rows(torch, task, kernels, out, names=None):
         run_dir = os.path.join(out, f"{name}_0", "rep_0")
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
             result = {k: v for k, v in json.loads(f.read().splitlines()[-1]).items() if not k.startswith("_")}
-        shown = [k for k in ("accuracy", "avg_log_likelihood", "ece", "macro_f1") if k in result]
-        check(all(math.isfinite(v) for v in result.values() if isinstance(v, (int, float)))
-              and 0.0 <= result["accuracy"] <= 1.0 and result["avg_log_likelihood"] < 0.0
-              and 0.0 <= result.get("macro_f1", 0.0) <= 1.0,
+        finite = all(math.isfinite(v) for v in result.values() if isinstance(v, (int, float)))
+        if task == "poverty":  # the regression metrics and the urban/rural Pearson r
+            shown = sorted(result)
+            in_range = (set(result) == POVERTY_METRICS and result["mse"] >= 0.0 and 0.0 <= result["qce"] <= 0.5
+                        and all(-1.0 <= result[k] <= 1.0 for k in ("r_urban", "r_rural", "r_all", "r_worst")))
+        else:
+            shown = [k for k in ("accuracy", "avg_log_likelihood", "ece", "macro_f1") if k in result]
+            in_range = (0.0 <= result["accuracy"] <= 1.0 and result["avg_log_likelihood"] < 0.0
+                        and 0.0 <= result.get("macro_f1", 0.0) <= 1.0)
+        check(finite and in_range,
               f"{task} {name}: metrics finite and in range: {json.dumps({k: result[k] for k in shown})}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         figures[name] = {"wall_s": wall, "peak_gib": peak, "counts": counts}
@@ -3053,7 +3204,6 @@ def image_cli_rows(torch, task, kernels, out, names=None):
         print(f"{task} {name} through run.main: {wall:.1f} s, peak device memory {peak:.2f} GiB [{CARD}]")
         if name not in ("MAP", "MCD", "Laplace"):
             shutil.rmtree(os.path.join(out, f"{name}_0"), ignore_errors=True)
-        torch.cuda.empty_cache()
     run.main([task, sweep, "--name", "MAP", "--out", out, "--rep", "1"])  # multix's second member
     return rows, results, figures
 
@@ -3310,7 +3460,7 @@ def image_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
         if (task, row) in (("camelyon17", "BBB"), ("fmow", "MCD")):
             figures["runner_vs_host"][label] = wilds_runner_vs_host(wilds_task, built, config, task, label)
         if row != "MCD":
-            figures["steps"][label] = wilds_step_times(torch, built, batches, label, captured=8, eager=4, k=2)
+            figures["steps"][label] = wilds_step_times(torch, built, batches, label, captured=4, eager=2, k=2)
             figures["steps"][label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         del built, batches
         release()
@@ -3326,7 +3476,7 @@ def image_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
 # at ResNet-50's full width (stage sizes (3, 4, 6, 3)), the yamls' batch
 # (16 / 75) and input (448x448 / 256x256), eval batch, lr, S and schedule,
 # synthetic data of the true shapes; cut in depth only (IMAGE_STEPS steps a
-# row, one epoch, 64 test images, SWAG_LL collecting from the first step, MAP
+# row, one epoch, 32 test images, SWAG_LL collecting from the first step, MAP
 # twice, rxrx1's warmup_steps 1: IMAGE_EXTRA)
 RESNET_ROWS = {
     "iwildcam": ["MAP", "MCD", "SWAG_LL", "SWAG_LL_PODS", "LL_SVGD", "LL_iVON", "SNGP", "Laplace"],
@@ -3369,7 +3519,7 @@ def keys_card_check(torch):
 
 def resnet_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
     """Both ResNet-50 yamls through run.main at full width with exact launch
-    counts, the checkpoint phases on iwildcam, captured steps against eager
+    counts, the checkpoint phases on rxrx1, captured steps against eager
     ones (iwildcam MAP), the eval runner against the host loop (rxrx1 MAP:
     one padded batch of 75), steady steps (iwildcam MAP, rxrx1 MAP), K1 at
     one all-layers-BBB iwildcam forward's planes, K2 at iwildcam LL_SVGD's
@@ -3393,9 +3543,9 @@ def resnet_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
         t0 = time.perf_counter()
         rows, results, row_figures = image_cli_rows(torch, task, kernels, out, names)
         figures["rows"][task] = row_figures
-        if task == "iwildcam":
+        if task == "rxrx1":  # the smaller images (iwildcam's 448x448 MCD evals cost 43 s at drop_rates)
             figures["phases"][task] = wilds_phases(torch, task, rows, results, out)
-        print(f"{task} rows{' and phases' if task == 'iwildcam' else ''}: {time.perf_counter() - t0:.1f} s [{CARD}]")
+        print(f"{task} rows{' and phases' if task == 'rxrx1' else ''}: {time.perf_counter() - t0:.1f} s [{CARD}]")
         release()
     shutil.rmtree(out, ignore_errors=True)
     for task in RESNET_ROWS:
@@ -3406,7 +3556,7 @@ def resnet_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
             captured_vs_eager(torch, built, batches, f"{label} (ResNet-50)")
         else:
             figures["runner_vs_host"][label] = wilds_runner_vs_host(wilds_task, built, config, task, label)
-        figures["steps"][label] = wilds_step_times(torch, built, batches, label, captured=8, eager=4, k=2)
+        figures["steps"][label] = wilds_step_times(torch, built, batches, label, captured=4, eager=2, k=2)
         figures["steps"][label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         del built, batches
         release()
@@ -3423,10 +3573,342 @@ def resnet_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
     return figures
 
 
-def main() -> int:
-    if not os.path.isdir(os.path.join(ROOT, "beyond_deep_ensembles_tpu_torch")):
-        print("chip_smoke: the beyond_deep_ensembles_tpu_torch package is not beside this file", file=sys.stderr)
-        return 1
+# the PovertyMap phase (phase 13): configs/poverty.yaml at ResNet-18's full
+# width (224x224x8, batch 64, eval batch 64, Adam at 1e-3 under the
+# exponential schedule, S = 10), synthetic data of the true shape; cut in
+# depth only (fold A of the yaml's five, IMAGE_STEPS steps a row, one epoch,
+# 32 test images, SWAG collecting from the first step, MAP twice)
+POVERTY_ROWS = ["MAP", "MCD", "SWAG", "BBB", "Rank1", "SVGD", "iVON", "Laplace"]
+POVERTY_METRICS = {"avg_lml", "avg_ll", "mse", "qce", "sqce", "r_urban", "r_rural", "r_all", "r_worst"}
+# the eval runner against the host loop on a padded batch: 80 test images at
+# eval batch 64, the second batch 16 images and 48 copies of the last
+POVERTY_PADDED_TEST = 80
+
+
+def poverty_k2_shapes(torch, wilds_task):
+    """K2's poverty shape: SVGD's 5 particles x PovertyNet's parameters
+    (ResNet-18's and GaussLayer's ``rho__mle``), counted from the port's
+    model."""
+    net = wilds_task._make_backbone("poverty", wilds_task.DEFAULT_CONFIG, torch.Generator())
+    p = sum(q.numel() for q in net.parameters())
+    check(p == 11_174_210, f"poverty SVGD: a particle is PovertyNet, {p} parameters (ResNet-18's 11,174,209 and "
+                           f"rho__mle) = K2's P")
+    return [(5, p)]
+
+
+def poverty_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
+    """configs/poverty.yaml through run.main at full width on fold A with
+    exact launch counts (K1 21 a forward in BBB only, K2 once a step in SVGD
+    only, K3 never), the regression metrics finite and every Pearson r in
+    [-1, 1], the four checkpoint phases, 4 captured MAP steps against 4 eager
+    ones, the eval runner against the host loop on a padded batch, steady
+    captured and eager MAP steps with the peak memory, K1 at one BBB
+    forward's 21 planes, K2 at SVGD's shape beside torch.mm, and one MAP step
+    against the CPU and float64."""
+    import gc
+    import shutil
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"(at {time.perf_counter() - T_START:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB held)")
+
+    task, out = "poverty", os.path.join(BUILD, "poverty_cli")
+    figures = {}
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    rows, results, figures["rows"] = image_cli_rows(torch, task, kernels, out, POVERTY_ROWS)
+    figures["phases"] = wilds_phases(torch, task, rows, results, out)
+    print(f"poverty rows and phases: {time.perf_counter() - t0:.1f} s [{CARD}]")
+    shutil.rmtree(out, ignore_errors=True)
+    release()
+    label = "poverty MAP"
+    torch.cuda.reset_peak_memory_stats()
+    built, config, batches = wilds_built(torch, wilds_task, task, "MAP", n_batches=COMPARE_STEPS)
+    captured_vs_eager(torch, built, batches, f"{label} (ResNet-18)")
+    figures["runner_vs_host"] = wilds_runner_vs_host(wilds_task, built, config, task, f"{label} (padded batch)",
+                                                     n_test=POVERTY_PADDED_TEST)
+    figures["steps"] = wilds_step_times(torch, built, batches, label, captured=4, eager=2, k=2)
+    figures["steps"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del built, batches
+    release()
+    figures["k1"] = image_k1_checks(torch, sampling, wilds_task, NoiseSource, task=task, row="BBB",
+                                    extra={"n_batches": 1}, planes_want=IMAGE_K1_PER_FORWARD[task],
+                                    what="poverty BBB", layers="the stem, 16 block convs, 3 shortcuts and the head")
+    release()
+    figures["k2"] = k2_wilds_times(torch, svgd_kernel, poverty_k2_shapes(torch, wilds_task))
+    release()
+    figures["card_vs_cpu"] = image_card_vs_cpu(torch, wilds_task, NoiseSource, sampling, width="ResNet-18",
+                                               cases=[(task, "MAP", {}, 1)])
+    return figures
+
+
+def bert_remat_check(torch, wilds_task, NoiseSource, kernels):
+    """Amazon's MAP at distilbert-base's width, one update with ``bert_remat``
+    against the same update without it, from one state, key and batch, K3
+    live (attention dropout in training): every written tensor and the loss
+    bit for bit (the recompute in the backward replays K3's forward under
+    the forward's seeds); K3a runs twice a layer under remat (the forward
+    and its recompute), K3b once."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    runs = {}
+    for remat in (False, True):
+        built, _, batches = wilds_built(torch, wilds_task, "amazon", "MAP", n_batches=1, bert_remat=remat)
+        for fn in kernels.values():
+            fn.launches = 0
+        state, metrics = built.method.update(built.state, NoiseSource(key=keys.as_key(17, "cuda")), batches[0])
+        torch.cuda.synchronize()
+        runs[remat] = ([t.detach().clone() for t in multistep._written_tensors(state)], metrics["loss"].clone(),
+                       {k: fn.launches for k, fn in kernels.items()}, state.params.bert.config.remat)
+        del built, state, batches
+        torch.cuda.empty_cache()
+    (plain, loss0, c0, r0), (remat, loss1, c1, r1) = runs[False], runs[True]
+    layers = wilds_task._bert_config({}).n_layers
+    equal = len(plain) == len(remat) and all(torch.equal(a, b) for a, b in zip(plain, remat))
+    check(equal and torch.equal(loss0, loss1) and (r0, r1) == (False, True)
+          and c0["k3a_attention_forward"] == layers and c1["k3a_attention_forward"] == 2 * layers
+          and c0["k3b_attention_backward"] == c1["k3b_attention_backward"] == layers,
+          f"amazon MAP with bert_remat = without it, one update at distilbert-base's width, bit for bit (all "
+          f"{len(plain)} written tensors and the loss {float(loss0):.6f}); K3a {c0['k3a_attention_forward']} -> "
+          f"{c1['k3a_attention_forward']} launches (the recompute), K3b {c0['k3b_attention_backward']} -> "
+          f"{c1['k3b_attention_backward']}")
+    return {"bitwise": equal, "k3a_launches": [c0["k3a_attention_forward"], c1["k3a_attention_forward"]]}
+
+
+def _torchvision_densenet121(torch, gen):
+    """Random tensors under torchvision ``densenet121``'s keys and shapes."""
+    sd = {}
+
+    def conv(key, cout, cin, k):
+        sd[key + ".weight"] = 0.05 * torch.randn(cout, cin, k, k, generator=gen)
+
+    def bn(key, c):
+        sd.update({key + ".weight": 1 + 0.1 * torch.randn(c, generator=gen), key + ".bias": torch.zeros(c),
+                   key + ".running_mean": torch.zeros(c), key + ".running_var": torch.ones(c),
+                   key + ".num_batches_tracked": torch.tensor(0)})
+
+    conv("features.conv0", 64, 3, 7)
+    bn("features.norm0", 64)
+    c = 64
+    for b, layers in enumerate((6, 12, 24, 16)):
+        for i in range(layers):
+            key = f"features.denseblock{b + 1}.denselayer{i + 1}"
+            bn(key + ".norm1", c)
+            conv(key + ".conv1", 128, c, 1)
+            bn(key + ".norm2", 128)
+            conv(key + ".conv2", 32, 128, 3)
+            c += 32
+        if b < 3:
+            bn(f"features.transition{b + 1}.norm", c)
+            conv(f"features.transition{b + 1}.conv", c // 2, c, 1)
+            c //= 2
+    bn("features.norm5", c)
+    sd.update({"classifier.weight": torch.zeros(1000, c), "classifier.bias": torch.zeros(1000)})
+    return sd
+
+
+def _hf_distilbert(torch, gen, cfg):
+    """Random tensors under HuggingFace DistilBERT's keys and shapes (a
+    sequence-classification file: ``distilbert.``-prefixed, with its head)
+    and the port encoder's name for each."""
+    sd, names = {}, {}
+
+    def put(ours, theirs, value):
+        sd["distilbert." + theirs], names[ours] = value, "distilbert." + theirs
+
+    put("word_embeddings.embedding", "embeddings.word_embeddings.weight",
+        0.02 * torch.randn(cfg.vocab_size, cfg.dim, generator=gen))
+    put("position_embeddings.embedding", "embeddings.position_embeddings.weight",
+        0.02 * torch.randn(cfg.max_position_embeddings, cfg.dim, generator=gen))
+    put("embed_layer_norm.scale", "embeddings.LayerNorm.weight", 1 + 0.01 * torch.randn(cfg.dim, generator=gen))
+    put("embed_layer_norm.bias", "embeddings.LayerNorm.bias", 0.01 * torch.randn(cfg.dim, generator=gen))
+    shapes = {"q_lin": (cfg.dim, cfg.dim), "k_lin": (cfg.dim, cfg.dim), "v_lin": (cfg.dim, cfg.dim),
+              "out_lin": (cfg.dim, cfg.dim), "lin1": (cfg.hidden_dim, cfg.dim), "lin2": (cfg.dim, cfg.hidden_dim)}
+    for i in range(cfg.n_layers):
+        for ours, theirs in (("q_lin", "attention.q_lin"), ("k_lin", "attention.k_lin"), ("v_lin", "attention.v_lin"),
+                             ("out_lin", "attention.out_lin"), ("lin1", "ffn.lin1"), ("lin2", "ffn.lin2")):
+            o, n = shapes[ours]
+            put(f"layer_{i}.{ours}.kernel", f"transformer.layer.{i}.{theirs}.weight",
+                0.02 * torch.randn(o, n, generator=gen))
+            put(f"layer_{i}.{ours}.bias", f"transformer.layer.{i}.{theirs}.bias", 0.01 * torch.randn(o, generator=gen))
+        for norm in ("sa_layer_norm", "output_layer_norm"):
+            put(f"layer_{i}.{norm}.scale", f"transformer.layer.{i}.{norm}.weight",
+                1 + 0.01 * torch.randn(cfg.dim, generator=gen))
+            put(f"layer_{i}.{norm}.bias", f"transformer.layer.{i}.{norm}.bias",
+                0.01 * torch.randn(cfg.dim, generator=gen))
+    sd.update({"pre_classifier.weight": torch.zeros(cfg.dim, cfg.dim), "classifier.weight": torch.zeros(2, cfg.dim)})
+    return sd, names
+
+
+def staged_weights_check(torch, wilds_task):
+    """The staged weights the port reads, written into ``build/staged`` at
+    full width (random values under their files' layouts) and loaded through
+    ``build`` on the card from ``$BDE_DATA_DIR``: fmow's torchvision
+    ``pretrained/densenet121.pth`` (every conv of DenseNet-121 filled, in
+    order; the 62-class head at its init) and the text tasks'
+    HuggingFace ``distilbert-base-uncased/pytorch_model.bin`` (every encoder
+    tensor from the file; the head at its init): each equal to its file's
+    tensor, bit for bit."""
+    import shutil
+
+    staged, gen = os.path.join(BUILD, "staged"), torch.Generator().manual_seed(21)
+    dense = _torchvision_densenet121(torch, gen)
+    hf, names = _hf_distilbert(torch, gen, wilds_task._bert_config({}))
+    os.makedirs(os.path.join(staged, "pretrained"), exist_ok=True)
+    os.makedirs(os.path.join(staged, "distilbert-base-uncased"), exist_ok=True)
+    torch.save(dense, os.path.join(staged, "pretrained", "densenet121.pth"))
+    torch.save(hf, os.path.join(staged, "distilbert-base-uncased", "pytorch_model.bin"))
+    before = os.environ.get("BDE_DATA_DIR")
+    os.environ["BDE_DATA_DIR"] = staged
+    try:
+        config = {**wilds_task.DEFAULT_CONFIG, "model": "map", "dataset_size": 64, "steps_per_epoch": 1}
+        fmow = wilds_task.build("fmow", config, torch.Generator().manual_seed(0), 1)
+        convs = [p for p in fmow.state.params.parameters() if p.ndim == 4]
+        want = [v for k, v in dense.items() if v.ndim == 4]
+        dense_ok = (len(convs) == len(want) == 120 and convs[0].is_cuda
+                    and all(torch.equal(p.detach().cpu(), w) for p, w in zip(convs, want)))
+        check(dense_ok, f"fmow MAP built on the card from the staged densenet121.pth: its {len(convs)} convs = the "
+                        f"file's, in order, bit for bit")
+        del fmow
+        amazon = wilds_task.build("amazon", config, torch.Generator().manual_seed(0), 1)
+        enc = dict(amazon.state.params.bert.named_parameters())
+        text_ok = (enc.keys() == names.keys() and enc["word_embeddings.embedding"].is_cuda
+                   and all(torch.equal(p.detach().cpu(), hf[names[n]]) for n, p in enc.items()))
+        check(text_ok, f"amazon MAP built on the card from the staged pytorch_model.bin: its {len(enc)} encoder "
+                       f"tensors = the file's, bit for bit")
+        del amazon
+    finally:
+        if before is None:
+            os.environ.pop("BDE_DATA_DIR", None)
+        else:
+            os.environ["BDE_DATA_DIR"] = before
+        shutil.rmtree(staged, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"densenet121": dense_ok, "distilbert": text_ok}
+
+
+def kernel_registry(sampling, svgd_kernel, att):
+    """Every kernel wrapper of the port by the name its figures carry; each
+    counts its own launches (``.launches``)."""
+    return {
+        "k1_gaussian_sample": sampling.gaussian_sample, "k1_gaussian_sample_backward": sampling.gaussian_sample_backward,
+        "k2_svgd_gram": svgd_kernel.gram,
+        "k3a_attention_forward": att.attention_forward, "k3b_attention_backward": att.attention_backward,
+    }
+
+
+def second_phases(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
+    """Phases 9 and 11-14, in the second process: their figures by phase."""
+    phase("UCI regression: configs/uci.yaml through the CLI")
+    uci = uci_phase(torch, kernels)
+    print(json.dumps({"card": CARD, "uci": uci}))
+
+    phase("WILDS image tasks: configs/camelyon.yaml and configs/fmow.yaml through the CLI")
+    image = image_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
+    print(json.dumps({"card": CARD, "image": image}))
+    image_counts = {name: sum(row["counts"][name] for rows in image["rows"].values() for row in rows.values())
+                    for name in kernels}
+    check(image_counts["k3a_attention_forward"] == image_counts["k3b_attention_backward"] == 0,
+          "K3 never launched on the image rows")
+
+    phase("WILDS ResNet-50 tasks: configs/iwildcam.yaml and configs/rxrx1.yaml through the CLI")
+    resnet = resnet_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
+    print(json.dumps({"card": CARD, "resnet": resnet}))
+    resnet_counts = {name: sum(row["counts"][name] for rows in resnet["rows"].values() for row in rows.values())
+                     for name in kernels}
+    check(resnet_counts["k3a_attention_forward"] == resnet_counts["k3b_attention_backward"] == 0
+          and resnet_counts["k1_gaussian_sample"] == resnet_counts["k1_gaussian_sample_backward"] == 0,
+          "K1 and K3 never launched on the ResNet-50 rows (no row is BBB)")
+
+    phase("WILDS poverty: configs/poverty.yaml through the CLI")
+    poverty = poverty_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
+    print(json.dumps({"card": CARD, "poverty": poverty}))
+    poverty_counts = {name: sum(row["counts"][name] for row in poverty["rows"].values()) for name in kernels}
+    check(poverty_counts["k3a_attention_forward"] == poverty_counts["k3b_attention_backward"] == 0,
+          "K3 never launched on the poverty rows")
+
+    phase("Staged weights and DistilBERT remat")
+    staged = {"remat": bert_remat_check(torch, wilds_task, NoiseSource, kernels),
+              "weights": staged_weights_check(torch, wilds_task)}
+    print(json.dumps({"card": CARD, "staged": staged}))
+    return {"uci": uci, "image": image, "resnet": resnet, "poverty": poverty, "staged": staged,
+            "counts": {"image": image_counts, "resnet": resnet_counts, "poverty": poverty_counts}}
+
+
+def start_second():
+    """Start the second process (this file with ``--second``), its output
+    into its log; it reads the card's name and the start time from its
+    arguments, so that its phase headings count from this script's start."""
+    log_path, json_path = second_paths()
+    for path in (log_path, json_path):
+        if os.path.exists(path):
+            os.remove(path)
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__), "--second", CARD, repr(time.time() - (time.perf_counter() - T_START))],
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+        )
+    PEER["child"], PEER["pid"] = child, child.pid
+    print(f"second process {child.pid} started: {SECOND_PHASES}, its output in {os.path.relpath(log_path, ROOT)}")
+
+
+def finish_second():
+    """Wait for the second process, print its output, and return its
+    figures; raises if it failed."""
+    child = PEER["child"]
+    rc = child.wait()
+    log_path, json_path = second_paths()
+    with open(log_path) as f:
+        out = f.read()
+    print(f"== the second process's output ({SECOND_PHASES}), exit code {rc}")
+    print(out, end="" if out.endswith("\n") else "\n")
+    PEER["pid"] = PEER["child"] = None
+    if rc != 0:
+        print(out[-20000:], file=sys.stderr)
+        raise RuntimeError(f"the second process ({SECOND_PHASES}) exited with {rc}")
+    with open(json_path) as f:
+        return json.load(f)
+
+
+def stop_second():
+    """Stop the second process if it still runs (after a failure here)."""
+    child = PEER["child"]
+    if child is not None and child.poll() is None:
+        _signal_peer(signal.SIGCONT)
+        child.kill()
+        child.wait()
+
+
+def _exit_with_parent(parent):
+    """A process of this script ends, with every process of its group, when
+    the one that started it is gone."""
+    while True:
+        time.sleep(2)
+        if os.getppid() != parent:
+            try:
+                os.killpg(os.getpgrp(), signal.SIGKILL)
+            finally:
+                os._exit(3)
+
+
+def _t_start(t0_epoch):
+    """``time.perf_counter()``'s reading at the wall-clock time ``t0_epoch``."""
+    return time.perf_counter() - (time.time() - float(t0_epoch))
+
+
+def _hangup(signum, frame):
+    """SIGHUP noted and survived (see ``supervise``)."""
+    print(f"chip_smoke: process {os.getpid()} received SIGHUP at {time.perf_counter() - T_START:.1f} s; going on",
+          file=sys.stderr, flush=True)
+
+
+def setup(which):
+    """torch on the card with this script's settings for the ``which``
+    process, or None without CUDA."""
+    signal.signal(signal.SIGHUP, _hangup)  # see supervise
     os.makedirs(BUILD, exist_ok=True)
     # keep Triton's cache and CUDA's JIT cache inside the checkout
     os.environ["TRITON_CACHE_DIR"] = os.path.join(BUILD, "triton_cache")
@@ -3436,16 +3918,104 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
+        return None
     sys.path.insert(0, ROOT)
+    torch.set_num_threads(CPU_THREADS)
+    torch.cuda.set_per_process_memory_fraction(MEMORY_FRACTION[which], 0)
+    PEER["lock"] = open(os.path.join(BUILD, "chip_smoke_timing.lock"), "a+")
+    return torch
+
+
+def second_main(card, t0_epoch) -> int:
+    """The second process: phases 9 and 11-14, their figures into its JSON
+    file."""
+    global CARD, T_START
+    CARD, T_START = card, _t_start(t0_epoch)
+    PEER["pid"] = os.getppid()
+    threading.Thread(target=_exit_with_parent, args=(PEER["pid"],), daemon=True).start()
+    torch = setup("second")
+    if torch is None:
+        return 1
+    from beyond_deep_ensembles_tpu_torch.experiments import wilds_task
+    from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+    from beyond_deep_ensembles_tpu_torch.ops import sampling, svgd_kernel
+    from beyond_deep_ensembles_tpu_torch.ops import attention as att
+
+    figures = second_phases(torch, kernel_registry(sampling, svgd_kernel, att), sampling, svgd_kernel, wilds_task,
+                            NoiseSource)
+    json_path = second_paths()[1]
+    with open(f"{json_path}.tmp", "w") as f:
+        json.dump(figures, f)
+    os.replace(f"{json_path}.tmp", json_path)
+    print(f"second process: done at {time.perf_counter() - T_START:.1f} s")
+    return 0
+
+
+def first_process(t0_epoch) -> int:
+    """The first process: everything but SECOND_PHASES, and the result."""
+    global T_START
+    T_START = _t_start(t0_epoch)
+    threading.Thread(target=_exit_with_parent, args=(os.getppid(),), daemon=True).start()
+    torch = setup("first")
+    if torch is None:
+        return 1
+    try:
+        return first_main(torch, T_START)
+    finally:
+        stop_second()
+
+
+def supervise() -> int:
+    """This script as run: the first process in a process group of its own
+    (the second joins it) in this one's session, waited for; both ended
+    with the group on SIGTERM or SIGINT, and whatever is left of the group
+    ended at the end. Only the two processes below are ever stopped
+    (``alone``), never this one, which its caller waits for. Both note a
+    SIGHUP and go on: a group with a stopped member that loses its last
+    parent outside it in its session is sent SIGHUP by the kernel, and one
+    run lost the first process to a SIGHUP whose sender it could not
+    name."""
+    first = subprocess.Popen([sys.executable, "-u", os.path.abspath(__file__), "--first", repr(time.time())],
+                             cwd=ROOT, process_group=0)
+
+    def end_group(signum, frame):
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(first.pid, signal.SIGKILL)
+        sys.exit(128 + signum)
+
+    signal.signal(signal.SIGTERM, end_group)
+    signal.signal(signal.SIGINT, end_group)
+    signal.signal(signal.SIGHUP, _hangup)
+    rc = first.wait()
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(first.pid, signal.SIGKILL)
+    if rc < 0:
+        print(f"chip_smoke: the first process was ended by signal {-rc}", file=sys.stderr)
+        return 128 - rc
+    return rc
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "beyond_deep_ensembles_tpu_torch")):
+        print("chip_smoke: the beyond_deep_ensembles_tpu_torch package is not beside this file", file=sys.stderr)
+        return 1
+    if sys.argv[1:2] == ["--second"]:
+        return second_main(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--first"]:
+        return first_process(sys.argv[2])
+    return supervise()
+
+
+def first_main(torch, t_start) -> int:
+    """The first process: the kernels, then phases 6-8 and 10 beside the
+    second process, then the figures and the result."""
+    global CARD
     from beyond_deep_ensembles_tpu_torch.experiments import cifar, wilds_task
     from beyond_deep_ensembles_tpu_torch.models.resnet import ResNet20
     from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
     from beyond_deep_ensembles_tpu_torch.ops import _cuda_build, sampling, svgd_kernel
     from beyond_deep_ensembles_tpu_torch.ops import attention as att
 
-    global CARD, T_START
-    t_start = T_START = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -3463,13 +4033,10 @@ def main() -> int:
     k2 = k2_phase(torch, svgd_kernel)
     phase("K3a, K3b")
     k3 = k3_phase(torch, att)
-    kernels = {
-        "k1_gaussian_sample": sampling.gaussian_sample, "k1_gaussian_sample_backward": sampling.gaussian_sample_backward,
-        "k2_svgd_gram": svgd_kernel.gram,
-        "k3a_attention_forward": att.attention_forward, "k3b_attention_backward": att.attention_backward,
-    }
+    kernels = kernel_registry(sampling, svgd_kernel, att)
     no_k3 = {"k3a_attention_forward": (0, 0), "k3b_attention_backward": (0, 0)}
     no_k1 = {"k1_gaussian_sample": (0, 0), "k1_gaussian_sample_backward": (0, 0)}
+    start_second()
 
     phase("BBB slice, one update per call")
     built, bbb_counts, config, step = run_slice(torch, cifar, NoiseSource, kernels, BBB_VARIANT, "BBB")
@@ -3541,32 +4108,15 @@ def main() -> int:
         torch.cuda.empty_cache()
     bert_card_vs_cpu(torch, wilds_task, NoiseSource)
 
-    phase("UCI regression: configs/uci.yaml through the CLI")
-    uci = uci_phase(torch, kernels)
-    print(json.dumps({"card": CARD, "uci": uci}))
-
     phase("WILDS text tasks: configs/amazon.yaml and configs/civilcomments.yaml through the CLI")
     wilds = wilds_phase(torch, kernels, att, sampling, svgd_kernel, wilds_task, NoiseSource)
     print(json.dumps({"card": CARD, "wilds": wilds}))
     wilds_counts = {name: sum(row["counts"][name] for rows in wilds["rows"].values() for row in rows.values())
                     for name in kernels}
 
-    phase("WILDS image tasks: configs/camelyon.yaml and configs/fmow.yaml through the CLI")
-    image = image_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
-    print(json.dumps({"card": CARD, "image": image}))
-    image_counts = {name: sum(row["counts"][name] for rows in image["rows"].values() for row in rows.values())
-                    for name in kernels}
-    check(image_counts["k3a_attention_forward"] == image_counts["k3b_attention_backward"] == 0,
-          "K3 never launched on the image rows")
-
-    phase("WILDS ResNet-50 tasks: configs/iwildcam.yaml and configs/rxrx1.yaml through the CLI")
-    resnet = resnet_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
-    print(json.dumps({"card": CARD, "resnet": resnet}))
-    resnet_counts = {name: sum(row["counts"][name] for rows in resnet["rows"].values() for row in rows.values())
-                     for name in kernels}
-    check(resnet_counts["k3a_attention_forward"] == resnet_counts["k3b_attention_backward"] == 0
-          and resnet_counts["k1_gaussian_sample"] == resnet_counts["k1_gaussian_sample_backward"] == 0,
-          "K1 and K3 never launched on the ResNet-50 rows (no row is BBB)")
+    second = finish_second()
+    uci, image, resnet, poverty, staged = (second[key] for key in ("uci", "image", "resnet", "poverty", "staged"))
+    image_counts, resnet_counts, poverty_counts = (second["counts"][key] for key in ("image", "resnet", "poverty"))
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(CARD)
@@ -3604,7 +4154,7 @@ def main() -> int:
             "multibbb_run_single_launches": multix["runs"]["MultiBBB"]["host_counts"]["k1_gaussian_sample"],
             "multibbb_replay_launches_per_step":
                 multix["MultiBBB"]["profiles"]["captured"]["launches"]["_flat_kernel"],
-            # the UCI phase: the CLI's nine naval runs (bbb and bbb_fixed_kl),
+            # the UCI phase: the CLI's nine energy runs (bbb and bbb_fixed_kl),
             # host launches per eager bbb step and per evaluate (S = 1000), the
             # MLP's planes against the plain version
             "uci_cli_launches": uci["cli"]["host_counts"]["k1_gaussian_sample"],
@@ -3634,6 +4184,14 @@ def main() -> int:
             # 448x448) against the plain version and the byte bound
             "resnet_launches": resnet_counts["k1_gaussian_sample"],
             "resnet_forward": resnet["k1"],
+            # the poverty phase: host counts over the yaml's rows through
+            # run.main (BBB, every layer variational: 21 a forward, 21
+            # backward a step, 21 a forward of the eval runner's warm-up and
+            # capture), and one BBB train forward's 21 launches (batch 64,
+            # 224x224x8) against the plain version and the byte bound
+            "poverty_launches": poverty_counts["k1_gaussian_sample"],
+            "poverty_backward_launches": poverty_counts["k1_gaussian_sample_backward"],
+            "poverty_forward": poverty["k1"],
         },
         {
             "name": "k2_svgd_gram",
@@ -3669,6 +4227,10 @@ def main() -> int:
             # Dense_0, once a step) and K2 at its shape beside torch.mm
             "resnet_launches": resnet_counts["k2_svgd_gram"],
             "resnet_shapes": resnet["k2"],
+            # the poverty phase: its SVGD row (5 particles of PovertyNet, once
+            # a step) and K2 at its shape beside torch.mm
+            "poverty_launches": poverty_counts["k2_svgd_gram"],
+            "poverty_shapes": poverty["k2"],
         },
         *(
             {
@@ -3690,6 +4252,9 @@ def main() -> int:
                 "wilds_launches": wilds_counts[name],
                 "civilcomments_shape": wilds["k3_civil"][key],
                 "key_mode_ms": wilds["k3_key_mode"]["forward_ms" if key == "K3a" else "backward_ms"],
+                # the remat check: launches in one amazon MAP update without
+                # and with bert_remat (the recompute runs K3a again)
+                "remat_launches": staged["remat"]["k3a_launches"] if key == "K3a" else None,
             }
             for name, key, replaces in (
                 ("k3a_attention_forward", "K3a", "beyond_deep_ensembles_tpu/ops/attention.py:84"),

@@ -6,16 +6,25 @@ stands in for it (installed with pytest's ``monkeypatch`` on the names that
 numpy generator and records it. ``torch_noise`` turns the record into the
 port's given-mode noise, NHWC -> NCHW. :func:`assert_close` prints the gap
 of each comparison before it asserts.
+
+Importing this module caps torch at one intra-op thread for the whole test
+process (every ``tests/test_torch_*.py`` imports it). The suite runs several
+workers on the host's cores, and torch's default of one thread per core in
+each of them makes the threads contend: a CIFAR test of 2.5 s alone took
+290 s in the suite under the default and 3.9 s beside five busy processes
+on one thread. The port's small CPU ops gain nothing from more threads.
+The port itself keeps torch's defaults.
 """
 import os
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from beyond_deep_ensembles_tpu_torch.models.jax_convert import params_from_jax
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+
+torch.set_num_threads(1)
 
 
 class NoiseFeed:
@@ -186,21 +195,6 @@ def load_jax_params(module: torch.nn.Module, jax_params) -> torch.nn.Module:
 def flat_jax(tree):
     """Nested flax tree -> {dotted name: numpy array in the port's layout}."""
     return {k: v.numpy() for k, v in params_from_jax(to_numpy_tree(tree)).items()}
-
-
-@pytest.fixture
-def one_cpu_thread():
-    """Runs a test on one intra-op thread. The suite runs several workers on
-    the host's cores, and torch's default of one thread per core in each of
-    them makes the threads contend: a CIFAR test of a few seconds alone
-    then takes minutes. Use with ``pytest.mark.usefixtures``, after
-    importing this fixture into the test module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def assert_close(actual, desired, rtol=1e-7, atol=0.0, err_msg=""):

@@ -21,11 +21,14 @@ Where the two programs draw in another order, :func:`port_draws` converts:
     ``z2`` (JAX's flat order) too; a JAX leaf of zero size (a last-layer
     placeholder) has no counterpart;
   * an image task's activation draws (BBB conv noise, dropout masks) are
-    NHWC, or HWC for a frozen row at eval: NCHW and CHW on the port.
+    NHWC, or HWC for a frozen row at eval: NCHW and CHW on the port;
+  * a regression task's (poverty's) last eval draw is the quantile
+    calibration's normals, which the port's ``eval_task`` takes as ``z``.
 """
 from pathlib import Path
 
 import dataclasses
+import math
 import re
 
 import jax
@@ -45,6 +48,7 @@ from beyond_deep_ensembles_tpu_torch.methods.last_layer import LastLayerState
 from beyond_deep_ensembles_tpu_torch.models.jax_convert import (
     _port_flat, _unravel_sorted, last_layer_state_from_jax, params_from_jax, state_from_jax, strip_placeholders)
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+from beyond_deep_ensembles_tpu_torch.ops import sampling
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 # a yaml row cut in size only: three updates of batch 4 (one epoch of 12
@@ -274,8 +278,14 @@ def jax_state_dict(built, jbuilt, config) -> dict:
 
 def load_jax_state(built, jbuilt, config):
     """Carries JAX's state into the port's, in place."""
+    load_state(built, jax_state_dict(built, jbuilt, config))
+
+
+def load_state(built, state_dict):
+    """``state_dict`` (JAX's state as the port's, or a port state's, of any
+    float dtype) into the port's state, in place."""
     state = built.state
-    state.load_state_dict(jax_state_dict(built, jbuilt, config))
+    state.load_state_dict(state_dict)
     if hasattr(state, "mean") and hasattr(state, "flat"):  # iVON: the parameters hold the mean
         state.flat.copy_(state.mean)
 
@@ -301,9 +311,10 @@ def _flat_layouts(state, prefix=""):
 # blind to a per-channel scale, and the ReLU and the max pool before them are
 # positively homogeneous) and the biases of a ResNet-50 bottleneck's three
 # main-path convs (each followed by its dropout and a static BN, blind to a
-# per-channel shift)
+# per-channel shift), or of a ResNet-18 basic block's two (each followed by
+# its dropout and a static BN)
 ZERO_GRADIENT = ("k_lin.bias", "DenseNet_0._BN_0.StaticBatchNorm_0.scale")
-_BOTTLENECK_BIAS = re.compile(r"Bottleneck_\d+\.\w*Conv_[012]\.bias$")
+_BOTTLENECK_BIAS = re.compile(r"(Bottleneck_\d+\.\w*Conv_[012]|BasicBlock_\d+\.\w*Conv_[01])\.bias$")
 
 
 def zero_gradient(name: str) -> bool:
@@ -427,17 +438,236 @@ def _hold_full_laplace(fitted, jfit):
     assert_close(got_l @ got_l.T, want_cov, rtol=0, atol=1e-3 * np.abs(want_cov).max(), err_msg="covariance")
 
 
+# poverty's rows are ill-conditioned in fp32: GaussLayer's NLL at std 0.1
+# divides squared residuals by 0.01 (gradients of 1e4 at init), and Adam at
+# lr 1e-3 turns a gradient of rounding size into a step of lr with the
+# rounding's sign: after three updates both engines' fp32 parameters lie
+# about 1.8 % (relative L2 of the change) from the port's float64 update of
+# the same start on the same draws (MAP), so they cannot be held element by
+# element. Each engine's update is held against that float64 update instead
+# (:func:`_hold_against_float64`): JAX's parameter change within 3 x the
+# port's own fp32 error of it (measured: 0.03 % to 2.3 % on each side, JAX's
+# 1.0-1.8 x the port's), and each engine's whole state (Adam's moments,
+# SWAG's, iVON's) within REGRESSION_STATE_TOL of it (relative L2 of the
+# change; measured up to 1.2e-3, JAX's MCD). A whole-state norm hides a
+# fault confined to one small leaf, so each leaf (a parameter, or its
+# segment of Adam's, SWAG's or iVON's flat vectors) is held as well
+# (:func:`_hold_leaves`): the zero-gradient parameters' (a basic block's two
+# conv biases before static BNs) within 6 lr (measured up to 5.4 lr, the
+# Rank-1 biases), every other leaf within REGRESSION_LEAF_TOL of its change
+# (measured up to 0.47 % on a leaf with an element beyond 3 lr, JAX's SVGD
+# Adam second moment), or REGRESSION_FLIP_TOL where every element lies
+# within 3 lr, so that the gap is a few Adam steps on rounding-size
+# gradients (measured up to 15 %, JAX's SVGD: one element of a 64-wide BN
+# bias 1.99 lr off; 7.6 %, JAX's BBB bias mean; the port's up to 3.6 %).
+# Each update's metrics, the port's against JAX's: the first, from one
+# state, within REGRESSION_FIRST_UPDATE_RTOL (measured up to 1.4e-5, BBB's
+# KL, a sum over 22 M parameters), the later two, from each engine's own
+# fp32 state, within REGRESSION_LATER_UPDATE_RTOL (measured up to 1.2e-3,
+# MCD's second loss). Then the port takes JAX's trained state, so the
+# Laplace fit and the eval compare from one state.
+# The eval from that one state: the trained ResNet-18's outputs through
+# static BNs over eval batches of 4 agree to about 1.5e-5 (the model tests
+# hold outputs to 1e-4), which the metrics carry: the log-likelihoods sum
+# log-densities of variance near 0.01, and the Pearson r's of 2-4 test
+# points move with each prediction. Every metric of a regression row is
+# held within REGRESSION_METRIC_TOL (measured up to 2.4e-5 relative,
+# SWAG's avg_lml, and 2.6e-5 absolute, MAP's r_urban).
+REGRESSION_STATE_TOL = 3e-3
+REGRESSION_LEAF_TOL = 0.05
+REGRESSION_FLIP_TOL = 0.3
+REGRESSION_FIRST_UPDATE_RTOL = 3e-5
+REGRESSION_LATER_UPDATE_RTOL = 3e-3
+REGRESSION_METRIC_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+class _PlainEpilogue(NoiseSource):
+    """Given draws, the BBB epilogue by K1's plain version (which takes any
+    dtype), for the float64 update."""
+
+    def gaussian(self, act_mean, act_var, b_mean, b_var, train, freeze_on_eval):
+        shape = act_mean.shape[1:] if not train and freeze_on_eval else act_mean.shape
+        eps = self._take(shape).to(dtype=act_mean.dtype)
+        return sampling.gaussian_sample_plain(act_mean, act_var, b_mean, b_var, eps)
+
+
+def _recording_metrics(method, into, traced=False):
+    """``method`` with an ``update`` that also appends each update's metrics
+    (``{name: float}``) to ``into``; ``traced`` for JAX's, which ``train``
+    runs under ``jit`` (an ordered ``jax.debug.callback``)."""
+    def record(metrics):
+        into.append({k: float(v) for k, v in metrics.items()})
+
+    def update(state, noise, batch):
+        state, metrics = method.update(state, noise, batch)
+        if traced:
+            jax.debug.callback(record, metrics, ordered=True)
+        else:
+            record(metrics)
+        return state, metrics
+
+    return dataclasses.replace(method, update=update)
+
+
+def _columns(exact, others):
+    """Per column of 2-D ``exact``: the float64 sum of squares of
+    ``exact`` over its rows, and of each of ``others`` minus it, with the
+    largest magnitude of each difference; a row at a time, rows zero in all
+    of them skipped (a SWAG ring is 20 rows of the parameter vector, most
+    of them empty after three updates)."""
+    norm = torch.zeros(exact.shape[1], dtype=torch.float64)
+    sq = [torch.zeros_like(norm) for _ in others]
+    far = [torch.zeros_like(norm) for _ in others]
+    for i in range(exact.shape[0]):
+        if not any(bool(x[i].any()) for x in (exact, *others)):
+            continue
+        e = exact[i].double()
+        norm += e * e
+        for x, s, f in zip(others, sq, far):
+            d = x[i].double() - e
+            s += d * d
+            torch.maximum(f, d.abs(), out=f)
+    return norm, sq, far
+
+
+def _leaf_gaps(start, exact, states, layouts):
+    """Per leaf: ``{name: (squared L2 norm of exact's change, of exact,
+    [squared L2 gap of each of states to exact], [max abs gap of each])}``
+    in float64. A leaf is a float tensor of ``start``, or, in a flat vector
+    over the parameters (an optimizer's, SWAG's, iVON's; its leading axes
+    the ring's rows or the members), one parameter's segment
+    (``"<key>[<parameter>]"``)."""
+    out = {}
+    for k, t in start.items():
+        if not t.is_floating_point() or k.endswith("opt.flat") or not t.numel():
+            continue
+        layout = None
+        for prefix, entries in layouts.items():
+            if k.startswith(prefix) and k[len(prefix):].split(".")[0] in ("opt", "swag", "ivon"):
+                layout = entries
+        segments = [(k, 0, t.numel())]
+        width = t.numel()
+        if layout is not None and t.dim() and t.shape[-1] == sum(size for _, size in layout):
+            offsets = np.cumsum([0] + [size for _, size in layout])
+            segments = [(f"{k}[{name}]", int(a), int(b)) for (name, _), a, b in zip(layout, offsets, offsets[1:])]
+            width = t.shape[-1]
+        rows = [x.detach().reshape(-1, width) for x in (exact[k], t, *(state[k] for state in states))]
+        norm, (change, *sq), (_, *far) = _columns(rows[0], rows[1:])
+        for name, a, b in segments:
+            out[name] = (float(change[a:b].sum()), float(norm[a:b].sum()),
+                         [float(g[a:b].sum()) for g in sq], [float(f[a:b].max()) for f in far])
+    return out
+
+
+def _hold_leaves(config, leaves):
+    """Each engine's state against the float64 update leaf by leaf
+    (:func:`_leaf_gaps`): a zero-gradient parameter's leaves within 6 lr
+    (:func:`zero_gradient`: each side's Adam steps of up to lr on a gradient
+    of rounding size; under MCD's dropout masks the gradient is not zero,
+    and such a leaf may pass by the relative rule instead), every leaf
+    within REGRESSION_LEAF_TOL of its change (relative L2; a change below fp32's resolution of the leaf is
+    counted as that resolution), or within REGRESSION_FLIP_TOL where no
+    element of it lies more than 3 lr from float64."""
+    lr = config["lr"]
+    for side, name in ((0, "port"), (1, "JAX")):
+        worst = (0.0, 0.0, "")
+        for leaf, (change, norm, gaps, far) in leaves.items():
+            if zero_gradient(leaf.split("[")[-1].rstrip("]")) and far[side] <= 6 * lr * (1 + 1e-6):
+                continue
+            rel = math.sqrt(gaps[side] / max(change, (np.finfo(np.float32).eps ** 2) * norm, 1e-300))
+            tol = REGRESSION_FLIP_TOL if far[side] <= 3 * lr * (1 + 1e-6) else REGRESSION_LEAF_TOL
+            if rel / tol >= worst[0] / max(worst[1], 1e-300):
+                worst = (rel, tol, leaf)
+        assert_close(worst[0], 0.0, atol=worst[1],
+                     err_msg=f"{config['model']} {name}'s worst leaf against float64: {worst[2]}")
+
+
+def _hold_update_metrics(config, port, jax_side, exact):
+    """Each update's metrics (loss; BBB's and Rank-1's data_loss and kl;
+    iVON's and SVGD's backbone_loss), the port's against JAX's: the first
+    update's from one state within REGRESSION_FIRST_UPDATE_RTOL, the later
+    ones' from the engines' own fp32 states within REGRESSION_LATER_UPDATE_RTOL."""
+    assert len(port) == len(jax_side) == len(exact) == config["steps_per_epoch"], (len(port), len(jax_side))
+    for i, (p, j) in enumerate(zip(port, jax_side)):
+        assert p.keys() == j.keys() == exact[i].keys(), (p.keys(), j.keys())
+        rtol = REGRESSION_FIRST_UPDATE_RTOL if i == 0 else REGRESSION_LATER_UPDATE_RTOL
+        for k in p:
+            assert_close(p[k], j[k], rtol=rtol, atol=0, err_msg=f"{config['model']} update {i + 1} {k}")
+
+
+def _hold_against_float64(task, config, built, want, start, draws, x, y, monkeypatch, metrics=None):
+    """The port's fp32 update (``built``) and JAX's (``want``, as a
+    state_dict) against the port's float64 update of ``start`` on the same
+    ``draws`` (see :data:`REGRESSION_STATE_TOL`). ``metrics``: (the port's,
+    JAX's) per-update metrics, held against the float64 update's."""
+    torch.set_default_dtype(torch.float64)
+    try:
+        exact = wilds_task.build(task, config, torch.Generator().manual_seed(0), config["steps_per_epoch"],
+                                 device="cpu")
+    finally:
+        torch.set_default_dtype(torch.float32)
+    load_state(exact, {k: t.double() if t.is_floating_point() else t for k, t in start.items()})
+    source = _PlainEpilogue(given=draws)
+    exact_metrics = []
+    exact.method = _recording_metrics(exact.method, exact_metrics)
+    with monkeypatch.context() as m:
+        m.setattr(wilds_task, "NoiseSource", lambda **kw: source)
+        exact = wilds_task.train(exact, config, x.astype(np.float64), y)
+    assert source.draws == len(draws)
+    exact = exact.state.state_dict()
+    got = built.state.state_dict()
+    leaves = _leaf_gaps(start, exact, (got, want), _flat_layouts(built.state))
+    def rel(names, side):
+        return math.sqrt(sum(leaves[k][2][side] for k in names) / sum(leaves[k][0] for k in names))
+
+    params = [k for k in leaves if k.startswith("params.")]
+    port_err, jax_err = rel(params, 0), rel(params, 1)
+    assert_close(jax_err, 0.0, atol=3 * port_err,
+                 err_msg=f"{config['model']} parameters, JAX's against float64 (the port's fp32: {port_err:.3g})")
+    for side, name in ((0, "port"), (1, "JAX")):
+        assert_close(rel(leaves, side), 0.0, atol=REGRESSION_STATE_TOL,
+                     err_msg=f"{config['model']} state, {name}'s against float64")
+    _hold_leaves(config, leaves)
+    if metrics is not None:
+        _hold_update_metrics(config, *metrics, exact_metrics)
+    for k, t in start.items():
+        if not t.is_floating_point():
+            assert torch.equal(got[k].to(torch.int64), exact[k].to(torch.int64)), k
+            assert torch.equal(want[k].to(torch.int64), exact[k].to(torch.int64)), k
+
+
+def jit_jax_init(monkeypatch):
+    """JAX's ``Model.init`` under ``jax.jit`` (one compile per model): the
+    full ResNet-18's eager init runs an op at a time, 14-25 s on an 8-core CPU,
+    jitted about 4 s. The port starts from whatever state JAX's ``build``
+    made, so nothing compared depends on it."""
+    from beyond_deep_ensembles_tpu.nn.base import Model as JaxModel
+
+    eager, compiled = JaxModel.init, {}
+
+    def init(self, key, *example_inputs, train=True):
+        if id(self) not in compiled:
+            compiled[id(self)] = (self, jax.jit(lambda k, *xs: eager(self, k, *xs, train=train)))
+        return compiled[id(self)][1](key, *example_inputs)
+
+    monkeypatch.setattr(JaxModel, "init", init)
+
+
 def run_both(task, row, monkeypatch, fit_laplace=False):
     """JAX's and the port's build -> train (3 updates) -> eval_task of
     ``row`` from JAX's initial state with JAX's draws, the states held
-    after training (:func:`compare_states`). With ``fit_laplace`` both fit
+    after training (:func:`compare_states`; a regression row's against
+    float64 by :func:`_hold_against_float64`, the port then taking JAX's
+    trained state). With ``fit_laplace`` both fit
     the last-layer Laplace after training; the port's fit is held to JAX's
     (the Kronecker factors, compared as the matrices they rebuild, since
     eigenvectors carry signs and a null space may rotate), and the port
     evaluates JAX's fitted state, whose draws it is given. Returns (JAX's
     metrics, the port's, JAX's built, the port's built)."""
-    if resnet_task(task):
+    if resnet_task(task) or task == "poverty":
         swish_resnets(monkeypatch)
+    if task == "poverty":
+        jit_jax_init(monkeypatch)
     x, y, xt, yt, mt = data(task)
     config = row_config(task, row)
     config["dataset_size"] = x.shape[0]
@@ -446,9 +676,14 @@ def run_both(task, row, monkeypatch, fit_laplace=False):
     jbuilt = jax_wilds.build(task, jconfig, jax.random.key(config["seed"]), steps)
     built = wilds_task.build(task, config, torch.Generator().manual_seed(0), steps, device="cpu")
     load_jax_state(built, jbuilt, config)
+    start = {k: t.detach().clone() for k, t in built.state.state_dict().items()}
 
     sngp = config["model"] == "sngp"
     jax_p, port_p = [], []
+    port_metrics, jax_metrics = [], []
+    if jbuilt.regression:
+        jbuilt.method = _recording_metrics(jbuilt.method, jax_metrics, traced=True)
+        built.method = _recording_metrics(built.method, port_metrics)
     if sngp:
         jbuilt.method = _record_precision(jbuilt.method, lambda s: s.model_state["sngp"]["SNGPHead_0"]["precision"], jax_p)
         built.method = _record_precision(built.method, lambda s: s.params.SNGPHead_0.precision, port_p)
@@ -459,12 +694,18 @@ def run_both(task, row, monkeypatch, fit_laplace=False):
     trained = jax_state_dict(built, jbuilt, config)
     RECORDED.clear()
     if fit_laplace:
-        lap = jax_laplace_method(jbuilt.model, hessian=config["ll_hessian"], regression=False, inner=jbuilt.method)
+        lap = jax_laplace_method(jbuilt.model, hessian=config["ll_hessian"], regression=jbuilt.regression,
+                                 inner=jbuilt.method)
         jbuilt.state = lap.fit(jbuilt.state, (jnp.asarray(x), jnp.asarray(y)))
         jbuilt.method = lap
     want = jax_wilds.eval_task(jbuilt, task, jconfig, xt, yt, mt)
     jax.effects_barrier()
     eval_draws = list(RECORDED)
+    z = None
+    if jbuilt.regression:
+        kind, quantile = eval_draws.pop()
+        assert kind == "normal" and quantile.shape == (config["eval_samples"], xt.shape[0], 1), quantile.shape
+        z = torch.from_numpy(np.array(quantile))
 
     n_batches = -(-xt.shape[0] // config["eval_batch_size"])
     draws = port_draws(config, jbuilt, built, train_draws, eval_draws, steps, n_batches)
@@ -475,9 +716,14 @@ def run_both(task, row, monkeypatch, fit_laplace=False):
     if sngp:
         _hold_sngp_precision(built, trained, (jax_p[0], port_p[0]),
                              RESNET_PRECISION_TOL if resnet_task(task) else 1e-5)
-    compare_states(built, trained, config, atol=STATE_ATOL_SVGD if "svgd" in config["model"] else STATE_ATOL,
-                   **(dict(moment_tol=RESNET_SNGP_MOMENT_TOL, beyond_in=RESNET_SNGP_BEYOND_IN)
-                      if sngp and resnet_task(task) else {}))
+    if jbuilt.regression:
+        _hold_against_float64(task, config, built, trained, start, given._given[:given.draws], x, y, monkeypatch,
+                              (port_metrics, jax_metrics))
+        load_state(built, trained)
+    else:
+        compare_states(built, trained, config, atol=STATE_ATOL_SVGD if "svgd" in config["model"] else STATE_ATOL,
+                       **(dict(moment_tol=RESNET_SNGP_MOMENT_TOL, beyond_in=RESNET_SNGP_BEYOND_IN)
+                          if sngp and resnet_task(task) else {}))
     if fit_laplace:
         wilds_task._fit_laplace(built, config, x, y)
         fitted, jfit = built.state, jbuilt.state
@@ -492,7 +738,7 @@ def run_both(task, row, monkeypatch, fit_laplace=False):
                 rtol=1e-5, atol=1e-6 * np.abs(want_m).max())
             assert_close(rebuilt, want_m, err_msg=f"factor {name}", **tol)
         fitted.load_state_dict(state_from_jax(fitted.params, jfit))
-    got = wilds_task.eval_task(built, task, {**config, "device_eval": False}, xt, yt, mt)
+    got = wilds_task.eval_task(built, task, {**config, "device_eval": False}, xt, yt, mt, z=z)
     assert given.draws == len(given._given), (given.draws, len(given._given))
     return want, got, jbuilt, built
 
@@ -500,10 +746,11 @@ def run_both(task, row, monkeypatch, fit_laplace=False):
 def check_row(task, row, monkeypatch):
     """A row held against JAX: the states after three updates
     (:func:`compare_states`) and every float metric of ``eval_task``."""
-    want, got, _, _ = run_both(task, row, monkeypatch, fit_laplace=row["model"] == "laplace")
+    want, got, jbuilt, _ = run_both(task, row, monkeypatch, fit_laplace=row["model"] == "laplace")
     assert got.keys() == want.keys()
+    tol = REGRESSION_METRIC_TOL if jbuilt.regression else METRIC_TOL
     for k, w in want.items():
         if isinstance(w, float):
-            assert_close(got[k], w, err_msg=f"{row['model']} {k}", **METRIC_TOL)
+            assert_close(got[k], w, err_msg=f"{row['model']} {k}", **tol)
         else:
             assert got[k] == w, (k, got[k], w)

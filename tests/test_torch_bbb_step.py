@@ -1,8 +1,10 @@
 """PyTorch port, methods/bbb.py + experiments/cifar.py (loss, optimizer,
 schedule): three BBB steps of ResNet-20 from the same weights on the same
 batches and the same noise, no augmentation, held against the JAX method.
-``jax.disable_jit`` makes the JAX MC loop call the noise feed once per
-sample, so each of the 2 x 76 draws of a step is its own array.
+The JAX update runs jitted; each of its 2 x 76 activation draws a step (the
+MC loop is an unrolled scan, so its samples come one after the other) is
+recorded in program order by ``_torch_parity.record_jax_normals`` and given
+to the port.
 
 The config exercises weight decay and the Wilson schedule: with
 steps_per_epoch=1 and 2 epochs the third step runs at lr * 0.01.
@@ -17,10 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_close, flat_jax, install_feed, load_jax_params, nchw, random_jax_params, torch_noise
+from _torch_parity import (assert_close, flat_jax, load_jax_params, nchw, random_jax_params, record_jax_normals,
+                           torch_noise)
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu.methods import GaussianPrior as JaxGaussianPrior
 from beyond_deep_ensembles_tpu.methods import bbb_method as jax_bbb_method
+from beyond_deep_ensembles_tpu.nn import gaussian as jax_gaussian
 from beyond_deep_ensembles_tpu_torch.experiments import cifar
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 
@@ -61,22 +65,23 @@ def test_three_bbb_steps_match_jax(monkeypatch):
     params = random_jax_params(model.module, (2, 32, 32, 3))
     state = method.init(jax.random.key(0), params, {})
     batches = _batches(3)
-    feed = install_feed(monkeypatch, seed=3)
+    draws = record_jax_normals(monkeypatch, jax_gaussian)
+    update = jax.jit(method.update)
     jax_metrics = []
-    with jax.disable_jit():
-        for i, (x, y) in enumerate(batches):
-            state, m = method.update(state, jax.random.key(i), (jnp.asarray(x), jnp.asarray(y)))
-            jax_metrics.append({k: float(v) for k, v in m.items()})
-    assert len(feed.draws) == 3 * DRAWS_PER_STEP
+    for i, (x, y) in enumerate(batches):
+        state, m = update(state, jax.random.key(i), (jnp.asarray(x), jnp.asarray(y)))
+        jax_metrics.append({k: float(v) for k, v in m.items()})
+    jax.effects_barrier()
+    assert len(draws) == 3 * DRAWS_PER_STEP
 
     built = _port_built()
     load_jax_params(built.state.params, params)
-    noise = torch_noise(feed.draws)
+    noise = torch_noise(draws)
     for (x, y), want in zip(batches, jax_metrics):
         built.state, m = built.method.update(built.state, noise, (nchw(x), torch.from_numpy(y)))
         for k in ("loss", "data_loss", "kl"):
             assert_close(float(m[k]), want[k], rtol=1e-5, err_msg=k)
-    assert noise.draws == len(feed.draws)
+    assert noise.draws == len(draws)
     assert built.state.step == 3
 
     ref = flat_jax(state.params)

@@ -273,8 +273,7 @@ def test_unported_options_raise():
         bert.BertClassifier(5, "spectral", config=bert.TINY_CONFIG, generator=gen)
     with pytest.raises(NotImplementedError):
         bert.BertClassifier(5, "map", config=bert.TINY_CONFIG, dtype=torch.bfloat16, generator=gen)
-    with pytest.raises(NotImplementedError):
-        bert.DistilBertConfig(remat=True)
+    assert bert.DistilBertConfig(remat=True).remat  # ported: tests/test_torch_bert_weights.py
 
 
 def _jax_loss(model):

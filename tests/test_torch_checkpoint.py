@@ -14,13 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from beyond_deep_ensembles_tpu_torch.experiments import cifar, phases
 from beyond_deep_ensembles_tpu_torch.methods.ensemble import EnsembleState
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 KINDS = {
     "map": {"model": "map"},
@@ -93,6 +91,21 @@ def test_sngp_state_dict_carries_its_buffers():
                  "BasicBlock_8.SpectralNormConv_1.kernel_u"):
         assert f"params.{name}" in keys, name
     assert sum(k.endswith("kernel_u") for k in keys) == 21
+
+
+def test_a_swag_ring_is_saved_from_its_first_filled_row(tmp_path):
+    """A ring fills from its last row: the file holds the filled rows only
+    (one after one update, none before), and a restore puts the leading
+    zeros back, bit for bit."""
+    for updates in (0, 1):
+        saved = _build("swag", 0)
+        for _ in range(updates):
+            _step(saved)
+        ckpt.save_final(tmp_path, f"swag{updates}", saved.state)
+        loaded = torch.load(tmp_path / f"swag{updates}_final", weights_only=True)
+        assert loaded["swag.deviations"].shape[0] == updates and saved.state.deviations.shape[0] == 3
+        state = ckpt.restore_final(tmp_path, f"swag{updates}", _build("swag", 1).state)
+        assert _equal(saved.state, state)
 
 
 def test_restore_refuses_another_kind(tmp_path):

@@ -21,7 +21,7 @@ import pytest
 import torch
 import yaml
 
-from _torch_parity import assert_close, one_cpu_thread, to_numpy_tree  # noqa: F401 (one_cpu_thread: a fixture)
+from _torch_parity import assert_close, to_numpy_tree
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu_torch.data import cifar as cifar_data
 from beyond_deep_ensembles_tpu_torch.experiments import cifar
@@ -29,8 +29,6 @@ from beyond_deep_ensembles_tpu_torch.methods import deep_ensemble
 from beyond_deep_ensembles_tpu_torch.methods.ensemble import EnsembleState
 from beyond_deep_ensembles_tpu_torch.models.jax_convert import particles_from_jax
 from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 YAML = Path(__file__).resolve().parents[1] / "configs" / "cifar.yaml"
 NEW_ROWS = ["MAP", "DeepEnsemble", "SWAG", "MultiSWAG", "MCD", "MultiMCD", "MultiBBB"]

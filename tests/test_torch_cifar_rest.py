@@ -28,15 +28,13 @@ import pytest
 import torch
 import yaml
 
-from _torch_parity import PARITY, assert_close, one_cpu_thread, record_jax_normals, run_both  # noqa: F401
+from _torch_parity import PARITY, assert_close, record_jax_normals, run_both
 from beyond_deep_ensembles_tpu.nn import rank1 as jax_rank1
 from beyond_deep_ensembles_tpu_torch.data import cifar as cifar_data
 from beyond_deep_ensembles_tpu_torch.experiments import cifar
 from beyond_deep_ensembles_tpu_torch.methods.ensemble import EnsembleState
 from beyond_deep_ensembles_tpu_torch.methods.laplace import LaplaceState
 from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 YAML = Path(__file__).resolve().parents[1] / "configs" / "cifar.yaml"
 NEW_ROWS = ["Rank1", "iVON", "MultiiVON", "SNGP", "Laplace", "MultiLaplace"]

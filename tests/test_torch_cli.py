@@ -21,13 +21,11 @@ import pytest
 import torch
 import yaml
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from beyond_deep_ensembles_tpu.utils import config as jax_config
 from beyond_deep_ensembles_tpu_torch import run
 from beyond_deep_ensembles_tpu_torch.utils import config
 from beyond_deep_ensembles_tpu_torch.utils.logging import RunLogger, VoidLog
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
@@ -138,8 +136,8 @@ def test_logger_records(tmp_path, capsys):
 def test_unported_phases_and_missing_card(tmp_path):
     log = VoidLog()
     for phase in ("fit_laplace", "drop_rates", "eval", "multix"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            run.run_phase("poverty", phase, {"model": "map"}, [str(tmp_path)], log)
+        with pytest.raises(NotImplementedError, match="item 13"):
+            run.run_phase("poverty", phase, {"model": "map", "compute_dtype": "bf16"}, [str(tmp_path)], log)
     with pytest.raises(ValueError, match="not supported"):
         run.run_phase("uci", "multix", {}, [str(tmp_path)], log)
     with pytest.raises(ValueError, match="unknown task"):

@@ -21,8 +21,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_parity import (  # noqa: F401 (one_cpu_thread: a fixture)
-    assert_close, install_feed, nchw, one_cpu_thread, random_jax_params, to_numpy_tree)
+from _torch_parity import (
+    assert_close, install_feed, nchw, random_jax_params, to_numpy_tree)
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu.methods import GaussianPrior as JaxGaussianPrior
 from beyond_deep_ensembles_tpu.methods import LossOutput as JaxLossOutput
@@ -44,8 +44,6 @@ from beyond_deep_ensembles_tpu_torch.nn.base import Model, add_auto_named
 from beyond_deep_ensembles_tpu_torch.nn.bbb import BBBDense
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 from beyond_deep_ensembles_tpu_torch.utils.optim import SGD
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 MEMBERS = 2
 CONFIG = {**jax_cifar.DEFAULT_CONFIG, "model": "map", "members": MEMBERS, "weight_decay": 3e-4, "epochs": 2,

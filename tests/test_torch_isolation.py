@@ -9,6 +9,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
+
 from beyond_deep_ensembles_tpu_torch.experiments import cifar, wilds_task
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -22,7 +22,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_parity import (PARITY, RECORDED, JaxShim, assert_close, one_cpu_thread,  # noqa: F401 (a fixture)
+from _torch_parity import (PARITY, RECORDED, JaxShim, assert_close,
                            random_jax_params, run_both, to_numpy_tree)
 from beyond_deep_ensembles_tpu import tree as jax_tree
 from beyond_deep_ensembles_tpu.methods import LossOutput as JaxLossOutput
@@ -36,8 +36,6 @@ from beyond_deep_ensembles_tpu_torch.models.jax_convert import _port_flat, param
 from beyond_deep_ensembles_tpu_torch.models.layers import Dense
 from beyond_deep_ensembles_tpu_torch.nn.base import Model, add_auto_named
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # configs/cifar.yaml, row "iVON"
 IVON_ROW = {"model": "ivon", "members": 1, "lr_schedule": False, "ivon_lr": 0.0001, "ivon_prior_prec": 50,

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
+
 from beyond_deep_ensembles_tpu_torch import keys
 
 
@@ -40,3 +42,16 @@ def test_int32_bits_cover_every_high_bit():
     assert ones == 0xFFFFFFFF
     u = (got >> 8).to(torch.float32) * 2.0**-24
     assert 0.49 < float(u.mean()) < 0.51
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.05, 0.1, 0.2, 0.3, 1 / 3, 0.5, 0.9, 2.0**-25])
+@pytest.mark.parametrize("key", [keys.fold_in(7, 3), torch.tensor(keys.MASK, dtype=torch.int64)])
+def test_keep_mask_equals_the_float_comparison(key, rate):
+    """``keys.keep_mask`` compares the hash's top 24 bits with an integer
+    threshold on the int32 hash: the same mask as ``u >= rate`` for u the top
+    24 of ``bits`` as a float (the dropout layers' and K3's plain mask)."""
+    shape = (3, 5, 7, 11)
+    h = keys.bits(key, 12, 3 * 5 * 7 * 11)
+    want = ((h >> 8).to(torch.float32) * 2.0**-24 >= rate).reshape(shape)
+    got = keys.keep_mask(key, 12, shape, rate)
+    assert got.dtype == torch.bool and torch.equal(got, want)

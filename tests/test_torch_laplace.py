@@ -32,7 +32,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_parity import (PARITY, JaxShim, assert_close, one_cpu_thread, random_jax_params,  # noqa: F401
+from _torch_parity import (PARITY, JaxShim, assert_close, random_jax_params,
                            record_jax_normals, run_both, to_numpy_tree)
 from beyond_deep_ensembles_tpu.methods import LossOutput as JaxLossOutput
 from beyond_deep_ensembles_tpu.methods import deep_ensemble as jax_deep_ensemble
@@ -51,8 +51,6 @@ from beyond_deep_ensembles_tpu_torch.models.layers import Dense
 from beyond_deep_ensembles_tpu_torch.nn.base import Model, add_auto_named
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 from beyond_deep_ensembles_tpu_torch.utils.optim import SGD
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 GEN = torch.Generator().manual_seed(0)
 MEMBERS, BATCH = 2, 16

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (  # noqa: F401 (one_cpu_thread: a fixture)
-    assert_close, load_jax_params, nchw, one_cpu_thread, random_jax_params)
+from _torch_parity import (
+    assert_close, load_jax_params, nchw, random_jax_params)
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu_torch import keys
 from beyond_deep_ensembles_tpu_torch.experiments import cifar
@@ -24,8 +24,6 @@ from beyond_deep_ensembles_tpu_torch.methods import predict
 from beyond_deep_ensembles_tpu_torch.models.resnet import ResNet20
 from beyond_deep_ensembles_tpu_torch.nn.dropout import FixableDropout
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 P = 0.1
 DROPOUT_LAYERS = 1 + 9 * 2 + 2  # the stem, two per block, the two projection skips

@@ -15,13 +15,10 @@ import pytest
 import torch
 
 import _torch_uci_parity
-from _torch_parity import PARITY, assert_close, one_cpu_thread, run_both  # noqa: F401 (a fixture)
+from _torch_parity import PARITY, assert_close, run_both
 from _torch_wilds_parity import check_row, yaml_row
 from beyond_deep_ensembles_tpu_torch.experiments import cifar, uci, wilds_task
 from beyond_deep_ensembles_tpu_torch.utils.device import device_count, refuse_multi_device
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 def _flagged(monkeypatch, module, names, **flags):
     """The port's ``module.<names>`` run with ``flags`` set in their config."""

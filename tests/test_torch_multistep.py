@@ -20,7 +20,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_parity import assert_close, nchw, one_cpu_thread  # noqa: F401 (one_cpu_thread: a fixture)
+from _torch_parity import assert_close, nchw
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu.methods import LossOutput as JaxLossOutput
 from beyond_deep_ensembles_tpu.methods import map_method as jax_map_method
@@ -324,7 +324,6 @@ def test_nonfinite_batch_keeps_params_momentum_and_count(model):
     _bad_batch_keeps_state(model)
 
 
-@pytest.mark.usefixtures("one_cpu_thread")
 @pytest.mark.parametrize("kind", [{"model": "swag"}, {"model": "map", "members": 2}, {"model": "swag", "members": 2}],
                          ids=["swag", "deep_ensemble", "multiswag"])
 def test_warm_up_leaves_the_state_as_it_found_it(kind):

@@ -23,7 +23,7 @@ import pytest
 import torch
 import flax.linen as fnn
 
-from _torch_parity import (assert_close, flat_jax, load_jax_params, nchw, one_cpu_thread,  # noqa: F401 (a fixture)
+from _torch_parity import (assert_close, flat_jax, load_jax_params, nchw,
                            random_jax_params, record_jax_normals)
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu.methods import GaussianPrior as JaxGaussianPrior
@@ -46,8 +46,6 @@ from beyond_deep_ensembles_tpu_torch.nn.base import Model, add_auto_named
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 from beyond_deep_ensembles_tpu_torch.nn.rank1 import Rank1Conv, Rank1Dense
 from beyond_deep_ensembles_tpu_torch.utils.optim import SGD
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 GEN = torch.Generator().manual_seed(0)

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import JaxShim, assert_close, one_cpu_thread, to_numpy_tree  # noqa: F401 (one_cpu_thread: a fixture)
+from _torch_parity import JaxShim, assert_close, to_numpy_tree
 from beyond_deep_ensembles_tpu.evals import regression as jax_reg
 from beyond_deep_ensembles_tpu.models.mlp import RegressionMLP as JaxMLP
 from beyond_deep_ensembles_tpu.nn import bbb as jax_bbb
@@ -31,8 +31,6 @@ from beyond_deep_ensembles_tpu_torch.models.jax_convert import params_from_jax
 from beyond_deep_ensembles_tpu_torch.models.mlp import RegressionMLP
 from beyond_deep_ensembles_tpu_torch.nn.gauss import GaussLayer
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 FIELDS = ("mse_of_means", "mean_mse", "log_likelihood", "average_log_likelihood", "lml", "average_lml",
           "observed_cdf", "quantile_ps", "qce")

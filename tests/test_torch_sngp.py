@@ -25,7 +25,7 @@ import optax
 import pytest
 import torch
 
-from _torch_parity import assert_close, flat_jax, nchw, one_cpu_thread, record_jax_normals  # noqa: F401
+from _torch_parity import assert_close, flat_jax, nchw, record_jax_normals
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu.methods import predict as jax_predict
 from beyond_deep_ensembles_tpu.methods import sngp_method as jax_sngp_method
@@ -40,8 +40,6 @@ from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 from beyond_deep_ensembles_tpu_torch.nn.sngp import SNGPHead, recompute_covariance_and_reset
 from beyond_deep_ensembles_tpu_torch.nn.spectral_norm import SpectralNormConv, SpectralNormDense
 from beyond_deep_ensembles_tpu_torch.utils.optim import SGD
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 GEN = torch.Generator().manual_seed(0)
 TOL = {"rtol": 1e-5, "atol": 1e-5}

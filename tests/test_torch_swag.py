@@ -21,7 +21,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_parity import assert_close, one_cpu_thread  # noqa: F401 (one_cpu_thread: a fixture)
+from _torch_parity import assert_close
 from beyond_deep_ensembles_tpu.experiments import cifar as jax_cifar
 from beyond_deep_ensembles_tpu.methods import LossOutput as JaxLossOutput
 from beyond_deep_ensembles_tpu.methods import swag_method as jax_swag_method
@@ -33,8 +33,6 @@ from beyond_deep_ensembles_tpu_torch.models.jax_convert import (
 from beyond_deep_ensembles_tpu_torch.models.layers import Dense
 from beyond_deep_ensembles_tpu_torch.nn.base import add_auto_named
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 K = 4
 CONFIG = {**jax_cifar.DEFAULT_CONFIG, "epochs": 4, "lr": 0.05}

@@ -20,14 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from _torch_uci_parity import METRICS, YAML_DEFAULT, check_matches_jax, config_for
 from beyond_deep_ensembles_tpu_torch.data.uci import UCIDataset
 from beyond_deep_ensembles_tpu_torch.experiments import uci
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 @pytest.mark.parametrize("model", ["map", "laplace", "mcd", "swag", "svgd", "ivon"])
 def test_build_train_evaluate_matches_jax(model, monkeypatch):

@@ -9,6 +9,8 @@ batch. Plain numpy on both sides: everything must be equal."""
 import numpy as np
 import pytest
 
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
+
 from beyond_deep_ensembles_tpu.data import uci as jax_uci_data
 from beyond_deep_ensembles_tpu_torch.data import uci as uci_data
 

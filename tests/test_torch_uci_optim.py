@@ -19,14 +19,12 @@ import optax
 import pytest
 import torch
 
-from _torch_parity import assert_close, one_cpu_thread, to_numpy_tree  # noqa: F401 (one_cpu_thread: a fixture)
+from _torch_parity import assert_close, to_numpy_tree
 from beyond_deep_ensembles_tpu.experiments import uci as jax_uci
 from beyond_deep_ensembles_tpu_torch.experiments import uci
 from beyond_deep_ensembles_tpu_torch.models.jax_convert import params_from_jax, state_from_jax
 from beyond_deep_ensembles_tpu_torch.models.mlp import RegressionMLP
 from beyond_deep_ensembles_tpu_torch.utils.optim import SGD, Adam, Split
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 IN_DIM = 5
 

@@ -17,16 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_close, one_cpu_thread, record_jax_normals  # noqa: F401 (one_cpu_thread: a fixture)
+from _torch_parity import assert_close, record_jax_normals
 from _torch_uci_parity import N_TRAIN, check_matches_jax, config_for
 from beyond_deep_ensembles_tpu.experiments import uci as jax_uci
 from beyond_deep_ensembles_tpu.nn import gaussian as jax_gaussian
 from beyond_deep_ensembles_tpu_torch.experiments import uci
 from beyond_deep_ensembles_tpu_torch.models.jax_convert import state_from_jax
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 @pytest.mark.parametrize("model", ["bbb", "bbb_fixed_kl", "rank1"])
 def test_build_train_evaluate_matches_jax(model, monkeypatch):

@@ -3,10 +3,11 @@ experiments/wilds_task.py: the WILDS data bit-equal to the JAX package's,
 the official metrics equal on the same predictions, the batch order equal to
 the native loader's SplitMix64 shuffle, ``_tx`` against the JAX optimizer,
 ``eval_task``'s padding, ``train``'s batches against the JAX
-``PrefetchLoader``, the options that still raise (the image tasks, bf16,
-the image schedules, data parallelism, a sharded ring, an ensemble of SVGD
-particle sets, pretrained weights, remat), and ``run_single`` end to end at
-a tiny size on the CPU.
+``PrefetchLoader``, the options that still raise (bf16, poverty's SNGP,
+the DenseNet's running statistics and ``no_norm``, ResNet-50 remat, data
+parallelism, a sharded ring, an ensemble of SVGD particle sets), staged
+weights that do not load, and ``run_single`` end to end at a tiny size on
+the CPU.
 
 Tolerances: the data, metrics and batch order are compared for equality;
 ``_tx``: after five steps of a toy vector, SGD 1e-6 (the same fp32 update in
@@ -219,15 +220,15 @@ def test_build_heads_and_frozen_encoder():
         ("camelyon17", {"compute_dtype": "bf16"}),
         ("fmow", {"no_norm": True}),
         ("rxrx1", {"conv_remat": "block"}),
-        ("poverty", {}),
+        ("poverty", {"model": "sngp"}),
         ("amazon", {"compute_dtype": "bf16"}),
-        ("camelyon17", {"pretrained_path": "/nonexistent"}),
+        ("poverty", {"compute_dtype": "bf16"}),
         ("amazon", {"data_parallel": True, "visible_cards": 2}),
         ("camelyon17", {"static_bn": False}),
         ("civilcomments", {"model": "swag", "ring_shard": True, "visible_cards": 2}),
         ("amazon", {"model": "svgd", "members": 2}),
-        ("amazon", {"pretrained_path": "/nonexistent"}),
-        ("amazon", {"tiny": False, "bert_remat": True}),
+        ("iwildcam", {"conv_remat": "stage"}),
+        ("fmow", {"compute_dtype": "bf16"}),
     ],
 )
 def test_unported_options_raise(task, override, monkeypatch):
@@ -244,24 +245,28 @@ def test_unported_options_raise(task, override, monkeypatch):
 
 def test_pretrained_weights_on_disk_raise(tmp_path, monkeypatch):
     """Where the JAX package would load distilbert-base weights from
-    $BDE_DATA_DIR, the port refuses instead of training from random ones."""
+    $BDE_DATA_DIR, the port loads them too (``load_hf_weights``) instead of
+    training from random ones: a file that does not load raises
+    (tests/test_torch_bert_weights.py loads real ones)."""
     monkeypatch.setenv("BDE_DATA_DIR", str(tmp_path))
     (tmp_path / "distilbert-base-uncased").mkdir()
     (tmp_path / "distilbert-base-uncased" / "pytorch_model.bin").write_bytes(b"")
     config = {**wilds_task.DEFAULT_CONFIG, **TINY, "model": "map"}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(EOFError):
         wilds_task.build("amazon", config, torch.Generator(), device="cpu")
     wilds_task.build("amazon", {**config, "pretrained": False}, torch.Generator(), device="cpu")
 
 
 def test_pretrained_densenet_on_disk_raise(tmp_path, monkeypatch):
     """Where the JAX package would load fmow's staged densenet121.pth, the
-    port refuses; camelyon17 trains from scratch whatever is staged."""
+    port loads it too (``load_torch_backbone``): a file that does not load
+    raises (tests/test_torch_densenet_weights.py loads real ones);
+    camelyon17 trains from scratch whatever is staged."""
     monkeypatch.setenv("BDE_DATA_DIR", str(tmp_path))
     (tmp_path / "pretrained").mkdir()
     (tmp_path / "pretrained" / "densenet121.pth").write_bytes(b"")
     config = {**wilds_task.DEFAULT_CONFIG, "tiny": True, "model": "map", "dataset_size": 8}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(EOFError):
         wilds_task.build("fmow", config, torch.Generator(), device="cpu")
     wilds_task.build("fmow", {**config, "pretrained": False}, torch.Generator(), device="cpu")
     wilds_task.build("camelyon17", config, torch.Generator(), device="cpu")

@@ -9,11 +9,8 @@ eigenvalues and the matrices they rebuild within 1e-5 relative (1e-6 of
 the largest entry absolute), as ``test_torch_laplace.py``."""
 import pytest
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from _torch_wilds_parity import check_row, yaml_row
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 @pytest.mark.parametrize("name", ["SVGD", "iVON", "LL_iVON", "Laplace", "SNGP"])
 def test_amazon_row_matches_jax(name, monkeypatch):

@@ -15,11 +15,8 @@ vector, its prior precision within 1e-3 relative and its covariance within
 within 1e-5, relative or absolute."""
 import pytest
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from _torch_wilds_parity import check_row, yaml_row
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 @pytest.mark.parametrize("name", ["SVGD", "MultiSWAG", "Laplace"])
 def test_camelyon17_row_matches_jax(name, monkeypatch):

@@ -8,11 +8,8 @@ TINY_CONFIG's width, two classes and the worst-group metrics).
 Tolerances: as ``test_torch_wilds_amazon.py``."""
 import pytest
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from _torch_wilds_parity import check_row, yaml_row
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 @pytest.mark.parametrize("name", ["MAP", "MCD", "SWAG", "BBB", "Rank1"])
 def test_civilcomments_row_matches_jax(name, monkeypatch):

@@ -8,11 +8,8 @@ Tolerances: as ``test_torch_wilds_amazon.py`` and
 ``test_torch_wilds_amazon_rest.py``."""
 import pytest
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from _torch_wilds_parity import check_row, yaml_row
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 @pytest.mark.parametrize("name", ["LL_SVGD", "LL_iVON", "Laplace", "SNGP"])
 def test_civilcomments_row_matches_jax(name, monkeypatch):

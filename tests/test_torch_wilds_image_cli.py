@@ -28,14 +28,12 @@ import pytest
 import torch
 import yaml
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from beyond_deep_ensembles_tpu_torch import run
 from beyond_deep_ensembles_tpu_torch.experiments import wilds_task
 from beyond_deep_ensembles_tpu_torch.methods import deep_ensemble
 from beyond_deep_ensembles_tpu_torch.methods.ensemble import EnsembleState
 from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 YAMLS = {"camelyon17": "camelyon", "fmow": "fmow"}

@@ -16,11 +16,8 @@ bias before its static BN, within 6 lr: ``_torch_wilds_parity.zero_gradient``);
 every float metric within 1e-5, relative or absolute."""
 import pytest
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from _torch_wilds_parity import check_row, yaml_row
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 @pytest.mark.parametrize("name", ["MAP", "MCD", "SWAG_LL", "SWAG_LL_PODS"])
 def test_iwildcam_row_matches_jax(name, monkeypatch):

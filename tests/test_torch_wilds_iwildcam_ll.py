@@ -18,11 +18,8 @@ Laplace fit by its Kronecker factors (A within 1e-4 of its largest entry,
 1e-5, relative or absolute."""
 import pytest
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from _torch_wilds_parity import check_row, yaml_row
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 @pytest.mark.parametrize("name", ["LL_SVGD", "LL_iVON", "SNGP", "Laplace"])
 def test_iwildcam_row_matches_jax(name, monkeypatch):

@@ -24,7 +24,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_parity import assert_close, one_cpu_thread, random_jax_params  # noqa: F401 (a fixture)
+from _torch_parity import assert_close, random_jax_params
 from _torch_wilds_parity import RECORDED, _convert, record_draws
 from beyond_deep_ensembles_tpu.methods import LossOutput as JaxLossOutput
 from beyond_deep_ensembles_tpu.methods import GaussianPrior as JaxPrior
@@ -46,8 +46,6 @@ from beyond_deep_ensembles_tpu_torch.models.layers import make_dense
 from beyond_deep_ensembles_tpu_torch.nn.base import Model, add_auto_named
 from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 from beyond_deep_ensembles_tpu_torch.utils.optim import Adam
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 LR, WD, N = 1e-2, 1e-2, 60
 INNERS = ["swag", "ivon", "svgd", "bbb"]

@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_close, one_cpu_thread  # noqa: F401 (a fixture)
+from _torch_parity import assert_close
 from _torch_wilds_parity import (BERT, CUT, RECORDED, compare_states, data, jax_state_dict, load_jax_state,
                                  port_draws, record_draws, yaml_row)
 from beyond_deep_ensembles_tpu.experiments import wilds_task as jax_wilds
@@ -44,8 +44,6 @@ from beyond_deep_ensembles_tpu_torch.ops import attention as att
 from beyond_deep_ensembles_tpu_torch.ops.sampling import DeviceSeed
 from beyond_deep_ensembles_tpu_torch.parallel import multistep
 from beyond_deep_ensembles_tpu_torch.utils.early_stopping import EarlyStopper
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 # four steps of batch 4 an epoch: with scan_steps 3, one multi-step call and
 # one leftover single update

@@ -1,0 +1,13 @@
+"""PyTorch port, experiments/wilds_task.py: the Laplace row of
+``configs/poverty.yaml`` (the ``full`` last-layer posterior on ResNet-18's one-output
+``Dense_0``, fitted with the regression GGN on both sides) held against the JAX package's engine on
+the CPU (``_torch_wilds_parity.check_row``, with the tolerances
+tests/test_torch_wilds_poverty.py states)."""
+import pytest
+
+from _torch_wilds_parity import check_row, yaml_row
+
+
+@pytest.mark.parametrize("name", ["Laplace"])
+def test_poverty_row_matches_jax(name, monkeypatch):
+    check_row("poverty", yaml_row("poverty", name), monkeypatch)

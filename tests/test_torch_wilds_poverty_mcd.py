@@ -1,0 +1,12 @@
+"""PyTorch port, experiments/wilds_task.py: the MCD row of
+``configs/poverty.yaml`` (dropout p 0.1 after the stem and in every basic block) held against the JAX package's engine on
+the CPU (``_torch_wilds_parity.check_row``, with the tolerances
+tests/test_torch_wilds_poverty.py states)."""
+import pytest
+
+from _torch_wilds_parity import check_row, yaml_row
+
+
+@pytest.mark.parametrize("name", ["MCD"])
+def test_poverty_row_matches_jax(name, monkeypatch):
+    check_row("poverty", yaml_row("poverty", name), monkeypatch)

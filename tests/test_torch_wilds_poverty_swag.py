@@ -1,0 +1,14 @@
+"""PyTorch port, experiments/wilds_task.py: the SWAG row of
+``configs/poverty.yaml`` (``swag_start_epoch`` cut to 0, collecting at every
+update; GaussLayer's ``rho__mle`` stays at its current point in SWAG's draws
+on both sides) held against the JAX package's engine on the CPU
+(``_torch_wilds_parity.check_row``, with the tolerances
+tests/test_torch_wilds_poverty.py states)."""
+import pytest
+
+from _torch_wilds_parity import check_row, yaml_row
+
+
+@pytest.mark.parametrize("name", ["SWAG"])
+def test_poverty_row_matches_jax(name, monkeypatch):
+    check_row("poverty", yaml_row("poverty", name), monkeypatch)

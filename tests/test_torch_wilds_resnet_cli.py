@@ -24,14 +24,12 @@ from pathlib import Path
 import pytest
 import yaml
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from beyond_deep_ensembles_tpu_torch import run
 from beyond_deep_ensembles_tpu_torch.experiments import wilds_task
 from beyond_deep_ensembles_tpu_torch.methods import deep_ensemble
 from beyond_deep_ensembles_tpu_torch.methods.ensemble import EnsembleState
 from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 CUT = {"tiny": True, "epochs": 1, "subsample": 8, "test_subsample": 6, "batch_size": 4, "eval_batch_size": 4,

@@ -15,11 +15,8 @@ bottleneck conv's bias, whose gradient is zero in exact arithmetic, within
 6 lr); every float metric within 1e-5, relative or absolute."""
 import pytest
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from _torch_wilds_parity import check_row, yaml_row
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 @pytest.mark.parametrize("name,extra", [("MAP", {}), ("MCD", {}), ("SWAG_LL", {}), ("MAP", {"warmup_steps": 2})],
                          ids=["MAP", "MCD", "SWAG_LL", "MAP-warmup2"])

@@ -14,11 +14,8 @@ in a hundred free; Laplace's factor A 1e-4 of its largest entry; metrics
 1e-5)."""
 import pytest
 
-from _torch_parity import one_cpu_thread  # noqa: F401 (a fixture)
+import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 from _torch_wilds_parity import check_row, yaml_row
-
-pytestmark = pytest.mark.usefixtures("one_cpu_thread")
-
 
 @pytest.mark.parametrize("name,extra", [("LL_iVON", {}), ("SNGP", {}), ("Laplace", {}),
                                         ("LL_iVON", {"warmup_steps": 2})],
