@@ -13,7 +13,8 @@ at eval, the clean test split and the corrupted splits of every intensity in
 (``svgd`` with one member: its particles are its ensemble), periodic
 checkpoints with auto-resume and the ``{model}_final`` artifact
 (``checkpoint_dir``, ``checkpoint_interval``), ``fit_laplace_phase`` and
-``multix_phase``. The ``bf16`` key and the HMC baseline raise;
+``multix_phase``, and the ``bf16`` key (the ResNet-20's plain and BBB convs in
+bf16, parameters and optimizer fp32; SNGP stays fp32). The HMC baseline raises;
 ``data_parallel`` is a no-op on one device, as in JAX, and raises with more
 than one visible card (``utils/device.py::refuse_multi_device``).
 
@@ -172,8 +173,11 @@ class BuiltExperiment:
 
 
 def _resnet(config, generator: torch.Generator, conv_kind: str, dropout_p=None, components: int = 1) -> ResNet20:
+    """The FRN/swish ResNet-20 (JAX ``_resnet``); ``bf16: true`` computes its
+    plain and BBB convs in bf16, parameters fp32 (JAX :186-190)."""
     return ResNet20(classes=10, activation="swish", norm="frn", conv_kind=conv_kind, dropout_p=dropout_p,
-                    components=components, generator=generator)
+                    components=components, dtype=torch.bfloat16 if config.get("bf16") else None,
+                    generator=generator)
 
 
 def _sngp_resnet(config, generator: torch.Generator) -> SNGPResNet20:
@@ -196,9 +200,8 @@ def _not_ported(config: dict) -> None:
     if config["model"] == "svgd" and config.get("members", 1) != 1:
         # the JAX build ignores members for svgd; the port refuses
         raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
-    for key in ("bf16", "use_hmc_baseline"):
-        if config.get(key):
-            raise NotImplementedError(f"{key}: not ported yet")
+    if config.get("use_hmc_baseline"):
+        raise NotImplementedError("use_hmc_baseline: not ported yet (ROADMAP item 16, bnn-hmc)")
     refuse_multi_device(config, ("data_parallel",))
 
 

@@ -50,8 +50,12 @@ capture a step). Every path draws its noise in key mode from
 ``data_parallel`` and ``ring_shard`` are no-ops on one device, as in JAX,
 and raise with more than one visible card (ROADMAP item 18).
 
-Not ported yet, each raising ``NotImplementedError``: bf16 compute (ROADMAP
-item 13), ResNet-50 remat, the DenseNet's running-statistics BatchNorm
+``compute_dtype: bf16`` runs the backbones in bf16 with fp32 parameters,
+optimizer states and heads (JAX ``_compute_dtype``, :110-118): DistilBERT's
+encoder, the DenseNet's, ResNet-50's and ResNet-18's plain and BBB convs;
+the SNGP models stay fp32, as the JAX package passes them no dtype.
+
+Not ported yet, each raising ``NotImplementedError``: ResNet-50 remat, the DenseNet's running-statistics BatchNorm
 (``static_bn: false``) and the benchmark knob ``no_norm``. ``model: sngp``
 on poverty raises too: the JAX package's own run fails there (its SNGP
 head's one output meets the regression eval), so there is no reference.
@@ -167,6 +171,12 @@ def _bert_config(config: dict) -> DistilBertConfig:
     return DistilBertConfig(remat=bool(config.get("bert_remat", False)))
 
 
+def _compute_dtype(config: dict) -> Optional[torch.dtype]:
+    """bf16 under ``compute_dtype: bf16`` (or ``bfloat16``), else None:
+    fp32 (JAX ``_compute_dtype``)."""
+    return torch.bfloat16 if config.get("compute_dtype", "fp32") in ("bf16", "bfloat16") else None
+
+
 def _not_ported(task: str, config: dict) -> None:
     if task not in wilds_data.TASKS:
         raise ValueError(f"unknown task {task!r}")
@@ -181,8 +191,6 @@ def _not_ported(task: str, config: dict) -> None:
     if config["model"] == "svgd" and config.get("members", 1) != 1:
         # the JAX build ignores members for svgd; the port refuses
         raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
-    if config.get("compute_dtype", "fp32") not in ("fp32", "float32"):
-        raise NotImplementedError("bf16 compute: not ported yet (ROADMAP item 13)")
     if config.get("lr_schedule_kind", "none") not in ("none", "exponential", "cosine_warmup"):
         raise ValueError(f"unknown lr_schedule_kind {config['lr_schedule_kind']!r}")
     refuse_multi_device(config)
@@ -261,13 +269,14 @@ class PovertyNet(nn.Module):
     ``GaussLayer_0(init_std, learn_var)``, whose ``rho__mle`` the SVGD,
     iVON, SWAG and BBB methods leave out of their posteriors.
     ``forward(x, noise, train, component)`` -> ``[B, 1, 2]`` (mean,
-    std)."""
+    std). Under a bf16 ``dtype`` the trunk computes in bf16 and its head in
+    fp32, so the GaussLayer receives fp32 means."""
 
-    def __init__(self, kind: str, components: int, dropout_p, init_std: float, learn_var: bool, *,
+    def __init__(self, kind: str, components: int, dropout_p, init_std: float, learn_var: bool, dtype=None, *,
                  generator: torch.Generator):
         super().__init__()
         net = add_auto_named(self, ResNet18(1, norm="batch_static", conv_kind=kind, components=components,
-                                            dropout_p=dropout_p, generator=generator))
+                                            dropout_p=dropout_p, dtype=dtype, generator=generator))
         gauss = add_auto_named(self, GaussLayer(std_init=init_std, learn_var=learn_var))
         # a tuple keeps the references out of the state_dict (one key per parameter)
         self._layers = (net, gauss)
@@ -294,9 +303,10 @@ def _make_backbone(task: str, config: dict, generator: torch.Generator, kind: st
     unused, as in JAX)."""
     components = config.get("rank1_components", 1)
     classes = wilds_data.TASKS[task].classes
+    dtype = _compute_dtype(config)
     if task == "poverty":
         return PovertyNet(kind, components, dropout_p, config.get("init_std", 0.1), config.get("learn_var", True),
-                          generator=generator)
+                          dtype, generator=generator)
     if task in RESNET50_TASKS:
         return ResNet50(
             classes,
@@ -309,6 +319,7 @@ def _make_backbone(task: str, config: dict, generator: torch.Generator, kind: st
             torchvision=config.get("torchvision_arch", False),
             dropout_freeze_eval=False,
             remat=config.get("conv_remat", "none"),
+            dtype=dtype,
             generator=generator,
         )
     if task in DENSENET_TASKS:
@@ -322,6 +333,7 @@ def _make_backbone(task: str, config: dict, generator: torch.Generator, kind: st
             remat=config.get("conv_remat", "none"),
             incremental_bn=config.get("densenet_incremental_bn", True),
             concat_mode=config.get("densenet_concat_mode", "concat"),
+            dtype=dtype,
             generator=generator,
             **_densenet_kwargs(task, config),
         )
@@ -333,6 +345,7 @@ def _make_backbone(task: str, config: dict, generator: torch.Generator, kind: st
         components=components,
         config=_bert_config(config),
         mc_encoder_dropout=head == "drop" and not config.get("last_layer_mcd", False),
+        dtype=dtype,
         generator=generator,
     )
 

@@ -30,8 +30,15 @@ encoder under an ``SNGPHead`` on the first token (the JAX package's text
 training under ``torch.utils.checkpoint`` with ``NoiseSource.replay``, so
 the recompute in the backward draws the forward's masks and K3 seeds:
 outputs and gradients equal the plain form's. :func:`load_hf_weights` fills
-the encoder from a staged HuggingFace ``pytorch_model.bin``. A bf16 compute
-dtype is not ported yet and raises.
+the encoder from a staged HuggingFace ``pytorch_model.bin``.
+
+``dtype`` is the encoder's compute dtype (JAX ``models/bert.py:94-204``;
+bf16 under ``compute_dtype: bf16``, parameters fp32): the embeddings, every
+``Dense`` and every ``LayerNorm`` (fp32 statistics) compute and return it, so
+q, k and v reach K3 in bf16 (its plain version on the CPU); the first
+token's hidden state is cast to fp32 for the head (JAX ``:223``), and the
+head computes in fp32. :class:`BertSNGP` takes no dtype, as the JAX
+package's text SNGP model passes none.
 """
 from __future__ import annotations
 
@@ -80,16 +87,19 @@ TINY_CONFIG = DistilBertConfig(vocab_size=1024, dim=64, n_layers=2, n_heads=2, h
 
 class Embed(nn.Module):
     """flax ``nn.Embed``: ``embedding`` ``[num_embeddings, features]``, drawn
-    N(0, 1/features) (flax's ``variance_scaling(1, 'fan_in', 'normal')``)."""
+    N(0, 1/features) (flax's ``variance_scaling(1, 'fan_in', 'normal')``),
+    looked up in ``dtype`` (the table cast to it, as flax promotes it)."""
 
-    def __init__(self, num_embeddings: int, features: int, *, generator: torch.Generator):
+    def __init__(self, num_embeddings: int, features: int, dtype=None, *, generator: torch.Generator):
         super().__init__()
+        self.dtype = dtype
         self.embedding = nn.Parameter(
             torch.randn(num_embeddings, features, generator=generator) / math.sqrt(features)
         )
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.long(), self.embedding)
+        table = self.embedding if self.dtype is None else self.embedding.to(self.dtype)
+        return F.embedding(ids.long(), table)
 
 
 class TransformerBlock(nn.Module):
@@ -100,18 +110,19 @@ class TransformerBlock(nn.Module):
     False)`` on every nn.Dropout of the HF model, amazon/models.py:73)."""
 
     def __init__(self, dim: int, n_heads: int, hidden_dim: int, dropout: float,
-                 attention_dropout: float = 0.0, mc_dropout: bool = False, *, generator: torch.Generator):
+                 attention_dropout: float = 0.0, mc_dropout: bool = False, dtype=None, *,
+                 generator: torch.Generator):
         super().__init__()
         self.n_heads = n_heads
         self.dropout = dropout
         self.attention_dropout = attention_dropout
         self.mc_dropout = mc_dropout
         for name in ("q_lin", "k_lin", "v_lin", "out_lin"):
-            self.add_module(name, Dense(dim, dim, generator=generator))
-        self.sa_layer_norm = LayerNorm(dim)
-        self.lin1 = Dense(dim, hidden_dim, generator=generator)
-        self.lin2 = Dense(hidden_dim, dim, generator=generator)
-        self.output_layer_norm = LayerNorm(dim)
+            self.add_module(name, Dense(dim, dim, dtype=dtype, generator=generator))
+        self.sa_layer_norm = LayerNorm(dim, dtype=dtype)
+        self.lin1 = Dense(dim, hidden_dim, dtype=dtype, generator=generator)
+        self.lin2 = Dense(hidden_dim, dim, dtype=dtype, generator=generator)
+        self.output_layer_norm = LayerNorm(dim, dtype=dtype)
 
     def forward(self, x, mask, noise, train: bool = True):
         b, l, dim = x.shape
@@ -131,17 +142,20 @@ class TransformerBlock(nn.Module):
 
 
 class DistilBertEncoder(nn.Module):
-    def __init__(self, config: DistilBertConfig, mc_dropout: bool = False, *, generator: torch.Generator):
+    def __init__(self, config: DistilBertConfig, mc_dropout: bool = False, dtype=None, *,
+                 generator: torch.Generator):
         super().__init__()
         self.config = config
         self.mc_dropout = mc_dropout
-        self.word_embeddings = Embed(config.vocab_size, config.dim, generator=generator)
-        self.position_embeddings = Embed(config.max_position_embeddings, config.dim, generator=generator)
-        self.embed_layer_norm = LayerNorm(config.dim)
+        self.word_embeddings = Embed(config.vocab_size, config.dim, dtype=dtype, generator=generator)
+        self.position_embeddings = Embed(config.max_position_embeddings, config.dim, dtype=dtype,
+                                         generator=generator)
+        self.embed_layer_norm = LayerNorm(config.dim, dtype=dtype)
         for i in range(config.n_layers):
             self.add_module(f"layer_{i}", TransformerBlock(
                 config.dim, config.n_heads, config.hidden_dim, config.dropout,
-                attention_dropout=config.attention_dropout, mc_dropout=mc_dropout, generator=generator,
+                attention_dropout=config.attention_dropout, mc_dropout=mc_dropout, dtype=dtype,
+                generator=generator,
             ))
 
     def forward(self, input_ids, attention_mask, noise, train: bool = True):
@@ -179,12 +193,10 @@ class BertClassifier(nn.Module):
         super().__init__()
         if head_kind not in ("map", "drop", "bbb", "rank1"):
             raise ValueError(f"unknown head kind {head_kind!r}")
-        if dtype not in (None, torch.float32):
-            raise NotImplementedError(f"compute dtype {dtype}: not ported yet")
         cfg = config or DistilBertConfig()
         self.head_kind = head_kind
         kind = {"map": "plain", "drop": "plain"}.get(head_kind, head_kind)
-        self.bert = DistilBertEncoder(cfg, mc_dropout=mc_encoder_dropout, generator=generator)
+        self.bert = DistilBertEncoder(cfg, mc_dropout=mc_encoder_dropout, dtype=dtype, generator=generator)
         first = add_auto_named(self, make_dense(kind, cfg.dim, cfg.dim, components=components, generator=generator))
         self.head_dropout = FixableDropout(drop_p, freeze_on_eval=False)
         second = add_auto_named(self, make_dense(kind, cfg.dim, classes, components=components, generator=generator))
@@ -194,7 +206,9 @@ class BertClassifier(nn.Module):
     def forward(self, packed_input, noise, train: bool = True, component=None):
         first, second = self._head
         hidden = self.bert(packed_input[:, :, 0], packed_input[:, :, 1], noise, train)
-        h = F.relu(call_layer(first, hidden[:, 0], noise, train, component))
+        # the head is a tiny fraction of the flops: fp32 logits (JAX :223)
+        cls = hidden[:, 0]
+        h = F.relu(call_layer(first, cls.to(torch.promote_types(cls.dtype, torch.float32)), noise, train, component))
         if self.head_kind == "drop":
             h = self.head_dropout(h, noise, train)
         elif train:

@@ -31,9 +31,16 @@ Three options change how the forward is computed and never what it computes
   autograd (an eval forward has no backward; the Laplace GGN's
   ``torch.func.jacrev`` of one takes no checkpoint).
 
+``dtype`` is the compute dtype (JAX ``DenseNet.dtype``; bf16 under
+``compute_dtype: bf16``, parameters fp32): the plain and BBB convs compute
+and return it, the static norms keep fp32 statistics and return their
+input's type, so the concatenated features (and the ``"buffer"``) are bf16,
+and :class:`DenseNetClassifier` casts the pooled features to fp32 for its
+head (JAX ``models/densenet.py:330``). Rank-1 and spectral convs get none.
+
 Options the yamls do not set raise: running statistics
-(``track_running_stats``, ``static_bn: false``), ``norm_off`` (the JAX
-package's benchmark knob) and a reduced-precision ``dtype`` (ROADMAP).
+(``track_running_stats``, ``static_bn: false``) and ``norm_off`` (the JAX
+package's benchmark knob).
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from ..nn.base import add_auto_named
 from ..nn.dropout import FixableDropout
 from ..nn.norm import StaticBatchNorm, channel_stats
 from ..nn.sngp import SNGPHead
-from .layers import call_layer, make_conv, make_dense, rematerialized
+from .layers import call_layer, kind_kwargs, make_conv, make_dense, rematerialized
 
 REMAT_MODES = ("none", "layer", "block")
 CONCAT_MODES = ("concat", "buffer")
@@ -73,10 +80,11 @@ class DenseLayer(nn.Module):
     conv (``growth_rate``), dropout; ``forward`` returns the new channels."""
 
     def __init__(self, in_features: int, growth_rate: int, bn_size: int, conv_kind: str = "plain",
-                 components: int = 1, dropout_p: Optional[float] = None, dropout_freeze_eval: bool = True, *,
-                 generator: torch.Generator):
+                 components: int = 1, dropout_p: Optional[float] = None, dropout_freeze_eval: bool = True,
+                 dtype=None, *, generator: torch.Generator):
         super().__init__()
         mid = bn_size * growth_rate
+        kw = kind_kwargs(conv_kind, dtype)
 
         def drop():
             if dropout_p is None:
@@ -85,11 +93,11 @@ class DenseLayer(nn.Module):
 
         bn1 = add_auto_named(self, _BN(in_features))
         conv1 = add_auto_named(self, make_conv(conv_kind, in_features, mid, (1, 1), use_bias=False,
-                                               components=components, generator=generator))
+                                               components=components, generator=generator, **kw))
         drop1 = drop()
         bn2 = add_auto_named(self, _BN(mid))
         conv2 = add_auto_named(self, make_conv(conv_kind, mid, growth_rate, (3, 3), padding=1, use_bias=False,
-                                               components=components, generator=generator))
+                                               components=components, generator=generator, **kw))
         drop2 = drop()
         # a tuple keeps the references out of the state_dict (one key per parameter)
         self._layers = (bn1, conv1, drop1, bn2, conv2, drop2)
@@ -137,16 +145,15 @@ class DenseNet(nn.Module):
             raise NotImplementedError("DenseNet BatchNorm with running statistics (static_bn: false): not ported yet")
         if norm_off:
             raise NotImplementedError("DenseNet norm_off (a benchmark knob of the JAX package): not ported")
-        if dtype not in (None, torch.float32):
-            raise NotImplementedError("a reduced-precision DenseNet: not ported yet (ROADMAP item 13)")
         if remat not in REMAT_MODES:
             raise ValueError(f"remat {remat!r} (want one of {REMAT_MODES})")
         if concat_mode not in CONCAT_MODES:
             raise ValueError(f"concat_mode {concat_mode!r} (want one of {CONCAT_MODES})")
         self.growth_rate, self.block_config = growth_rate, tuple(block_config)
         self.remat, self.incremental_bn, self.concat_mode = remat, incremental_bn, concat_mode
+        kw = kind_kwargs(conv_kind, dtype)
         stem = add_auto_named(self, make_conv(conv_kind, in_channels, init_features, (7, 7), strides=2, padding=3,
-                                              use_bias=False, components=components, generator=generator))
+                                              use_bias=False, components=components, generator=generator, **kw))
         stem_bn = add_auto_named(self, _BN(init_features))
         stem_drop = None
         if dropout_p is not None:
@@ -156,14 +163,14 @@ class DenseNet(nn.Module):
             layers = []
             for _ in range(n_layers):
                 layers.append(add_auto_named(self, DenseLayer(
-                    c, growth_rate, bn_size, conv_kind, components, dropout_p, dropout_freeze_eval,
+                    c, growth_rate, bn_size, conv_kind, components, dropout_p, dropout_freeze_eval, dtype,
                     generator=generator)))
                 c += growth_rate
             blocks.append(tuple(layers))
             if i != len(self.block_config) - 1:
                 bn = add_auto_named(self, _BN(c))
                 conv = add_auto_named(self, make_conv(conv_kind, c, c // 2, (1, 1), use_bias=False,
-                                                      components=components, generator=generator))
+                                                      components=components, generator=generator, **kw))
                 transitions.append((bn, conv))
                 c //= 2
         final_bn = add_auto_named(self, _BN(c))
@@ -238,7 +245,10 @@ class DenseNetClassifier(nn.Module):
 
     def forward(self, x, noise, train: bool = True, component=None):
         net, head = self._layers
-        return call_layer(head, net(x, noise, train=train, component=component), noise, train, component)
+        # the head is a rounding error of the flops: fp32 (JAX :330)
+        h = net(x, noise, train=train, component=component)
+        h = h.to(torch.promote_types(h.dtype, torch.float32))
+        return call_layer(head, h, noise, train, component)
 
 
 class DenseNetSNGP(nn.Module):

@@ -3,7 +3,8 @@
 Counterpart of ``beyond_deep_ensembles_tpu/models/layers.py``: a kind string
 selects the layer class so architectures stay agnostic: ``"plain"``,
 ``"bbb"``, ``"rank1"`` (with ``components``) and ``"spectral"`` (with
-``norm_bound``). :func:`rematerialized` is the port's remat, shared by the
+``norm_bound``). A compute ``dtype`` reaches the plain and BBB kinds only
+(the JAX architectures pass it to no other kind). :func:`rematerialized` is the port's remat, shared by the
 DenseNet and DistilBERT.
 """
 from __future__ import annotations
@@ -32,7 +33,7 @@ def make_dense(
     **kwargs,
 ) -> nn.Module:
     if kind == "plain":
-        return Dense(in_features, features, use_bias=use_bias, generator=generator)
+        return Dense(in_features, features, use_bias=use_bias, dtype=kwargs.get("dtype"), generator=generator)
     if kind == "bbb":
         return BBBDense(in_features, features, use_bias=use_bias, generator=generator, **kwargs)
     if kind == "rank1":
@@ -58,7 +59,7 @@ def make_conv(
     if kind == "plain":
         return Conv(
             in_features, features, kernel_size, strides=strides, padding=padding,
-            use_bias=use_bias, generator=generator,
+            use_bias=use_bias, dtype=kwargs.get("dtype"), generator=generator,
         )
     if kind == "bbb":
         return BBBConv(
@@ -76,6 +77,17 @@ def make_conv(
             use_bias=use_bias, generator=generator, **kwargs,
         )
     raise ValueError(f"unknown conv kind {kind!r}")
+
+
+def kind_kwargs(kind: str, dtype=None, norm_bound=None) -> dict:
+    """The factory's keywords an architecture passes with a layer ``kind``:
+    the compute dtype for the plain and BBB kinds only (JAX ``kw =
+    {"dtype": ...} if conv_kind in ("plain", "bbb")``), the bound for the
+    spectral kind."""
+    kw = {"dtype": dtype} if kind in ("plain", "bbb") and dtype is not None else {}
+    if kind == "spectral" and norm_bound is not None:
+        kw["norm_bound"] = norm_bound
+    return kw
 
 
 def call_layer(layer: nn.Module, x, noise, train: bool, component=None):

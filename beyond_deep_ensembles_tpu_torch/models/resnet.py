@@ -28,8 +28,17 @@ torchvision ``resnet50`` state dict loads into, ``models/torch_convert.py``).
 Submodules carry flax's scope names (``Conv_0``, ``_Norm_k/StaticBatchNorm_0``,
 ``Bottleneck_k`` numbered over the whole net, ``Dense_0``), so
 ``models/jax_convert.py`` maps the JAX parameters by path. ``remat`` other
-than ``"none"``, a reduced-precision ``dtype`` and the norm ``"none"`` (a
-benchmark knob of the JAX package) raise.
+than ``"none"`` and the norm ``"none"`` (a benchmark knob of the JAX package)
+raise.
+
+``dtype`` is the compute dtype (bf16: parameters stay fp32): as in JAX it
+reaches the plain and BBB convs only (``models/layers.py::kind_kwargs``),
+which compute and return it; rank-1 and spectral layers, the norms and the
+heads get none. So
+where an fp32 parameter meets a bf16 tensor the result is fp32 (FRN's
+``gamma * x``), a static batch norm returns its input's type with fp32
+statistics, the next conv casts back to bf16, and the heads compute in fp32
+from bf16 features.
 
 :class:`SNGPResNet20` is the CIFAR SNGP model, which the JAX package keeps
 in ``experiments/cifar.py`` (``SNGPResNet20``, ``_resnet20_features``): it
@@ -50,7 +59,7 @@ from ..nn.dropout import FixableDropout
 from ..nn.frn import FilterResponseNorm, VariationalFilterResponseNorm
 from ..nn.norm import StaticBatchNorm
 from ..nn.sngp import SNGPHead
-from .layers import call_layer, make_conv, make_dense
+from .layers import call_layer, kind_kwargs, make_conv, make_dense
 
 
 def _activation(name: str):
@@ -110,13 +119,14 @@ class BasicBlock(nn.Module):
         dropout_p: Optional[float] = None,
         components: int = 1,
         norm_bound: float = 6.0,
+        dtype=None,
         *,
         generator: torch.Generator,
     ):
         super().__init__()
         self.act = _activation(activation)
         nk = _norm_kind(norm, conv_kind)
-        kw = {"norm_bound": norm_bound} if conv_kind == "spectral" else {}
+        kw = kind_kwargs(conv_kind, dtype, norm_bound)
 
         def conv(cin, kernel, s, padding, use_bias=True):
             layer = make_conv(
@@ -166,13 +176,14 @@ class ResNet20(nn.Module):
         conv_kind: str,
         dropout_p: Optional[float] = None,
         components: int = 1,
+        dtype=None,
         *,
         generator: torch.Generator,
     ):
         super().__init__()
-        stem = _stem(self, conv_kind, components, generator)
+        stem = _stem(self, conv_kind, components, generator, **kind_kwargs(conv_kind, dtype))
         drop = None if dropout_p is None else add_auto_named(self, FixableDropout(dropout_p))
-        blocks = _blocks(self, activation, norm, conv_kind, dropout_p, components, generator)
+        blocks = _blocks(self, activation, norm, conv_kind, dropout_p, components, generator, dtype)
         head = add_auto_named(self, make_dense(conv_kind, 64, classes, components=components, generator=generator))
         # a tuple keeps the references out of the state_dict (one key per parameter)
         self._layers = (stem, drop, blocks, head)
@@ -190,13 +201,14 @@ def _stem(parent, conv_kind, components, generator, **kwargs):
                                             generator=generator, **kwargs))
 
 
-def _blocks(parent, activation, norm, conv_kind, dropout_p, components, generator):
+def _blocks(parent, activation, norm, conv_kind, dropout_p, components, generator, dtype=None):
     """The nine blocks, registered on ``parent``."""
     widths = [(16, 1), (16, 1), (16, 1), (32, 2), (32, 1), (32, 1), (64, 2), (64, 1), (64, 1)]
     blocks, cin = [], 16
     for features, stride in widths:
         blocks.append(add_auto_named(parent, BasicBlock(
-            cin, features, stride, activation, norm, conv_kind, dropout_p, components, generator=generator)))
+            cin, features, stride, activation, norm, conv_kind, dropout_p, components, dtype=dtype,
+            generator=generator)))
         cin = features
     return tuple(blocks)
 
@@ -262,16 +274,14 @@ class ResNet18(nn.Module):
         generator: torch.Generator,
     ):
         super().__init__()
-        if dtype not in (None, torch.float32):
-            raise NotImplementedError("a reduced-precision ResNet-18: not ported yet (ROADMAP item 13)")
-        kw = {"norm_bound": norm_bound} if conv_kind == "spectral" else {}
         stem = add_auto_named(self, make_conv(conv_kind, in_channels, 64, (3, 3), strides=1, padding=1,
-                                              components=components, generator=generator, **kw))
+                                              components=components, generator=generator,
+                                              **kind_kwargs(conv_kind, dtype, norm_bound)))
         drop = None if dropout_p is None else add_auto_named(self, FixableDropout(dropout_p))
         blocks, cin = [], 64
         for features, stride in self.WIDTHS:
             blocks.append(add_auto_named(self, BasicBlock(
-                cin, features, stride, activation, norm, conv_kind, dropout_p, components, norm_bound,
+                cin, features, stride, activation, norm, conv_kind, dropout_p, components, norm_bound, dtype,
                 generator=generator)))
             cin = features
         head = None
@@ -312,6 +322,7 @@ class Bottleneck(nn.Module):
         components: int = 1,
         torchvision: bool = False,
         dropout_freeze_eval: bool = True,
+        dtype=None,
         *,
         generator: torch.Generator,
     ):
@@ -320,11 +331,12 @@ class Bottleneck(nn.Module):
         nk = _norm_kind(norm, conv_kind)
         width = features // 4
         bias = not torchvision
+        kw = kind_kwargs(conv_kind, dtype)
 
         def conv(cin, cout, kernel, s, padding, use_bias):
             return add_auto_named(self, make_conv(
                 conv_kind, cin, cout, (kernel, kernel), strides=s, padding=padding, use_bias=use_bias,
-                components=components, generator=generator))
+                components=components, generator=generator, **kw))
 
         def drop():
             if dropout_p is None:
@@ -391,13 +403,10 @@ class ResNet50(nn.Module):
         super().__init__()
         if remat != "none":
             raise NotImplementedError(f"ResNet-50 remat {remat!r}: not ported yet (ROADMAP, queue 1, waiting)")
-        if dtype not in (None, torch.float32):
-            raise NotImplementedError("a reduced-precision ResNet-50: not ported yet (ROADMAP item 13)")
         self.act = _activation(activation)
-        kw = {"norm_bound": norm_bound} if conv_kind == "spectral" else {}
         stem = add_auto_named(self, make_conv(conv_kind, 3, 64, (7, 7), strides=2, padding=3,
                                               use_bias=not torchvision, components=components, generator=generator,
-                                              **kw))
+                                              **kind_kwargs(conv_kind, dtype, norm_bound)))
         stem_norm = None
         if torchvision:
             stem_norm = add_auto_named(self, _Norm(_norm_kind(norm, conv_kind), 64, generator=generator))
@@ -411,7 +420,7 @@ class ResNet50(nn.Module):
                 stride = 2 if stage > 0 and block == 0 else 1
                 blocks.append(add_auto_named(self, Bottleneck(
                     cin, features, stride, activation, norm, dropout_p, conv_kind, components, torchvision,
-                    dropout_freeze_eval, generator=generator)))
+                    dropout_freeze_eval, dtype, generator=generator)))
                 cin = features
         self.out_features = cin
         head = None

@@ -35,10 +35,16 @@ def _pairs(padding: Padding, lhs: torch.Tensor, rhs: torch.Tensor, strides) -> l
 
 
 def conv2d(
-    lhs: torch.Tensor, rhs: torch.Tensor, strides: Sequence[int], padding: Padding
+    lhs: torch.Tensor, rhs: torch.Tensor, strides: Sequence[int], padding: Padding, dtype=None
 ) -> torch.Tensor:
     """NCHW x OIHW -> NCHW. ``padding``: an int, ``"VALID"``, ``"SAME"`` or
-    ``((top, bottom), (left, right))``."""
+    ``((top, bottom), (left, right))``. ``dtype`` (the JAX function's
+    ``preferred_element_type``; default the operands' common type): both
+    operands are cast to it and the output is in it. In bf16 the card's
+    cuDNN and the CPU both accumulate in fp32 and round the output once."""
+    if dtype is None:
+        dtype = torch.promote_types(lhs.dtype, rhs.dtype)
+    lhs, rhs = lhs.to(dtype), rhs.to(dtype)
     strides = tuple(strides)
     (top, bottom), (left, right) = _pairs(padding, lhs, rhs, strides)
     if top == bottom and left == right:

@@ -253,7 +253,9 @@ class NoiseSource:
         frozen = not train and freeze_on_eval
         if self._given is not None:
             shape = act_mean.shape[1:] if frozen else act_mean.shape
-            eps = self._take(shape).to(device=act_mean.device, dtype=act_mean.dtype)
+            # z stays fp32 for bf16 planes: K1 draws and adds in fp32
+            eps = self._take(shape).to(device=act_mean.device,
+                                       dtype=torch.promote_types(act_mean.dtype, torch.float32))
             return gaussian_sample(act_mean, act_var, b_mean, b_var, eps=eps.contiguous())
         seed = DeviceSeed(self.key, self.draws) if self.key is not None else self.seed()
         self.draws += 1

@@ -47,12 +47,21 @@ The dropout mask comes from one of:
   * ``keep``: a given keep mask ``[B, H, L, L]`` (bool or uint8), read by the
     kernels on a card, so that a card and the CPU can run one draw.
 
+q, k and v are fp32 or, in a bf16 encoder, bf16. bf16 operands go through
+the kernels of ``csrc/dropout_attention_bf16.cu`` (``mma.sync`` bf16
+products with fp32 accumulation; the same mask bit for bit) with the TPU
+kernels' bf16 rule: fp32 scores and softmax, P_drop rounded to bf16 before
+``P_drop V``, dS rounded to bf16 before dQ and dK, outputs in bf16; the
+plain version does the same (:class:`_PlainBf16`: each product of bf16
+operands taken in fp32, which is exact per term, and rounded where the TPU
+kernels round).
+
 A CUDA tensor goes through the kernels (each launch of K3a counts one in
 ``attention_forward.launches``, each of K3b one in
-``attention_backward.launches``) and raises where they cannot take it: a
-head dimension other than 64 or misaligned data. Any L >= 1 runs (the last
-query and key tiles are ragged). A CPU tensor goes through
-:func:`dropout_attention_plain`.
+``attention_backward.launches``, whichever the operands' type) and raises
+where they cannot take it: a head dimension other than 64 or misaligned
+data. Any L >= 1 runs (the last query and key tiles are ragged). A CPU
+tensor goes through :func:`dropout_attention_plain`.
 """
 from __future__ import annotations
 
@@ -85,6 +94,18 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _library_bf16() -> ctypes.CDLL:
+    lib = _cuda_build.load("dropout_attention_bf16.cu")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.k3_bf16_forward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, p, f, f, p, p, i, i, i, i, p]
+    lib.k3_bf16_forward.restype = i
+    lib.k3_bf16_backward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, p, f, f, p, p, p, p, p, p, p, i, i, i, i,
+                                     p]
+    lib.k3_bf16_backward.restype = i
+    return lib
+
+
 def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
     """``[B, L]`` fp32: 0 where a key is attended, -1e30 where it is padded."""
     return torch.where(key_mask > 0, 0.0, NEG).to(torch.float32).contiguous()
@@ -113,10 +134,59 @@ def _plain_probs(q, k, key_mask, keep, dropout_p):
     return p if keep is None else torch.where(keep.bool(), p / (1.0 - dropout_p), 0.0)
 
 
+def _drop(x, keep, dropout_p):
+    """The JAX kernels' ``_apply_drop``: kept values times 1 / (1 - p)."""
+    return x if keep is None else torch.where(keep.bool(), x * (1.0 / (1.0 - dropout_p)), 0.0)
+
+
+def _bf16_probs(q, k, key_mask, keep, dropout_p):
+    """The bf16 rule's fp32 probabilities and P_drop, from q and k taken in
+    fp32 (each product of two bf16 values is exact in fp32)."""
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    p = torch.softmax(s + key_bias(key_mask)[:, None, None, :], dim=-1)
+    return p, _drop(p, keep, dropout_p)
+
+
+class _PlainBf16(torch.autograd.Function):
+    """The plain version of K3a and K3b on bf16 operands, rounding where the
+    TPU kernels round (JAX ``ops/attention.py:66-69``, ``:88-93``,
+    ``:111-128``): ``O = bf16(bf16(P_drop) V)``; ``dV = bf16(bf16(P_drop)^T
+    dO)``, ``dP = drop(dO V^T)``, ``dS = P (dP - rowsum(dP P))``, ``dQ =
+    bf16(bf16(dS) K scale)``, ``dK = bf16(bf16(dS)^T Q scale)``; every product
+    in fp32. The forward takes no ``ctx`` (``setup_context``), so that
+    ``torch.func`` transforms can run a model through it."""
+
+    @staticmethod
+    def forward(q, k, v, key_mask, keep, dropout_p):
+        _, pd = _bf16_probs(q, k, key_mask, keep, dropout_p)
+        return torch.einsum("bhlm,bmhd->blhd", pd.bfloat16().float(), v.float()).bfloat16()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, key_mask, keep, dropout_p = inputs
+        ctx.save_for_backward(q, k, v, key_mask, keep)
+        ctx.dropout_p = dropout_p
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask, keep = ctx.saved_tensors
+        p, pd = _bf16_probs(q, k, key_mask, keep, ctx.dropout_p)
+        do = do.float()
+        dv = torch.einsum("bhlm,blhd->bmhd", pd.bfloat16().float(), do).bfloat16()
+        dp = _drop(torch.einsum("blhd,bmhd->bhlm", do, v.float()), keep, ctx.dropout_p)
+        ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).bfloat16().float()
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        dq = (torch.einsum("bhlm,bmhd->blhd", ds, k.float()) * scale).bfloat16()
+        dk = (torch.einsum("bhlm,blhd->bmhd", ds, q.float()) * scale).bfloat16()
+        return dq, dk, dv, None, None, None
+
+
 def dropout_attention_plain(q, k, v, key_mask, keep: Optional[torch.Tensor] = None, *, dropout_p: float = 0.0):
     """The plain PyTorch version of K3a (and, by autograd, of K3b): the JAX
     ``reference_dropout_attention`` with an explicit keep mask ``[B, H, L, L]``
-    (None: nothing dropped)."""
+    (None: nothing dropped); on bf16 operands :class:`_PlainBf16`."""
+    if q.dtype == torch.bfloat16:
+        return _PlainBf16.apply(q, k, v, key_mask, keep, dropout_p)
     return torch.einsum("bhlm,bmhd->blhd", _plain_probs(q, k, key_mask, keep, dropout_p), v)
 
 
@@ -140,9 +210,9 @@ def _check_kernel(q: torch.Tensor, *tensors: torch.Tensor) -> None:
         raise ValueError("K3 takes 16-byte aligned tensors")
 
 
-def _err(lib, err: int, which: str) -> None:
+def _err(err: int, which: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{which} launch failed: {lib.k3_error_string(err).decode()} ({err})")
+        raise RuntimeError(f"{which} launch failed: {_library().k3_error_string(err).decode()} ({err})")
 
 
 def _keep_ptr(keep):
@@ -162,20 +232,25 @@ def attention_forward(q, k, v, bias, dropout_p: float, seed: Optional[Seed], kee
     """K3a on CUDA tensors: ``(o, lse, probs or None)``; ``lse`` ``[B, H, L]``
     is the row's log-sum-exp in base 2 of the scores times log2(e), which K3b
     reads. ``keep``: uint8 ``[B, H, L, L]``; ``seed``: a host int or a
-    device seed."""
+    device seed. bf16 operands take the bf16 kernel, which writes no
+    ``probs``."""
     _check_kernel(q, k, v, bias, keep)
-    lib = _library()
     b, l, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
-    probs = torch.empty((b, h, l, l), dtype=torch.float32, device=q.device) if with_probs else None
-    err = lib.k3_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep), *_seed_args(seed),
-        _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM),
-        o.data_ptr(), lse.data_ptr(), probs.data_ptr() if with_probs else None, b, l, h,
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _err(lib, err, "K3a")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep), *_seed_args(seed),
+            _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM))
+    if q.dtype == torch.bfloat16:
+        if with_probs:
+            raise ValueError("K3a's debug probabilities take fp32 operands")
+        probs = None
+        err = _library_bf16().k3_bf16_forward(*args, o.data_ptr(), lse.data_ptr(), b, l, h, q.device.index, stream)
+    else:
+        probs = torch.empty((b, h, l, l), dtype=torch.float32, device=q.device) if with_probs else None
+        err = _library().k3_forward(*args, o.data_ptr(), lse.data_ptr(), probs.data_ptr() if with_probs else None,
+                                    b, l, h, q.device.index, stream)
+    _err(err, "K3a")
     attention_forward.launches += 1
     return o, lse, probs
 
@@ -187,17 +262,17 @@ def attention_backward(q, k, v, bias, dropout_p: float, seed: Optional[Seed], ke
                        o, lse, do):
     """K3b on CUDA tensors: ``(dq, dk, dv)`` for the output gradient ``do``."""
     _check_kernel(q, k, v, bias, keep, o, lse, do)
-    lib = _library()
     b, l, h, _ = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    err = lib.k3_backward(
+    launch = _library_bf16().k3_bf16_backward if q.dtype == torch.bfloat16 else _library().k3_backward
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep), *_seed_args(seed),
         _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, l, h, q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _err(lib, err, "K3b")
+    _err(err, "K3b")
     attention_backward.launches += 1
     return dq, dk, dv
 
@@ -239,8 +314,8 @@ class _Attend(torch.autograd.Function):
 def _check(q, k, v, key_mask, dropout_p, seed, keep) -> None:
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, L, H, D] shape, got {q.shape}, {k.shape}, {v.shape}")
-    if not all(t.dtype == torch.float32 for t in (q, k, v)):
-        raise TypeError("q, k, v must be float32")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k, v must be all float32 or all bfloat16")
     if not all(t.device == q.device for t in (k, v, key_mask)) or q.device.type not in ("cpu", "cuda"):
         raise ValueError("q, k, v and key_mask must lie on one CPU or CUDA device")
     if not all(t.is_contiguous() for t in (q, k, v)):
@@ -282,7 +357,7 @@ def _cpu_keep(q, dropout_p, seed, keep):
 def fused_dropout_attention(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: Optional[Seed] = None,
                             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention with dropout on the probabilities, differentiable in
-    q, k and v with the mask held fixed. q/k/v ``[B, L, H, D]`` fp32,
+    q, k and v with the mask held fixed. q/k/v ``[B, L, H, D]`` fp32 or bf16,
     ``key_mask`` ``[B, L]``; with ``dropout_p > 0`` exactly one of ``seed``
     (an int or a :class:`DeviceSeed`) and ``keep`` (a ``[B, H, L, L]``
     mask). Returns ``[B, L, H, D]``."""

@@ -20,6 +20,13 @@ along dim 1, and z ~ N(0, 1) in one of three modes:
     shared by the whole batch (JAX ``nn/gaussian.py:74-76``);
   * given: z read from a tensor of the full shape or of one row.
 
+The planes and the bias vectors are fp32 or, in a bf16 layer, bf16 (the
+JAX layers' ``acc_t``): the kernels read them in their type, do the
+arithmetic in fp32 and round the sample once to the planes' type, the TPU
+kernel's rule (JAX ``ops/sampling.py:58-59``); z is fp32 either way. The
+backward reads g and ``act_var`` in their type and writes ``d act_var`` in
+it.
+
 The seed of a draw is a host int, or a :class:`DeviceSeed`: an int64 key in
 device memory plus the draw's static index, which the kernel loads and adds
 (the TPU kernel reads its seed from SMEM too). A CUDA graph that captures a
@@ -48,7 +55,8 @@ gradients at the same z bit for bit.
 
 Bound: device memory. Per element the forward reads the two planes and
 writes the sample, the backward reads g and ``act_var`` and writes
-``d act_var``: 12 bytes each in fp32 (the bias vectors stay in cache). z
+``d act_var``: 12 bytes each in fp32, 6 in bf16 (the bias vectors stay in
+cache). z
 lives only in registers. A train program issues its loads before the draw,
 so the memory traffic runs under Philox and Box-Muller; what is left above
 the bound is each launch's fixed cost (about 2.5 us, the size of the
@@ -77,6 +85,7 @@ _FROZEN_WARPS = 8
 _FROZEN_PROGRAMS = 1024
 _MAX_GRID_Y = 65535
 _MAX_ELEMENTS = 2**31 - 4 * _GROUP  # int32 offsets, ragged program included
+PLANE_DTYPES = (torch.float32, torch.bfloat16)
 
 # Bound to ``triton.language`` by ``_build`` before the kernels are
 # compiled: Triton resolves the kernels' globals from this module, and
@@ -128,11 +137,11 @@ def _bias(bmean_ptr, bvar_ptr, pos, mask, hw, channels, HAS_BIAS: tl.constexpr, 
     ``(pos // hw) % channels``); zeros without a bias."""
     if HAS_BIAS:
         c = (pos // hw) % channels
-        bv = tl.load(bvar_ptr + c, mask=mask, other=0.0)
+        bv = tl.load(bvar_ptr + c, mask=mask, other=0.0).to(tl.float32)
         if BACKWARD:
             bm = bv  # unused: the backward reads no bias mean
         else:
-            bm = tl.load(bmean_ptr + c, mask=mask, other=0.0)
+            bm = tl.load(bmean_ptr + c, mask=mask, other=0.0).to(tl.float32)
     else:
         bm = 0.0
         bv = 0.0
@@ -141,9 +150,9 @@ def _bias(bmean_ptr, bvar_ptr, pos, mask, hw, channels, HAS_BIAS: tl.constexpr, 
 
 def _load(a_ptr, var_ptr, offs, mask, bm, bv, HAS_BIAS: tl.constexpr, BACKWARD: tl.constexpr):
     """(a, std): forward a = act_mean + bm, backward a = g; std = sqrt(var
-    + bv), correctly rounded."""
-    a = tl.load(a_ptr + offs, mask=mask, other=0.0)
-    var = tl.load(var_ptr + offs, mask=mask, other=1.0)
+    + bv), correctly rounded; in fp32 whatever the planes' type."""
+    a = tl.load(a_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+    var = tl.load(var_ptr + offs, mask=mask, other=1.0).to(tl.float32)
     if HAS_BIAS:
         var = var + bv
         if not BACKWARD:
@@ -152,13 +161,14 @@ def _load(a_ptr, var_ptr, offs, mask, bm, bv, HAS_BIAS: tl.constexpr, BACKWARD: 
 
 
 def _store(out_ptr, offs, mask, a, std, z, BACKWARD: tl.constexpr):
-    """Forward ``a + std * z``; backward ``a * z * 0.5 / std``. Given and
-    drawn z go through the same expression in the same order."""
+    """Forward ``a + std * z``; backward ``a * z * 0.5 / std``, rounded once
+    to the output's type. Given and drawn z go through the same expression
+    in the same order."""
     if BACKWARD:
         res = a * z * 0.5 / std
     else:
         res = a + std * z
-    tl.store(out_ptr + offs, res, mask=mask)
+    tl.store(out_ptr + offs, res.to(out_ptr.dtype.element_ty), mask=mask)
 
 
 def _seed(seed_ptr, seed, DEVICE_SEED: tl.constexpr):
@@ -273,14 +283,21 @@ def _add_bias(x: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _channel_sum(t: torch.Tensor) -> torch.Tensor:
-    return t.sum(dim=[d for d in range(t.dim()) if d != 1])
+    """Sum over every axis but 1, in fp32 for bf16 and rounded once."""
+    return _wide(t).sum(dim=[d for d in range(t.dim()) if d != 1]).to(t.dtype)
+
+
+def _wide(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` in the kernels' arithmetic type: fp32 for a bf16 tensor."""
+    return None if t is None else t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def gaussian_sample_plain(act_mean, act_var, b_mean, b_var, z):
     """The plain PyTorch version of K1, in the JAX layers' order of
-    operations. ``z`` has the full shape or one row (broadcast)."""
-    mean = _add_bias(act_mean, b_mean)
-    var = _add_bias(act_var, b_var)
+    operations, in fp32 for bf16 planes and rounded once to their type.
+    ``z`` has the full shape or one row (broadcast)."""
+    mean = _add_bias(_wide(act_mean), _wide(b_mean))
+    var = _add_bias(_wide(act_var), _wide(b_var))
     return (mean + torch.sqrt(var) * z).to(act_mean.dtype)
 
 
@@ -322,7 +339,7 @@ def _cpu_noise(like, seed, frozen):
         seed = int(seed.key) + seed.index
     shape = like.shape[1:] if frozen else like.shape
     gen = torch.Generator().manual_seed(seed)
-    return torch.randn(shape, generator=gen, dtype=like.dtype)
+    return torch.randn(shape, generator=gen, dtype=torch.promote_types(like.dtype, torch.float32))
 
 
 def gaussian_sample_backward(
@@ -339,7 +356,8 @@ def gaussian_sample_backward(
     same ``eps`` or ``seed`` and ``frozen``. CUDA tensors go through K1's
     backward kernel, which regenerates z, and count one launch in
     ``gaussian_sample_backward.launches``; CPU tensors take the plain
-    expression with z drawn again from the CPU generator."""
+    expression (in fp32 for bf16, rounded once) with z drawn again from the
+    CPU generator."""
     if g.shape != act_var.shape or g.dtype != act_var.dtype or g.device != act_var.device:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} does not match act_var {tuple(act_var.shape)} {act_var.dtype}")
     g = g.contiguous()
@@ -348,7 +366,7 @@ def gaussian_sample_backward(
         gaussian_sample_backward.launches += 1
         return out
     z = eps if eps is not None else _cpu_noise(g, seed, frozen)
-    return g * z * 0.5 / torch.sqrt(_add_bias(act_var, b_var))
+    return (_wide(g) * z * 0.5 / torch.sqrt(_add_bias(_wide(act_var), _wide(b_var)))).to(g.dtype)
 
 
 gaussian_sample_backward.launches = 0
@@ -386,8 +404,8 @@ class _GaussianSample(torch.autograd.Function):
 def _check(act_mean, act_var, b_mean, b_var, eps, seed):
     if (eps is None) == (seed is None):
         raise ValueError("pass exactly one of eps= and seed=")
-    if act_mean.dtype != torch.float32 or act_var.dtype != torch.float32:
-        raise TypeError("the planes must be float32")
+    if act_mean.dtype not in PLANE_DTYPES or act_var.dtype != act_mean.dtype:
+        raise TypeError("the planes must be both float32 or both bfloat16")
     if act_mean.shape != act_var.shape or act_mean.dim() < 2:
         raise ValueError(f"plane shapes {act_mean.shape}, {act_var.shape}")
     if act_mean.device != act_var.device:
@@ -401,11 +419,11 @@ def _check(act_mean, act_var, b_mean, b_var, eps, seed):
     for b in (b_mean, b_var):
         if b is not None and (
             b.shape != (act_mean.shape[1],)
-            or b.dtype != torch.float32
+            or b.dtype != act_mean.dtype
             or b.device != act_mean.device
             or not b.is_contiguous()
         ):
-            raise ValueError(f"bias must be a contiguous float32 [{act_mean.shape[1]}] vector")
+            raise ValueError(f"bias must be a contiguous [{act_mean.shape[1]}] vector of the planes' type")
     if isinstance(seed, DeviceSeed) and (
         seed.key.dtype != torch.int64
         or seed.key.numel() != 1

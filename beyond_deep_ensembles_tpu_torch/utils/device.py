@@ -16,7 +16,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
     On CUDA this also pins fp32 math to full precision: cuDNN convolutions
     default to TF32 (about three decimal digits), while the JAX reference
-    config is fp32 throughout. The flags are process-wide.
+    config is fp32 throughout; and makes cuBLAS accumulate bf16 products in
+    fp32 (no reduced-precision reduction), as the JAX package's bf16
+    products accumulate. The flags are process-wide.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -26,6 +28,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             )
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         torch.set_float32_matmul_precision("highest")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")

@@ -17,7 +17,7 @@ and ``run_single`` calls are taken beside the other process.
 
 Phases (any failed check raises and exits non-zero; nothing is caught):
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. the CUDA C++ kernels K2 and K3 built at once (one nvcc each, by
+  2. the CUDA C++ kernels K2, K3 and K3 on bf16 built at once (one nvcc each, by
      ``ops/_cuda_build.py`` into ``build/kernels/``): build time and ptxas
      report;
   3. K1 (``ops/sampling.py``, Triton, built at first use into ``build/``)
@@ -148,6 +148,22 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      under two keys, the eval runner against the host loop; 4 captured and
      2 eager steady steps of MAP, MCD, SVGD and LL_SVGD; one step of each
      new method on the card against the CPU at one layer of the same width;
+10b. bf16 compute, last in the first process (``bf16_phase``): K1 on the
+     bf16 planes of one poverty BBB and one camelyon17 BBB train forward
+     against its plain version within one bf16
+     ulp, forward and backward, timed against the byte bound at 6 B an
+     element; K3a and K3b on bf16 operands at (8, 12, 512, 64) and (16, 12,
+     300, 64) against the plain version (output 2^-7, gradients 2^-6 of
+     their scale; Philox on the fp32 kernel's mask), timed against the bf16
+     bound and SDPA at bf16; one row per backbone at ``compute_dtype: bf16``
+     (CIFAR ``bf16: true``) through ``run.main``, 2 steps, exact counts
+     (amazon MCD, camelyon17 BBB, iwildcam MAP, poverty BBB, CIFAR BBB); a
+     captured amazon MCD bf16 step against an eager one bit for bit and its
+     eval runner against the host loop; one bf16 BBB ResNet-20 update on the
+     card against the CPU (within 3 x the CPU's own bf16 error from its fp32
+     update); captured and eager steady steps at bf16 (amazon MAP, iwildcam
+     MAP, CIFAR BBB), printed at the end beside the fp32 steps of the same
+     rows timed the same way in this run (phases 10, 12; CIFAR BBB here).
  11. the WILDS image tasks: every row of configs/camelyon.yaml and
      configs/fmow.yaml through ``run.main`` at DenseNet-121's full width
      (the yamls' batch and input sizes, lr, S and conv_remat; synthetic
@@ -2119,11 +2135,12 @@ def uci_phase(torch, kernels):
 
 
 def build_phase(torch, _cuda_build):
-    """Both CUDA C++ sources compiled at once, one nvcc each; their build time
-    and ptxas report (registers, spills). Triton compiles K1 at first launch."""
+    """The three CUDA C++ sources compiled at once, one nvcc each; their
+    build time and ptxas report (registers, spills). Triton compiles K1 at
+    first launch."""
     t0 = time.perf_counter()
-    _cuda_build.build("svgd_gram.cu", "dropout_attention.cu")
-    print(f"K2 and K3 built in {time.perf_counter() - t0:.2f} s (two nvcc processes at once)")
+    _cuda_build.build("svgd_gram.cu", "dropout_attention.cu", "dropout_attention_bf16.cu")
+    print(f"K2, K3 and K3 bf16 built in {time.perf_counter() - t0:.2f} s (three nvcc processes at once)")
     for source, log in sorted(_cuda_build.build_logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -2519,7 +2536,7 @@ def wilds_sweep_file(task, path):
     return {d["name"]: {**out[0]["params"], **d["params"]} for d in out[1:]}
 
 
-def wilds_expected_counts(config, layers):
+def wilds_expected_counts(config, layers, steps=WILDS_STEPS):
     """The exact host launch counts of one row's run_single on the card:
     train (one update per call: every forward launches K3a once a layer and
     its backward K3b once a layer; BBB's two head layers K1 forward and
@@ -2531,14 +2548,14 @@ def wilds_expected_counts(config, layers):
     forwards = {"svgd": config["svgd_particles"], "ll_svgd": config["svgd_particles"],
                 "ivon": config["ivon_mc_samples"], "ll_ivon": config["ivon_mc_samples"]}.get(model, 1)
     eval_forwards = per_capture() * (1 if model == "sngp" else config["eval_samples"])
-    k3a = WILDS_STEPS * forwards * layers + (layers if model == "laplace" else 0) + eval_forwards * layers
+    k3a = steps * forwards * layers + (layers if model == "laplace" else 0) + eval_forwards * layers
     bbb = model in ("bbb", "ll_bbb")
     return {
-        "k1_gaussian_sample": (WILDS_STEPS * 2 + eval_forwards * 2) if bbb else 0,
-        "k1_gaussian_sample_backward": WILDS_STEPS * 2 if bbb else 0,
-        "k2_svgd_gram": WILDS_STEPS if model in ("svgd", "ll_svgd") else 0,
+        "k1_gaussian_sample": (steps * 2 + eval_forwards * 2) if bbb else 0,
+        "k1_gaussian_sample_backward": steps * 2 if bbb else 0,
+        "k2_svgd_gram": steps if model in ("svgd", "ll_svgd") else 0,
         "k3a_attention_forward": k3a,
-        "k3b_attention_backward": WILDS_STEPS * forwards * layers,
+        "k3b_attention_backward": steps * forwards * layers,
     }
 
 
@@ -3139,13 +3156,13 @@ def image_sweep_file(task, path):
     return {d["name"]: {**out[0]["params"], **d["params"]} for d in out[1:]}
 
 
-def image_expected_counts(task, config):
+def image_expected_counts(task, config, steps=None):
     """The exact host launch counts of one image row's run_single on the card:
     K1 in BBB (IMAGE_K1_PER_FORWARD a forward at mc 1; its backward as many
     a step), in training and in the eval runner's warm-up and capture
     (S forwards each, never a replay); K2 once an SVGD or LL_SVGD step; K3
     never."""
-    steps, model = IMAGE_STEPS[task], config["model"]
+    steps, model = steps or IMAGE_STEPS[task], config["model"]
     per = IMAGE_K1_PER_FORWARD[task] if model == "bbb" else 0
     mc = config.get("bbb_mc_samples", 1)
     return {
@@ -3790,6 +3807,353 @@ def staged_weights_check(torch, wilds_task):
     return {"densenet121": dense_ok, "distilbert": text_ok}
 
 
+# the bf16 compute phase: one row per backbone at ``compute_dtype: bf16``
+# (CIFAR: ``bf16: true``) through run.main, cut to BF16_STEPS updates and
+# BF16_TEST test examples; (task, row, yaml's batch)
+BF16_ROWS = (("amazon", "MCD"), ("camelyon17", "BBB"), ("iwildcam", "MAP"), ("poverty", "BBB"), ("cifar", "BBB"))
+BF16_STEPS = 2
+BF16_TEST = 32
+# K3 at bf16: DistilBERT's Amazon train shape and CivilComments' eval shape
+BF16_K3_SHAPES = [(8, 12, 512, 64), (16, 12, 300, 64)]
+BF16_PEAK_FLOPS_PER_S = 989e12  # tensor cores, bf16 dense
+
+
+def bf16_ulps(torch, got, want, terms=None):
+    """|got - want| in bf16 spacings of ``want``, less what the fp32 sums
+    before the one rounding may differ by (the kernel's fused multiply-add
+    against the plain version's rounded product: 2^-22 of ``terms``, the
+    magnitudes summed)."""
+    got, want = got.detach().double(), want.detach().double()
+    spacing = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0**-126))) - 7)
+    err = (got - want).abs()
+    if terms is not None:
+        err = (err - 2.0**-22 * terms.detach().double()).clamp_min(0.0)
+    return float((err / spacing).max())
+
+
+def bf16_k1_checks(torch, sampling, wilds_task, NoiseSource, task, row, planes_want, what):
+    """K1 on the bf16 planes of one ``what`` train forward at
+    ``compute_dtype: bf16`` (recorded from the model's own forward on the
+    card): each plane's sample, given the z a DeviceSeed draws (read back
+    from the kernel at mean 0, variance 1), within one bf16 ulp of the plain
+    version (``bf16_ulps``), its variance gradient within one ulp of the
+    plain backward's, the seeded draw equal to the given one bit for bit;
+    then the forward's and the backward's launches in CUDA graphs against
+    the plain forward and the byte bound (6 B an element)."""
+    from beyond_deep_ensembles_tpu_torch import keys
+
+    planes = []
+
+    class Recording(NoiseSource):
+        def gaussian(self, act_mean, act_var, b_mean, b_var, train, freeze_on_eval):
+            planes.append((act_mean.detach().clone(), act_var.detach().clone(),
+                           None if b_mean is None else b_mean.detach().clone(),
+                           None if b_var is None else b_var.detach().clone()))
+            return super().gaussian(act_mean, act_var, b_mean, b_var, train, freeze_on_eval)
+
+    built, config, batches = wilds_built(torch, wilds_task, task, row, n_batches=1, compute_dtype="bf16")
+    with torch.no_grad():
+        built.model.apply(built.state.params, {}, Recording(key=keys.as_key(1, "cuda")), batches[0][0], train=True)
+    batch = batches[0][0].shape[0]
+    del built, batches
+    torch.cuda.empty_cache()
+    # the head computes in fp32, as the JAX package's (a dense layer of no dtype)
+    check(len(planes) == planes_want and all(m.dtype == torch.bfloat16 for m, _, _, _ in planes[:-1])
+          and planes[-1][0].dtype == torch.float32,
+          f"K1 bf16: one {what} train forward hands K1 {len(planes) - 1} bf16 planes and the fp32 head's")
+    n_elem = sum(m.numel() for m, _, _, _ in planes)
+    n_bytes = sum(3 * m.element_size() * m.numel() + (2 * bm.element_size() * m.shape[1] if bm is not None else 0)
+                  for m, _, bm, _ in planes)
+    dev = torch.device("cuda")
+    key = torch.full((), 987_654_321, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    worst, worst_back, bitwise = 0.0, 0.0, True
+    for i, (m, v, bm, bv) in enumerate(planes):
+        seed = sampling.DeviceSeed(key, i)
+        zeros = torch.zeros(m.shape, device=dev)
+        z = sampling.gaussian_sample(zeros, torch.ones_like(zeros), seed=seed)
+        given = sampling.gaussian_sample(m, v, bm, bv, eps=z)
+        ref = sampling.gaussian_sample_plain(m, v, bm, bv, z)
+        a = sampling._add_bias(m.float(), None if bm is None else bm.float())
+        std = torch.sqrt(sampling._add_bias(v.float(), None if bv is None else bv.float()))
+        worst = max(worst, bf16_ulps(torch, given, ref, a.abs() + (std * z).abs()))
+        g = torch.randn(m.shape, device=dev, generator=gen).to(m.dtype)
+        d_var = sampling.gaussian_sample_backward(g, v, bv, seed=seed)
+        ref_var = (g.float() * z * 0.5 / std).to(m.dtype)
+        worst_back = max(worst_back, bf16_ulps(torch, d_var, ref_var))
+        bitwise &= torch.equal(sampling.gaussian_sample(m, v, bm, bv, seed=seed), given)
+    check(worst <= 1.0 and worst_back <= 1.0 and bitwise,
+          f"K1 bf16 at one {what} forward's {len(planes)} planes ([{batch}, C, H, W], {n_elem} elements) = plain "
+          f"within one bf16 ulp (forward {worst:.2f} ulp beyond the fp32 sums' 2^-22 margin, backward "
+          f"{worst_back:.2f} ulp); DeviceSeed draws = the same z given, bit for bit")
+    gs = [torch.randn_like(m) for m, _, _, _ in planes]
+
+    def kernel_forward():
+        for j, (m, v, bm, bv) in enumerate(planes):
+            sampling.gaussian_sample(m, v, bm, bv, seed=sampling.DeviceSeed(key, j))
+
+    def plain_forward():
+        for m, v, bm, bv in planes:
+            sampling.gaussian_sample_plain(m, v, bm, bv, torch.randn(m.shape, device=dev))
+
+    def kernel_backward():
+        for (_, v, _, bv), g in zip(planes, gs):
+            sampling.gaussian_sample_backward(g, v, bv, seed=5)
+
+    with torch.no_grad():
+        times = in_turns({"kernel": lambda: graph_ms(torch, kernel_forward, reps=10),
+                          "plain": lambda: graph_ms(torch, plain_forward, reps=5),
+                          "backward": lambda: graph_ms(torch, kernel_backward, reps=10)}, rounds=1)
+    bound = k1_bound_ms(n_elem, n_bytes)
+    ms, plain_ms, back_ms = times["kernel"][0], times["plain"][0], times["backward"][0]
+    print(f"K1 bf16, one {what} train forward at batch {batch} ({len(planes)} launches, {n_elem} elements, "
+          f"{n_bytes} bytes: 6 B an element, the fp32 head's 12): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"backward kernels {back_ms:.4f} ms, bound {bound:.4f} ms (forward at {100 * bound / ms:.0f}% of it, backward "
+          f"{100 * bound / back_ms:.0f}%) [{CARD}]")
+    return {"launches_per_forward": len(planes), "elements": n_elem, "bytes": n_bytes, "max_ulp": worst,
+            "backward_max_ulp": worst_back, "ms": ms, "plain_ms": plain_ms, "backward_ms": back_ms,
+            "bound_ms": bound, "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_elem * K1_FLOPS_PER_ELEMENT
+            / FP32_FLOPS_PER_S else "operations"}
+
+
+def bf16_k3(torch, att, shape):
+    """K3a and K3b on bf16 operands at ``shape`` against the plain version
+    (output within 2^-7 of its scale, dQ, dK, dV within 2^-6 of theirs) at
+    p = 0, with a given mask, and with Philox (the mask the fp32 kernel
+    realizes with the same seed fed to the plain version; repeats bit for
+    bit); then K3a, K3b, the plain version (its mask drawn; its backward
+    by autograd, between events) and SDPA at bf16 (between events), p =
+    0.1, in turns, against the bf16 bound (989 TFLOP/s, 3.35 TB/s)."""
+    import torch.nn.functional as F
+
+    b, h, l, d = shape
+    q, k, v, do, mask = (t.bfloat16() if t.is_floating_point() else t for t in k3_inputs(torch, shape, seed=b + l + 1))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    given = torch.rand(b, h, l, l, device="cuda", generator=gen) >= K3_P
+    _, probs = att.fused_dropout_attention_debug(q.float(), k.float(), v.float(), mask, dropout_p=K3_P, seed=4321)
+    realized = probs > 0
+    del probs
+    worst = (0.0, 0.0)
+    for p, kw, keep, label in ((0.0, {}, None, "p = 0"), (K3_P, {"keep": given}, given, f"given mask, p = {K3_P}"),
+                               (K3_P, {"seed": 4321}, realized, f"Philox, p = {K3_P}")):
+        out, grads = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, **kw), q, k, v, do)
+        ref, ref_grads = with_grads(torch, lambda *t: att.dropout_attention_plain(*t, mask, keep, dropout_p=p),
+                                    q, k, v, do)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        gerr = max(float((g.float() - r.float()).abs().max()) / float(r.float().abs().max())
+                   for g, r in zip(grads, ref_grads))
+        check(out.dtype == torch.bfloat16 and err <= 2.0**-7 * scale and gerr <= 2.0**-6,
+              f"K3 bf16 {shape} {label}: output = plain within 2^-7 of its scale (err {err:.3g}, scale "
+              f"{scale:.3g}); dQ, dK, dV within 2^-6 of theirs (worst {gerr:.3g} of the scale)")
+        if "seed" in kw:
+            again, grads2 = with_grads(torch, lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, **kw),
+                                       q, k, v, do)
+            check(torch.equal(out, again) and all(torch.equal(a, c) for a, c in zip(grads, grads2)),
+                  f"K3 bf16 {shape} Philox: repeat runs equal bit for bit")
+        worst = (max(worst[0], err), max(worst[1], gerr))
+        del out, grads, ref, ref_grads
+    del given, realized
+
+    bias = att.key_bias(mask)
+    o, lse, _ = att.attention_forward(q, k, v, bias, K3_P, 5, None)
+    drop_mask = (mask > 0)[:, None, None, :]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves), attn_mask=drop_mask,
+                                              dropout_p=K3_P).transpose(1, 2)
+    keep = torch.rand(b, h, l, l, device="cuda") >= K3_P
+    plain_out = att.dropout_attention_plain(*leaves, mask, keep, dropout_p=K3_P)
+    with torch.no_grad():
+        forward = in_turns({
+            "kernel": lambda: graph_ms(torch, lambda: att.attention_forward(q, k, v, bias, K3_P, 5, None), reps=20),
+            "library": lambda: events_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=drop_mask, dropout_p=K3_P)),
+            "plain": lambda: graph_ms(torch, lambda: att.dropout_attention_plain(
+                q, k, v, mask, torch.rand(b, h, l, l, device="cuda") >= K3_P, dropout_p=K3_P), reps=10),
+        }, rounds=1)
+    backward = in_turns({
+        "kernel": lambda: graph_ms(torch, lambda: att.attention_backward(q, k, v, bias, K3_P, 5, None, o, lse, do),
+                                   reps=20),
+        "library": lambda: events_ms(torch, lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True)),
+        "plain": lambda: events_ms(torch, lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True)),
+    }, rounds=1)
+    del sdpa_out, plain_out, keep, leaves
+    panel = 2 * b * l * h * d  # bytes of one bf16 [B, L, H, D] tensor
+    rows = {}
+    for label, times, n_bytes, ops, err in (
+        ("K3a", forward, 4 * panel + 4 * b * l + 4 * b * h * l, 4 * b * h * l * l * d, worst[0]),
+        ("K3b", backward, 8 * panel + 4 * b * l + 4 * b * h * l, 10 * b * h * l * l * d, worst[1]),
+    ):
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / BF16_PEAK_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        t = times["kernel"][0]
+        rows[label] = {"ms": t, "plain_ms": times["plain"][0], "library_ms": times["library"][0], "library_p": K3_P,
+                       "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "max_err": err}
+        print(f"{label} bf16 {shape}, p = {K3_P}: kernel {t:.4f} ms, plain {times['plain'][0]:.4f} ms, SDPA bf16 "
+              f"{times['library'][0]:.4f} ms, bound "
+              f"{bound:.4f} ms by {rows[label]['bound_by']} (bf16 tensor cores 989 TFLOP/s: {ops_ms:.4f} ms; "
+              f"bytes {bytes_ms:.4f} ms); kernel at {100 * bound / t:.0f}% of its bound, kernel / SDPA "
+              f"{t / times['library'][0]:.2f} [{CARD}]")
+    del q, k, v, do, o, lse, bias
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_sweep_file(task, name, path):
+    """Row ``name`` of configs/<task>.yaml with the bf16 key in DEFAULT, cut
+    to BF16_STEPS updates of the yaml's batch and BF16_TEST test examples
+    (CIFAR: one eval batch of 500, no corrupted split; poverty: fold A),
+    written to ``path``; returns the row's params, DEFAULT's merged under."""
+    import yaml
+
+    docs = wilds_yaml_docs(task)
+    default = dict(docs[0])
+    batch = default["params"]["batch_size"]
+    key = {"bf16": True} if task == "cifar" else {"compute_dtype": "bf16"}
+    cut = {"epochs": 1, "subsample": BF16_STEPS * batch, "test_subsample": BF16_TEST, **key}
+    if task == "cifar":
+        cut["corrupted_intensities"] = []
+    folds = default.pop("list", {}).get("fold")
+    if folds:
+        cut["fold"] = folds[0]
+    print(f"bf16 {task} {name}: {json.dumps(cut)}; the row's other params kept")
+    row = next(d for d in docs[1:] if d["name"] == name)
+    with open(path, "w") as f:
+        yaml.safe_dump_all([{**default, "repetitions": 1, "params": {**default["params"], **cut}}, row], f)
+    return {**default["params"], **cut, **row["params"]}
+
+
+def bf16_expected_counts(task, config):
+    """The exact host launch counts of one bf16 row through run.main on the
+    card (one update per call, then the eval runner's warm-up and capture of
+    S forwards, never a replay): the fp32 rows' counts at BF16_STEPS."""
+    if task in ("amazon", "civilcomments"):
+        from beyond_deep_ensembles_tpu_torch.experiments import wilds_task
+
+        return wilds_expected_counts(config, wilds_task._bert_config({}).n_layers, steps=BF16_STEPS)
+    if task == "cifar":
+        per, mc = len(bbb_shapes(1)), config["bbb_mc_samples"]
+        k1 = per if config["model"] == "bbb" else 0
+        return {"k1_gaussian_sample": k1 * (BF16_STEPS * mc + per_capture() * config["eval_samples"]),
+                "k1_gaussian_sample_backward": k1 * BF16_STEPS * mc, "k2_svgd_gram": 0,
+                "k3a_attention_forward": 0, "k3b_attention_backward": 0}
+    return image_expected_counts(task, config, steps=BF16_STEPS)
+
+
+def bf16_rows(torch, kernels, out):
+    """BF16_ROWS through ``run.main`` a row at a time, every count set to 0
+    just before and read just after: exact (``bf16_expected_counts``), the
+    metrics finite, the wall time."""
+    from beyond_deep_ensembles_tpu_torch import run
+    from beyond_deep_ensembles_tpu_torch.experiments import cifar, wilds_task
+
+    figures = {}
+    for task, name in BF16_ROWS:
+        sweep = os.path.join(out, f"bf16_{task}.yaml")
+        row = bf16_sweep_file(task, name, sweep)
+        config = {**(cifar.DEFAULT_CONFIG if task == "cifar" else wilds_task.DEFAULT_CONFIG), **row}
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.main([task, sweep, "--name", name, "--out", os.path.join(out, f"bf16_{task}"), "--rep", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        want = bf16_expected_counts(task, config)
+        check(counts == want, f"bf16 {task} {name}: launch counts {counts} = {want}")
+        with open(os.path.join(out, f"bf16_{task}", f"{name}_0", "rep_0", "metrics.jsonl")) as f:
+            record = {k: v for k, v in json.loads(f.read().splitlines()[-1]).items() if not k.startswith("_")}
+        values = [x for v in record.values() for x in (v.values() if isinstance(v, dict) else [v])
+                  if isinstance(x, (int, float))]
+        check(values and all(math.isfinite(x) for x in values), f"bf16 {task} {name}: metrics finite")
+        figures[f"{task} {name}"] = {"wall_s": wall, "counts": counts}
+        print(f"bf16 {task} {name} through run.main: {wall:.1f} s [{CARD}]")
+    return figures
+
+
+def bf16_card_vs_cpu(torch, cifar, NoiseSource):
+    """One BBB ResNet-20 update (SGD, batch 16, given noise) from one state
+    at bf16 on the card, at bf16 on the CPU and at fp32 on the CPU: the
+    card's parameter change no farther from the CPU fp32 one than three
+    times the CPU's own bf16 change is (L2 over all parameters)."""
+    config = {**cifar.DEFAULT_CONFIG, **YAML_DEFAULT, **BBB_VARIANT, "dataset_size": 1280, "augment": False}
+    gen = torch.Generator().manual_seed(3)
+    x, y = torch.randn(16, 3, 32, 32, generator=gen), torch.randint(0, 10, (16,), generator=gen)
+    start = cifar.build(config, torch.Generator().manual_seed(0), 10, device="cpu").state.params.state_dict()
+    source = recorded_noise(torch, NoiseSource, seed=9)
+    deltas, losses = {}, {}
+    for label, bf16, device in (("cpu32", False, "cpu"), ("cpu16", True, "cpu"), ("card16", True, "cuda")):
+        built = cifar.build({**config, "bf16": bf16}, torch.Generator().manual_seed(0), 10, device=device)
+        built.state.params.load_state_dict(start)
+        noise = source if label == "cpu32" else NoiseSource(given=list(source._given))
+        built.state, m = built.method.update(built.state, noise, (x.to(device), y.to(device)))
+        losses[label] = float(m["loss"])
+        deltas[label] = torch.cat([(p.detach().cpu().double() - start[k].double()).reshape(-1)
+                                   for k, p in built.state.params.named_parameters()])
+    cpu_err = float((deltas["cpu16"] - deltas["cpu32"]).norm())
+    card_err = float((deltas["card16"] - deltas["cpu32"]).norm())
+    check(card_err <= 3 * cpu_err,
+          f"bf16 BBB ResNet-20 update on the card against the CPU's fp32 update: parameter change off by "
+          f"{card_err:.3g} (L2) <= 3 x the CPU's own bf16 error {cpu_err:.3g} (change {float(deltas['cpu32'].norm()):.3g}; losses "
+          f"{losses})")
+    return {"card_err": card_err, "cpu_err": cpu_err, "losses": losses}
+
+
+def bf16_phase(torch, kernels, att, sampling, wilds_task, cifar, NoiseSource):
+    """bf16 compute: K1 on poverty's and camelyon17's bf16 planes, K3 on bf16
+    operands (against their plain versions and bounds, K3 beside SDPA at
+    bf16), one row per backbone through run.main with exact counts, a
+    captured amazon MCD bf16 step against an eager one bit for bit and its
+    eval runner against the host loop, a bf16 update on the card against the
+    CPU, and captured steady steps at bf16 (amazon MAP, iwildcam MAP, CIFAR
+    BBB; CIFAR BBB at fp32 too: the other two rows' fp32 steps are timed in
+    their own phases)."""
+    import tempfile
+
+    def part(name):
+        print(f"bf16 phase: {name} (at {time.perf_counter() - T_START:.1f} s)")
+
+    figures = {"k1": {
+        "poverty": bf16_k1_checks(torch, sampling, wilds_task, NoiseSource, "poverty", "BBB", 21,
+                                  "poverty BBB (ResNet-18, 224x224x8)"),
+        "camelyon17": bf16_k1_checks(torch, sampling, wilds_task, NoiseSource, "camelyon17", "BBB", 121,
+                                     "camelyon17 BBB (DenseNet-121, 96x96)"),
+    }}
+    part("K3")
+    figures["k3"] = {str(shape): bf16_k3(torch, att, shape) for shape in BF16_K3_SHAPES}
+    part("rows through run.main")
+    with tempfile.TemporaryDirectory(dir=BUILD) as out:
+        figures["rows"] = bf16_rows(torch, kernels, out)
+    part("runners")
+    built, config, batches = wilds_built(torch, wilds_task, "amazon", "MCD", compute_dtype="bf16")
+    figures["captured_equals_eager"] = captured_vs_eager(torch, built, batches, "DistilBERT MCD bf16")
+    figures["runner_vs_host"] = wilds_runner_vs_host(wilds_task, built, config, "amazon", "DistilBERT MCD bf16")
+    del built, batches
+    part("card against CPU")
+    figures["card_vs_cpu"] = bf16_card_vs_cpu(torch, cifar, NoiseSource)
+    part("steady steps")
+    # amazon MAP's and iwildcam MAP's fp32 steps are timed the same way in
+    # their own phases of this run (``wilds_phase``, ``resnet_phase``)
+    steps = {}
+    for task, row in (("amazon", "MAP"), ("iwildcam", "MAP")):
+        built, _, batches = wilds_built(torch, wilds_task, task, row, compute_dtype="bf16")
+        steps[f"{task} {row} bf16"] = wilds_step_times(torch, built, batches, f"{task} {row} bf16", captured=4, eager=2)
+        del built, batches
+        torch.cuda.empty_cache()
+    for bf16 in (False, True):
+        built, _, batches, _ = _built(torch, cifar, BBB_VARIANT, steps=WILDS_STEPS, bf16=bf16)
+        label = f"CIFAR BBB {'bf16' if bf16 else 'fp32'}"
+        steps[label] = wilds_step_times(torch, built, batches, label, captured=4, eager=2)
+        del built, batches
+        torch.cuda.empty_cache()
+    figures["steps"] = steps
+    return figures
+
+
 def kernel_registry(sampling, svgd_kernel, att):
     """Every kernel wrapper of the port by the name its figures carry; each
     counts its own launches (``.launches``)."""
@@ -4114,10 +4478,22 @@ def first_main(torch, t_start) -> int:
     wilds_counts = {name: sum(row["counts"][name] for rows in wilds["rows"].values() for row in rows.values())
                     for name in kernels}
 
+    phase("bf16 compute: K1 and K3 on bf16, a row per backbone through the CLI, runners, card against CPU")
+    bf16 = bf16_phase(torch, kernels, att, sampling, wilds_task, cifar, NoiseSource)
+    print(json.dumps({"card": CARD, "bf16": bf16}))
+    bf16_counts = {name: sum(row["counts"][name] for row in bf16["rows"].values()) for name in kernels}
+
     second = finish_second()
     uci, image, resnet, poverty, staged = (second[key] for key in ("uci", "image", "resnet", "poverty", "staged"))
     image_counts, resnet_counts, poverty_counts = (second["counts"][key] for key in ("image", "resnet", "poverty"))
 
+    fp32_steps = {"amazon MAP fp32": wilds["steps"]["MAP"], "iwildcam MAP fp32": resnet["steps"]["iwildcam MAP"],
+                  "CIFAR BBB fp32": bf16["steps"]["CIFAR BBB fp32"]}
+    for label, fp32 in fp32_steps.items():
+        half = bf16["steps"][label.replace("fp32", "bf16")]
+        print(f"{label[:-5]} captured step: bf16 {half['captured_ms']:.2f} ms against fp32 {fp32['captured_ms']:.2f} ms "
+              f"({fp32['captured_ms'] / half['captured_ms']:.2f} x) [{CARD}]")
+    print(json.dumps({"card": CARD, "bf16_steps": {**fp32_steps, **bf16["steps"]}}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(CARD)
     print(json.dumps({"kernels": [
@@ -4192,6 +4568,13 @@ def first_main(torch, t_start) -> int:
             "poverty_launches": poverty_counts["k1_gaussian_sample"],
             "poverty_backward_launches": poverty_counts["k1_gaussian_sample_backward"],
             "poverty_forward": poverty["k1"],
+            # the bf16 phase: host counts over its rows through run.main
+            # (camelyon17, poverty and CIFAR BBB at compute_dtype bf16), and
+            # one bf16 train forward's planes of poverty (21) and camelyon17
+            # (121) against the plain version (ulps) and the byte bound at
+            # 6 B an element
+            "bf16": {"launches": bf16_counts["k1_gaussian_sample"],
+                     "backward_launches": bf16_counts["k1_gaussian_sample_backward"], **bf16["k1"]},
         },
         {
             "name": "k2_svgd_gram",
@@ -4255,6 +4638,13 @@ def first_main(torch, t_start) -> int:
                 # the remat check: launches in one amazon MAP update without
                 # and with bert_remat (the recompute runs K3a again)
                 "remat_launches": staged["remat"]["k3a_launches"] if key == "K3a" else None,
+                # the bf16 phase (csrc/dropout_attention_bf16.cu): host counts
+                # over its rows (amazon MCD at compute_dtype bf16), and K3 on
+                # bf16 operands at the two shapes against the bf16 bound and
+                # SDPA at bf16
+                "bf16": {"source": "beyond_deep_ensembles_tpu_torch/csrc/dropout_attention_bf16.cu",
+                         "launches": bf16_counts[name],
+                         **{shape: rows[key] for shape, rows in bf16["k3"].items()}},
             }
             for name, key, replaces in (
                 ("k3a_attention_forward", "K3a", "beyond_deep_ensembles_tpu/ops/attention.py:84"),

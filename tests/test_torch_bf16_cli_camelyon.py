@@ -1,0 +1,18 @@
+"""PyTorch port at a bf16 compute dtype on the DenseNet-121 (Camelyon17): every row of
+``configs/camelyon.yaml`` with the key added builds at the tiny width and
+takes one finite update, or raises where it raises at fp32 (none does);
+the BBB row through ``run.main --device cpu`` (tests/_torch_bf16_cli.py)."""
+import pytest
+
+from _torch_bf16_cli import main_runs, one_update, rows
+
+NAMES = list(rows("camelyon")[1])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_camelyon17_row_takes_a_bf16_update(name):
+    one_update("camelyon17", "camelyon", name)
+
+
+def test_camelyon17_bf16_row_through_run_main(tmp_path):
+    main_runs("camelyon17", "camelyon", "BBB", tmp_path)

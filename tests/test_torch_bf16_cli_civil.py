@@ -1,0 +1,18 @@
+"""PyTorch port at a bf16 compute dtype on DistilBERT (CivilComments): every row of
+``configs/civilcomments.yaml`` with the key added builds at the tiny width and
+takes one finite update, or raises where it raises at fp32 (none does);
+the MAP row through ``run.main --device cpu`` (tests/_torch_bf16_cli.py)."""
+import pytest
+
+from _torch_bf16_cli import main_runs, one_update, rows
+
+NAMES = list(rows("civilcomments")[1])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_civilcomments_row_takes_a_bf16_update(name):
+    one_update("civilcomments", "civilcomments", name)
+
+
+def test_civilcomments_bf16_row_through_run_main(tmp_path):
+    main_runs("civilcomments", "civilcomments", "MAP", tmp_path)

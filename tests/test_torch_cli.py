@@ -133,11 +133,13 @@ def test_logger_records(tmp_path, capsys):
     RunLogger(None, use_wandb=False).metrics({"m": 1})  # no file: nothing written
 
 
-def test_unported_phases_and_missing_card(tmp_path):
+def test_unported_phases_and_missing_card(tmp_path, monkeypatch):
     log = VoidLog()
-    for phase in ("fit_laplace", "drop_rates", "eval", "multix"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            run.run_phase("poverty", phase, {"model": "map", "compute_dtype": "bf16"}, [str(tmp_path)], log)
+    with monkeypatch.context() as m:  # data parallelism over two visible cards is not ported (bf16 is)
+        m.setattr(torch.cuda, "device_count", lambda: 2)
+        for phase in ("fit_laplace", "drop_rates", "eval", "multix"):
+            with pytest.raises(NotImplementedError, match="item 18"):
+                run.run_phase("poverty", phase, {"model": "map", "data_parallel": True}, [str(tmp_path)], log)
     with pytest.raises(ValueError, match="not supported"):
         run.run_phase("uci", "multix", {}, [str(tmp_path)], log)
     with pytest.raises(ValueError, match="unknown task"):

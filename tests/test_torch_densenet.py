@@ -107,7 +107,7 @@ def test_densenet_remat_draws_the_forwards_noise(remat, kind, dropout_p):
     assert not torch.equal(other, grad)  # the key reaches the draws
 
 
-@pytest.mark.parametrize("options", [{"static_bn": False}, {"norm_off": True}, {"dtype": torch.bfloat16}])
+@pytest.mark.parametrize("options", [{"static_bn": False}, {"norm_off": True}])
 def test_densenet_unported_options_raise(options):
     kwargs = dict(options)
     if "static_bn" in kwargs:

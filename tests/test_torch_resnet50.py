@@ -83,8 +83,8 @@ def test_not_ported_options_raise():
     gen = torch.Generator()
     with pytest.raises(NotImplementedError):
         ResNet50(5, stage_sizes=(1, 1), remat="block", generator=gen)
-    with pytest.raises(NotImplementedError):
-        ResNet50(5, stage_sizes=(1, 1), dtype=torch.bfloat16, generator=gen)
+    # a bf16 compute dtype is ported (tests/test_torch_bf16_models_resnet.py): it builds
+    assert ResNet50(5, stage_sizes=(1, 1), dtype=torch.bfloat16, generator=gen).Conv_0.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError):
         ResNet20(10, "swish", "none", "plain", generator=gen)
     with pytest.raises(ValueError):

@@ -3,7 +3,7 @@ experiments/wilds_task.py: the WILDS data bit-equal to the JAX package's,
 the official metrics equal on the same predictions, the batch order equal to
 the native loader's SplitMix64 shuffle, ``_tx`` against the JAX optimizer,
 ``eval_task``'s padding, ``train``'s batches against the JAX
-``PrefetchLoader``, the options that still raise (bf16, poverty's SNGP,
+``PrefetchLoader``, the options that still raise (poverty's SNGP,
 the DenseNet's running statistics and ``no_norm``, ResNet-50 remat, data
 parallelism, a sharded ring, an ensemble of SVGD particle sets), staged
 weights that do not load, and ``run_single`` end to end at a tiny size on
@@ -216,19 +216,14 @@ def test_build_heads_and_frozen_encoder():
 @pytest.mark.parametrize(
     "task,override",
     [
-        ("iwildcam", {"compute_dtype": "bf16"}),
-        ("camelyon17", {"compute_dtype": "bf16"}),
         ("fmow", {"no_norm": True}),
         ("rxrx1", {"conv_remat": "block"}),
         ("poverty", {"model": "sngp"}),
-        ("amazon", {"compute_dtype": "bf16"}),
-        ("poverty", {"compute_dtype": "bf16"}),
         ("amazon", {"data_parallel": True, "visible_cards": 2}),
         ("camelyon17", {"static_bn": False}),
         ("civilcomments", {"model": "swag", "ring_shard": True, "visible_cards": 2}),
         ("amazon", {"model": "svgd", "members": 2}),
         ("iwildcam", {"conv_remat": "stage"}),
-        ("fmow", {"compute_dtype": "bf16"}),
     ],
 )
 def test_unported_options_raise(task, override, monkeypatch):
