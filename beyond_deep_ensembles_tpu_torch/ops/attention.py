@@ -32,7 +32,8 @@ The dropout mask comes from one of:
 
   * ``seed``: on a card, Philox in the kernels, the panel (b, h) keyed by
     ``seed + b H + h`` as the JAX kernel seeds its panels, a 16-bit uniform
-    per element; the backward regenerates the mask. The seed is a host int,
+    per element; the backward regenerates the mask (on bf16 operands in
+    training it reads the bits K3a drew). The seed is a host int,
     or a :class:`~.sampling.DeviceSeed` (an int64 key in device memory plus
     a static index, the seed their sum): the kernels read the key when they
     run, as the JAX kernel reads its seed from SMEM, so a CUDA graph that
@@ -48,8 +49,10 @@ The dropout mask comes from one of:
     kernels on a card, so that a card and the CPU can run one draw.
 
 q, k and v are fp32 or, in a bf16 encoder, bf16. bf16 operands go through
-the kernels of ``csrc/dropout_attention_bf16.cu`` (``mma.sync`` bf16
-products with fp32 accumulation; the same mask bit for bit) with the TPU
+the kernels of ``csrc/dropout_attention_bf16.cu`` (``wgmma`` bf16 products
+with fp32 accumulation on tiles streamed by TMA; K3b without atomics; the
+same mask bit for bit, which in training K3a leaves for K3b to read, one bit
+a score) with the TPU
 kernels' bf16 rule: fp32 scores and softmax, P_drop rounded to bf16 before
 ``P_drop V``, dS rounded to bf16 before dQ and dK, outputs in bf16; the
 plain version does the same (:class:`_PlainBf16`: each product of bf16
@@ -98,10 +101,10 @@ def _library() -> ctypes.CDLL:
 def _library_bf16() -> ctypes.CDLL:
     lib = _cuda_build.load("dropout_attention_bf16.cu")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.k3_bf16_forward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, p, f, f, p, p, i, i, i, i, p]
+    lib.k3_bf16_forward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, p, f, f, p, p, p, i, i, i, i, p]
     lib.k3_bf16_forward.restype = i
-    lib.k3_bf16_backward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, p, f, f, p, p, p, p, p, p, p, i, i, i, i,
-                                     p]
+    lib.k3_bf16_backward.argtypes = [p, p, p, p, i, ctypes.c_ulonglong, p, p, f, f, p, p, p, p, p, i, p, p, p, i, i,
+                                     i, i, p]
     lib.k3_bf16_backward.restype = i
     return lib
 
@@ -234,25 +237,46 @@ def attention_forward(q, k, v, bias, dropout_p: float, seed: Optional[Seed], kee
     reads. ``keep``: uint8 ``[B, H, L, L]``; ``seed``: a host int or a
     device seed. bf16 operands take the bf16 kernel, which writes no
     ``probs``."""
+    return _forward(q, k, v, bias, dropout_p, seed, keep, with_probs, keep_draws=False)[:3]
+
+
+def _draws_space(q, mode):
+    """The int32 space of a bf16 Philox launch's keep bits (one bit a score,
+    ``csrc/dropout_attention_bf16.cu``'s ``drawn_panel`` layout), or None."""
+    if q.dtype != torch.bfloat16 or mode != _MODE_PHILOX:
+        return None
+    b, l, h, _ = q.shape
+    tiles = -(-l // 64)
+    return torch.empty(b * h * 128 * tiles * tiles, dtype=torch.int32, device=q.device)
+
+
+def _forward(q, k, v, bias, dropout_p, seed, keep, with_probs, keep_draws):
+    """K3a; with ``keep_draws`` (bf16, Philox) also the keep bits the kernel
+    drew, for K3b (else None)."""
     _check_kernel(q, k, v, bias, keep)
     b, l, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep), *_seed_args(seed),
+    mode = _mode(dropout_p, keep)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mode, *_seed_args(seed),
             _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM))
+    drawn = None
     if q.dtype == torch.bfloat16:
         if with_probs:
             raise ValueError("K3a's debug probabilities take fp32 operands")
         probs = None
-        err = _library_bf16().k3_bf16_forward(*args, o.data_ptr(), lse.data_ptr(), b, l, h, q.device.index, stream)
+        drawn = _draws_space(q, mode) if keep_draws else None
+        err = _library_bf16().k3_bf16_forward(*args, o.data_ptr(), lse.data_ptr(),
+                                              drawn.data_ptr() if drawn is not None else None, b, l, h,
+                                              q.device.index, stream)
     else:
         probs = torch.empty((b, h, l, l), dtype=torch.float32, device=q.device) if with_probs else None
         err = _library().k3_forward(*args, o.data_ptr(), lse.data_ptr(), probs.data_ptr() if with_probs else None,
                                     b, l, h, q.device.index, stream)
     _err(err, "K3a")
     attention_forward.launches += 1
-    return o, lse, probs
+    return o, lse, probs, drawn
 
 
 attention_forward.launches = 0
@@ -261,17 +285,29 @@ attention_forward.launches = 0
 def attention_backward(q, k, v, bias, dropout_p: float, seed: Optional[Seed], keep: Optional[torch.Tensor],
                        o, lse, do):
     """K3b on CUDA tensors: ``(dq, dk, dv)`` for the output gradient ``do``."""
+    return _backward(q, k, v, bias, dropout_p, seed, keep, o, lse, do, drawn=None)
+
+
+def _backward(q, k, v, bias, dropout_p, seed, keep, o, lse, do, drawn):
+    """K3b; ``drawn``: K3a's keep bits (bf16, Philox), or None, when the
+    bf16 kernel's first launch draws them."""
     _check_kernel(q, k, v, bias, keep, o, lse, do)
     b, l, h, _ = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    launch = _library_bf16().k3_bf16_backward if q.dtype == torch.bfloat16 else _library().k3_backward
-    err = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _mode(dropout_p, keep), *_seed_args(seed),
-        _keep_ptr(keep), dropout_p, 1.0 / math.sqrt(HEAD_DIM),
-        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, l, h, q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    mode = _mode(dropout_p, keep)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mode, *_seed_args(seed), _keep_ptr(keep),
+            dropout_p, 1.0 / math.sqrt(HEAD_DIM), o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, l, h, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        by_forward = drawn is not None
+        if not by_forward:
+            drawn = _draws_space(q, mode)
+        err = _library_bf16().k3_bf16_backward(*args, drawn.data_ptr() if drawn is not None else None,
+                                               int(by_forward), *outs)
+    else:
+        err = _library().k3_backward(*args, *outs)
     _err(err, "K3b")
     attention_backward.launches += 1
     return dq, dk, dv
@@ -284,31 +320,34 @@ class _Attend(torch.autograd.Function):
     """K3a forward, K3b backward; the mask is held fixed between them (the
     seed, or the given mask, is kept, never the drawn mask: a device seed's
     key is saved as a tensor, so autograd raises if it was written before
-    the backward). The forward takes no ``ctx`` (``setup_context``), so that
-    ``torch.func`` transforms (the Laplace fit's ``jacrev``) can run a model
-    through it."""
+    the backward). With ``keep_draws`` (a gradient wanted) the bf16 K3a also
+    leaves its Philox keep bits (one bit a score), which K3b reads instead of
+    drawing them again. The forward takes no ``ctx`` (``setup_context``), so
+    that ``torch.func`` transforms (the Laplace fit's ``jacrev``) can run a
+    model through it."""
 
     @staticmethod
-    def forward(q, k, v, bias, keep, seed, dropout_p):
-        o, lse, _ = attention_forward(q, k, v, bias, dropout_p, seed, keep)
-        return o, lse
+    def forward(q, k, v, bias, keep, seed, dropout_p, keep_draws):
+        o, lse, _, drawn = _forward(q, k, v, bias, dropout_p, seed, keep, False, keep_draws)
+        return o, lse, drawn if drawn is not None else lse.new_empty(0, dtype=torch.int32)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, bias, keep, seed, dropout_p = inputs
-        o, lse = output
+        q, k, v, bias, keep, seed, dropout_p, _ = inputs
+        o, lse, drawn = output
         key = seed.key if isinstance(seed, DeviceSeed) else None
-        ctx.save_for_backward(q, k, v, bias, keep, o, lse, key)
+        ctx.save_for_backward(q, k, v, bias, keep, o, lse, key, drawn)
         ctx.seed = seed.index if key is not None else seed
         ctx.dropout_p = dropout_p
-        ctx.mark_non_differentiable(lse)
+        ctx.mark_non_differentiable(lse, drawn)
 
     @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, bias, keep, o, lse, key = ctx.saved_tensors
+    def backward(ctx, do, _dlse, _ddrawn):
+        q, k, v, bias, keep, o, lse, key, drawn = ctx.saved_tensors
         seed = DeviceSeed(key, ctx.seed) if key is not None else ctx.seed
-        dq, dk, dv = attention_backward(q, k, v, bias, ctx.dropout_p, seed, keep, o, lse, do.contiguous())
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = _backward(q, k, v, bias, ctx.dropout_p, seed, keep, o, lse, do.contiguous(),
+                               drawn if drawn.numel() else None)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _check(q, k, v, key_mask, dropout_p, seed, keep) -> None:
@@ -363,7 +402,8 @@ def fused_dropout_attention(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: 
     mask). Returns ``[B, L, H, D]``."""
     _check(q, k, v, key_mask, dropout_p, seed, keep)
     if q.is_cuda:
-        return _Attend.apply(q, k, v, key_bias(key_mask), _kernel_keep(keep), seed, float(dropout_p))[0]
+        keep_draws = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        return _Attend.apply(q, k, v, key_bias(key_mask), _kernel_keep(keep), seed, float(dropout_p), keep_draws)[0]
     return dropout_attention_plain(q, k, v, key_mask, _cpu_keep(q, dropout_p, seed, keep), dropout_p=dropout_p)
 
 

@@ -2164,6 +2164,101 @@ def events_ms(torch, fn, reps=30):
     return start.elapsed_time(end) / reps
 
 
+
+def device_kernels(torch, fn, reps=10):
+    """The kernels one call of ``fn`` launches, from torch.profiler over
+    ``reps`` calls after a warm-up, the window padded with idle host time as
+    ``profile_steps`` pads it: (their summed device time per call in ms, or
+    None where the trace has no device time or lost records, a kernel seen
+    less than once a call; {kernel name: launches per call})."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        with alone_section():
+            prof.step()
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        prof.step()
+    kernels = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("ProfilerStep")]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    whole = device_us > 0 and all(e.count >= reps for e in kernels)
+    return (device_us / 1e3 / reps if whole else None), {e.key: e.count / reps for e in kernels}
+
+
+@alone
+def graph_backward_ms(torch, forward, inputs, grad_out, reps=20):
+    """Device time of the backward of ``forward(*leaves)`` alone, replayed
+    from a CUDA graph: the forward is captured into one graph and its backward
+    (``torch.autograd.grad`` to the leaves) into a second on the same capture
+    stream, as ``torch.cuda.make_graphed_callables`` captures them, so the
+    backward's operations run on the stream that captures them. The leaves
+    are fresh copies of ``inputs``: a leaf whose earlier graph lives on
+    another stream makes the capture fail."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            torch.autograd.grad(forward(*leaves), leaves, grad_out)
+    torch.cuda.current_stream().wait_stream(stream)
+    forward_graph, backward_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(forward_graph):
+        out = forward(*leaves)
+    with torch.cuda.graph(backward_graph, pool=forward_graph.pool()):
+        torch.autograd.grad(out, leaves, grad_out)
+    forward_graph.replay()
+    backward_graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        backward_graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def library_timer(torch, fn, no_grad=False, graph=None):
+    """The yardstick for a library call ``fn`` that stands beside a kernel:
+    device time only. A CUDA-graph replay (``graph``, or ``graph_ms`` of
+    ``fn``) where the call captures; otherwise the summed device durations of
+    the kernels one call launches (``device_kernels``), over the same
+    repetitions. Returns {"time": a function that takes one time in ms,
+    "method", "kernels": what one call launches (its backend), "profiled_ms":
+    their summed device time}."""
+    def run():
+        if no_grad:
+            with torch.no_grad():
+                return fn()
+        return fn()
+
+    def profiled():  # nan where the trace lost records
+        return device_kernels(torch, run, reps=20)[0] or math.nan
+
+    # the capture before any profiling: one that failed after a profile left
+    # the caching allocator holding its cache (an out-of-memory error followed)
+    graph = graph or (lambda: graph_ms(torch, run))
+    try:
+        graph()
+        timer, method = graph, "CUDA-graph replay"
+    except RuntimeError as exc:
+        print(f"library call does not capture ({str(exc).splitlines()[0][:160]}): timed by the profiler")
+        torch.cuda.synchronize()
+        timer, method = profiled, "profiler, summed kernel device time"
+    profiled_ms, kernels = device_kernels(torch, run)
+    return {"time": timer, "method": method, "kernels": kernels, "profiled_ms": profiled_ms}
+
+
 def k3_inputs(torch, shape, seed):
     """q, k, v, dO ``[B, L, H, D]`` and a key mask with ragged padding on
     three rows: inside a tile (row 0 from 300, row 1 from 77) and of whole
@@ -3921,9 +4016,14 @@ def bf16_k3(torch, att, shape):
     (output within 2^-7 of its scale, dQ, dK, dV within 2^-6 of theirs) at
     p = 0, with a given mask, and with Philox (the mask the fp32 kernel
     realizes with the same seed fed to the plain version; repeats bit for
-    bit); then K3a, K3b, the plain version (its mask drawn; its backward
-    by autograd, between events) and SDPA at bf16 (between events), p =
-    0.1, in turns, against the bf16 bound (989 TFLOP/s, 3.35 TB/s)."""
+    bit); then K3a, K3b as training runs it (from the keep bits K3a left),
+    the plain version (its mask drawn; its backward
+    by autograd, between events) and SDPA at bf16 with the key mask and
+    dropout (``library_timer``: device time only, a CUDA-graph replay of its
+    forward and of its backward alone where they capture, else the
+    profiler's summed kernel time; its kernels printed), p = 0.1, in one
+    timed section, in turns two rounds over (minimum and spread), against
+    the bf16 bound (989 TFLOP/s, 3.35 TB/s)."""
     import torch.nn.functional as F
 
     b, h, l, d = shape
@@ -3952,52 +4052,86 @@ def bf16_k3(torch, att, shape):
                                        q, k, v, do)
             check(torch.equal(out, again) and all(torch.equal(a, c) for a, c in zip(grads, grads2)),
                   f"K3 bf16 {shape} Philox: repeat runs equal bit for bit")
+            # K3b alone draws the keep bits itself (its first launch); training reads K3a's
+            with torch.no_grad():
+                bias = att.key_bias(mask)
+                o, lse, _ = att.attention_forward(q, k, v, bias, p, 4321, None)
+                alone = att.attention_backward(q, k, v, bias, p, 4321, None, o, lse, do)
+            check(torch.equal(o, out) and all(torch.equal(a, c) for a, c in zip(alone, grads)),
+                  f"K3 bf16 {shape} Philox: K3b called alone (drawing the mask) = the training path bit for bit")
         worst = (max(worst[0], err), max(worst[1], gerr))
         del out, grads, ref, ref_grads
     del given, realized
 
     bias = att.key_bias(mask)
-    o, lse, _ = att.attention_forward(q, k, v, bias, K3_P, 5, None)
+    # the training path: K3a leaves its keep bits, K3b reads them (``_Attend``)
+    o, lse, _, drawn = att._forward(q, k, v, bias, K3_P, 5, None, False, keep_draws=True)
     drop_mask = (mask > 0)[:, None, None, :]
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    sdpa_out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves), attn_mask=drop_mask,
+
+    def sdpa(*t):
+        return F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in t), attn_mask=drop_mask,
                                               dropout_p=K3_P).transpose(1, 2)
+
+    sdpa_out = sdpa(*leaves)
     keep = torch.rand(b, h, l, l, device="cuda") >= K3_P
     plain_out = att.dropout_attention_plain(*leaves, mask, keep, dropout_p=K3_P)
-    with torch.no_grad():
-        forward = in_turns({
-            "kernel": lambda: graph_ms(torch, lambda: att.attention_forward(q, k, v, bias, K3_P, 5, None), reps=20),
-            "library": lambda: events_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=drop_mask, dropout_p=K3_P)),
-            "plain": lambda: graph_ms(torch, lambda: att.dropout_attention_plain(
-                q, k, v, mask, torch.rand(b, h, l, l, device="cuda") >= K3_P, dropout_p=K3_P), reps=10),
-        }, rounds=1)
-    backward = in_turns({
-        "kernel": lambda: graph_ms(torch, lambda: att.attention_backward(q, k, v, bias, K3_P, 5, None, o, lse, do),
-                                   reps=20),
-        "library": lambda: events_ms(torch, lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True)),
-        "plain": lambda: events_ms(torch, lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True)),
-    }, rounds=1)
+    library = {"forward": library_timer(torch, lambda: sdpa(q, k, v), no_grad=True),
+               "backward": library_timer(torch, lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True),
+                                         graph=lambda: graph_backward_ms(torch, sdpa, (q, k, v), do))}
+    for which, lib in library.items():
+        lost = "" if lib["profiled_ms"] else " (the trace lost records here: benchmarks_torch/bf16_probe.py lists " \
+                                             "them in a process of its own)"
+        print(f"SDPA bf16 {shape} {which}, p = {K3_P}: timed by {lib['method']}; its kernels a call (profiler, "
+              f"{lib['profiled_ms']} ms of device time{lost}): " + "; ".join(f"{n:g} x {name[:100]}"
+                                                                            for name, n in lib["kernels"].items()))
+    with alone_section():  # K3, SDPA and the plain version in turns, the other process stopped throughout
+        with torch.no_grad():
+            forward = in_turns({
+                "kernel": lambda: graph_ms(torch, lambda: att.attention_forward(q, k, v, bias, K3_P, 5, None), reps=20),
+                "library": library["forward"]["time"],
+                "plain": lambda: graph_ms(torch, lambda: att.dropout_attention_plain(
+                    q, k, v, mask, torch.rand(b, h, l, l, device="cuda") >= K3_P, dropout_p=K3_P), reps=10),
+            })
+        backward = in_turns({
+            "kernel": lambda: graph_ms(torch, lambda: att._backward(q, k, v, bias, K3_P, 5, None, o, lse, do, drawn),
+                                       reps=20),
+            "library": library["backward"]["time"],
+            "plain": lambda: events_ms(torch, lambda: torch.autograd.grad(plain_out, leaves, do, retain_graph=True)),
+        })
+        with torch.no_grad():  # K3a as training runs it (leaving its bits), K3b called alone (drawing them)
+            side = {"forward_drawing_ms": graph_ms(torch, lambda: att._forward(q, k, v, bias, K3_P, 5, None, False,
+                                                                                 keep_draws=True), reps=20),
+                    "backward_alone_ms": graph_ms(torch, lambda: att.attention_backward(q, k, v, bias, K3_P, 5, None,
+                                                                                      o, lse, do), reps=20)}
     del sdpa_out, plain_out, keep, leaves
     panel = 2 * b * l * h * d  # bytes of one bf16 [B, L, H, D] tensor
     rows = {}
-    for label, times, n_bytes, ops, err in (
-        ("K3a", forward, 4 * panel + 4 * b * l + 4 * b * h * l, 4 * b * h * l * l * d, worst[0]),
-        ("K3b", backward, 8 * panel + 4 * b * l + 4 * b * h * l, 10 * b * h * l * l * d, worst[1]),
+    for label, which, times, n_bytes, ops, err in (
+        ("K3a", "forward", forward, 4 * panel + 4 * b * l + 4 * b * h * l, 4 * b * h * l * l * d, worst[0]),
+        ("K3b", "backward", backward, 8 * panel + 4 * b * l + 4 * b * h * l, 10 * b * h * l * l * d, worst[1]),
     ):
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / BF16_PEAK_FLOPS_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
-        t = times["kernel"][0]
-        rows[label] = {"ms": t, "plain_ms": times["plain"][0], "library_ms": times["library"][0], "library_p": K3_P,
+        t, lib_t = times["kernel"][0], times["library"][0]
+        measured = math.isfinite(lib_t)  # the profiler's stand-in may have lost records
+        rows[label] = {"ms": t, "ms_spread": times["kernel"][-1] - t, "plain_ms": times["plain"][0],
+                       **({"drawing_ms": side["forward_drawing_ms"]} if label == "K3a"
+                          else {"alone_ms": side["backward_alone_ms"]}),
+                       "library_ms": lib_t if measured else None,
+                       "library_spread_ms": times["library"][-1] - lib_t if measured else None, "library_p": K3_P,
+                       "library_method": library[which]["method"],
                        "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "max_err": err}
-        print(f"{label} bf16 {shape}, p = {K3_P}: kernel {t:.4f} ms, plain {times['plain'][0]:.4f} ms, SDPA bf16 "
-              f"{times['library'][0]:.4f} ms, bound "
+        print(f"{label} bf16 {shape}, p = {K3_P}, {len(times['kernel'])} turns: kernel {t:.4f} ms (spread "
+              f"{rows[label]['ms_spread']:.4f}), plain {times['plain'][0]:.4f} ms, SDPA bf16 {lib_t:.4f} ms (spread "
+              f"{rows[label]['library_spread_ms']:.4f}, {library[which]['method']}), bound "
               f"{bound:.4f} ms by {rows[label]['bound_by']} (bf16 tensor cores 989 TFLOP/s: {ops_ms:.4f} ms; "
               f"bytes {bytes_ms:.4f} ms); kernel at {100 * bound / t:.0f}% of its bound, kernel / SDPA "
-              f"{t / times['library'][0]:.2f} [{CARD}]")
-    del q, k, v, do, o, lse, bias
+              f"{t / lib_t:.2f} [{CARD}]")
+    print(f"K3 bf16 {shape}: K3a leaving its keep bits for K3b (training) {side['forward_drawing_ms']:.4f} ms; K3b "
+          f"called alone, drawing the bits itself, {side['backward_alone_ms']:.4f} ms [{CARD}]")
+    del q, k, v, do, o, lse, bias, drawn
     torch.cuda.empty_cache()
     return rows
 

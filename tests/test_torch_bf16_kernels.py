@@ -24,12 +24,18 @@ version (output 2^-7, gradients 2^-6 of their scale) at (2, 128, 3, 64) and
 ragged L = 300, 65, 5, with no mask, a given mask, and Philox, whose mask
 must be the fp32 kernel's bit for bit (the plain version is fed the mask the
 fp32 kernel realizes with the same seed); a device seed equal to the host
-seed bit for bit. K1 on bf16 planes against its plain version within one
-bf16 ulp, forward and backward, with given noise and with Philox noise (the
-z of a seed read back from the fp32 kernel at mean 0 and variance 1); in the
-forward beyond what the fp32 sum may differ before its rounding (the kernel's
-fused multiply-add against the plain version's rounded product: 2^-22 of
-|a| + |std z|, ``_bf16_ulps``)."""
+seed bit for bit; and at the kernels' tile edges (L = 1, 63, 64, 127, 128,
+129, 192, 512; B H = 1 and B H = 144, more panels than the card's 132 SMs)
+with a ragged key mask (a row padded inside a tile, one by whole tiles, one
+fully padded), where at L = 1 dQ and dK, 0 in exact arithmetic, are held to
+the same fraction of the terms they cancel (``_cancelled_scale``); K3b
+called alone, drawing the keep bits itself, equal to K3b in training, which
+reads K3a's, bit for bit. K1 on bf16 planes against its plain version within
+one bf16 ulp, forward and backward, with given noise and with Philox noise
+(the z of a seed read back from the fp32 kernel at mean 0 and variance 1); in
+the forward beyond what the fp32 sum may differ before its rounding (the
+kernel's fused multiply-add against the plain version's rounded product:
+2^-22 of |a| + |std z|, ``_bf16_ulps``)."""
 import numpy as np
 import pytest
 import torch
@@ -228,10 +234,12 @@ def _grads(fn, q, k, v, cot):
     return out.detach(), grads
 
 
-def _hold_card(got, want, frac):
+def _hold_card(got, want, frac, scale=None):
+    """|got - want| within ``frac`` of want's largest magnitude, or of
+    ``scale`` where one is given."""
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    scale = float(want.float().abs().max())
+    scale = float(want.float().abs().max()) if scale is None else scale
     assert err <= frac * scale, (err, scale)
 
 
@@ -263,6 +271,80 @@ def test_k3_bf16_kernel_matches_plain(cuda_device, length, mode):
         _hold_card(g, r, BF16_GRAD)
 
 
+def _card_operands(device, shape, seed):
+    """q, k, v and an output gradient ``[B, L, H, 64]`` in bf16, from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, device=device, generator=gen).bfloat16() for _ in range(4)]
+
+
+def _ragged_mask(device, b, l):
+    """A key mask with ragged padding: batch row 0 padded inside a tile (from
+    L - L // 3, at least one key kept), row 1 by whole tiles (from 64, where L
+    > 64), row 2 fully padded (its softmax is 1 / L at every key); the rest
+    attend to every key."""
+    mask = torch.ones(b, l, dtype=torch.int32, device=device)
+    mask[0, max(1, l - l // 3):] = 0
+    if b > 1 and l > 64:
+        mask[1, 64:] = 0
+    if b > 2:
+        mask[2] = 0
+    return mask
+
+
+def _cancelled_scale(q, k, v, cot, p):
+    """The size of what dQ and dK sum where they are 0 in exact arithmetic: at
+    L = 1 each row's softmax is its one key, so dS = P (dP - rowsum(dP P)) = 0
+    and the kernels' dQ and dK are the rounding left of that difference (delta
+    comes from the bf16 O); the terms that cancel are |dP| / (1 - p) = |dO
+    V^T| / (1 - p), times |K| (dQ) or |Q| (dK) and the scale 1 / 8."""
+    dp = float(torch.einsum("blhd,bmhd->bhlm", cot.float(), v.float()).abs().max()) / (1.0 - p)
+    return [dp * float(k.float().abs().max()) / 8, dp * float(q.float().abs().max()) / 8]
+
+
+# (B, L, H): L at and around the kernels' tile edges (64-row tiles, 128-row
+# blocks), one panel (B H = 1) and more panels than the card's 132 SMs
+EDGE_SHAPES = [(3, 1, 2), (3, 63, 2), (3, 64, 2), (3, 127, 2), (3, 128, 2), (3, 129, 2), (3, 192, 2), (3, 512, 2),
+               (1, 129, 1), (12, 65, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "given", "philox"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=lambda s: "B{}-L{}-H{}".format(*s))
+def test_k3_bf16_kernel_tile_edges(cuda_device, shape, mode):
+    """K3a and K3b on bf16 at the tile edges with a ragged key mask (a row
+    padded inside a tile, one by whole tiles, one fully padded) against the
+    plain version (output 2^-7, gradients 2^-6 of their scale); repeats bit
+    for bit; with Philox the fp32 kernel's mask, and a device seed equal to
+    the host seed bit for bit."""
+    b, l, h = shape
+    q, k, v, cot = _card_operands(cuda_device, (b, l, h, 64), seed=l + b)
+    mask = _ragged_mask(cuda_device, b, l)
+    p = 0.0 if mode == "none" else 0.1
+    if mode == "philox":
+        _, probs = att.fused_dropout_attention_debug(q.float(), k.float(), v.float(), mask, dropout_p=p, seed=123)
+        keep, kw = probs > 0, {"seed": 123}
+    else:
+        gen = torch.Generator(device=cuda_device).manual_seed(l)
+        keep = torch.rand(b, h, l, l, device=cuda_device, generator=gen) >= p if mode == "given" else None
+        kw = {"keep": keep}
+    before = att.attention_forward.launches, att.attention_backward.launches
+    got, grads = _grads(lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, **kw), q, k, v, cot)
+    assert (att.attention_forward.launches, att.attention_backward.launches) == (before[0] + 1, before[1] + 1)
+    again, grads2 = _grads(lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, **kw), q, k, v, cot)
+    assert torch.equal(got, again) and all(torch.equal(a, c) for a, c in zip(grads, grads2))
+    if mode == "philox":
+        key = torch.full((), 100, dtype=torch.int64, device=cuda_device)
+        device_seed = sampling.DeviceSeed(key, 23)  # 100 + 23: the host seed
+        seeded = _grads(lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=p, seed=device_seed), q, k, v, cot)
+        assert torch.equal(seeded[0], got) and all(torch.equal(a, c) for a, c in zip(seeded[1], grads))
+    ref, ref_grads = _grads(lambda *t: att.dropout_attention_plain(*t, mask, keep, dropout_p=p), q, k, v, cot)
+    _hold_card(got, ref, BF16_OUT)
+    scales = _cancelled_scale(q, k, v, cot, p) + [None] if l == 1 else [None, None, None]
+    for g, r, scale in zip(grads, ref_grads, scales):
+        assert bool(torch.isfinite(g.float()).all())
+        _hold_card(g, r, BF16_GRAD, scale)
+
+
 @pytest.mark.cuda
 def test_k3_bf16_kernel_device_seed_equals_host_seed(cuda_device):
     q, k, v, cot, mask = _card_attention(cuda_device, (2, 64, 2, 64), seed=3)
@@ -276,6 +358,27 @@ def test_k3_bf16_kernel_device_seed_equals_host_seed(cuda_device):
     host = run(77 + (3 << 20))
     assert all(torch.equal(a, c) for a, c in zip(device, host))
     assert not torch.equal(run(sampling.DeviceSeed(key + 1, 3 << 20))[0], device[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 300, 3), (1, 64, 1)], ids=["L300", "L64"])
+@pytest.mark.parametrize("device_seed", [False, True], ids=["host", "device"])
+def test_k3_bf16_backward_alone_draws_the_forward_mask(cuda_device, shape, device_seed):
+    """K3b called alone draws the keep bits itself (its first launch); in
+    training it reads the ones K3a left. Both give the same dQ, dK, dV bit
+    for bit, with a host seed and with a device seed."""
+    b, l, h = shape
+    q, k, v, cot = _card_operands(cuda_device, (b, l, h, 64), seed=l)
+    mask = _ragged_mask(cuda_device, b, l)
+    seed = sampling.DeviceSeed(torch.full((), 40, dtype=torch.int64, device=cuda_device), 2) if device_seed else 42
+    _, trained = _grads(lambda *t: att.fused_dropout_attention(*t, mask, dropout_p=0.1, seed=seed), q, k, v, cot)
+    bias = att.key_bias(mask)
+    with torch.no_grad():
+        o, lse, _ = att.attention_forward(q, k, v, bias, 0.1, seed, None)
+        # the gradient the autograd path hands K3b: d(sum(out * cot)) / d out = cot, in bf16
+        alone = att.attention_backward(q, k, v, bias, 0.1, seed, None, o, lse, cot.float().bfloat16().contiguous())
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(alone, trained))
 
 
 def _bf16_ulps(got, want, terms=None):
