@@ -13,10 +13,13 @@ at eval, the clean test split and the corrupted splits of every intensity in
 (``svgd`` with one member: its particles are its ensemble), periodic
 checkpoints with auto-resume and the ``{model}_final`` artifact
 (``checkpoint_dir``, ``checkpoint_interval``), ``fit_laplace_phase`` and
-``multix_phase``, and the ``bf16`` key (the ResNet-20's plain and BBB convs in
-bf16, parameters and optimizer fp32; SNGP stays fp32). The HMC baseline raises;
-``data_parallel`` is a no-op on one device, as in JAX, and raises with more
-than one visible card (``utils/device.py::refuse_multi_device``).
+``multix_phase``, the ``bf16`` key (the ResNet-20's plain and BBB convs in
+bf16, parameters and optimizer fp32; SNGP stays fp32), and the Wilson et al.
+HMC baseline: ``use_hmc_baseline`` (agreement and total variation of the
+clean test split's predictive against the published samples',
+``data/wilson.py``) and ``eval_hmc`` (those samples through the eval
+metrics). ``data_parallel`` is a no-op on one device, as in JAX, and raises
+with more than one visible card (``utils/device.py::refuse_multi_device``).
 
 Entry points run on CUDA unless ``device="cpu"`` is passed. The data sets
 move to the device once, as NCHW float32. ``train`` runs, as in JAX, the
@@ -43,6 +46,7 @@ from torch import nn
 from .. import keys
 from ..data import cifar as cifar_data
 from ..data.native_loader import shuffled_indices
+from ..data.wilson import WilsonHMC
 from ..evals.classification import EvalResult, analyze_output, bayesian_model_average
 from ..methods.api import GaussianPrior, LossOutput, PosteriorMethod
 from ..methods.bbb import bbb_method
@@ -200,8 +204,6 @@ def _not_ported(config: dict) -> None:
     if config["model"] == "svgd" and config.get("members", 1) != 1:
         # the JAX build ignores members for svgd; the port refuses
         raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
-    if config.get("use_hmc_baseline"):
-        raise NotImplementedError("use_hmc_baseline: not ported yet (ROADMAP item 16, bnn-hmc)")
     refuse_multi_device(config, ("data_parallel",))
 
 
@@ -426,11 +428,14 @@ def eval_model(
     config: dict,
     x: np.ndarray,
     y: np.ndarray,
+    baseline_log_probs: Optional[np.ndarray] = None,
     seed: int = 42,
 ) -> EvalResult:
     """Posterior-predictive eval over the test set (reference
     cifar.py:26-69): S samples -> log-space BMA -> EvalResult, batch i under
-    ``fold_in(seed, i)``. With ``device_eval`` (the default on a card, or
+    ``fold_in(seed, i)``, with the HMC agreement and total variation against
+    ``baseline_log_probs`` (a predictive ``[N, 10]`` of log-probs) when one
+    is given. With ``device_eval`` (the default on a card, or
     under ``device_data``) the whole set goes through the eval runner,
     cached on ``built`` per (points, eval batch, S); else a host loop over
     the same batches and keys. Either way the last partial batch is padded
@@ -467,8 +472,12 @@ def eval_model(
                 key = keys.as_key(keys.fold_in(seed, i), built.device)
                 outs.append(predict_batch(state, key, xb)[:valid])
             log_marginal = torch.cat(outs)
-    correct, conf, ll, _, _ = analyze_output(log_marginal, yd)
-    return EvalResult.create(correct, conf, ll, bin_count=config["ece_bins"])
+    baseline = None
+    if baseline_log_probs is not None:
+        baseline = torch.as_tensor(np.asarray(baseline_log_probs)[: log_marginal.shape[0]]).to(built.device)
+    correct, conf, ll, agree, tv = analyze_output(log_marginal, yd, baseline)
+    return EvalResult.create(correct, conf, ll, bin_count=config["ece_bins"], agreements=agree,
+                             total_variations=tv)
 
 
 def _load_data(config: dict):
@@ -485,13 +494,51 @@ def _build_for(config: dict, device) -> BuiltExperiment:
     return build(config, torch.Generator().manual_seed(config["seed"]), steps_per_epoch, device=device)
 
 
+def eval_hmc(config: dict = None, max_samples_per_chain=None, device=None) -> dict:
+    """The Wilson HMC posterior samples themselves through the eval metrics
+    (reference experiments/cifar/eval_hmc.py:40-72; JAX :558-580): their
+    log-mean-exp predictive over the whole eval batches of the test split
+    (a last partial batch left out, as in JAX), scored with itself as the
+    baseline (agreement 1, total variation 0)."""
+    config = {**DEFAULT_CONFIG, **(config or {})}
+    hmc = WilsonHMC(max_samples_per_chain=max_samples_per_chain, device=device)
+    x_test, y_test = cifar_data.load_cifar10(False, subsample=config["test_subsample"])
+    bs = config["eval_batch_size"]
+    n = (x_test.shape[0] // bs) * bs
+    log_marg = torch.cat([hmc.log_marginal(x_test[start : start + bs]) for start in range(0, n, bs)])
+    target = torch.from_numpy(np.asarray(y_test[:n], np.int64)).to(hmc.device)
+    correct, conf, ll, agree, tv = analyze_output(log_marg, target, log_marg)
+    return EvalResult.create(correct, conf, ll, bin_count=config["ece_bins"], agreements=agree,
+                             total_variations=tv).as_dict()
+
+
+def hmc_baseline(config: dict, x_test: np.ndarray, device) -> np.ndarray:
+    """The Wilson HMC predictive of ``x_test`` (log-probs ``[N, 10]``) from
+    ``hmc_samples_per_chain`` samples a chain and the first
+    ``eval_samples`` draws, an eval batch at a time, the last batch padded
+    with copies of its last image (reference cifar.py:105-121; JAX
+    :612-628)."""
+    hmc = WilsonHMC(max_samples_per_chain=config.get("hmc_samples_per_chain"), device=device)
+    bs = config["eval_batch_size"]
+    chunks = []
+    for s in range(0, x_test.shape[0], bs):
+        xb = x_test[s : s + bs]
+        valid = xb.shape[0]
+        if valid < bs:
+            xb = np.concatenate([xb, np.repeat(xb[-1:], bs - valid, axis=0)])
+        chunks.append(hmc.log_marginal(xb, config["eval_samples"])[:valid].cpu().numpy())
+    return np.concatenate(chunks)
+
+
 def run_single(config: dict, log=None, device=None) -> dict:
     """Train + eval on the clean test split and on the corrupted split of
     every intensity in ``corrupted_intensities``; returns the metric dicts
     by split (``test``, ``corrupted{i}``). With ``checkpoint_dir`` the
     trained state is saved there as ``{model}_final`` (reference
     cifar.py:98). ``laplace`` fits its posterior on the training set after
-    the save (JAX :601-609)."""
+    the save (JAX :601-609). With ``use_hmc_baseline`` the clean split's
+    metrics add ``hmc_agreement`` and ``hmc_total_variation`` against the
+    Wilson HMC predictive (:func:`hmc_baseline`)."""
     config = {**DEFAULT_CONFIG, **config}
     _not_ported(config)
     device = resolve_device(device)
@@ -501,7 +548,8 @@ def run_single(config: dict, log=None, device=None) -> dict:
         ckpt.save_final(config["checkpoint_dir"], config["model"], built.state)
     if config["model"] == "laplace":
         _fit_laplace(built, config, x_train, y_train)
-    results = {"test": eval_model(built, config, x_test, y_test).as_dict()}
+    baseline = hmc_baseline(config, x_test, device) if config.get("use_hmc_baseline") else None
+    results = {"test": eval_model(built, config, x_test, y_test, baseline_log_probs=baseline).as_dict()}
     for intensity in config.get("corrupted_intensities") or []:
         xc, yc = cifar_data.load_cifar10_corrupted(intensity, subsample=config["test_subsample"])
         results[f"corrupted{intensity}"] = eval_model(built, config, xc, yc).as_dict()

@@ -101,6 +101,7 @@ from ..models.densenet import DenseNetClassifier, DenseNetSNGP
 from ..models.resnet import ResNet18, ResNet50, ResNet50SNGP
 from ..models.torch_convert import load_torch_backbone
 from ..nn.base import Model, add_auto_named
+from ..nn.dropout import FixableDropout
 from ..nn.gauss import GaussLayer
 from ..nn.gaussian import NoiseSource
 from ..parallel.multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches
@@ -905,13 +906,25 @@ def sweep_drop_rates_phase(task: str, config: dict, run_dir: str, rates=(0.05, 0
                            device=None) -> dict:
     """A saved MC-Dropout state evaluated under each dropout rate (JAX
     :1118-1145, reference civilcomments/test_drop_rates.py:33-51): dropout
-    has no parameters, so the state is restored into a model rebuilt at
-    each rate. Returns ``{"p=<rate>": metrics}``."""
+    has no parameters, so the state is restored once, into a model built at
+    the first rate, and each rate is set on its ``FixableDropout`` layers
+    (every one of an ``mcd`` build carries ``dropout_p``) before its eval,
+    the eval runners dropped (a captured graph keeps its rate): what a
+    model rebuilt at each rate gives (JAX rebuilds it), without the
+    rebuilds. Returns ``{"p=<rate>": metrics}``."""
     config = {**config, "model": "mcd"}
+    rate_config, built, _, test = _rebuild(task, {**config, "dropout_p": float(rates[0])}, device)
+    built.state = ckpt.restore_final(run_dir, "mcd", built.state)
+    members = built.state.members if isinstance(built.state, EnsembleState) else [built.state]
+    layers = [m for state in members for m in state.params.modules() if isinstance(m, FixableDropout)]
     results = {}
     for rate in rates:
-        rate_config, built, _, test = _rebuild(task, {**config, "dropout_p": float(rate)}, device)
-        built.state = ckpt.restore_final(run_dir, "mcd", built.state)
+        if any(layer.rate != rate_config["dropout_p"] for layer in layers):
+            raise RuntimeError("drop_rates: a FixableDropout layer of the mcd build is not at its dropout_p")
+        rate_config = {**rate_config, "dropout_p": float(rate)}
+        for layer in layers:
+            layer.rate = float(rate)
+        built.eval_runners.clear()
         res = eval_task(built, task, rate_config, *test)
         results[f"p={rate}"] = res
         if log:

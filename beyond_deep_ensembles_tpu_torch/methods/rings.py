@@ -1,7 +1,10 @@
-"""Storage knobs for flat posterior ring buffers.
+"""Storage knobs for flat posterior ring buffers, and the draw rings' push
+and read.
 
 Counterpart of ``beyond_deep_ensembles_tpu/methods/rings.py``. SWAG keeps a
-``[K, D]`` deviation ring and ``[D]`` moment vectors (``methods/swag.py``):
+``[K, D]`` deviation ring and ``[D]`` moment vectors (``methods/swag.py``);
+HMC and SG-MCMC a ``[K, D]`` ring of draws, the newest last
+(``methods/hmc.py``, ``methods/sgmcmc.py``; :func:`pushed`, :func:`read`):
 
 * ``ring_dtype`` (default fp32): the ring may be stored in bf16 to halve
   its memory; rows are upcast on read (:func:`load`) and SWAG's ``z1 @
@@ -33,3 +36,19 @@ def store(arr: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def load(arr: torch.Tensor) -> torch.Tensor:
     """Upcast a ring row back to fp32 compute precision."""
     return arr.to(torch.float32)
+
+
+def pushed(ring: torch.Tensor, row: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``ring`` rolled up by one row, ``row`` stored as its last."""
+    out = torch.roll(ring, -1, 0)
+    out[-1] = store(row, dtype)
+    return out
+
+
+def read(ring: torch.Tensor, n_samples: torch.Tensor, index, current: torch.Tensor) -> torch.Tensor:
+    """Draw ``index`` counted back from the newest (modulo the ``n_samples``
+    held), upcast and cut to ``current``'s length; ``current`` while the
+    ring is empty."""
+    n = torch.clamp(n_samples, min=1)
+    slot = ring.shape[0] - 1 - (torch.as_tensor(index, device=n.device) % n)
+    return torch.where(n_samples > 0, load(ring[slot])[: current.shape[0]], current)

@@ -32,7 +32,17 @@ belongs to the other side) into the port's ``LastLayerState`` state_dict,
 the inner state through :func:`state_from_jax` on the head view(s). The
 DistilBERT heads (plain, BBB, Rank-1, SNGP) follow the rules above: their
 kernels ``[in, out]`` are transposed, Rank-1 factors and biases and the SNGP
-buffers kept. Only numpy is used: the JAX objects are read by their fields.
+buffers kept.
+
+The bnn-hmc models (``models/lenet.py``, ``models/zoo.py::MLP``,
+``models/resnet.py::WilsonResNet20``) convert by the rules above;
+``models/cnn_lstm.py::CNNLSTM`` by :func:`cnn_lstm_from_jax` (its 1-D conv
+and its LSTM's gates), and :func:`model_params_from_jax` picks the rule for
+a module. :func:`bnn_state_from_jax` turns a JAX ``HmcState``,
+``SgmcmcState`` or ``MfviState`` into the port's state dict; those states
+keep their vectors in ``tree.sorted_named`` order, JAX's leaf order, each
+leaf in the port's layout (:func:`sorted_flat_from_jax`). Only numpy is
+used: the JAX objects are read by their fields.
 """
 from __future__ import annotations
 
@@ -43,6 +53,8 @@ import numpy as np
 import torch
 
 from ..methods.api import MLE_SUFFIX
+from ..tree import sorted_named
+from .cnn_lstm import CNNLSTM
 
 
 def _leaf(name: str, a) -> torch.Tensor:
@@ -354,4 +366,94 @@ def last_layer_state_from_jax(template, state, lr: float = 0.0) -> dict:
     out.update({f"backbone_opt.{k}": v for k, v in fields.items()})
     out.update({"step": torch.tensor(int(state.step), dtype=torch.int64),
                 "epoch": torch.tensor(int(state.epoch), dtype=torch.int64)})
+    return out
+
+
+def cnn_lstm_from_jax(params: Mapping) -> dict:
+    """A flax ``CNNLSTM`` param tree (numpy) -> the port's state dict: the
+    embedding as it is, the 1-D conv kernel ``[K, E, F]`` -> ``[F, E, 1,
+    K]``, the cell's per-gate denses stacked in torch's gate order (i, f, g,
+    o): ``ii/if/ig/io`` kernels ``[F, H]`` -> ``weight_ih`` ``[4H, F]``,
+    ``hi/hf/hg/ho`` kernels -> ``weight_hh`` ``[4H, H]``, their biases ->
+    ``bias`` ``[4H]``; the dense head transposed."""
+    p = {k: _numpy_tree(v) if isinstance(v, Mapping) else np.asarray(v) for k, v in params.items()}
+    cell = p["OptimizedLSTMCell_0"]
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+    gates = "ifgo"
+    return {
+        "Embed_0.embedding": t(p["Embed_0"]["embedding"]),
+        "Conv_0.kernel": t(np.transpose(p["Conv_0"]["kernel"], (2, 1, 0))[:, :, None, :]),
+        "Conv_0.bias": t(p["Conv_0"]["bias"]),
+        "OptimizedLSTMCell_0.weight_ih": t(np.concatenate([cell[f"i{g}"]["kernel"].T for g in gates])),
+        "OptimizedLSTMCell_0.weight_hh": t(np.concatenate([cell[f"h{g}"]["kernel"].T for g in gates])),
+        "OptimizedLSTMCell_0.bias": t(np.concatenate([cell[f"h{g}"]["bias"] for g in gates])),
+        "Dense_0.kernel": t(p["Dense_0"]["kernel"].T),
+        "Dense_0.bias": t(p["Dense_0"]["bias"]),
+    }
+
+
+def model_params_from_jax(module: torch.nn.Module, params: Mapping) -> dict:
+    """A JAX param tree -> ``module``'s state dict, by the module's rule."""
+    if isinstance(module, CNNLSTM):
+        return cnn_lstm_from_jax(params)
+    return params_from_jax(_numpy_tree(params))
+
+
+def sorted_flat_from_jax(module: torch.nn.Module, tree: Mapping) -> torch.Tensor:
+    """A JAX tree shaped like ``module``'s parameters (a gradient, a
+    momentum, a draw) -> the port's flat vector in ``tree.sorted_named``
+    order."""
+    named = model_params_from_jax(module, tree)
+    return torch.cat([named[name].reshape(-1) for name in sorted_named(module)])
+
+
+def bnn_state_from_jax(module: torch.nn.Module, state, lr: float = 0.0) -> dict:
+    """A JAX ``HmcState``, ``SgmcmcState`` or ``MfviState`` -> the port's
+    state dict for ``module`` (``methods/hmc.py``, ``methods/sgmcmc.py``,
+    ``methods/vi.py``), so a chain converted mid-run continues as JAX's
+    does; ``lr`` MFVI's Adam rate. The draw rings' rows (JAX's flat order)
+    are unraveled by JAX's tree and raveled in the port's sorted order."""
+    params = _numpy_tree(state.params)
+    out = {f"params.{k}": v for k, v in model_params_from_jax(module, params).items()}
+    out["step"] = torch.tensor(int(state.step), dtype=torch.int64)
+    out["epoch"] = torch.tensor(int(state.epoch), dtype=torch.int64)
+
+    def flat(tree):
+        return sorted_flat_from_jax(module, _numpy_tree(tree))
+
+    def ring(samples):
+        return torch.stack([flat(_unravel_sorted(params, row)) for row in np.asarray(samples, np.float32)])
+
+    if hasattr(state, "accept_prob"):
+        out.update({
+            "hmc.step_size": torch.tensor(float(state.step_size), dtype=torch.float32),
+            "hmc.log_likelihood": torch.tensor(float(state.log_likelihood), dtype=torch.float32),
+            "hmc.grad": flat(state.grad),
+            "hmc.samples": ring(state.samples),
+            "hmc.n_samples": torch.tensor(int(state.n_samples), dtype=torch.int32),
+            "hmc.accept_prob": torch.tensor(float(state.accept_prob), dtype=torch.float32),
+            "hmc.accepted": torch.tensor(bool(state.accepted)),
+        })
+    elif hasattr(state, "rho"):
+        adam = state.opt_state[0]
+        mean_mu, rho_mu = adam.mu
+        mean_nu, rho_nu = adam.nu
+        out.update({
+            "opt.flat": torch.cat([flat(state.mean), flat(state.rho)]),
+            "opt.mu": torch.cat([flat(mean_mu), flat(rho_mu)]),
+            "opt.nu": torch.cat([flat(mean_nu), flat(rho_nu)]),
+            "opt.count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int64),
+            "opt.lr": torch.tensor(lr, dtype=torch.float64),
+        })
+    else:
+        sgld_state = state.opt_state
+        out["sgld.count"] = torch.tensor(int(sgld_state.count), dtype=torch.int64)
+        out["sgld.momentum"] = flat(sgld_state.momentum)
+        if sgld_state.precond_state is not None:
+            out["sgld.precond"] = flat(sgld_state.precond_state)
+        out["sgmcmc.samples"] = ring(state.samples)
+        out["sgmcmc.n_samples"] = torch.tensor(int(state.n_samples), dtype=torch.int32)
     return out

@@ -14,8 +14,9 @@ a ``FixableDropout(p)`` after the stem and after each conv of each block,
 the skip's included). As in JAX, ResNet-20 has no norm after the stem, an
 8x8 average pool and a dense head of the conv kind, on 32x32 inputs;
 :class:`ResNet18` has a stride-1 stem, an unpadded max pool, a global mean
-and ``features_only``. The other architectures (``PreResNet20``,
-``WilsonResNet20``) are not ported yet.
+and ``features_only``. :class:`WilsonResNet20` is the bnn-hmc ResNet-20 of
+the published Wilson et al. HMC samples. ``PreResNet20`` is not ported
+yet.
 
 :class:`ResNet50` is the JAX package's corrected bottleneck ResNet-50 (a
 7x7 stride-2 stem, a 3x3 stride-2 max pool, ``stage_sizes`` bottlenecks of
@@ -48,6 +49,8 @@ is the WILDS engine's image SNGP model on ResNet-50 (JAX
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -58,8 +61,10 @@ from ..nn.base import add_auto_named
 from ..nn.dropout import FixableDropout
 from ..nn.frn import FilterResponseNorm, VariationalFilterResponseNorm
 from ..nn.norm import StaticBatchNorm
+from ..nn.plain import Conv, Dense
 from ..nn.sngp import SNGPHead
 from .layers import call_layer, kind_kwargs, make_conv, make_dense
+from .lenet import flatten_nhwc
 
 
 def _activation(name: str):
@@ -462,3 +467,71 @@ class ResNet50SNGP(nn.Module):
     def forward(self, x, noise=None, train: bool = True, n_samples: int = 1):
         net, head = self._layers
         return head(net(x, noise, train=train), noise, train=train, n_samples=n_samples)
+
+
+def _he_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax ``variance_scaling(2.0, 'fan_in', 'truncated_normal')`` over a
+    plain layer's lecun-normal draw: the same truncated normal, its
+    standard deviation times sqrt(2)."""
+    with torch.no_grad():
+        return weight.mul_(math.sqrt(2.0))
+
+
+class WilsonResNet20(nn.Module):
+    """The bnn-hmc ResNet-20 (JAX ``models/resnet.py::WilsonResNet20``,
+    reference google-bnn-hmc/bnn_hmc/utils/models.py:95-176 make_resnet_fn),
+    the architecture of the published Wilson et al. HMC samples, in NCHW:
+    a stem of conv + FRN + activation; three stacks of three blocks (16, 32,
+    64 filters; the first block of the second and third stacks strided by
+    2), each two 3x3 conv + FRN layers (the activation after the first), a
+    biased 1x1 conv + FRN shortcut where the block strides, created after
+    the block's two layers, and the activation after the sum; an 8x8 average
+    pool and the dense head ``linear``. Every conv is SAME-padded with a
+    bias; kernels he-normal. 107 parameter leaves. Modules are named
+    ``conv_{i}`` / ``frn_{i}`` in creation order, as the JAX model (and
+    haiku's ``conv2_d{,_i}`` / ``frn{,_i}``) numbers them, so a converted
+    sample is a name map (``data/wilson.py``)."""
+
+    def __init__(self, classes: int = 10, activation: str = "swish", width: int = 16, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.act = _activation(activation)
+        count = iter(range(100))
+
+        def layer(cin, features, kernel=3, stride=1):
+            i = next(count)
+            conv = Conv(cin, features, (kernel, kernel), strides=stride, padding="SAME", generator=generator)
+            _he_normal_(conv.kernel)
+            self.add_module(f"conv_{i}", conv)
+            self.add_module(f"frn_{i}", FilterResponseNorm(features))
+            return i
+
+        filters = width
+        stem = layer(3, filters)
+        blocks, cin = [], filters
+        for stack in range(3):
+            for block in range(3):
+                stride = 2 if (stack > 0 and block == 0) else 1
+                first, second = layer(cin, filters, stride=stride), layer(filters, filters)
+                shortcut = layer(cin, filters, kernel=1, stride=stride) if stack > 0 and block == 0 else None
+                blocks.append((first, second, shortcut))
+                cin = filters
+            filters *= 2
+        self.linear = Dense(cin, classes, generator=generator)
+        _he_normal_(self.linear.kernel)
+        self._plan = (stem, tuple(blocks))
+
+    def _layer(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"frn_{i}")(getattr(self, f"conv_{i}")(h))
+
+    def forward(self, x, noise=None, train: bool = True):
+        del noise, train
+        stem, blocks = self._plan
+        h = self.act(self._layer(stem, x))
+        for first, second, shortcut in blocks:
+            y = self._layer(second, self.act(self._layer(first, h)))
+            if shortcut is not None:
+                h = self._layer(shortcut, h)
+            h = self.act(h + y)
+        h = F.avg_pool2d(h, 8, 8)
+        return self.linear(flatten_nhwc(h))

@@ -13,11 +13,11 @@ member's), loadable with ``weights_only=True``. A restore copies it into a
 template state in place (``load_state_dict``), so the optimizer's views and
 a captured graph's addresses stay valid. A file is written under a
 temporary name and renamed, so a crash mid-write leaves no
-``checkpoint_<step>``. A SWAG ring (``*.deviations``) fills from its last
-row, so its leading rows stay zero until it is full: a file holds the ring
-from its first non-zero row, and a restore puts the zeros back (a
-distilbert-base ring of 30 rows is 8 GB, 4 rows of it filled after a short
-run).
+``checkpoint_<step>``. A SWAG ring (``*.deviations``) and an HMC or
+SG-MCMC draw ring (``*.samples``) fill from their last row, so their
+leading rows stay zero until they are full: a file holds a ring from its
+first non-zero row, and a restore puts the zeros back (a distilbert-base
+SWAG ring of 30 rows is 8 GB, 4 rows of it filled after a short run).
 
 Asynchronous saves: the state is overwritten in place by the next update
 (unlike the JAX package's functional state), so ``save_checkpoint(...,
@@ -78,7 +78,7 @@ def _saver(run_dir: str) -> _AsyncSaver:
         return _SAVERS.setdefault(os.path.abspath(run_dir), _AsyncSaver())
 
 
-_RING = "deviations"
+_RING = ("deviations", ".samples")
 
 
 def _host_copy(state: Any) -> Dict[str, torch.Tensor]:

@@ -51,3 +51,10 @@ def refuse_multi_device(config: dict, flags=("data_parallel", "ring_shard")) -> 
     for flag in flags:
         if config.get(flag):
             raise NotImplementedError(f"{flag} over {n} visible cards: not ported yet (ROADMAP item 18)")
+
+
+def refuse_more_cards(device: torch.device, what: str) -> None:
+    """Raises on a card when more than one is visible: ``what`` (a batch the
+    JAX package shards over every device) has no mesh in the port yet."""
+    if device.type == "cuda" and device_count() > 1:
+        raise NotImplementedError(f"{what} over {device_count()} visible cards: not ported yet (ROADMAP item 18)")

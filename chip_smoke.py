@@ -6,8 +6,8 @@ CUDA card: the quickest proof that the port still starts on the GPU.
 
 It runs as two processes on the one card (``supervise``): the first runs
 phases 1-8 and 10; once the kernels are built and timed (phases 2-5) it
-starts the second (this file with ``--second``), which runs phases 9 and
-11-14 beside it, its output in ``build/chip_smoke_second.log`` (printed by
+starts the second (this file with ``--second``), which runs phases 15, 9
+and 11-14 beside it, its output in ``build/chip_smoke_second.log`` (printed by
 the first when it ends) and its figures handed back in
 ``build/chip_smoke_second.json``. Every launch count is a process's own.
 A timed section (steady steps, CUDA-graph and event timings, profiles,
@@ -224,11 +224,32 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      bit; fmow's torchvision ``densenet121.pth`` and the text tasks'
      HuggingFace ``pytorch_model.bin``, written into ``build/`` at full
      width, loaded through ``build`` on the card, each tensor the file's;
- 15. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
+ 15. bnn-hmc, first in the second process (``bnn_hmc_phase``): ``run_hmc``
+     on ``smooth_cnn_lstm`` at full width (vocabulary 20000, embedding 128,
+     64 filters, cell 128) over synthetic IMDB's 2048 x 100-token train
+     split (512 test reviews), 4 iterations of 10 leapfrog steps, burn-in 1;
+     ``run_hmc`` on ``resnet20_frn_swish`` over 1024 CIFAR images, 2
+     iterations of 5; ``run_sgmcmc`` (SGHMC, RMS preconditioner), ``run_vi``
+     and ``run_sgd`` on LeNet-5 over synthetic MNIST (8192 images, batch 128,
+     one epoch); each with K1, K2 and K3 counts set to 0 before and read 0
+     after; one metrics entry an iteration, the ring's ``n_samples`` the
+     accepted draws, the predictive average rebuilt from the ring's draws
+     after burn-in; one leapfrog trajectory on 64 examples of each model on
+     the card, on the CPU and in float64 (the card within 3 x the CPU's own
+     error); a WilsonResNet20 chain stopped after 2 of 3 iterations and
+     resumed = the uninterrupted chain, bit for bit (cuDNN deterministic);
+     Wilson pickles written in the published layout (2 files x 3 chains):
+     ``WilsonHMC`` on the card against the CPU on 8 images, ``eval_hmc`` on
+     500 images (agreement 1, total variation 0), a CIFAR MAP ``run_single``
+     with ``use_hmc_baseline`` at the Multi-X cut (1 epoch of 20 steps, 250
+     images); the time of one full-batch gradient and one HMC iteration for
+     each model;
+ 16. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
      UCI figures, the WILDS figures, the image, ResNet-50 and poverty
-     figures and the staged-weight checks as JSON lines, the card's name and
-     power limit, one JSON line of kernel figures (K1, K2, K3a, K3b), then
-     the result line ``{"ok": true, "device": {...}}``.
+     figures, the bnn-hmc figures and the staged-weight checks as JSON
+     lines, the card's name and power limit, one JSON line of kernel figures
+     (K1, K2, K3a, K3b), then the result line ``{"ok": true, "device":
+     {...}}``.
 Every phase heading prints the seconds since the script started.
 Exits non-zero and prints no result without CUDA or without the package
 beside this file.
@@ -394,7 +415,8 @@ def noise_shapes(batch, train):
 # work already queued on the card gets SETTLE_S to drain first.
 PEER = {"pid": None, "lock": None, "depth": 0, "child": None}
 SETTLE_S = 0.1
-SECOND_PHASES = "UCI, the WILDS image, ResNet-50 and poverty phases and the staged weights (9, 11-14)"
+SECOND_PHASES = ("bnn-hmc, UCI, the WILDS image, ResNet-50 and poverty phases and the staged weights "
+                 "(15, 9, 11-14)")
 # each process's CPU threads (torch's intra-op pool): half the host's cores
 # each, so that two CPU checks at once do not oversubscribe them
 CPU_THREADS = 4
@@ -4288,6 +4310,404 @@ def bf16_phase(torch, kernels, att, sampling, wilds_task, cifar, NoiseSource):
     return figures
 
 
+# the bnn-hmc phase (second process): full-batch HMC on the smooth CNN-LSTM
+# (synthetic IMDB's 2048 x 100-token train split, 512 test reviews) and on
+# WilsonResNet20 (1024 CIFAR images), the minibatch entries on LeNet-5 over
+# synthetic MNIST (8192 images, batch 128, one epoch), the card against the
+# CPU and float64, a resumed chain, and the Wilson HMC baseline through
+# pickles written here; the paper's full batches (20,000 reviews, 50,000
+# images) and chain lengths are cut to these
+BNN_LSTM = {"n_iterations": 4, "burn_in": 1, "n_leapfrog": 10, "step_size": 1e-4, "seed": 0}
+BNN_RESNET = {"n_iterations": 2, "burn_in": 1, "n_leapfrog": 5, "step_size": 1e-4, "seed": 0}
+BNN_RESUME = {"n_iterations": 3, "burn_in": 1, "n_leapfrog": 5, "step_size": 1e-4, "seed": 3}
+BNN_MINIBATCH = {"n_epochs": 1, "batch_size": 128, "seed": 0}
+BNN_CPU_EXAMPLES = 64
+BNN_CPU_LEAPFROG = 5
+WILSON_FILES, WILSON_CHAINS = 2, 3
+WILSON_EVAL = 500
+WILSON_RUN = {"model": "map", "members": 1, "epochs": 1, "subsample": 20 * 128, "test_subsample": 250, "seed": 0,
+              "device_data": True, "corrupted_intensities": [], "use_hmc_baseline": True}
+
+
+class _Stop(Exception):
+    """Stops a chain at an iteration's log line, before its checkpoint."""
+
+
+class _StopAt:
+    def __init__(self, prefix):
+        self.prefix = prefix
+
+    def info(self, line):
+        print(line)
+        if line.startswith(self.prefix):
+            raise _Stop(line)
+
+
+class _Print:
+    def info(self, line):
+        print(line)
+
+
+def _zero(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def _no_launch(kernels, label):
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    check(all(v == 0 for v in counts.values()), f"{label}: K1, K2 and K3 launched 0 times ({counts})")
+    return counts
+
+
+def _haiku_tree(state):
+    """A port WilsonResNet20 state dict as the haiku tree of the published
+    samples (``conv2_d{,_i}`` w HWIO and b, ``frn{,_i}`` (1, 1, 1, C),
+    ``linear`` w [in, out] and b), numpy."""
+    out = {}
+    for name, value in state.items():
+        scope, leaf = name.rsplit(".", 1)
+        a = value.detach().cpu().numpy()
+        if scope == "linear":
+            module = "linear"
+        else:
+            kind, idx = scope.rsplit("_", 1)
+            module = {"conv": "conv2_d", "frn": "frn"}[kind] + ("" if idx == "0" else f"_{idx}")
+        if leaf == "kernel":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        elif scope.startswith("frn_"):
+            a = a.reshape(1, 1, 1, -1)
+        out.setdefault(module, {})[{"kernel": "w", "bias": "b"}.get(leaf, leaf)] = a
+    return out
+
+
+def _write_wilson(torch, root):
+    """WILSON_FILES pickles in the published layout, each WILSON_CHAINS
+    seeded WilsonResNet20 trees stacked on a leading chain axis."""
+    import pickle
+
+    import numpy as np
+
+    from beyond_deep_ensembles_tpu_torch.models.resnet import WilsonResNet20
+
+    d = os.path.join(root, "wilson_hmc", "cifar10")
+    os.makedirs(d, exist_ok=True)
+    for i in range(WILSON_FILES):
+        chains = [_haiku_tree(WilsonResNet20(10, generator=torch.Generator().manual_seed(100 * i + c)).state_dict())
+                  for c in range(WILSON_CHAINS)]
+        stacked = {m: {k: np.stack([c[m][k] for c in chains]) for k in chains[0][m]} for m in chains[0]}
+        with open(os.path.join(d, f"state-{i}.pkl"), "wb") as f:
+            pickle.dump({"params": stacked, "net_state": {}, "iteration": i}, f)
+
+
+def _rel_err(torch, got, want):
+    """max |got - want| over max |want| (want float64)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def bnn_card_vs_cpu(torch, bnn_hmc, hmc, zoo, label, make, batch):
+    """One leapfrog trajectory (BNN_CPU_LEAPFROG steps from the same
+    parameters and momentum, BNN_CPU_EXAMPLES examples) on the card, on the
+    CPU in fp32 and on the CPU in float64: the card's parameters, momentum
+    and end log-likelihood within 3 x the CPU fp32's own error from float64
+    plus 1e-6 of their scale (fp32's rounding), and the energy difference
+    within 3 x the CPU's error plus 1e-6 of its terms' scale. No accept
+    decision is compared."""
+    import copy
+
+    from beyond_deep_ensembles_tpu_torch import tree
+    from beyond_deep_ensembles_tpu_torch.nn.base import Model
+
+    model = make()
+    x, y = batch
+    gen = torch.Generator().manual_seed(7)
+    flat0 = tree.ravel(tree.sorted_named(model.module))
+    momentum = torch.randn(flat0.shape, generator=gen)
+    runs = {}
+    for side, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                ("float64", "cpu", torch.float64)):
+        module = copy.deepcopy(model.module).to(device=device, dtype=dtype)
+        xb = x.to(device=device, dtype=dtype) if x.is_floating_point() else x.to(device)
+        fn = hmc.make_grad_fn(bnn_hmc.xent_loss_fn(Model(module)), x.shape[0], 1.0, module, {}, (xb, y.to(device)))
+        p0 = flat0.to(device=device, dtype=dtype)
+        m0 = momentum.to(device=device, dtype=dtype)
+        loglik0, grad0 = fn(p0)
+        step = torch.tensor(BNN_RESNET["step_size"], dtype=dtype, device=device)
+        p1, m1, _, loglik1 = hmc.leapfrog(fn, p0, m0, grad0, loglik0, step, BNN_CPU_LEAPFROG)
+        terms = [0.5 * m0.square().sum(), 0.5 * m1.square().sum(), loglik0, loglik1, 0.5 * p1.square().sum(),
+                 0.5 * p0.square().sum()]
+        energy = (terms[0] - terms[1]) - (terms[2] - terms[3]) - (terms[4] - terms[5])
+        runs[side] = {"params": p1, "momentum": m1, "loglik": loglik1, "energy": energy,
+                      "scale": sum(abs(float(t)) for t in terms)}
+    ref = runs["float64"]
+    errs = {}
+    for what in ("params", "momentum", "loglik"):
+        card, cpu = (_rel_err(torch, runs[s][what], ref[what]) for s in ("card", "cpu"))
+        errs[what] = {"card": card, "cpu": cpu}
+        check(card <= 3 * cpu + 1e-6, f"{label} leapfrog on the card against the CPU: {what} error from float64 "
+                                      f"{card:.3g}, the CPU fp32's {cpu:.3g} (bound 3 x it + 1e-6)")
+    diff = {s: float(runs[s]["energy"]) for s in runs}
+    accept = {s: min(1.0, math.exp(min(v, 0.0))) for s, v in diff.items()}
+    card_err, cpu_err = abs(diff["card"] - diff["float64"]), abs(diff["cpu"] - diff["float64"])
+    # the energy difference is a difference of sums near ``scale``, each
+    # known in fp32 to about its last bits: 1e-6 of the scale is 8 ulp
+    scale = ref["scale"]
+    check(card_err <= 3 * cpu_err + 1e-6 * scale,
+          f"{label} energy difference on the card {diff['card']:.6g}, CPU {diff['cpu']:.6g}, float64 "
+          f"{diff['float64']:.6g}, its terms' scale {scale:.4g} (bound 3 x the CPU's error + 1e-6 of the scale; "
+          f"accept probabilities {accept['card']:.4g}, {accept['cpu']:.4g}, {accept['float64']:.4g})")
+    return {"errors": errs, "energy_diff": diff, "accept_prob": accept, "energy_scale": scale}
+
+
+def _hmc_figures(torch, bnn_hmc, hmc, model, batch, config, label):
+    """Device time of one full-batch gradient and of one HMC iteration
+    (CUDA events, taken alone) for ``model`` on ``batch``."""
+    import copy
+
+    from beyond_deep_ensembles_tpu_torch import tree
+    from beyond_deep_ensembles_tpu_torch.nn.base import Model
+
+    module = copy.deepcopy(model.module).cuda()
+    m = Model(module)
+    method = hmc.hmc_method(bnn_hmc.xent_loss_fn(m), dataset_size=batch[0].shape[0], step_size=config["step_size"],
+                            n_leapfrog=config["n_leapfrog"], step_size_adaptation_speed=0.05)
+    state = method.init(module, {})
+    fn = hmc.make_grad_fn(bnn_hmc.xent_loss_fn(m), batch[0].shape[0], 1.0, module, {}, batch)
+    flat = tree.ravel(tree.sorted_named(module))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def timed(call, reps):
+        call()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            call()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    with alone_section():
+        grad_ms = timed(lambda: fn(flat), 5)
+        iter_ms = timed(lambda: method.update(state, gen, batch), 2)
+    print(f"{label}: one full-batch gradient {grad_ms:.2f} ms, one HMC iteration ({config['n_leapfrog']} leapfrog "
+          f"steps) {iter_ms:.2f} ms, over {batch[0].shape[0]} examples, CUDA events [{CARD}]")
+    return {"grad_ms": grad_ms, "iteration_ms": iter_ms, "examples": int(batch[0].shape[0]),
+            "n_leapfrog": config["n_leapfrog"]}
+
+
+def _chain_checks(torch, bnn_hmc, result, config, label):
+    """The chain's counts: one metrics entry an iteration, the ring's
+    n_samples the accepted draws (at most 20), the predictive average the
+    softmax mean over the accepted draws after burn-in (rebuilt from the
+    ring, within 1e-5)."""
+    metrics, state = result["metrics"], result["state"]
+    accepted = [bool(m["accepted"]) for m in metrics]
+    check(len(metrics) == config["n_iterations"], f"{label}: {len(metrics)} metrics entries, one an iteration")
+    check(int(state.n_samples) == min(sum(accepted), 20),
+          f"{label}: the ring holds {int(state.n_samples)} draws = the {sum(accepted)} accepted")
+    after = sum(accepted[config["burn_in"]:])
+    check(("predictive" in result) == (after > 0), f"{label}: {after} accepted draws after burn-in averaged")
+    return {"accepted": accepted, "after_burn_in": after, "accept_prob": [m["accept_prob"] for m in metrics],
+            "step_size": [m["step_size"] for m in metrics]}
+
+
+def _average_check(torch, state, model, x_test, after, want, label):
+    import torch.nn.functional as F
+
+    from beyond_deep_ensembles_tpu_torch import tree
+    from beyond_deep_ensembles_tpu_torch.methods import rings
+
+    unravel = tree.make_unravel(tree.sorted_named(state.params))
+    with torch.no_grad():
+        probs = [F.softmax(model.apply(unravel(rings.read(state.samples, state.n_samples, i, state.flat)), {}, None,
+                                       x_test, train=False)[0], -1)
+                 for i in range(after)]
+    mean = torch.stack(probs).mean(0).cpu().numpy()
+    err = float(abs(mean - want).max())
+    check(err <= 1e-5, f"{label}: the predictive average = the mean of the {after} accepted draws' predictives "
+                       f"after burn-in, rebuilt from the ring (max abs err {err:.3g})")
+
+
+def bnn_hmc_phase(torch, kernels):
+    """Phase 15 (second process): the bnn-hmc entries on the card with
+    exact counts, the card against the CPU, a resumed chain and the Wilson
+    baseline. Returns its figures."""
+    import shutil
+
+    import numpy as np
+
+    from beyond_deep_ensembles_tpu_torch.data import cifar as cifar_data
+    from beyond_deep_ensembles_tpu_torch.data import imdb, mnist, wilson
+    from beyond_deep_ensembles_tpu_torch.experiments import bnn_hmc, cifar
+    from beyond_deep_ensembles_tpu_torch.methods import hmc
+    from beyond_deep_ensembles_tpu_torch.models import zoo
+    from beyond_deep_ensembles_tpu_torch.nn.base import Model
+
+    t0 = time.perf_counter()
+    root = os.path.join(BUILD, "bnn_hmc")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    before = os.environ.get("BDE_DATA_DIR")
+    os.environ["BDE_DATA_DIR"] = os.path.join(root, "data")  # the synthetic sets, then the pickles
+    figures = {}
+    try:
+        tokens, labels = imdb.load_imdb("train")
+        test = imdb.load_imdb("test")
+        check(tokens.shape == (2048, 100) and test[0].shape == (512, 100),
+              f"synthetic IMDB: train {tokens.shape}, test {test[0].shape}")
+        lstm = lambda: zoo.get_model("smooth_cnn_lstm", 2, generator=torch.Generator().manual_seed(0))  # noqa: E731
+        images, targets = cifar_data.load_cifar10(True, subsample=1024)
+        test_images = cifar_data.load_cifar10(False, subsample=256)
+        wilson_net = lambda: zoo.get_model("resnet20_frn_swish", 10,  # noqa: E731
+                                          generator=torch.Generator().manual_seed(0))
+
+        # HMC on the smooth CNN-LSTM (vocabulary 20000, embedding 128, 64
+        # filters, cell 128) over the full batch
+        model = lstm()
+        check(sum(p.numel() for p in model.module.parameters()) == 20000 * 128 + 64 * 128 * 5 + 64 + 4 * 128 * (64 + 128 + 1)
+              + 128 * 2 + 2, "smooth CNN-LSTM at full width")
+        _zero(kernels)
+        t = time.perf_counter()
+        res = bnn_hmc.run_hmc(model, (tokens, labels), test, step_size_adaptation_speed=0.05, log=_Print(),
+                              **BNN_LSTM)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = _no_launch(kernels, "run_hmc, CNN-LSTM")
+        chain = _chain_checks(torch, bnn_hmc, res, BNN_LSTM, "run_hmc CNN-LSTM")
+        run_model = Model(res["state"].params)
+        x_test = torch.from_numpy(test[0]).long().cuda()
+        if chain["after_burn_in"]:
+            _average_check(torch, res["state"], run_model, x_test, chain["after_burn_in"], res["predictive"],
+                           "run_hmc CNN-LSTM")
+            check(all(math.isfinite(v) for v in res["eval"].values()), f"CNN-LSTM eval {json.dumps(res['eval'])}")
+        print(f"run_hmc CNN-LSTM: {BNN_LSTM['n_iterations']} iterations of {BNN_LSTM['n_leapfrog']} leapfrog steps "
+              f"over 2048 reviews in {wall:.2f} s [{CARD}]")
+        figures["cnn_lstm"] = {**chain, "wall_s": wall, "counts": counts, "eval": res.get("eval"),
+                               **_hmc_figures(torch, bnn_hmc, hmc, model,
+                                              (torch.from_numpy(tokens).long().cuda(),
+                                               torch.from_numpy(labels).cuda()), BNN_LSTM, "CNN-LSTM")}
+        del res, run_model
+
+        # HMC on WilsonResNet20 over 1024 images
+        model = wilson_net()
+        _zero(kernels)
+        t = time.perf_counter()
+        res = bnn_hmc.run_hmc(model, (images, targets), test_images, step_size_adaptation_speed=0.05, log=_Print(),
+                              **BNN_RESNET)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = _no_launch(kernels, "run_hmc, WilsonResNet20")
+        chain = _chain_checks(torch, bnn_hmc, res, BNN_RESNET, "run_hmc WilsonResNet20")
+        batch = (torch.from_numpy(images).permute(0, 3, 1, 2).contiguous().cuda(), torch.from_numpy(targets).cuda())
+        figures["wilson_resnet20"] = {**chain, "wall_s": wall, "counts": counts,
+                                      **_hmc_figures(torch, bnn_hmc, hmc, model, batch, BNN_RESNET, "WilsonResNet20")}
+        del res
+
+        # a chain stopped in its third iteration (checkpoint_1 on disk) and
+        # resumed, against the uninterrupted chain, on deterministic cuDNN
+        torch.backends.cudnn.deterministic = True
+        try:
+            kw = dict(log=_Print(), **BNN_RESUME)
+            whole = bnn_hmc.run_hmc(model, (images, targets), test_images, run_dir=os.path.join(root, "a"), **kw)
+            try:
+                bnn_hmc.run_hmc(model, (images, targets), test_images, run_dir=os.path.join(root, "b"),
+                                **{**kw, "log": _StopAt("iter 2")})
+            except _Stop:
+                pass
+            from beyond_deep_ensembles_tpu_torch.utils import checkpoint as ckpt
+
+            check(ckpt.latest_checkpoint_step(os.path.join(root, "b")) == 1, "resume: stopped in iteration 2")
+            resumed = bnn_hmc.run_hmc(model, (images, targets), test_images, run_dir=os.path.join(root, "b"), **kw)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        a, b = whole["state"].state_dict(), resumed["state"].state_dict()
+        same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        same = same and resumed["metrics"] == whole["metrics"][2:]
+        check(same, f"resume: a WilsonResNet20 chain stopped after 2 of 3 iterations and resumed = the "
+                    f"uninterrupted chain, bit for bit ({len(a)} tensors, the last iteration's metrics; cuDNN "
+                    f"deterministic)")
+        figures["resume_bitwise"] = same
+        del whole, resumed, a, b
+
+        # the card against the CPU and float64: one leapfrog trajectory
+        figures["card_vs_cpu"] = {
+            "cnn_lstm": bnn_card_vs_cpu(torch, bnn_hmc, hmc, zoo, "CNN-LSTM", lstm,
+                                        (torch.from_numpy(tokens[:BNN_CPU_EXAMPLES]).long(),
+                                         torch.from_numpy(labels[:BNN_CPU_EXAMPLES]))),
+            "wilson_resnet20": bnn_card_vs_cpu(torch, bnn_hmc, hmc, zoo, "WilsonResNet20", wilson_net,
+                                               (batch[0][:BNN_CPU_EXAMPLES].cpu(), batch[1][:BNN_CPU_EXAMPLES].cpu())),
+        }
+
+        # the minibatch entries on LeNet-5 over synthetic MNIST
+        x, y = mnist.load_mnist(True)
+        check(x.shape == (8192, 28, 28, 1), f"synthetic MNIST: {x.shape}")
+        steps = x.shape[0] // BNN_MINIBATCH["batch_size"]
+        lenet = zoo.get_model("lenet", 10, generator=torch.Generator().manual_seed(0))
+        minibatch = {}
+        for name, run in (
+            ("run_sgmcmc", lambda: bnn_hmc.run_sgmcmc(lenet, (x, y), step_size=1e-6, momentum_decay=0.9,
+                                                      preconditioner="rmsprop", sample_interval=16,
+                                                      log=_Print(), **BNN_MINIBATCH)),
+            ("run_vi", lambda: bnn_hmc.run_vi(lenet, (x, y), lr=1e-3, log=_Print(), **BNN_MINIBATCH)),
+            ("run_sgd", lambda: bnn_hmc.run_sgd(lenet, (x, y), lr=1e-2, log=_Print(), **BNN_MINIBATCH)),
+        ):
+            _zero(kernels)
+            t = time.perf_counter()
+            method, state = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = _no_launch(kernels, name)
+            params, _ = method.sample(state, torch.Generator(device="cuda").manual_seed(1), 0)
+            with torch.no_grad():
+                xb = torch.from_numpy(x[:512]).permute(0, 3, 1, 2).cuda()
+                out, _, _ = Model(state.params).apply(params, {}, None, xb, train=False)
+                acc = float((out.argmax(-1).cpu() == torch.from_numpy(y[:512])).float().mean())
+            check(state.step == steps and bool(torch.isfinite(out).all()),
+                  f"{name} on LeNet-5: {state.step} steps of {BNN_MINIBATCH['batch_size']}, a posterior draw's "
+                  f"logits finite, train accuracy {acc:.3f}, {wall:.2f} s [{CARD}]")
+            minibatch[name] = {"steps": state.step, "wall_s": wall, "train_accuracy": acc, "counts": counts}
+        figures["minibatch"] = minibatch
+
+        # the Wilson baseline through pickles in the published layout
+        _write_wilson(torch, os.environ["BDE_DATA_DIR"])
+        _zero(kernels)
+        on_card = wilson.WilsonHMC(device="cuda")
+        check(on_card.n_samples == WILSON_FILES * WILSON_CHAINS, f"WilsonHMC: {on_card.n_samples} samples "
+                                                                 f"({WILSON_FILES} files x {WILSON_CHAINS} chains)")
+        x8 = test_images[0][:8]
+        card_lp = on_card.infer(x8).cpu()
+        cpu_lp = wilson.WilsonHMC(device="cpu").infer(x8)
+        err = float((card_lp - cpu_lp).abs().max())
+        check(err <= 1e-4, f"WilsonHMC log-probs on the card against the CPU on 8 images: max abs err {err:.3g} "
+                           f"(bound 1e-4)")
+        hmc_eval = cifar.eval_hmc({"test_subsample": WILSON_EVAL, "eval_batch_size": WILSON_EVAL})
+        check(hmc_eval["hmc_agreement"] == 1.0 and hmc_eval["hmc_total_variation"] == 0.0
+              and all(math.isfinite(v) for v in hmc_eval.values()),
+              f"eval_hmc on {WILSON_EVAL} images: {json.dumps(hmc_eval)}")
+        t = time.perf_counter()
+        row = cifar.run_single({**cifar.DEFAULT_CONFIG, **YAML_DEFAULT, **WILSON_RUN}, log=print)["test"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = _no_launch(kernels, "WilsonHMC, eval_hmc and the MAP run with use_hmc_baseline")
+        check(0.0 <= row["hmc_agreement"] <= 1.0 and 0.0 <= row["hmc_total_variation"] <= 1.0
+              and all(math.isfinite(v) for v in row.values()),
+              f"CIFAR MAP run_single with use_hmc_baseline (1 epoch of 20 steps, 250 images): agreement "
+              f"{row['hmc_agreement']:.4f}, total variation {row['hmc_total_variation']:.4f}, {wall:.1f} s [{CARD}]")
+        figures["wilson"] = {"card_vs_cpu_max_abs_err": err, "eval_hmc": hmc_eval, "map_run_single": row,
+                             "map_run_single_wall_s": wall, "counts": counts}
+    finally:
+        if before is None:
+            os.environ.pop("BDE_DATA_DIR", None)
+        else:
+            os.environ["BDE_DATA_DIR"] = before
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    figures["phase_s"] = time.perf_counter() - t0
+    print(f"bnn-hmc phase: {figures['phase_s']:.1f} s [{CARD}]")
+    return figures
+
+
 def kernel_registry(sampling, svgd_kernel, att):
     """Every kernel wrapper of the port by the name its figures carry; each
     counts its own launches (``.launches``)."""
@@ -4299,7 +4719,12 @@ def kernel_registry(sampling, svgd_kernel, att):
 
 
 def second_phases(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
-    """Phases 9 and 11-14, in the second process: their figures by phase."""
+    """Phases 15, 9 and 11-14, in the second process: their figures by
+    phase."""
+    phase("bnn-hmc: HMC on the CNN-LSTM and WilsonResNet20, SG-MCMC, MFVI and SGD on LeNet-5, the Wilson baseline")
+    bnn = bnn_hmc_phase(torch, kernels)
+    print(json.dumps({"card": CARD, "bnn_hmc": bnn}))
+
     phase("UCI regression: configs/uci.yaml through the CLI")
     uci = uci_phase(torch, kernels)
     print(json.dumps({"card": CARD, "uci": uci}))
@@ -4332,7 +4757,7 @@ def second_phases(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource
     staged = {"remat": bert_remat_check(torch, wilds_task, NoiseSource, kernels),
               "weights": staged_weights_check(torch, wilds_task)}
     print(json.dumps({"card": CARD, "staged": staged}))
-    return {"uci": uci, "image": image, "resnet": resnet, "poverty": poverty, "staged": staged,
+    return {"bnn_hmc": bnn, "uci": uci, "image": image, "resnet": resnet, "poverty": poverty, "staged": staged,
             "counts": {"image": image_counts, "resnet": resnet_counts, "poverty": poverty_counts}}
 
 
@@ -4425,7 +4850,7 @@ def setup(which):
 
 
 def second_main(card, t0_epoch) -> int:
-    """The second process: phases 9 and 11-14, their figures into its JSON
+    """The second process: phases 15, 9 and 11-14, their figures into its JSON
     file."""
     global CARD, T_START
     CARD, T_START = card, _t_start(t0_epoch)

@@ -177,11 +177,11 @@ def test_scan_steps_equal_single_steps_on_a_deterministic_run(no_data):
 
 def test_unported_keys_still_raise(monkeypatch):
     """Options whose paths are not ported raise before any work is done
-    (``checkpoint_dir`` and ``members`` > 1 are ported: see
-    test_torch_checkpoint.py and test_torch_cifar_multix.py;
-    ``data_parallel`` where the process sees a second card)."""
+    (``checkpoint_dir``, ``members`` > 1 and ``use_hmc_baseline`` are
+    ported: see test_torch_checkpoint.py, test_torch_cifar_multix.py and
+    test_torch_wilson_cifar.py; ``data_parallel`` where the process sees a
+    second card)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    for config in ({"model": "bbb", "use_hmc_baseline": True}, {"model": "bbb", "data_parallel": True},
-                   {"model": "svgd", "members": 2}):
+    for config in ({"model": "bbb", "data_parallel": True}, {"model": "svgd", "members": 2}):
         with pytest.raises(NotImplementedError):
             cifar.run_single(config, device="cpu")

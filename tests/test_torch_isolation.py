@@ -11,7 +11,9 @@ import torch
 
 import _torch_parity  # noqa: F401 (caps torch at one intra-op thread)
 
-from beyond_deep_ensembles_tpu_torch.experiments import cifar, wilds_task
+from beyond_deep_ensembles_tpu_torch.data import wilson
+from beyond_deep_ensembles_tpu_torch.experiments import bnn_hmc, cifar, wilds_task
+from beyond_deep_ensembles_tpu_torch.models import zoo
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -37,9 +39,13 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
-    assert len(names) >= 42  # every module of the slices was imported
+    assert len(names) >= 82  # every module of the slices was imported (68 before the bnn-hmc slice)
     for module in ("parallel", "parallel.multistep", "keys", "utils.optim", "methods.ensemble", "methods.swag",
-                   "methods.rings", "utils.checkpoint", "experiments.phases"):
+                   "methods.rings", "utils.checkpoint", "experiments.phases",
+                   # the bnn-hmc subsystem and the utilities
+                   "evals.losses", "evals.surface", "evals.plotting", "utils.profiling", "models.lenet",
+                   "models.cnn_lstm", "models.zoo", "data.mnist", "data.imdb", "data.wilson", "methods.hmc",
+                   "methods.sgmcmc", "methods.vi", "experiments.bnn_hmc"):
         assert f"beyond_deep_ensembles_tpu_torch.{module}" in names, module
 
 
@@ -67,3 +73,25 @@ def test_wilds_entry_points_refuse_missing_cuda():
             wilds_task.build("amazon", config, torch.Generator())
         with pytest.raises(RuntimeError, match="CUDA"):
             wilds_task.run_single("amazon", {"model": model, "tiny": True, "subsample": 8})
+
+
+def test_bnn_hmc_entry_points_refuse_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    model = zoo.get_model("logistic_regression", 3, in_shape=(4,))
+    x, y = torch.zeros((8, 4)), torch.zeros(8, dtype=torch.int64)
+    entries = [
+        lambda **kw: bnn_hmc.run_hmc(model, (x, y), (x, y), n_iterations=1, **kw),
+        lambda **kw: bnn_hmc.run_sgmcmc(model, (x, y), n_epochs=1, batch_size=4, **kw),
+        lambda **kw: bnn_hmc.run_sgd(model, (x, y), n_epochs=1, batch_size=4, **kw),
+        lambda **kw: bnn_hmc.run_vi(model, (x, y), n_epochs=1, batch_size=4, **kw),
+        lambda **kw: wilson.WilsonHMC(**kw),
+        lambda **kw: cifar.eval_hmc({"test_subsample": 8, "eval_batch_size": 8}, **kw),
+    ]
+    for entry in entries:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cifar.run_single({"model": "map", "subsample": 8, "use_hmc_baseline": True})
