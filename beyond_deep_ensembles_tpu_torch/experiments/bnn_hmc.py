@@ -19,11 +19,14 @@ uninterrupted one draws. The minibatch order is numpy's
 ``RandomState(seed).permutation`` an epoch, the last partial batch dropped,
 as in JAX.
 
-One device: JAX shards the full batch over a mesh's data axis
-(``make_mesh``, ``shard_batch``, ``replicate``); here it stays whole on one
-device, ``mesh`` raises, and more than one visible card is refused
-(ROADMAP item 18). The predictive running average over accepted draws
-(reference ensemble_utils.py:19-53) stays on the device.
+Under a process group (``torchrun``), or with a ``mesh`` given, the entries
+run as JAX's do over its mesh (JAX :86-116): each (full or mini) batch's
+rows split over the data axis, the chain's state replicated (broadcast from
+rank 0), the likelihood and its gradient reduced over the axis
+(``parallel/pipelines.py``), so every rank takes the same accept decision;
+the test predictions are made whole on every rank. Without a group the
+batch stays whole on one device. The predictive running average over
+accepted draws (reference ensemble_utils.py:19-53) stays on the device.
 """
 from __future__ import annotations
 
@@ -43,9 +46,11 @@ from ..methods.map import map_method
 from ..methods.sgmcmc import sgmcmc_method
 from ..methods.vi import mfvi_method
 from ..nn.base import Model
+from ..parallel import mesh as _mesh
+from ..parallel.pipelines import LocalTrainer, ParallelTrainer
 from ..tree import sorted_named
 from ..utils import checkpoint as ckpt
-from ..utils.device import refuse_more_cards, resolve_device
+from ..utils.device import resolve_device
 from ..utils.logging import VoidLog
 from ..utils.optim import SGD, Adam
 from ..utils.schedules import cosine_decay_schedule
@@ -86,17 +91,25 @@ def iteration_noise(seed: int, it: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(keys.fold_in(seed + 2, it))
 
 
-def _setup(model: Model, init_params, device, mesh=None):
+def _setup(model: Model, init_params, device):
     """(device, a copy of the model on it holding the initial point)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (the batch sharded over devices): not ported yet (ROADMAP item 18)")
     device = resolve_device(device)
-    refuse_more_cards(device, "the bnn-hmc entries' sharded batch")
     module = copy.deepcopy(model.module).to(device)
     if init_params is not None:
         # warm start / transplant (reference --init_checkpoint)
         module.load_state_dict(init_params, strict=True)
     return device, Model(module)
+
+
+def _trainer(method, mesh=None):
+    """The entry's steps: over ``mesh``, or under a process group over
+    ``make_mesh(member_parallel=1)`` (JAX :86-87), a ``ParallelTrainer``
+    (the batch's rows split over the data axis); else the method alone."""
+    if mesh is not None and not isinstance(mesh, _mesh.Mesh):
+        raise TypeError(f"mesh is a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    if mesh is None and _mesh.is_distributed():
+        mesh = _mesh.make_mesh(member_parallel=1)
+    return LocalTrainer(method) if mesh is None else ParallelTrainer(method, mesh)
 
 
 def _to_device(arrays, device):
@@ -156,7 +169,7 @@ def run_hmc(
     ``EvalResult.as_dict()``) and ``"predictive"`` (its probabilities,
     numpy)."""
     log = log or VoidLog()
-    device, model = _setup(model, init_params, device, mesh)
+    device, model = _setup(model, init_params, device)
     train = _to_device(train_batch, device)
     x_test, y_test = _to_device(test_batch, device)
     method = hmc_method(
@@ -170,6 +183,8 @@ def run_hmc(
         **_ring_kw(ring_dtype, ring_sharding),
     )
     state = method.init(model.module, {})
+    trainer = _trainer(method, mesh)
+    per_rank = ring_sharding is not None
 
     def test_predict(params):
         with torch.no_grad():
@@ -178,15 +193,16 @@ def run_hmc(
 
     start_iter = 0
     if run_dir:
-        state, resumed = ckpt.restore_checkpoint(run_dir, state)
+        state, resumed = ckpt.restore_checkpoint(run_dir, state, per_rank=per_rank)
         if resumed is not None:
             start_iter = resumed + 1
             log.info(f"resumed from iteration {resumed}")
+    state = trainer.place_state(state)
 
     ensemble = PredictiveAverage()
     metrics_hist = []
     for it in range(start_iter, n_iterations):
-        state, metrics = method.update(state, iteration_noise(seed, it, device), train)
+        state, metrics = trainer.update(state, iteration_noise(seed, it, device), train)
         m = {k: float(v) for k, v in metrics.items()}
         if it >= burn_in and m["accepted"]:
             ensemble.update(test_predict(state.params))
@@ -194,7 +210,7 @@ def run_hmc(
         log.info(f"iter {it}: accept_prob {m['accept_prob']:.3f} "
                  f"step_size {m['step_size']:.2e} loglik {m['log_likelihood']:.1f}")
         if run_dir:
-            ckpt.save_checkpoint(run_dir, it, state)
+            ckpt.save_checkpoint(run_dir, it, state, per_rank=per_rank)
 
     result = {"metrics": metrics_hist, "state": state}
     if ensemble.probs is not None:
@@ -253,13 +269,14 @@ def run_sgmcmc(
         sample_interval=sample_interval,
         **_ring_kw(ring_dtype, ring_sharding),
     )
-    state = method.init(model.module, {})
+    trainer = _trainer(method)
+    state = trainer.place_state(method.init(model.module, {}))
     rng = np.random.RandomState(seed)
     step = 0
     for epoch in range(n_epochs):
         for sel in _batches(rng, data[0].shape[0], batch_size):
             step += 1
-            state, metrics = method.update(state, iteration_noise(seed, step, device), _batch(data, sel))
+            state, metrics = trainer.update(state, iteration_noise(seed, step, device), _batch(data, sel))
         log.info(f"epoch {epoch}: loss {float(metrics['loss']):.4f}")
     return method, state
 
@@ -308,6 +325,8 @@ def run_sgd(
         if resumed is not None:
             start_epoch = resumed + 1
             log.info(f"resumed from epoch {resumed}")
+    trainer = _trainer(method)
+    state = trainer.place_state(state)
 
     rng = np.random.RandomState(seed)
     n = steps_per_epoch * batch_size
@@ -317,7 +336,7 @@ def run_sgd(
     for epoch in range(start_epoch, n_epochs):
         for sel in _batches(rng, n_data, batch_size, n):
             step += 1
-            state, metrics = method.update(state, None, _batch(data, sel))
+            state, metrics = trainer.update(state, None, _batch(data, sel))
         log.info(f"epoch {epoch}: loss {float(metrics['loss']):.4f}")
         if run_dir:
             ckpt.save_checkpoint(run_dir, epoch, state)
@@ -353,12 +372,13 @@ def run_vi(
         mc_samples=mc_samples,
         temperature=temperature,
     )
-    state = method.init(model.module, {})
+    trainer = _trainer(method)
+    state = trainer.place_state(method.init(model.module, {}))
     rng = np.random.RandomState(seed)
     step = 0
     for epoch in range(n_epochs):
         for sel in _batches(rng, data[0].shape[0], batch_size):
             step += 1
-            state, metrics = method.update(state, iteration_noise(seed, step, device), _batch(data, sel))
+            state, metrics = trainer.update(state, iteration_noise(seed, step, device), _batch(data, sel))
         log.info(f"epoch {epoch}: loss {float(metrics['loss']):.4f} kl {float(metrics['kl']):.1f}")
     return method, state

@@ -18,8 +18,11 @@ bf16, parameters and optimizer fp32; SNGP stays fp32), and the Wilson et al.
 HMC baseline: ``use_hmc_baseline`` (agreement and total variation of the
 clean test split's predictive against the published samples',
 ``data/wilson.py``) and ``eval_hmc`` (those samples through the eval
-metrics). ``data_parallel`` is a no-op on one device, as in JAX, and raises
-with more than one visible card (``utils/device.py::refuse_multi_device``).
+metrics). ``data_parallel`` runs the mesh path under a process group
+(``torchrun``; ``parallel/pipelines.py``): each batch's rows split over the
+data axis, an ensemble's members over the member axis, SVGD's particles'
+forwards too; without a group it is a no-op, as in JAX on one device, and
+raises with several visible cards (``parallel/mesh.py::engine_mesh``).
 
 Entry points run on CUDA unless ``device="cpu"`` is passed. The data sets
 move to the device once, as NCHW float32. ``train`` runs, as in JAX, the
@@ -60,9 +63,11 @@ from ..methods.swag import swag_method
 from ..models.resnet import ResNet20, SNGPResNet20
 from ..nn.base import Model
 from ..nn.gaussian import NoiseSource
+from ..parallel import mesh
 from ..parallel.multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches
+from ..parallel.pipelines import trainer_for
 from ..utils import checkpoint as ckpt
-from ..utils.device import refuse_multi_device, resolve_device
+from ..utils.device import resolve_device
 from ..utils.optim import SGD
 from ..utils.schedules import wilson_schedule
 from . import phases
@@ -204,15 +209,16 @@ def _not_ported(config: dict) -> None:
     if config["model"] == "svgd" and config.get("members", 1) != 1:
         # the JAX build ignores members for svgd; the port refuses
         raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
-    refuse_multi_device(config, ("data_parallel",))
+    mesh.check_flags(config, ("data_parallel",))
 
 
 def _uses_epoch_runner(config: dict) -> bool:
     """True when ``train`` takes the device-resident epoch runner, which
     augments the whole epoch in one bulk pass: the loss must not augment
-    again (JAX ``_uses_epoch_runner``; the data-parallel path that could
-    claim the run first there is not ported)."""
-    return bool(config.get("device_data"))
+    again (JAX ``_uses_epoch_runner``: the data-parallel path claims the run
+    first, under a process group)."""
+    return bool(config.get("device_data")) and not (config.get("data_parallel") and mesh.is_distributed())
+
 
 
 def build(
@@ -360,7 +366,13 @@ def train(
     (n // batch_size)``, so the step keys go on as in JAX :421) and save one
     every ``checkpoint_interval`` epochs, the file written behind the next
     epoch and waited for when the loop ends, however it ends. One host read
-    per epoch, the divergence check."""
+    per epoch, the divergence check.
+
+    ``data_parallel`` under a process group: every update goes through the
+    mesh's ``ParallelTrainer`` (the same data order and keys on every rank,
+    each taking its rows; the runners capture it over NCCL and run it
+    eagerly over gloo), which claims a ``device_data`` run first, as in JAX;
+    the trained state is whole on every rank when this returns."""
     method, state = built.method, built.state
     xd, yd = _to_device(built, x, y)
     seed, bs, n = config["seed"], config["batch_size"], xd.shape[0]
@@ -372,21 +384,23 @@ def train(
             start = resumed + 1
             if log:
                 log(f"resumed from epoch {resumed}")
+    trainer = trainer_for(config, method)
+    state = trainer.place_state(state)
 
     if _uses_epoch_runner(config):
         transform = _bulk_augment if config.get("augment", True) else None
-        runner = make_epoch_runner(method.update, n, bs, epoch_transform=transform)
+        runner = make_epoch_runner(trainer.update, n, bs, epoch_transform=transform, capture=trainer.capturable)
 
         def run_epoch(epoch, state):
             state, metrics = runner(state, keys.fold_in(seed, epoch), (xd, yd))
             return state, metrics["loss"]
     else:
         scan_steps = config.get("scan_steps", 1)
-        multi = make_multi_step(method.update, scan_steps) if scan_steps > 1 else None
+        multi = make_multi_step(trainer.update, scan_steps, capture=trainer.capturable) if scan_steps > 1 else None
 
         def single(state, step, batch):
             noise = NoiseSource(key=keys.as_key(keys.fold_in(seed, step), built.device))
-            return method.update(state, noise, batch)
+            return trainer.update(state, noise, batch)
 
         def run_epoch(epoch, state):
             order = torch.from_numpy(shuffled_indices(n, seed * 1_000_003 + epoch)).to(built.device)
@@ -413,13 +427,13 @@ def train(
     try:
         for epoch in range(start, config["epochs"]):
             state, loss = run_epoch(epoch, state)
-            state = _end_epoch(state, method, epoch, float(loss), log)
+            state = _end_epoch(state, trainer, epoch, float(loss), log)
             if ckpt_dir and (epoch + 1) % config.get("checkpoint_interval", 20) == 0:
-                ckpt.save_checkpoint(ckpt_dir, epoch, state, async_save=True)
+                ckpt.save_checkpoint(ckpt_dir, epoch, trainer.gather_state(state), async_save=True)
     finally:
         if ckpt_dir:
             ckpt.wait_for_async_saves(ckpt_dir)
-    built.state = state
+    built.state = trainer.gather_state(state)
     return built
 
 

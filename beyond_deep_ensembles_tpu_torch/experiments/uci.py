@@ -51,7 +51,8 @@ from ..models.mlp import RegressionMLP
 from ..nn.base import Model
 from ..nn.gaussian import NoiseSource
 from ..parallel.multistep import make_multi_step, stack_batches
-from ..utils.device import refuse_multi_device, resolve_device
+from ..parallel.pipelines import trainer_for
+from ..utils.device import resolve_device
 from ..utils.optim import SGD, Adam, mle_split
 
 DEFAULT_CONFIG = {
@@ -203,16 +204,23 @@ def train(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray, se
     ``train``): the batch order from ``RandomState(seed)``, step s under
     ``fold_in(seed, s)``, ``scan_steps`` > 1 through the multi-step runner,
     ``finalize_epoch`` after every epoch. The losses are read on the host
-    only for the log line of every tenth epoch."""
-    refuse_multi_device(config, ("data_parallel",))
+    only for the log line of every tenth epoch.
+
+    ``data_parallel`` under a process group (JAX :262-275): the updates go
+    through the mesh's ``ParallelTrainer``, each batch's rows split over the
+    data axis, an ensemble's members or SVGD's particles over the member
+    axis where their number divides the ranks'; the trained state is whole
+    on every rank when this returns."""
     method, state = built.method, built.state
+    trainer = trainer_for(config, method)
+    state = trainer.place_state(state)
     xd, yd = _to_device(built, x, y)
     bs, n = config["batch_size"], xd.shape[0]
     scan_steps = config.get("scan_steps", 1)
-    multi = make_multi_step(method.update, scan_steps) if scan_steps > 1 else None
+    multi = make_multi_step(trainer.update, scan_steps, capture=trainer.capturable) if scan_steps > 1 else None
 
     def single(state, step, batch):
-        return method.update(state, NoiseSource(key=keys.as_key(keys.fold_in(seed, step), built.device)), batch)
+        return trainer.update(state, NoiseSource(key=keys.as_key(keys.fold_in(seed, step), built.device)), batch)
 
     rng = np.random.RandomState(seed)
     step = 0
@@ -235,10 +243,10 @@ def train(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray, se
             step += 1
             state, metrics = single(state, step, batch)
             losses.append(metrics["loss"])
-        state = method.finalize_epoch(state)
+        state = trainer.finalize_epoch(state)
         if log and epoch % 10 == 0:
             log(f"epoch {epoch}: train loss {float(torch.mean(torch.stack(losses))):.5f}")
-    built.state = state
+    built.state = trainer.gather_state(state)
     return built
 
 

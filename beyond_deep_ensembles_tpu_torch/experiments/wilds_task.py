@@ -47,8 +47,16 @@ decay added to the gradient, then Adam or SGD with momentum (the port's
 ``utils/optim.py``, whose state lives on the device, so a CUDA graph can
 capture a step). Every path draws its noise in key mode from
 ``keys.fold_in`` of the seed: per step, per epoch, per eval batch.
-``data_parallel`` and ``ring_shard`` are no-ops on one device, as in JAX,
-and raise with more than one visible card (ROADMAP item 18).
+Under a process group (``torchrun``; ``parallel/pipelines.py``)
+``data_parallel`` runs the mesh path: each batch's rows split over the data
+axis (the static batch norms' statistics and every per-example draw the
+whole batch's), an ensemble's members or SVGD's particles over the member
+axis, the ``device_data`` epoch runner over every rank's copy of the data,
+and the eval batches split with their outputs gathered, so every metric is
+the whole split's on every rank; ``ring_shard`` splits SWAG's moments and
+ring over the data axis (``methods/rings.py``), each rank checkpointing its
+columns. Without a group both flags are no-ops, as in JAX on one device,
+and raise with several visible cards (``parallel/mesh.py::engine_mesh``).
 
 ``compute_dtype: bf16`` runs the backbones in bf16 with fp32 parameters,
 optimizer states and heads (JAX ``_compute_dtype``, :110-118): DistilBERT's
@@ -86,6 +94,7 @@ from ..data.native_loader import shuffled_indices
 from ..data.uci import data_dir
 from ..evals.classification import EvalResult, analyze_output, bayesian_model_average
 from ..evals.regression import RegressionResults, nll_loss
+from ..methods import rings
 from ..methods.api import GaussianPrior, LossOutput, PosteriorMethod
 from ..methods.bbb import bbb_method
 from ..methods.ensemble import EnsembleState, deep_ensemble, predict
@@ -105,8 +114,10 @@ from ..nn.dropout import FixableDropout
 from ..nn.gauss import GaussLayer
 from ..nn.gaussian import NoiseSource
 from ..parallel.multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches
+from ..parallel import mesh
+from ..parallel.pipelines import LocalTrainer, member_count, trainer_for
 from ..utils import checkpoint as ckpt
-from ..utils.device import refuse_multi_device, resolve_device
+from ..utils.device import resolve_device
 from ..utils.optim import SGD, Adam
 from ..utils.schedules import cosine_with_warmup, exponential_schedule
 from . import phases
@@ -194,7 +205,7 @@ def _not_ported(task: str, config: dict) -> None:
         raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
     if config.get("lr_schedule_kind", "none") not in ("none", "exponential", "cosine_warmup"):
         raise ValueError(f"unknown lr_schedule_kind {config['lr_schedule_kind']!r}")
-    refuse_multi_device(config)
+    mesh.check_flags(config)
 
 
 def _pretrained_path(task: str, config: dict):
@@ -440,14 +451,25 @@ def _tx(config: dict):
 
 def _ring_kwargs(config: dict) -> dict:
     """``ring_dtype: bf16`` stores SWAG's deviation ring in bfloat16 (JAX
-    ``_ring_kwargs``); ``ring_shard`` is a no-op on one device and raises
-    in ``_not_ported`` with more than one visible card."""
+    ``_ring_kwargs``); ``ring_shard`` under a process group splits the
+    ring's (and the moments') flat dimension over the mesh's data axis, each
+    rank holding ``[K, D/N]`` (a no-op without a group)."""
     rd = config.get("ring_dtype")
+    kw = {}
     if rd in ("bf16", "bfloat16"):
-        return {"ring_dtype": torch.bfloat16}
-    if rd not in (None, "fp32", "float32"):
+        kw["ring_dtype"] = torch.bfloat16
+    elif rd not in (None, "fp32", "float32"):
         raise ValueError(f"ring_dtype {rd!r} (want fp32 or bf16)")
-    return {}
+    grid = mesh.engine_mesh(config, "ring_shard", member_count(config))
+    if grid is not None:
+        kw["ring_sharding"] = rings.RingSharding(grid)
+    return kw
+
+
+def _per_rank(config: dict) -> bool:
+    """Whether the run's checkpoints are written a shard a rank: its ring is
+    split over ranks."""
+    return bool(config.get("ring_shard")) and mesh.is_distributed()
 
 
 def bert_head_mask(params: nn.Module) -> dict:
@@ -470,6 +492,9 @@ class BuiltExperiment:
     # eval runners by (test points, eval batch, samples): captured once for
     # every eval_while_train epoch of one split (JAX :923-932)
     eval_runners: dict = dataclasses.field(default_factory=dict)
+    # the trainer ``train`` ran (``parallel/pipelines.py``): a mesh run's
+    # evals split their batches over its data axis
+    trainer: object = None
 
 
 def build(task: str, config: dict, generator: torch.Generator, steps_per_epoch: Optional[int] = None,
@@ -646,7 +671,16 @@ def train(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray,
     (default 20), written behind the next epoch and waited for when the loop
     ends, however it ends. ``epoch_callback(epoch, built)`` runs after each
     epoch's ``finalize_epoch`` (eval_while_train, early stopping). One host
-    read per epoch, the divergence check."""
+    read per epoch, the divergence check.
+
+    ``data_parallel`` under a process group (JAX :697-760): every update
+    goes through the mesh's ``ParallelTrainer`` (every rank walks the same
+    order and keys and takes its rows of each batch; under ``device_data``
+    every rank holds the whole train set and the epoch runner takes the
+    trainer's update, captured over NCCL, run eagerly over gloo); the state
+    is whole on every rank after each epoch (an ensemble's members gathered
+    from their ranks), so ``epoch_callback`` and the checkpoints see it
+    whole."""
     method, state = built.method, built.state
     seed, bs, n = config["seed"], config["batch_size"], x.shape[0]
     host = _host_data(built.task) and not config.get("device_data")
@@ -662,28 +696,31 @@ def train(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray,
         def gather(order, s):
             idx = order[s * bs : (s + 1) * bs]
             return xd[idx], yd[idx]
-    ckpt_dir = config.get("checkpoint_dir")
+    ckpt_dir, per_rank = config.get("checkpoint_dir"), _per_rank(config)
     start = 0
     if ckpt_dir:
-        state, resumed = ckpt.restore_checkpoint(ckpt_dir, state)
+        state, resumed = ckpt.restore_checkpoint(ckpt_dir, state, per_rank=per_rank)
         if resumed is not None:
             start = resumed + 1
             if log:
                 log(f"resumed from epoch {resumed}")
+    trainer = trainer_for(config, method)
+    state = trainer.place_state(state)
+    built.trainer = trainer
 
     if config.get("device_data"):
-        runner = make_epoch_runner(method.update, n, bs)
+        runner = make_epoch_runner(trainer.update, n, bs, capture=trainer.capturable)
 
         def run_epoch(epoch, state):
             state, metrics = runner(state, keys.fold_in(seed, epoch), (xd, yd))
             return state, metrics["loss"]
     else:
         scan_steps = config.get("scan_steps", 1)
-        multi = make_multi_step(method.update, scan_steps) if scan_steps > 1 else None
+        multi = make_multi_step(trainer.update, scan_steps, capture=trainer.capturable) if scan_steps > 1 else None
 
         def single(state, step, batch):
             noise = NoiseSource(key=keys.as_key(keys.fold_in(seed, step), built.device))
-            return method.update(state, noise, batch)
+            return trainer.update(state, noise, batch)
 
         def run_epoch(epoch, state):
             order = shuffled_indices(n, seed * 1_000_003 + epoch)
@@ -711,16 +748,16 @@ def train(built: BuiltExperiment, config: dict, x: np.ndarray, y: np.ndarray,
     try:
         for epoch in range(start, config["epochs"]):
             state, loss = run_epoch(epoch, state)
-            state = _end_epoch(state, method, epoch, float(loss), log)
-            built.state = state
+            state = _end_epoch(state, trainer, epoch, float(loss), log)
+            built.state = trainer.gather_state(state)
             if ckpt_dir and (epoch + 1) % config.get("checkpoint_interval", 20) == 0:
-                ckpt.save_checkpoint(ckpt_dir, epoch, state, async_save=True)
+                ckpt.save_checkpoint(ckpt_dir, epoch, built.state, async_save=True, per_rank=per_rank)
             if epoch_callback is not None:
                 epoch_callback(epoch, built)
     finally:
         if ckpt_dir:
             ckpt.wait_for_async_saves(ckpt_dir)
-    built.state = state
+    built.state = trainer.gather_state(state)
     return built
 
 
@@ -749,17 +786,24 @@ def eval_task(built: BuiltExperiment, task: str, config: dict, x: np.ndarray, y:
     last partial batch is padded with copies of its last example and
     trimmed, so every example counts once (and, under static BN, the padded
     batch's statistics are the same on both paths). An image task's ``x``
-    is NCHW (:func:`task_images`)."""
+    is NCHW (:func:`task_images`). After a mesh run's ``train`` each eval
+    batch's rows split over the data axis and the outputs are gathered (JAX
+    :896-963), so the metrics (ECE bins, quantiles) are the whole split's,
+    alike on every rank."""
     method, state = built.method, built.state
     bs, n_samples = config["eval_batch_size"], config["eval_samples"]
     components = config.get("rank1_components", 1) if config.get("model") == "rank1" else 1
     n = x.shape[0]
 
-    def predict_batch(state, key, xb):
-        out = predict(method, state, built.apply_fn, xb, n_samples=n_samples, noise=NoiseSource(key=key),
+    def predict_rows(state, key, rows, xb):
+        out = predict(method, state, built.apply_fn, xb, n_samples=n_samples, noise=NoiseSource(key=key, rows=rows),
                       components=components)
         # the runner and the host loop cut and join along the batch
         return out.transpose(0, 1) if built.regression else bayesian_model_average(out)
+
+    # a mesh run's eval batches split over its data axis, the outputs gathered
+    trainer = built.trainer if built.trainer is not None else LocalTrainer(method)
+    predict_batch = trainer.predict(predict_rows)
 
     device_eval = config.get(
         "device_eval", (bool(config.get("device_data")) or built.device.type == "cuda") and x.nbytes <= 2 << 30)
@@ -769,7 +813,7 @@ def eval_task(built: BuiltExperiment, task: str, config: dict, x: np.ndarray, y:
             # Laplace fit after evals during training) needs a new one
             cached, runner = built.eval_runners.get((n, bs, n_samples), (None, None))
             if cached is not method:
-                runner = make_eval_runner(predict_batch, n, bs)
+                runner = make_eval_runner(predict_batch, n, bs, capture=trainer.capturable)
                 built.eval_runners[(n, bs, n_samples)] = (method, runner)
             outputs = runner(state, seed, _to_device(built, x, y)[0])
         else:
@@ -865,7 +909,7 @@ def run_single(task: str, config: dict, log=None, device=None) -> dict:
     built = train(built, config, x, y, log=log, epoch_callback=epoch_callback)
     ckpt_dir = config.get("checkpoint_dir")
     if ckpt_dir:
-        ckpt.save_final(ckpt_dir, config["model"], built.state, async_save=True)
+        ckpt.save_final(ckpt_dir, config["model"], built.state, async_save=True, per_rank=_per_rank(config))
     try:
         if config["model"] == "laplace":
             _fit_laplace(built, config, x, y)

@@ -32,9 +32,13 @@ from .api import PosteriorMethod
 @dataclasses.dataclass
 class EnsembleState:
     """The members' inner states. ``step`` reads member 0's and sets every
-    member's (the runners restore it after their warm-up)."""
+    member's (the runners restore it after their warm-up). ``first``: the
+    index of ``members[0]`` in the whole ensemble, nonzero on a rank that
+    holds its share of a member-split ensemble
+    (``parallel/mesh.py::shard_member_state``)."""
 
     members: List
+    first: int = 0
 
     @property
     def step(self) -> int:
@@ -72,9 +76,10 @@ def deep_ensemble(inner: PosteriorMethod, n_members: int) -> PosteriorMethod:
     init(params, model_state=None): ``params`` a sequence of M member
         modules (an ``nn.ModuleList``); each member's state is
         ``inner.init(module, {})``.
-    update: each member's ``inner.update`` under ``noise.member(m)``; the
-        metrics are the members' means, and ``{k}_per_member`` the ``[M]``
-        values.
+    update: each member's ``inner.update`` under ``noise.member(m)``, m
+        the member's index in the whole ensemble; the metrics are the
+        members' means, and ``{k}_per_member`` the ``[M]`` values (of the
+        rank's members where they are split over ranks).
     sample(state, noise, index): member ``index % M``'s
         ``inner.sample(member, noise, index // M)``.
     finalize_epoch: each member's."""
@@ -90,7 +95,7 @@ def deep_ensemble(inner: PosteriorMethod, n_members: int) -> PosteriorMethod:
     def update(state: EnsembleState, noise, batch):
         per_member = []
         for m, member in enumerate(state.members):
-            state.members[m], metrics = inner.update(member, noise.member(m), batch)
+            state.members[m], metrics = inner.update(member, noise.member(state.first + m), batch)
             per_member.append(metrics)
         stacked = {k: torch.stack([metrics[k] for metrics in per_member]) for k in per_member[0]}
         out = {k: torch.mean(v) for k, v in stacked.items()}

@@ -18,6 +18,14 @@ over ``[D]``. ``noise`` is a ``torch.Generator`` (the momentum drawn as
 ``randn(D)``, then the accept uniform) or a mapping holding those draws
 (``momentum`` ``[D]`` in the flat order, ``uniform`` a 0-dim tensor), so a
 test can give the JAX package's draws.
+
+On a data-parallel mesh (``parallel/mesh.py``; the full batch sharded over
+the data axis, the chain replicated) the log-likelihood and its gradient are
+the whole batch's: the shard's ``-dataset_size * loss`` and its gradient
+averaged over the axis by one collective, the prior's added after. Every
+rank then holds the same energies and draws the same momentum and uniform,
+so the accept test decides alike on every rank. ``ring_sharding`` stores
+each rank's columns of the draws (``methods/rings.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Callable, Mapping
 import torch
 
 from .. import tree
+from ..parallel import mesh as _mesh
 from ..utils.optim import flatten_parameters
 from . import rings
 from .api import LossFn, MethodState, PosteriorMethod, default_finalize_epoch
@@ -40,7 +49,7 @@ class HmcState(MethodState):
     step_size: torch.Tensor  # fp32
     log_likelihood: torch.Tensor  # -dataset_size * loss at the parameters
     grad: torch.Tensor  # [D] gradient of -U at the parameters (ascent direction)
-    samples: torch.Tensor  # [K, D] ring of accepted draws, newest last
+    samples: torch.Tensor  # [K, D] ring of accepted draws, newest last ([K, D/N] columns when sharded)
     n_samples: torch.Tensor  # int32
     accept_prob: torch.Tensor
     accepted: torch.Tensor  # bool
@@ -84,9 +93,15 @@ def make_grad_fn(loss_fn: LossFn, dataset_size: int, prior_std: float, template,
             theta = flat.detach().requires_grad_(True)
             out = loss_fn(unravel(theta), model_state, None, batch)
             loglik = -dataset_size * out.loss
-            neg_u = loglik + _log_prior(theta, prior_std)
-            (grad,) = torch.autograd.grad(neg_u, theta)
-        return loglik.detach(), grad
+            if _mesh.active() is None:
+                neg_u = loglik + _log_prior(theta, prior_std)
+                (grad,) = torch.autograd.grad(neg_u, theta)
+                return loglik.detach(), grad
+            # a shard of the full batch: the whole batch's likelihood and
+            # gradient by one collective, then the prior's gradient
+            (grad,) = torch.autograd.grad(loglik, theta)
+        grad, loglik = _mesh.mean_of([grad, loglik.detach()])
+        return loglik, grad - flat.detach() / prior_std**2
 
     return grad_fn
 
@@ -120,13 +135,13 @@ def hmc_method(
     ring_sharding=None,
 ) -> PosteriorMethod:
     """``ring_dtype`` stores the draw ring (bf16 halves it, rows upcast on
-    read); ``ring_sharding`` raises on one device (``methods/rings.py``)."""
-    rings.refuse_sharding(ring_sharding)
+    read); ``ring_sharding`` (a ``rings.RingSharding``) splits its columns
+    over a data axis."""
+    rings.check(ring_sharding)
     adapt = target_accept_rate > 0 and step_size_adaptation_speed > 0
 
     def init(params, model_state=None):
         flat = flatten_parameters(list(tree.sorted_named(params).values()))
-        flat = rings.pad_flat(flat, ring_sharding)
         device = flat.device
 
         def scalar(value, dtype=torch.float32):
@@ -140,7 +155,8 @@ def hmc_method(
             step_size=scalar(step_size),
             log_likelihood=scalar(-float("inf")),
             grad=torch.zeros_like(flat),
-            samples=torch.zeros((max_samples, flat.shape[0]), dtype=ring_dtype, device=device),
+            samples=torch.zeros((max_samples, rings.shard(flat, ring_sharding).shape[0]), dtype=ring_dtype,
+                                device=device),
             n_samples=scalar(0, torch.int32),
             accept_prob=scalar(0.0),
             accepted=scalar(False, torch.bool),
@@ -171,7 +187,7 @@ def hmc_method(
                     step_size_adaptation_speed * (accept_prob - target_accept_rate))
             take = accepted if do_mh_correction else torch.ones_like(accepted)
             params = torch.where(take, params1, params0)
-            ring = rings.pushed(state.samples, params, ring_dtype)
+            ring = rings.pushed(state.samples, params, ring_dtype, ring_sharding)
             state.flat.copy_(params)
             state.grad.copy_(torch.where(take, grad1, grad0))
             state.log_likelihood.copy_(torch.where(take, loglik1, loglik0))
@@ -195,7 +211,8 @@ def hmc_method(
         ``(params mapping, model_state)``."""
         del noise
         with torch.no_grad():
-            flat = rings.read(state.samples, state.n_samples, 0 if index is None else index, state.flat)
+            flat = rings.read(state.samples, state.n_samples, 0 if index is None else index, state.flat,
+                              ring_sharding)
         return tree.make_unravel(tree.sorted_named(state.params))(flat), state.model_state
 
     return PosteriorMethod(init=init, update=update, sample=sample, finalize_epoch=default_finalize_epoch)

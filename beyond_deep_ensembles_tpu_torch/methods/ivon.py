@@ -39,6 +39,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from ..parallel import mesh as _mesh
 from ..tree import make_unravel
 from ..utils.optim import flat_grad, flatten_parameters
 from .api import LossFn, MethodState, PosteriorMethod, default_finalize_epoch, non_mle_mask
@@ -135,6 +136,9 @@ def ivon_method(
             model_state = out.model_state or model_state
         for p in plist:
             p.grad = None
+        # under a data-parallel mesh the whole batch's gradient and loss (one
+        # collective), so every rank takes the same guard
+        acc_grad, acc_loss = _mesh.mean_of([acc_grad, torch.as_tensor(acc_loss, device=acc_grad.device)])
         avg_loss = acc_loss / mc_samples
         with torch.no_grad():
             mean, mom, prec = state.mean, state.momentum, state.precision

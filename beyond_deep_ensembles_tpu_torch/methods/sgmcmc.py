@@ -26,6 +26,7 @@ from typing import Any, Callable, Mapping, NamedTuple, Optional, Union
 import torch
 
 from .. import tree
+from ..parallel import mesh as _mesh
 from ..utils.optim import flatten_parameters
 from . import rings
 from .api import LossFn, MethodState, PosteriorMethod, default_finalize_epoch
@@ -170,19 +171,24 @@ def sgmcmc_method(
     past ``burn_in_steps`` the parameters are pushed into the ``[max_samples,
     D]`` ring of ``ring_dtype``; ``sample(index)`` counts back from the
     newest draw. ``preconditioner="rmsprop"`` takes :class:`RMSPreconditioner`.
-    ``ring_sharding`` raises on one device (``methods/rings.py``)."""
-    rings.refuse_sharding(ring_sharding)
+    ``ring_sharding`` (a ``rings.RingSharding``) splits the ring's columns
+    over a data axis. On a data-parallel mesh the potential's data term
+    and its gradient are the whole batch's (their mean over the data axis,
+    one collective), the prior's gradient added after, so every rank steps
+    alike."""
+    rings.check(ring_sharding)
     pc = RMSPreconditioner() if preconditioner == "rmsprop" else None
     tx = sgld(step_size_fn, momentum_decay, temperature, pc)
 
     def init(params, model_state=None):
-        flat = rings.pad_flat(flatten_parameters(list(tree.sorted_named(params).values())), ring_sharding)
+        flat = flatten_parameters(list(tree.sorted_named(params).values()))
         return SgmcmcState(
             params=params,
             model_state=model_state or {},
             opt_state=tx.init(flat),
             flat=flat,
-            samples=torch.zeros((max_samples, flat.shape[0]), dtype=ring_dtype, device=flat.device),
+            samples=torch.zeros((max_samples, rings.shard(flat, ring_sharding).shape[0]), dtype=ring_dtype,
+                                device=flat.device),
             n_samples=torch.zeros((), dtype=torch.int32, device=flat.device),
         )
 
@@ -193,7 +199,14 @@ def sgmcmc_method(
             out = loss_fn(unravel(theta), state.model_state, None, batch)
             prior = tree.tree_sq_norm(theta) / (2 * prior_std**2)
             pot = dataset_size * out.loss + prior
-            (grads,) = torch.autograd.grad(pot, theta)
+            if _mesh.active() is None:
+                (grads,) = torch.autograd.grad(pot, theta)
+            else:
+                (grads,) = torch.autograd.grad(dataset_size * out.loss, theta)
+        if _mesh.active() is not None:
+            grads, data_term = _mesh.mean_of([grads, (dataset_size * out.loss).detach()])
+            grads = grads + state.flat / prior_std**2
+            pot = data_term + prior.detach()
         given = noise["noise"].to(grads.device) if isinstance(noise, Mapping) else None
         key = noise if isinstance(noise, torch.Generator) else None
         with torch.no_grad():
@@ -202,7 +215,7 @@ def sgmcmc_method(
             state.opt_state = opt_state
             state.step += 1
             if state.step > burn_in_steps and state.step % sample_interval == 0:
-                state.samples.copy_(rings.pushed(state.samples, state.flat, ring_dtype))
+                state.samples.copy_(rings.pushed(state.samples, state.flat, ring_dtype, ring_sharding))
                 state.n_samples.copy_(torch.clamp(state.n_samples + 1, max=max_samples))
         state.model_state = out.model_state or state.model_state
         return state, {"loss": out.loss.detach(), "potential": pot.detach()}
@@ -210,7 +223,8 @@ def sgmcmc_method(
     def sample(state: SgmcmcState, noise=None, index=None):
         del noise
         with torch.no_grad():
-            flat = rings.read(state.samples, state.n_samples, 0 if index is None else index, state.flat)
+            flat = rings.read(state.samples, state.n_samples, 0 if index is None else index, state.flat,
+                              ring_sharding)
         return tree.make_unravel(tree.sorted_named(state.params))(flat), state.model_state
 
     return PosteriorMethod(init=init, update=update, sample=sample, finalize_epoch=default_finalize_epoch)

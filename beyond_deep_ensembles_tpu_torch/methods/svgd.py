@@ -22,6 +22,19 @@ momentum and the schedule's count included, by a select on the device
 step reads nothing on the host and a CUDA graph can capture it (K2's counter
 is zeroed by a first call outside capture, which a runner's warm-up makes).
 
+Particle p draws its noise from ``noise.member(p)`` (JAX splits its step
+key per particle): in key mode a source of its own, in generator and given
+mode this source, whose draws the particles take in turn.
+
+On a mesh (``parallel/mesh.py``) the particles are whole on every rank; a
+rank runs the forwards and backwards of its share of the member axis
+(``mesh.member_range``), averages their gradients and losses over the data
+axis and gathers them over the member axis (the JAX package's
+``test_svgd_particle_data_parallel_equals_single_device`` arrangement), so
+every rank takes K2 on the same gathered ``[n, P]`` block and steps every
+particle alike. A member-split update needs per-particle sources (key mode,
+or given draws per particle) and raises otherwise.
+
 Only an empty model state is ported (FRN keeps none); a stacked per-particle
 state raises.
 """
@@ -34,6 +47,7 @@ import torch
 from torch import nn
 
 from ..ops.svgd_kernel import _median_linear, rbf_phi
+from ..parallel import mesh as _mesh
 from ..tree import make_unravel, ravel
 from .api import LossFn, MethodState, PosteriorMethod, default_finalize_epoch, non_mle_mask
 
@@ -75,30 +89,41 @@ def svgd_method(
         particles = state.params
         optimizer, _ = state.opt_state
         optimizer.zero_grad(set_to_none=True)
+        mesh = _mesh.active()
+        own = range(particle_count) if mesh is None else _mesh.member_range(mesh, particle_count)
+        if len(own) < particle_count and noise is not None and not noise.per_member:
+            raise ValueError("particles split over ranks draw from per-particle sources: key mode or given draws "
+                             "per particle")
         losses = []
-        for particle in particles:
-            out = loss_fn(particle, state.model_state, noise, batch)
+        for i in own:
+            out = loss_fn(particles[i], state.model_state, None if noise is None else noise.member(i), batch)
             out.loss.backward()
             losses.append(out.loss.detach())
         losses = torch.stack(losses)
 
         with torch.no_grad():
+            raw = torch.stack([ravel({k: q.grad for k, q in particles[i].named_parameters()}) for i in own])
+            if mesh is not None:
+                raw, losses = _mesh.mean_of([raw, losses])
+                if len(own) < particle_count:
+                    raw = _mesh.all_gather(raw, _mesh.MEMBER_AXIS)
+                    losses = _mesh.all_gather(losses, _mesh.MEMBER_AXIS)
             particle_mat = torch.stack([ravel(p) for p in particles])  # [n, P]
-            grad_mat = torch.stack([ravel({k: q.grad for k, q in p.named_parameters()}) for p in particles])
             # prior as L2 (reference svgd.py:86)
-            grad_mat = grad_mat + (l2_reg / 2.0) * particle_mat
+            grad_mat = raw + (l2_reg / 2.0) * particle_mat
             phi = rbf_phi(particle_mat, grad_mat, kernel_grad_scale, dataset_size)
-            # descend along -phi (reference svgd.py:89-95 writes -phi into .grad)
+            # descend along -phi (reference svgd.py:89-95 writes -phi into
+            # .grad); the __mle parameters keep their raw gradient
             unravel = make_unravel(particles[0])
             mask = non_mle_mask(particles[0])
-            for particle, direction in zip(particles, -phi):
-                stein = unravel(direction)
+            for particle, direction, grad in zip(particles, -phi, raw):
+                stein, plain = unravel(direction), unravel(grad)
                 for name, p in particle.named_parameters():
-                    if mask[name]:
-                        p.grad = stein[name]
+                    p.grad = stein[name] if mask[name] else plain[name]
             # skip the whole update on a non-finite gradient (reference
-            # svgd.py:78-79, GradScaler's inf check)
-            optimizer.step(torch.isfinite(grad_mat).all())
+            # svgd.py:78-79, GradScaler's inf check); the gradients are
+            # global already
+            optimizer.step(torch.isfinite(grad_mat).all(), reduce=False)
         state.step += 1
         # ``backbone_loss`` is the SUM over particles: under a last-layer
         # composition the reference's shared backbone accumulates every

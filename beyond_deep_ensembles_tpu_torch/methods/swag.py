@@ -19,6 +19,11 @@ parameter names to tensors, which ``nn/base.py::Model.apply`` runs through
 the model with ``torch.func.functional_call``. As in JAX, a non-finite loss
 is not guarded against.
 
+Under ``ring_sharding`` (``methods/rings.py``) the moments and the ring hold
+this rank's columns of the padded D (``[D/N]`` and ``[K, D/N]``); a draw is
+made of the whole padded width, its columns combined on each rank and
+gathered once, where it is unraveled into parameters.
+
 The flat order is the module's parameter order (``tree.ravel``), not
 ``jax.tree.leaves``' alphabetical one; ``models/jax_convert.py`` maps a JAX
 state across.
@@ -41,7 +46,7 @@ _SWAG_KEYS = ("mean", "sq_mean", "deviations", "updates", "steps_since_start")
 
 @dataclasses.dataclass(kw_only=True)
 class SwagState(MethodState):
-    mean: torch.Tensor  # [D] running first moment
+    mean: torch.Tensor  # [D] running first moment ([D/N] columns when sharded)
     sq_mean: torch.Tensor  # [D] running second moment
     deviations: torch.Tensor  # [K, D] ring of deviation rows, ring_dtype
     updates: torch.Tensor  # int32: moment updates so far
@@ -72,12 +77,12 @@ def swag_method(
     """``tx(params) -> (optimizer, None)``; a collection every
     ``update_interval`` steps from the epoch ``start_epoch`` on, the last
     ``deviation_samples`` deviations kept in ``ring_dtype``."""
+    rings.check(ring_sharding)
     update_interval = int(math.floor(update_interval))
-    rings.refuse_sharding(ring_sharding)
 
     def init(params, model_state=None):
         with torch.no_grad():
-            flat = rings.pad_flat(ravel(params), ring_sharding)
+            flat = rings.shard(ravel(params), ring_sharding)
         device = flat.device
         return SwagState(
             params=params,
@@ -104,7 +109,7 @@ def swag_method(
             started = state.epoch >= start_epoch
             steps_since = state.steps_since_start + started.to(torch.int32)
             do_update = started & (steps_since % update_interval == 0)
-            flat = rings.pad_flat(ravel(state.params), ring_sharding)
+            flat = rings.shard(ravel(state.params), ring_sharding)
             n = state.updates + 1
             new_mean = (n * state.mean + flat) / (n + 1)
             new_sq = (n * state.sq_mean + flat**2) / (n + 1)
@@ -124,13 +129,15 @@ def swag_method(
         z1 then z2 from ``noise``; ``(params mapping, model_state)``."""
         del index
         mean = state.mean
-        diag = 0.5 * (F.relu(state.sq_mean - mean**2) + 1e-6)
-        z1 = noise.normal((deviation_samples,), mean.device, True, False)
-        z2 = noise.normal(tuple(mean.shape), mean.device, True, False)
-        low_rank = torch.matmul(z1, rings.load(state.deviations))  # fp32, whatever the ring stores
-        flat = mean + low_rank / math.sqrt(2 * (deviation_samples - 1)) + torch.sqrt(diag) * z2
         current = dict(state.params.named_parameters())
         d = sum(p.numel() for p in current.values())
+        diag = 0.5 * (F.relu(state.sq_mean - mean**2) + 1e-6)
+        z1 = noise.normal((deviation_samples,), mean.device, True, False)
+        z2 = noise.normal((rings.padded_width(d, ring_sharding),), mean.device, True, False)
+        low_rank = torch.matmul(z1, rings.load(state.deviations))  # fp32, whatever the ring stores
+        flat = mean + low_rank / math.sqrt(2 * (deviation_samples - 1)) + torch.sqrt(diag) * rings.shard(
+            z2, ring_sharding)
+        flat = rings.gather(flat, ring_sharding)
         drawn = make_unravel(state.params)(flat[:d])
         mask = non_mle_mask(state.params)
         params = {name: drawn[name] if mask[name] else current[name].detach() for name in current}

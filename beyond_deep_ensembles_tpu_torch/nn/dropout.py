@@ -21,7 +21,7 @@ from torch import nn
 def dropout(x: torch.Tensor, rate: float, noise) -> torch.Tensor:
     """Per-element dropout with the kept values rescaled by 1/(1-rate)
     (flax ``nn.Dropout``, and FixableDropout outside frozen eval)."""
-    keep = noise.keep_mask(x.shape, x.device, rate)
+    keep = noise.keep_mask(x.shape, x.device, rate, batch_axis=0)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

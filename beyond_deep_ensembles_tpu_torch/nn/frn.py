@@ -58,7 +58,7 @@ class VariationalFilterResponseNorm(nn.Module):
         draws = []
         for name in ("tau", "beta", "gamma"):
             mean, std = gaussian_mean_std(self, name)
-            eps = noise.normal(shape, x.device, train, self.freeze_on_eval)
+            eps = noise.normal(shape, x.device, train, self.freeze_on_eval, batch_axis=0)
             draws.append((mean + std * eps)[:, :, None, None])
         tau, beta, gamma = draws
         nu2 = torch.mean(torch.square(x), dim=(2, 3), keepdim=True)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -118,21 +118,40 @@ class NoiseSource:
     At eval with ``freeze_on_eval`` one noise row is broadcast over the
     batch (reference bbb_layers.py:76-78), so one posterior sample behaves
     like one fixed network.
+
+    Data-parallel shards (``rows = (offset, total)``, set by
+    ``parallel/pipelines.py::ParallelTrainer`` on a rank that holds rows
+    ``[offset, offset + B)`` of a batch of ``total``): every draw made per
+    example (K1's train-mode epilogue, K3's mask, the dropout layers' and
+    FRN's train-mode draws, the crops, SNGP's sample noise) is those rows of
+    the whole batch's draw, bit for bit, in every mode. K1, K3 and the key
+    mode's keep masks take the offset; the other draws are made at the whole
+    batch's shape and cut (a generator's stream, or the key mode's pooled
+    normals, depends on the shape drawn); a given draw has the whole
+    batch's shape and is cut. Draws of one row or of the parameters' shape
+    are made whole on every rank, alike.
+
+    Given mode with a mapping ``{member: draws}`` gives member ``m`` the
+    draws ``given[m]`` (:meth:`member`), so that members split over ranks
+    each take their own.
     """
 
     def __init__(
         self,
         generator: Optional[torch.Generator] = None,
-        given: Optional[Sequence[torch.Tensor]] = None,
+        given: Optional[Union[Sequence[torch.Tensor], Mapping[int, Sequence[torch.Tensor]]]] = None,
         key: Optional[torch.Tensor] = None,
+        rows: Optional[Tuple[int, int]] = None,
     ):
         if sum(x is not None for x in (generator, given, key)) != 1:
             raise ValueError("pass exactly one of generator=, given= and key=")
         if key is not None and (key.dtype != torch.int64 or key.numel() != 1):
             raise ValueError("a key is a one-element int64 tensor")
         self.generator = generator
-        self._given = None if given is None else list(given)
+        self._members = dict(given) if isinstance(given, Mapping) else None
+        self._given = None if given is None else ([] if self._members is not None else list(given))
         self.key = key
+        self.rows = rows
         self.draws = 0
         self._device_generators = {}
         self._pool, self._pool_used, self._chunks = None, 0, 0
@@ -141,30 +160,58 @@ class NoiseSource:
     def seeded(cls, seed: int) -> "NoiseSource":
         return cls(generator=torch.Generator().manual_seed(seed))
 
-    def _take(self, shape) -> torch.Tensor:
+    def _take(self, shape, batch_axis: Optional[int] = None) -> torch.Tensor:
+        """The next given draw; per example (``batch_axis``) at ``rows`` a
+        draw of the whole batch's shape, cut to the rows."""
         if self.draws >= len(self._given):
             raise IndexError(f"given noise exhausted after {self.draws} draws")
         eps = self._given[self.draws]
-        if tuple(eps.shape) != tuple(shape):
+        want = self._whole(shape, batch_axis)
+        if tuple(eps.shape) != want:
             raise ValueError(
                 f"given noise draw {self.draws} has shape {tuple(eps.shape)}, "
-                f"the layer asks for {tuple(shape)}"
+                f"the layer asks for {want}"
             )
         self.draws += 1
-        return eps
+        return self._cut(eps, shape, batch_axis)
+
+    def _sharded(self, shape, batch_axis: Optional[int]) -> bool:
+        return self.rows is not None and batch_axis is not None and self.rows[1] != shape[batch_axis]
+
+    def _whole(self, shape, batch_axis: Optional[int]) -> tuple:
+        """The whole batch's shape of a draw of ``shape``."""
+        shape = tuple(shape)
+        if not self._sharded(shape, batch_axis):
+            return shape
+        return shape[:batch_axis] + (self.rows[1],) + shape[batch_axis + 1:]
+
+    def _cut(self, whole: torch.Tensor, shape, batch_axis: Optional[int]) -> torch.Tensor:
+        """This shard's rows of a draw of the whole batch's shape."""
+        if not self._sharded(shape, batch_axis):
+            return whole
+        return whole.narrow(batch_axis, self.rows[0], shape[batch_axis])
 
     def seed(self) -> int:
         """A fresh Philox seed for one kernel launch."""
         return int(torch.randint(0, 2**62, (1,), generator=self.generator))
 
+    @property
+    def per_member(self) -> bool:
+        """Whether :meth:`member` gives each member draws of its own (key
+        mode, or given draws per member) rather than this source's in turn."""
+        return self.key is not None or self._members is not None
+
     def member(self, index: int) -> "NoiseSource":
         """The source of ensemble member ``index``: in key mode a new source
         on the device key ``fold_in(key, index)`` (the JAX ensemble splits
         its step key per member); in generator and given mode this source,
-        whose draws the members then take in turn."""
+        whose draws the members then take in turn, or, given a mapping, a
+        source of ``given[index]``. The rows carry over."""
+        if self._members is not None:
+            return NoiseSource(given=self._members[index], rows=self.rows)
         if self.key is None:
             return self
-        return NoiseSource(key=keys.fold_in(self.key.reshape(()), index))
+        return NoiseSource(key=keys.fold_in(self.key.reshape(()), index), rows=self.rows)
 
     def _pooled(self, numel: int) -> torch.Tensor:
         """The next ``numel`` normals of the key's pool (key mode)."""
@@ -210,13 +257,17 @@ class NoiseSource:
         """Random-crop offsets ``[batch, 2]`` in [0, 8] and flip bits
         ``[batch]`` for ``data/cifar.py::augment``: from the generator (on the
         CPU, as the generator mode always drew them), or, in key mode, from
-        ``keys.bits`` on the key's stream of this draw's index."""
+        ``keys.bits`` on the key's stream of this draw's index. At ``rows``
+        the rows of the whole batch's draws."""
+        whole = self._whole((batch,), 0)[0]
         if self.key is None:
-            offsets = torch.randint(0, 9, (batch, 2), generator=self.generator)
-            return offsets, torch.rand(batch, generator=self.generator) < 0.5
-        h = keys.bits(self.key.reshape(()), self.draws, 3 * batch)
-        self.draws += 1
-        return (h[: 2 * batch] % 9).reshape(batch, 2), (h[2 * batch :] & 1) == 1
+            offsets = torch.randint(0, 9, (whole, 2), generator=self.generator)
+            flips = torch.rand(whole, generator=self.generator) < 0.5
+        else:
+            h = keys.bits(self.key.reshape(()), self.draws, 3 * whole)
+            self.draws += 1
+            offsets, flips = (h[: 2 * whole] % 9).reshape(whole, 2), (h[2 * whole :] & 1) == 1
+        return self._cut(offsets, (batch, 2), 0), self._cut(flips, (batch,), 0)
 
     def _device_generator(self, device: torch.device) -> torch.Generator:
         key = str(device)
@@ -226,14 +277,20 @@ class NoiseSource:
             self._device_generators[key] = gen
         return gen
 
-    def normal(self, shape, device, train: bool, freeze_on_eval: bool) -> torch.Tensor:
-        """N(0, 1) of ``shape`` (batch first), one row broadcast over the
-        batch at frozen eval."""
+    def normal(self, shape, device, train: bool, freeze_on_eval: bool, batch_axis: Optional[int] = None
+               ) -> torch.Tensor:
+        """N(0, 1) of ``shape``, one row broadcast over the batch (axis 0) at
+        frozen eval; ``batch_axis``: the axis of a per-example draw's
+        examples (cut to ``rows``), None for a draw of parameters."""
         frozen = not train and freeze_on_eval
-        draw_shape = tuple(shape[1:]) if frozen else tuple(shape)
+        if frozen:
+            draw_shape, batch_axis = tuple(shape[1:]), None
+        else:
+            draw_shape = tuple(shape)
         if self._given is not None:
-            eps = self._take(draw_shape).to(device)
-        elif self.key is not None:
+            return self._expand(self._take(draw_shape, batch_axis).to(device), shape, frozen)
+        local_shape, draw_shape = draw_shape, self._whole(draw_shape, batch_axis)
+        if self.key is not None:
             numel = math.prod(draw_shape)
             if numel > _POOL:  # one draw of its own stream (a SWAG or iVON draw over a whole model)
                 eps = keys.normal(self.key.reshape(()), _BIG_STREAM + self.draws, numel).reshape(draw_shape)
@@ -245,6 +302,10 @@ class NoiseSource:
                 draw_shape, generator=self._device_generator(device), device=device
             )
             self.draws += 1
+        return self._expand(self._cut(eps, local_shape, batch_axis), shape, frozen)
+
+    @staticmethod
+    def _expand(eps, shape, frozen: bool):
         return eps.expand(tuple(shape)) if frozen else eps
 
     def gaussian(self, act_mean, act_var, b_mean, b_var, train: bool, freeze_on_eval: bool):
@@ -254,26 +315,31 @@ class NoiseSource:
         if self._given is not None:
             shape = act_mean.shape[1:] if frozen else act_mean.shape
             # z stays fp32 for bf16 planes: K1 draws and adds in fp32
-            eps = self._take(shape).to(device=act_mean.device,
-                                       dtype=torch.promote_types(act_mean.dtype, torch.float32))
+            eps = self._take(shape, None if frozen else 0).to(
+                device=act_mean.device, dtype=torch.promote_types(act_mean.dtype, torch.float32))
             return gaussian_sample(act_mean, act_var, b_mean, b_var, eps=eps.contiguous())
         seed = DeviceSeed(self.key, self.draws) if self.key is not None else self.seed()
         self.draws += 1
-        return gaussian_sample(act_mean, act_var, b_mean, b_var, seed=seed, frozen=frozen)
+        return gaussian_sample(act_mean, act_var, b_mean, b_var, seed=seed, frozen=frozen,
+                               rows=None if frozen else self.rows)
 
-    def keep_mask(self, shape, device, rate: float) -> torch.Tensor:
+    def keep_mask(self, shape, device, rate: float, batch_axis: Optional[int] = None) -> torch.Tensor:
         """A dropout layer's keep mask of ``shape``: bool, each element kept
         with probability 1 - ``rate`` (``u >= rate`` for u uniform: on the
         device's generator, or, in key mode, the top 24 of ``keys.bits``
-        on the key's stream of this draw's index), or the next given mask."""
+        on the key's stream of this draw's index), or the next given mask;
+        ``batch_axis`` (0 or None) as :meth:`normal`'s."""
+        shape = tuple(shape)
         if self._given is not None:
-            return self._take(shape).to(device=device, dtype=torch.bool)
+            return self._take(shape, batch_axis).to(device=device, dtype=torch.bool)
         if self.key is not None:
-            mask = keys.keep_mask(self.key.reshape(()), self.draws, shape, rate)
+            offset = self.rows[0] * math.prod(shape[1:]) if self._sharded(shape, batch_axis) else 0
+            mask = keys.keep_mask(self.key.reshape(()), self.draws, shape, rate, offset=offset)
             self.draws += 1
             return mask
         self.draws += 1
-        return torch.rand(tuple(shape), generator=self._device_generator(device), device=device) >= rate
+        whole = torch.rand(self._whole(shape, batch_axis), generator=self._device_generator(device), device=device)
+        return self._cut(whole, shape, batch_axis) >= rate
 
     def attention(self, q, k, v, key_mask, rate: float):
         """Self-attention with dropout ``rate`` on the probabilities through
@@ -282,14 +348,15 @@ class NoiseSource:
         L]``."""
         b, l, h, _ = q.shape
         if self._given is not None:
-            keep = self._take((b, h, l, l)).to(device=q.device, dtype=torch.bool)
+            keep = self._take((b, h, l, l), 0).to(device=q.device, dtype=torch.bool)
             return fused_dropout_attention(q, k, v, key_mask, dropout_p=rate, keep=keep)
+        rows = self.rows if self._sharded((b,), 0) else None
         if self.key is None:
             seed = self.seed()
         else:
-            if b * h >= 1 << _PANEL_SHIFT or self.draws + 1 >= 1 << (31 - _PANEL_SHIFT):
+            if self._whole((b,), 0)[0] * h >= 1 << _PANEL_SHIFT or self.draws + 1 >= 1 << (31 - _PANEL_SHIFT):
                 raise ValueError(f"a key-mode attention takes B H < 2^{_PANEL_SHIFT} panels and fewer than "
                                  f"{(1 << (31 - _PANEL_SHIFT)) - 1} draws of one source")
             seed = DeviceSeed(self.key.reshape(()), (self.draws + 1) << _PANEL_SHIFT)
         self.draws += 1
-        return fused_dropout_attention(q, k, v, key_mask, dropout_p=rate, seed=seed)
+        return fused_dropout_attention(q, k, v, key_mask, dropout_p=rate, seed=seed, rows=rows)

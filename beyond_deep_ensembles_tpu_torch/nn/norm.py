@@ -5,6 +5,12 @@ Counterpart of ``beyond_deep_ensembles_tpu/nn/norm.py``, in NCHW:
 statistics at train and at eval (the reference's
 ``BatchNorm2d(track_running_stats=False)`` and its ``static_bn`` patch,
 util.py:204-218). It holds a learned ``scale`` and ``bias`` and no buffer.
+
+Under a data-parallel mesh (``parallel/mesh.py::use_mesh``) the statistics
+are the whole batch's: the shard's mean and mean square averaged over the
+data axis, with autograd, in training and at eval (the static BN takes
+batch statistics in both), as the JAX package's global statistics make the
+sharded step the one-device step (JAX ``wilds_task.py:686-688``).
 """
 from __future__ import annotations
 
@@ -17,11 +23,17 @@ def channel_stats(x: torch.Tensor):
     channel axis 1, in fp32 (or wider), the variance as ``E[x^2] - mean^2`` (the JAX
     package's formula: DenseNet's ``incremental_bn`` reuses stats computed
     where a slice of channels was made, so every path must compute them
-    alike)."""
+    alike). Under a data-parallel mesh both means are the whole batch's, by
+    one collective."""
+    from ..parallel import mesh
+
     axes = (0,) + tuple(range(2, x.ndim))
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = torch.mean(xf, dim=axes)
-    var = torch.mean(xf * xf, dim=axes) - mean * mean
+    square = torch.mean(xf * xf, dim=axes)
+    if mesh.active() is not None:
+        mean, square = mesh.all_reduce_mean(torch.stack([mean, square])).unbind(0)
+    var = square - mean * mean
     return mean, var
 
 

@@ -120,8 +120,14 @@ class SNGPHead(nn.Module):
         if train:
             with torch.no_grad():
                 kf = k.detach().float()
-                self.precision.add_(kf.T @ kf)
-                self.seen_data.add_(f.shape[0])
+                increment, seen = kf.T @ kf, f.shape[0]
+                if getattr(noise, "rows", None) is not None:
+                    # a data-parallel shard: the whole batch's features
+                    from ..parallel import mesh
+
+                    increment, seen = mesh.all_reduce_sum(increment), noise.rows[1]
+                self.precision.add_(increment)
+                self.seen_data.add_(seen)
             return pred
         # the diagonal of (k @ cov @ k^T) * ridge alone, [B]: the same values
         # as the JAX package's diagonal of the [B, B] product, without it
@@ -132,7 +138,7 @@ class SNGPHead(nn.Module):
                 logits = pred / torch.sqrt(1.0 + var * self.mean_field_factor)[:, None]
             return logits.expand((n_samples,) + tuple(logits.shape)) if n_samples > 1 else logits
         std = torch.sqrt(torch.clamp(var, min=1e-12))[:, None]
-        eps = noise.normal((n_samples,) + tuple(pred.shape), pred.device, True, False)
+        eps = noise.normal((n_samples,) + tuple(pred.shape), pred.device, True, False, batch_axis=1)
         samples = pred[None] + std[None] * eps
         return samples if n_samples > 1 else samples[0]
 

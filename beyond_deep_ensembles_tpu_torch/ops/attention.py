@@ -48,6 +48,14 @@ The dropout mask comes from one of:
   * ``keep``: a given keep mask ``[B, H, L, L]`` (bool or uint8), read by the
     kernels on a card, so that a card and the CPU can run one draw.
 
+A data-parallel rank passes ``rows = (offset, total)``, its shard of a
+batch of ``total``: its mask is those rows of the whole batch's mask, bit
+for bit. On a card the panel seed ``seed + (offset + b) H + h`` is the
+launch's seed moved by ``offset H`` (:func:`_shifted`), so the kernels take
+the global b unchanged; on the CPU the host-seed mask is drawn at the global
+shape and cut, the device-seed mask taken at the element offset of its rows
+(``keys.keep_mask``).
+
 q, k and v are fp32 or, in a bf16 encoder, bf16. bf16 operands go through
 the kernels of ``csrc/dropout_attention_bf16.cu`` (``wgmma`` bf16 products
 with fp32 accumulation on tiles streamed by TMA; K3b without atomics; the
@@ -114,18 +122,35 @@ def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(key_mask > 0, 0.0, NEG).to(torch.float32).contiguous()
 
 
-def cpu_keep_mask(shape, seed: int, dropout_p: float) -> torch.Tensor:
+def cpu_keep_mask(shape, seed: int, dropout_p: float, rows=None) -> torch.Tensor:
     """The CPU path's keep mask: ``u >= p`` for ``u = torch.rand`` from a
-    generator seeded with ``seed``."""
+    generator seeded with ``seed``; at ``rows = (offset, total)`` the rows
+    of the ``total``-row draw."""
     gen = torch.Generator().manual_seed(seed)
-    return torch.rand(tuple(shape), generator=gen) >= dropout_p
+    if rows is None:
+        return torch.rand(tuple(shape), generator=gen) >= dropout_p
+    whole = torch.rand((rows[1],) + tuple(shape[1:]), generator=gen) >= dropout_p
+    return whole[rows[0] : rows[0] + shape[0]]
 
 
-def key_keep_mask(shape, seed: DeviceSeed, dropout_p: float) -> torch.Tensor:
+def key_keep_mask(shape, seed: DeviceSeed, dropout_p: float, rows=None) -> torch.Tensor:
     """The plain version's mask for a device seed: ``u >= p`` for u the top
     24 of ``keys.bits`` on the key's stream ``index``, a function of (key,
-    index) alone, on the key's device (``NoiseSource.keep_mask``'s draw)."""
-    return keys.keep_mask(seed.key.reshape(()), seed.index, shape, dropout_p)
+    index) alone, on the key's device (``NoiseSource.keep_mask``'s draw); at
+    ``rows = (offset, total)`` the elements from ``offset`` rows on."""
+    offset = 0 if rows is None else rows[0] * math.prod(shape[1:])
+    return keys.keep_mask(seed.key.reshape(()), seed.index, shape, dropout_p, offset=offset)
+
+
+def _shifted(seed: Optional[Seed], by: int) -> Optional[Seed]:
+    """``seed`` moved by ``by``: the panels ``seed + b H + h`` of a shard
+    whose first batch row is ``offset`` are the whole launch's at ``by =
+    offset H``."""
+    if seed is None or by == 0:
+        return seed
+    if isinstance(seed, DeviceSeed):
+        return DeviceSeed(seed.key, seed.index + by)
+    return (seed + by) & 0xFFFFFFFFFFFFFFFF
 
 
 def _plain_probs(q, k, key_mask, keep, dropout_p):
@@ -350,7 +375,7 @@ class _Attend(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def _check(q, k, v, key_mask, dropout_p, seed, keep) -> None:
+def _check(q, k, v, key_mask, dropout_p, seed, keep, rows=None) -> None:
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, L, H, D] shape, got {q.shape}, {k.shape}, {v.shape}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -377,46 +402,57 @@ def _check(q, k, v, key_mask, dropout_p, seed, keep) -> None:
         keep.shape != (b, h, l, l) or keep.dtype not in (torch.bool, torch.uint8) or keep.device != q.device
     ):
         raise ValueError(f"keep must be a bool or uint8 [B, H, L, L] = {(b, h, l, l)} mask on q's device")
+    if rows is not None and not 0 <= rows[0] <= rows[1] - b:
+        raise ValueError(f"rows {rows} do not hold a batch of {b}")
 
 
 def _kernel_keep(keep):
     return None if keep is None else keep.contiguous().view(torch.uint8)
 
 
-def _cpu_keep(q, dropout_p, seed, keep):
-    """The CPU path's mask: the given one, or one drawn from ``seed``."""
+def _cpu_keep(q, dropout_p, seed, keep, rows=None):
+    """The CPU path's mask: the given one, or one drawn from ``seed`` (at
+    ``rows``)."""
     if dropout_p == 0.0 or keep is not None:
         return keep
     b, l, h, _ = q.shape
     if isinstance(seed, DeviceSeed):
-        return key_keep_mask((b, h, l, l), seed, dropout_p)
-    return cpu_keep_mask((b, h, l, l), seed, dropout_p)
+        return key_keep_mask((b, h, l, l), seed, dropout_p, rows)
+    return cpu_keep_mask((b, h, l, l), seed, dropout_p, rows)
+
+
+def _kernel_seed(q, seed, rows):
+    return seed if rows is None else _shifted(seed, rows[0] * q.shape[2])
 
 
 def fused_dropout_attention(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: Optional[Seed] = None,
-                            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            keep: Optional[torch.Tensor] = None, rows=None) -> torch.Tensor:
     """Self-attention with dropout on the probabilities, differentiable in
     q, k and v with the mask held fixed. q/k/v ``[B, L, H, D]`` fp32 or bf16,
     ``key_mask`` ``[B, L]``; with ``dropout_p > 0`` exactly one of ``seed``
     (an int or a :class:`DeviceSeed`) and ``keep`` (a ``[B, H, L, L]``
-    mask). Returns ``[B, L, H, D]``."""
-    _check(q, k, v, key_mask, dropout_p, seed, keep)
+    mask); ``rows = (offset, total)`` draws a seed's mask as those rows of a
+    ``total``-row batch's. Returns ``[B, L, H, D]``."""
+    _check(q, k, v, key_mask, dropout_p, seed, keep, rows)
     if q.is_cuda:
         keep_draws = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-        return _Attend.apply(q, k, v, key_bias(key_mask), _kernel_keep(keep), seed, float(dropout_p), keep_draws)[0]
-    return dropout_attention_plain(q, k, v, key_mask, _cpu_keep(q, dropout_p, seed, keep), dropout_p=dropout_p)
+        return _Attend.apply(q, k, v, key_bias(key_mask), _kernel_keep(keep), _kernel_seed(q, seed, rows),
+                             float(dropout_p), keep_draws)[0]
+    return dropout_attention_plain(q, k, v, key_mask, _cpu_keep(q, dropout_p, seed, keep, rows),
+                                   dropout_p=dropout_p)
 
 
 def fused_dropout_attention_debug(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: Optional[Seed] = None,
-                                  keep: Optional[torch.Tensor] = None):
+                                  keep: Optional[torch.Tensor] = None, rows=None):
     """Forward only, also returning the realized (dropped, normalized)
     probabilities ``[B, H, L, L]``: test and debug use; the main path never
     materializes them. On a card K3a writes them."""
-    _check(q, k, v, key_mask, dropout_p, seed, keep)
+    _check(q, k, v, key_mask, dropout_p, seed, keep, rows)
     if q.is_cuda:
         o, _, probs = attention_forward(
-            q, k, v, key_bias(key_mask), float(dropout_p), seed, _kernel_keep(keep), with_probs=True
+            q, k, v, key_bias(key_mask), float(dropout_p), _kernel_seed(q, seed, rows), _kernel_keep(keep),
+            with_probs=True
         )
         return o, probs
-    probs = _plain_probs(q, k, key_mask, _cpu_keep(q, dropout_p, seed, keep), dropout_p)
+    probs = _plain_probs(q, k, key_mask, _cpu_keep(q, dropout_p, seed, keep, rows), dropout_p)
     return torch.einsum("bhlm,bmhd->blhd", probs, v), probs

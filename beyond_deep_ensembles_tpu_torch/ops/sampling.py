@@ -63,13 +63,22 @@ the bound is each launch's fixed cost (about 2.5 us, the size of the
 1,280-element head's whole launch) and, at frozen eval, a program's
 examples taken one after the other.
 
+Rows at an offset (``rows=(offset, total)``, a data-parallel rank's
+shard of a batch of ``total`` examples, ``parallel/mesh.py``): a
+train-mode draw of rows ``[offset, offset + B)`` is those rows of the whole
+batch's draw, bit for bit. The kernel takes the element offset ``offset *
+row``: its programs stay aligned to the 4G blocks of the global index (the
+first and last programs masked at the shard's ends), so counter and lane
+come from the global index. The CPU path draws the global shape and takes
+the rows. A frozen draw is one row for every example and needs no offset.
+
 The random stream differs from ``jax.random``, as the TPU kernel's did;
 both are iid N(0, 1), which is all the algorithms need.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -107,6 +116,8 @@ class DeviceSeed(NamedTuple):
 
 
 Seed = Union[int, DeviceSeed]
+# (offset, total): a shard's first row and the whole batch's row count
+Rows = Tuple[int, int]
 
 
 def philox_slot(i):
@@ -182,24 +193,27 @@ def _seed(seed_ptr, seed, DEVICE_SEED: tl.constexpr):
 
 def _flat_kernel(
     a_ptr, var_ptr, bmean_ptr, bvar_ptr, eps_ptr, out_ptr, seed_ptr,
-    n, hw, channels, eps_n, seed,
+    n, hw, channels, eps_n, seed, blk0, shift,
     HAS_BIAS: tl.constexpr, GIVEN: tl.constexpr, BACKWARD: tl.constexpr, GROUP: tl.constexpr,
     DEVICE_SEED: tl.constexpr,
 ):
-    """Train and given modes: program p covers elements [4Gp, 4G(p+1)),
-    lane l the sub-block 4Gp + lG + [0, G), drawn at counters Gp + [0, G).
-    The loads are issued before the draw, so the memory traffic runs under
-    the Philox and Box-Muller arithmetic."""
+    """Train and given modes: program p covers the global elements
+    [4G(blk0 + p), 4G(blk0 + p + 1)), lane l the sub-block 4G(blk0 + p) +
+    lG + [0, G), drawn at counters G(blk0 + p) + [0, G); the local element
+    is the global one less the offset 4G blk0 + ``shift`` (both 0 for a
+    whole batch), masked outside [0, n). The loads are issued before the
+    draw, so the memory traffic runs under the Philox and Box-Muller
+    arithmetic."""
     pid = tl.program_id(0)
     cols = tl.arange(0, GROUP)
-    o0 = pid * (4 * GROUP) + cols
+    o0 = pid * (4 * GROUP) + cols - shift
     o1 = o0 + GROUP
     o2 = o0 + 2 * GROUP
     o3 = o0 + 3 * GROUP
-    m0 = o0 < n
-    m1 = o1 < n
-    m2 = o2 < n
-    m3 = o3 < n
+    m0 = (o0 >= 0) & (o0 < n)
+    m1 = (o1 >= 0) & (o1 < n)
+    m2 = (o2 >= 0) & (o2 < n)
+    m3 = (o3 >= 0) & (o3 < n)
     bm0, bv0 = _bias(bmean_ptr, bvar_ptr, o0, m0, hw, channels, HAS_BIAS, BACKWARD)
     bm1, bv1 = _bias(bmean_ptr, bvar_ptr, o1, m1, hw, channels, HAS_BIAS, BACKWARD)
     bm2, bv2 = _bias(bmean_ptr, bvar_ptr, o2, m2, hw, channels, HAS_BIAS, BACKWARD)
@@ -214,7 +228,7 @@ def _flat_kernel(
         z2 = tl.load(eps_ptr + o2 % eps_n, mask=m2, other=0.0)
         z3 = tl.load(eps_ptr + o3 % eps_n, mask=m3, other=0.0)
     else:
-        z0, z1, z2, z3 = tl.randn4x(_seed(seed_ptr, seed, DEVICE_SEED), pid * GROUP + cols)
+        z0, z1, z2, z3 = tl.randn4x(_seed(seed_ptr, seed, DEVICE_SEED), (blk0 + pid) * GROUP + cols)
     _store(out_ptr, o0, m0, a0, s0, z0, BACKWARD)
     _store(out_ptr, o1, m1, a1, s1, z1, BACKWARD)
     _store(out_ptr, o2, m2, a2, s2, z2, BACKWARD)
@@ -269,7 +283,7 @@ def _build():
 
     tl = triton.language
     _bias, _load, _store, _seed = (triton.jit(f) for f in (_bias, _load, _store, _seed))
-    flat = triton.jit(do_not_specialize=["seed"])(_flat_kernel)
+    flat = triton.jit(do_not_specialize=["seed", "blk0", "shift"])(_flat_kernel)
     frozen = triton.jit(do_not_specialize=["seed", "batch", "per_program"])(_frozen_kernel)
     return flat, frozen
 
@@ -301,9 +315,16 @@ def gaussian_sample_plain(act_mean, act_var, b_mean, b_var, z):
     return (mean + torch.sqrt(var) * z).to(act_mean.dtype)
 
 
-def _launch(a, act_var, b_mean, b_var, eps, seed, frozen, backward):
+def _element_offset(rows, like) -> int:
+    """The global index of a shard's first element: ``offset * row`` for
+    ``rows = (offset, total)``, 0 for a whole batch."""
+    return 0 if rows is None else rows[0] * (like.numel() // like.shape[0])
+
+
+def _launch(a, act_var, b_mean, b_var, eps, seed, frozen, backward, rows=None):
     """One launch of the forward (``a`` = act_mean) or the backward (``a`` =
-    g, no bias mean) kernel; returns the output plane."""
+    g, no bias mean) kernel, a train-mode draw at ``rows``' offset; returns
+    the output plane."""
     flat, frozen_kernel = _build()
     device_seed = isinstance(seed, DeviceSeed)
     seed_ptr, seed = (seed.key, seed.index) if device_seed else (a, seed)
@@ -322,24 +343,32 @@ def _launch(a, act_var, b_mean, b_var, eps, seed, frozen, backward):
             DEVICE_SEED=device_seed, num_warps=_FROZEN_WARPS,
         )
     else:
-        flat[(-(-n // (4 * _GROUP)),)](
+        start = _element_offset(rows, a) if eps is None else 0
+        blk0, shift = divmod(start, 4 * _GROUP)
+        flat[(-(-(shift + n) // (4 * _GROUP)),)](
             a, act_var, bm, bv, eps if eps is not None else a, out, seed_ptr,
             n, row // channels, channels, eps.numel() if eps is not None else 1,
-            seed if seed is not None else 0,
+            seed if seed is not None else 0, blk0, shift,
             HAS_BIAS=has_bias, GIVEN=eps is not None, BACKWARD=backward, GROUP=_GROUP,
             DEVICE_SEED=device_seed, num_warps=_FLAT_WARPS,
         )
     return out
 
 
-def _cpu_noise(like, seed, frozen):
+def _cpu_noise(like, seed, frozen, rows=None):
     """The CPU path's z: ``torch.randn`` from a generator seeded with the
-    seed's value (a device seed's key is read: it lies on the CPU here)."""
+    seed's value (a device seed's key is read: it lies on the CPU here); at
+    ``rows = (offset, total)`` the whole batch's draw, cut to the rows."""
     if isinstance(seed, DeviceSeed):
         seed = int(seed.key) + seed.index
-    shape = like.shape[1:] if frozen else like.shape
     gen = torch.Generator().manual_seed(seed)
-    return torch.randn(shape, generator=gen, dtype=torch.promote_types(like.dtype, torch.float32))
+    dtype = torch.promote_types(like.dtype, torch.float32)
+    if frozen:
+        return torch.randn(like.shape[1:], generator=gen, dtype=dtype)
+    if rows is None:
+        return torch.randn(like.shape, generator=gen, dtype=dtype)
+    whole = torch.randn((rows[1],) + tuple(like.shape[1:]), generator=gen, dtype=dtype)
+    return whole[rows[0] : rows[0] + like.shape[0]]
 
 
 def gaussian_sample_backward(
@@ -350,10 +379,11 @@ def gaussian_sample_backward(
     eps: Optional[torch.Tensor] = None,
     seed: Optional[Seed] = None,
     frozen: bool = False,
+    rows: Optional[Rows] = None,
 ) -> torch.Tensor:
     """``d act_var = g * z * 0.5 / sqrt(act_var + b_var[c])``, the gradient
     of :func:`gaussian_sample` with respect to its variance plane, for the
-    same ``eps`` or ``seed`` and ``frozen``. CUDA tensors go through K1's
+    same ``eps`` or ``seed``, ``frozen`` and ``rows``. CUDA tensors go through K1's
     backward kernel, which regenerates z, and count one launch in
     ``gaussian_sample_backward.launches``; CPU tensors take the plain
     expression (in fp32 for bf16, rounded once) with z drawn again from the
@@ -362,10 +392,10 @@ def gaussian_sample_backward(
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} does not match act_var {tuple(act_var.shape)} {act_var.dtype}")
     g = g.contiguous()
     if g.is_cuda:
-        out = _launch(g, act_var, None, b_var, eps, seed, frozen, backward=True)
+        out = _launch(g, act_var, None, b_var, eps, seed, frozen, backward=True, rows=rows)
         gaussian_sample_backward.launches += 1
         return out
-    z = eps if eps is not None else _cpu_noise(g, seed, frozen)
+    z = eps if eps is not None else _cpu_noise(g, seed, frozen, rows)
     return (_wide(g) * z * 0.5 / torch.sqrt(_add_bias(_wide(act_var), _wide(b_var)))).to(g.dtype)
 
 
@@ -374,18 +404,18 @@ gaussian_sample_backward.launches = 0
 
 class _GaussianSample(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, act_mean, act_var, b_mean, b_var, eps, seed, frozen):
+    def forward(ctx, act_mean, act_var, b_mean, b_var, eps, seed, frozen, rows):
         if act_mean.is_cuda:
-            out = _launch(act_mean, act_var, b_mean, b_var, eps, seed, frozen, backward=False)
+            out = _launch(act_mean, act_var, b_mean, b_var, eps, seed, frozen, backward=False, rows=rows)
             gaussian_sample.launches += 1
         else:
-            z = eps if eps is not None else _cpu_noise(act_mean, seed, frozen)
+            z = eps if eps is not None else _cpu_noise(act_mean, seed, frozen, rows)
             out = gaussian_sample_plain(act_mean, act_var, b_mean, b_var, z)
         # a device seed's key is saved as a tensor, so that the backward reads
         # the same key and autograd raises if it was written in between
         key = seed.key if isinstance(seed, DeviceSeed) else None
         ctx.seed = seed.index if key is not None else seed
-        ctx.frozen = frozen
+        ctx.frozen, ctx.rows = frozen, rows
         ctx.save_for_backward(act_var, b_var, eps, key)
         return out
 
@@ -395,13 +425,13 @@ class _GaussianSample(torch.autograd.Function):
         # a kernel's gradient carries no graph: a second derivative raises
         act_var, b_var, eps, key = ctx.saved_tensors
         seed = DeviceSeed(key, ctx.seed) if key is not None else ctx.seed
-        d_var = gaussian_sample_backward(g, act_var, b_var, eps=eps, seed=seed, frozen=ctx.frozen)
+        d_var = gaussian_sample_backward(g, act_var, b_var, eps=eps, seed=seed, frozen=ctx.frozen, rows=ctx.rows)
         d_bmean = _channel_sum(g) if ctx.needs_input_grad[2] else None
         d_bvar = _channel_sum(d_var) if ctx.needs_input_grad[3] else None
-        return g, d_var, d_bmean, d_bvar, None, None, None
+        return g, d_var, d_bmean, d_bvar, None, None, None, None
 
 
-def _check(act_mean, act_var, b_mean, b_var, eps, seed):
+def _check(act_mean, act_var, b_mean, b_var, eps, seed, rows=None):
     if (eps is None) == (seed is None):
         raise ValueError("pass exactly one of eps= and seed=")
     if act_mean.dtype not in PLANE_DTYPES or act_var.dtype != act_mean.dtype:
@@ -414,6 +444,12 @@ def _check(act_mean, act_var, b_mean, b_var, eps, seed):
         raise ValueError("the planes must be contiguous")
     if act_mean.numel() > _MAX_ELEMENTS:
         raise ValueError(f"more than {_MAX_ELEMENTS} elements")
+    if rows is not None:
+        offset, total = rows
+        if not 0 <= offset <= total - act_mean.shape[0]:
+            raise ValueError(f"rows {rows} do not hold a batch of {act_mean.shape[0]}")
+        if total * (act_mean.numel() // act_mean.shape[0]) > _MAX_ELEMENTS:
+            raise ValueError(f"the whole batch has more than {_MAX_ELEMENTS} elements")
     if (b_mean is None) != (b_var is None):
         raise ValueError("pass both bias vectors or neither")
     for b in (b_mean, b_var):
@@ -449,19 +485,25 @@ def gaussian_sample(
     eps: Optional[torch.Tensor] = None,
     seed: Optional[Seed] = None,
     frozen: bool = False,
+    rows: Optional[Rows] = None,
 ) -> torch.Tensor:
     """``(act_mean + b_mean[c]) + sqrt(act_var + b_var[c]) * z``,
     differentiable in all four tensors.
 
     z is ``eps`` when given (full shape, or one row broadcast over the
     batch), else drawn from the Philox stream ``seed`` (a host int or a
-    :class:`DeviceSeed`); ``frozen`` then draws one row for the whole batch. CUDA tensors go through the K1 kernel
+    :class:`DeviceSeed`); ``frozen`` then draws one row for the whole batch,
+    ``rows = (offset, total)`` (a data-parallel shard) draws those rows of
+    the ``total``-example batch's draw. CUDA tensors go through the K1 kernel
     and count one launch in ``gaussian_sample.launches`` (the backward
     counts in ``gaussian_sample_backward.launches``); CPU tensors go
     through :func:`gaussian_sample_plain`.
     """
-    _check(act_mean, act_var, b_mean, b_var, eps, seed)
-    return _GaussianSample.apply(act_mean, act_var, b_mean, b_var, eps, seed, frozen)
+    _check(act_mean, act_var, b_mean, b_var, eps, seed, rows)
+    if frozen or eps is not None:
+        rows = None
+    return _GaussianSample.apply(act_mean, act_var, b_mean, b_var, eps, seed, frozen,
+                                 None if rows is None else tuple(rows))
 
 
 gaussian_sample.launches = 0

@@ -1,3 +1,5 @@
-"""Step and eval runners (``multistep.py``); the mesh and data-parallel
-pipelines of the JAX package's ``parallel/`` are not ported yet."""
-from .multistep import make_epoch_runner, make_eval_runner, make_multi_step, stack_batches  # noqa: F401
+"""Step and eval runners (``multistep.py``), the (member, data) grid of
+ranks on ``torch.distributed`` (``mesh.py``) and the data- and
+member-parallel trainer (``pipelines.py``). The package imports none of
+them: ``utils/optim.py`` reads the active mesh, and the runners import the
+noise sources, which import the optimizers' users."""

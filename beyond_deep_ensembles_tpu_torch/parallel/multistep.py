@@ -31,6 +31,13 @@ holds the state's tensors, so a runner recaptures when it is handed another
 state. The update's optimizer must have its state before its first step
 (the port's ``utils/optim.py::SGD``). Launch counters on the kernel wrappers
 count the warm-up and the capture, never a replay.
+
+Under a process group (``parallel/mesh.py``) the update is a
+``ParallelTrainer.update``, whose NCCL collectives the graph captures with
+the rest (the warm-up makes their first calls). A gloo group's collectives
+run on the host and cannot be captured: a capture under one raises. A
+runner made with ``capture=False`` runs its steps eagerly on a card too
+(:func:`eager_steps`), as the engines' flagged runs over gloo do.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch
 
 from .. import keys
 from ..nn.gaussian import NoiseSource
+from . import mesh
 
 # eager calls before a capture: one makes every first call (cuDNN, cuBLAS,
 # Triton's compile, K2's counter word) outside the capture
@@ -89,7 +97,11 @@ def _capturing(graph: torch.cuda.CUDAGraph):
     another graph (an earlier run's eval runner, say, whose prediction
     closure refers back to its experiment) would otherwise be collected in
     the middle of the capture, and a graph destroyed during a capture
-    invalidates it."""
+    invalidates it. Raises under a gloo process group."""
+    if mesh.is_distributed() and torch.distributed.get_backend() != "nccl":
+        raise RuntimeError(
+            f"a CUDA graph cannot capture the collectives of a {torch.distributed.get_backend()} process group "
+            "(they run on the host): make the runner with capture=False, or launch the ranks on NCCL")
     gc.collect()
     enabled = gc.isenabled()
     gc.disable()
@@ -171,26 +183,27 @@ class _Captured:
         return self.graph
 
 
-def _run_steps(captured: _Captured, update: Callable, state, key: int, batches):
-    if batches[0][0].is_cuda:
+def _run_steps(captured: _Captured, update: Callable, state, key: int, batches, capture: bool = True):
+    if batches[0][0].is_cuda and capture:
         return state, captured.get(state, batches[0]).run(key, batches)
     state, sums = eager_steps(update, state, key, batches)
     return state, {name: value / len(batches) for name, value in sums.items()}
 
 
-def make_multi_step(update: Callable, k: int):
+def make_multi_step(update: Callable, k: int, capture: bool = True):
     """Returns ``multi(state, key, stacked_batches) -> (state, metrics)``:
     ``k`` updates, one per batch of ``stacked_batches`` (a tuple of tensors
     with leading axis ``k``), the metrics averaged over them, from the host
     key ``key``. On a card the update is captured once and replayed ``k``
-    times; on the CPU the same steps run eagerly."""
+    times (unless ``capture`` is False); on the CPU the same steps run
+    eagerly."""
     captured = _Captured(lambda state, batch: _StepGraph(update, state, batch))
 
     def multi(state, key: int, stacked_batches):
         batches = _unstack(stacked_batches)
         if len(batches) != k:
             raise ValueError(f"expected {k} stacked batches, got {len(batches)}")
-        return _run_steps(captured, update, state, key, batches)
+        return _run_steps(captured, update, state, key, batches, capture)
 
     return multi
 
@@ -200,6 +213,7 @@ def make_epoch_runner(
     n_data: int,
     batch_size: int,
     epoch_transform: Optional[Callable] = None,
+    capture: bool = True,
 ):
     """Whole-epoch training over data resident on the device. Returns
     ``epoch(state, key, data) -> (state, metrics)``, ``key`` a host int,
@@ -210,7 +224,7 @@ def make_epoch_runner(
     given, then ``n_data // batch_size`` updates over contiguous slices (the
     remainder dropped, as the JAX runner drops it), the metrics averaged.
     The three keys are ``fold_in(key, 0)`` (permutation), ``1`` (transform)
-    and ``2`` (the steps')."""
+    and ``2`` (the steps'). ``capture`` as :func:`make_multi_step`'s."""
     steps = n_data // batch_size
     if steps < 1:
         raise ValueError(f"{n_data} examples make no batch of {batch_size}")
@@ -225,7 +239,7 @@ def make_epoch_runner(
         if epoch_transform is not None:
             shuffled = epoch_transform(keys.fold_in(key, 1), shuffled)
         batches = [tuple(d[i * batch_size : (i + 1) * batch_size] for d in shuffled) for i in range(steps)]
-        return _run_steps(captured, update, state, keys.fold_in(key, 2), batches)
+        return _run_steps(captured, update, state, keys.fold_in(key, 2), batches, capture)
 
     return epoch
 
@@ -257,7 +271,7 @@ class _PredictGraph:
         return self.out
 
 
-def make_eval_runner(predict_batch: Callable, n_data: int, batch_size: int):
+def make_eval_runner(predict_batch: Callable, n_data: int, batch_size: int, capture: bool = True):
     """Whole-test-set evaluation over data resident on the device.
 
     ``predict_batch(state, key, xb)`` -> per-example outputs with leading axis
@@ -266,7 +280,8 @@ def make_eval_runner(predict_batch: Callable, n_data: int, batch_size: int):
     int: batch i runs under ``fold_in(key, i)``; the last partial batch is
     padded by repeating its last row on the device and trimmed after, so
     every point counts once. On a card ``predict_batch`` is captured once
-    (per state) and replayed once per batch; on the CPU it runs eagerly."""
+    (per state) and replayed once per batch (unless ``capture`` is False);
+    on the CPU it runs eagerly."""
     n_batches = -(-n_data // batch_size)
     padded = n_batches * batch_size
     captured = _Captured(lambda state, x: _PredictGraph(predict_batch, state, x))
@@ -277,7 +292,7 @@ def make_eval_runner(predict_batch: Callable, n_data: int, batch_size: int):
         if padded > n_data:
             x = torch.cat([x, x[-1:].expand(padded - n_data, *x.shape[1:])])
         batches = [x[i * batch_size : (i + 1) * batch_size] for i in range(n_batches)]
-        if not x.is_cuda:
+        if not (x.is_cuda and capture):
             with torch.no_grad():
                 outs = [predict_batch(state, keys.as_key(keys.fold_in(key, i), x.device), xb)
                         for i, xb in enumerate(batches)]

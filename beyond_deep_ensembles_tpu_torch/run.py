@@ -26,8 +26,20 @@ phases read the ``{model}_final`` states a train phase wrote:
 ``--device`` stands in for the JAX package's global backend choice: every
 run goes to ``utils/device.py::resolve_device``, the card unless ``cpu`` is
 asked for, with no fallback. The JAX CLI's compile cache and TPU RNG switch
-(``_enable_cache``) have no meaning on a card and are not ported (ROADMAP
-item 18). Sweeps are parsed with PyYAML.
+(``_enable_cache``, with ``utils/compile_cache.py``) have no meaning on a
+card and are not ported. Sweeps are parsed with PyYAML.
+
+Several ranks: launched by ``torchrun``,
+
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m beyond_deep_ensembles_tpu_torch.run <task> <sweep.yaml>
+
+each rank joins the process group (NCCL on cards, gloo with ``--device
+cpu``, or as ``--backend`` names) on its card ``cuda:LOCAL_RANK``
+(``parallel/mesh.py::init_distributed``), and the rows that set
+``data_parallel`` or ``ring_shard`` take the engines' mesh paths; rank 0
+writes the records and checkpoints. Without ``torchrun`` those flags are
+no-ops, as on one device in JAX, and raise with several visible cards.
 """
 from __future__ import annotations
 
@@ -35,7 +47,9 @@ import argparse
 import json
 import os
 
+from .parallel import mesh
 from .utils.config import load_sweep
+from .utils.device import resolve_device
 from .utils.logging import RunLogger
 
 WILDS_TASKS = (
@@ -111,8 +125,20 @@ def main(argv=None):
     )
     parser.add_argument("--device", default=None, choices=("cuda", "cpu"),
                         help="where every run goes (default: the card, with no fallback)")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="under torchrun: the process group's backend (default: NCCL on cards, gloo on the CPU)")
     args = parser.parse_args(argv)
+    owned = "RANK" in os.environ and not mesh.is_distributed()
+    if owned:
+        mesh.init_distributed(resolve_device(args.device), backend=args.backend)
+    try:
+        _run_sweep(args)
+    finally:
+        if owned:
+            mesh.close_distributed()
 
+
+def _run_sweep(args):
     for spec in load_sweep(args.sweep, name=args.name):
         reps = range(spec["repetitions"]) if args.rep is None else [args.rep]
         variant_dir = os.path.join(args.out, f"{spec['name']}_{spec['variant']}")

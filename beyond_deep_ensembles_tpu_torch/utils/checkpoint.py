@@ -27,6 +27,13 @@ directory has its own saver (one write in flight; a new save, a scan or a
 restore of that directory waits for it), so a failed write surfaces in its
 own run, at its next wait; :func:`wait_for_async_saves` is the barrier, and
 the experiment loops call it in a ``finally``.
+
+Under a process group (``parallel/mesh.py``) rank 0 writes the files and
+every rank restores from them; the engines hand these functions the whole
+state (an ensemble's members gathered from their ranks first). A state whose
+ring is split over the data axis (``ring_shard``) is written a shard a rank
+(``per_rank``): rank r writes and restores ``<file>.rank<r>``, its own
+columns, so no rank gathers the ring.
 """
 from __future__ import annotations
 
@@ -37,7 +44,20 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel import mesh
+
 _CKPT_RE = re.compile(r"checkpoint_(\d+)$")
+
+
+def _file(path: str, per_rank: bool) -> str:
+    """The file of ``path`` for this rank: ``path`` itself, or its shard
+    ``<path>.rank<r>``."""
+    return f"{path}.rank{mesh.rank()}" if per_rank else path
+
+
+def _writes(per_rank: bool) -> bool:
+    """Whether this rank writes: every rank its shard, else rank 0."""
+    return per_rank or mesh.is_first_rank()
 
 
 class _AsyncSaver:
@@ -132,12 +152,15 @@ def wait_for_async_saves(run_dir: Optional[str] = None) -> None:
         saver.wait()
 
 
-def save_checkpoint(run_dir: str, step: int, state: Any, async_save: bool = False) -> str:
-    """Write ``<run_dir>/checkpoint_<step>``. With ``async_save`` only the
-    file write overlaps what follows; the state may change as soon as this
+def save_checkpoint(run_dir: str, step: int, state: Any, async_save: bool = False, per_rank: bool = False) -> str:
+    """Write ``<run_dir>/checkpoint_<step>`` (on rank 0; with ``per_rank``
+    each rank its ``.rank<r>`` shard). With ``async_save`` only the file
+    write overlaps what follows; the state may change as soon as this
     returns."""
+    path = _file(os.path.join(os.path.abspath(run_dir), f"checkpoint_{step}"), per_rank)
+    if not _writes(per_rank):
+        return path
     os.makedirs(run_dir, exist_ok=True)
-    path = os.path.join(os.path.abspath(run_dir), f"checkpoint_{step}")
     tensors = _host_copy(state)
     if async_save:
         _saver(run_dir).save(path, tensors)
@@ -147,13 +170,16 @@ def save_checkpoint(run_dir: str, step: int, state: Any, async_save: bool = Fals
     return path
 
 
-def save_final(run_dir: str, name: str, state: Any, async_save: bool = False) -> str:
+def save_final(run_dir: str, name: str, state: Any, async_save: bool = False, per_rank: bool = False) -> str:
     """The ``{name}_final`` artifact the downstream phases read (reference
     cifar.py:98). With ``async_save`` only the file write overlaps what
-    follows (an evaluation), as :func:`save_checkpoint`'s."""
+    follows (an evaluation); ranks and ``per_rank`` as
+    :func:`save_checkpoint`'s."""
+    path = _file(os.path.join(os.path.abspath(run_dir), f"{name}_final"), per_rank)
+    if not _writes(per_rank):
+        return path
     _saver(run_dir).wait()
     os.makedirs(run_dir, exist_ok=True)
-    path = os.path.join(os.path.abspath(run_dir), f"{name}_final")
     tensors = _host_copy(state)
     if async_save:
         _saver(run_dir).save(path, tensors)
@@ -162,11 +188,12 @@ def save_final(run_dir: str, name: str, state: Any, async_save: bool = False) ->
     return path
 
 
-def latest_checkpoint_step(run_dir: str) -> Optional[int]:
+def latest_checkpoint_step(run_dir: str, per_rank: bool = False) -> Optional[int]:
     _saver(run_dir).wait()
     if not os.path.isdir(run_dir):
         return None
-    steps = [int(m.group(1)) for m in map(_CKPT_RE.match, os.listdir(run_dir)) if m]
+    pattern = re.compile(rf"checkpoint_(\d+)\.rank{mesh.rank()}$") if per_rank else _CKPT_RE
+    steps = [int(m.group(1)) for m in map(pattern.match, os.listdir(run_dir)) if m]
     return max(steps) if steps else None
 
 
@@ -175,20 +202,20 @@ def _load_into(path: str, template: Any) -> Any:
     return template
 
 
-def restore_checkpoint(run_dir: str, state_template: Any, step: Optional[int] = None):
+def restore_checkpoint(run_dir: str, state_template: Any, step: Optional[int] = None, per_rank: bool = False):
     """Restore the given (or latest) checkpoint into ``state_template`` in
-    place; returns ``(state, step)``, or ``(template, None)`` when there is
-    nothing to resume from (reference maybe_restore,
-    checkpoint_utils.py:80-96)."""
+    place, on every rank (with ``per_rank`` each rank its shard); returns
+    ``(state, step)``, or ``(template, None)`` when there is nothing to
+    resume from (reference maybe_restore, checkpoint_utils.py:80-96)."""
     if step is None:
-        step = latest_checkpoint_step(run_dir)
+        step = latest_checkpoint_step(run_dir, per_rank)
         if step is None:
             return state_template, None
-    path = os.path.join(os.path.abspath(run_dir), f"checkpoint_{step}")
+    path = _file(os.path.join(os.path.abspath(run_dir), f"checkpoint_{step}"), per_rank)
     return _load_into(path, state_template), step
 
 
-def restore_final(run_dir: str, name: str, state_template: Any) -> Any:
+def restore_final(run_dir: str, name: str, state_template: Any, per_rank: bool = False) -> Any:
     """``{name}_final`` restored into ``state_template`` in place."""
     _saver(run_dir).wait()
-    return _load_into(os.path.join(os.path.abspath(run_dir), f"{name}_final"), state_template)
+    return _load_into(_file(os.path.join(os.path.abspath(run_dir), f"{name}_final"), per_rank), state_template)

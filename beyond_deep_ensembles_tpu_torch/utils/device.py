@@ -1,13 +1,18 @@
 """Where an entry point runs.
 
 Port-only module: the JAX package picks its backend globally. Here every
-entry point takes ``device`` and resolves it once.
+entry point takes ``device`` and resolves it once. Under ``torchrun`` each
+rank takes its own card, ``cuda:LOCAL_RANK``; the device count is the
+process group's world size (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
+
+from ..parallel import mesh
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -19,6 +24,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     config is fp32 throughout; and makes cuBLAS accumulate bf16 products in
     fp32 (no reduced-precision reduction), as the JAX package's bf16
     products accumulate. The flags are process-wide.
+
+    Under ``torchrun`` (``LOCAL_RANK`` set) the default, or a bare
+    ``"cuda"``, is the rank's card ``cuda:LOCAL_RANK``, made the current
+    device; a card the caller names by index wins over ``LOCAL_RANK`` (two
+    ranks on one card, as ``chip_smoke.py`` runs them).
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -26,6 +36,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run on the CPU"
             )
+        if dev.index is None and "LOCAL_RANK" in os.environ:
+            dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        if dev.index is not None:
+            torch.cuda.set_device(dev)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -36,25 +50,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 def device_count() -> int:
-    """The devices this process sees (JAX ``jax.device_count()``): the
-    visible cards, and one where there is none."""
-    return max(1, torch.cuda.device_count())
-
-
-def refuse_multi_device(config: dict, flags=("data_parallel", "ring_shard")) -> None:
-    """The multi-device flags of a config: on one device they are no-ops, as
-    in the JAX package, which gates every use on ``jax.device_count() > 1``;
-    with more than one visible card the port has no mesh yet and raises."""
-    n = device_count()
-    if n == 1:
-        return
-    for flag in flags:
-        if config.get(flag):
-            raise NotImplementedError(f"{flag} over {n} visible cards: not ported yet (ROADMAP item 18)")
-
-
-def refuse_more_cards(device: torch.device, what: str) -> None:
-    """Raises on a card when more than one is visible: ``what`` (a batch the
-    JAX package shards over every device) has no mesh in the port yet."""
-    if device.type == "cuda" and device_count() > 1:
-        raise NotImplementedError(f"{what} over {device_count()} visible cards: not ported yet (ROADMAP item 18)")
+    """The devices of the run (JAX ``jax.device_count()``): the process
+    group's world size, 1 without a group."""
+    return mesh.world_size()

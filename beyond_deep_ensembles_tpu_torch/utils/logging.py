@@ -3,7 +3,9 @@
 and importable.
 
 Counterpart of ``beyond_deep_ensembles_tpu/utils/logging.py`` (reference
-wandb runs, cw2 logging and src/log_mock.py's ``VoidLog``).
+wandb runs, cw2 logging and src/log_mock.py's ``VoidLog``). Under a process
+group (``parallel/mesh.py``) only rank 0 prints, writes records and talks to
+wandb; the other ranks' loggers drop everything.
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import json
 import os
 import time
 from typing import Optional
+
+from ..parallel import mesh
 
 
 class VoidLog:
@@ -30,6 +34,9 @@ class RunLogger:
         self.name = name
         self.out_dir = out_dir
         self._file = None
+        self._quiet = not mesh.is_first_rank()
+        if self._quiet:
+            out_dir, use_wandb = None, False
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             self._file = open(os.path.join(out_dir, "metrics.jsonl"), "a")
@@ -44,9 +51,13 @@ class RunLogger:
         self._t0 = time.time()
 
     def info(self, msg: str):
+        if self._quiet:
+            return
         print(f"[{self.name} +{time.time() - self._t0:8.1f}s] {msg}", flush=True)
 
     def metrics(self, record: dict, step: Optional[int] = None):
+        if self._quiet:
+            return
         record = {"_name": self.name, "_t": round(time.time() - self._t0, 2), **record}
         if step is not None:
             record["_step"] = step

@@ -27,6 +27,7 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
+from ..parallel import mesh as _mesh
 from ..tree import tree_where
 
 
@@ -41,6 +42,18 @@ def flatten_parameters(params) -> torch.Tensor:
         p.data = flat[start : start + p.numel()].view_as(p)
         start += p.numel()
     return flat
+
+
+def data_mean(grad: torch.Tensor, ok: Optional[torch.Tensor] = None):
+    """``(grad, ok)`` made global over the data axis of the active mesh
+    (``parallel/mesh.py::use_mesh``): the gradient's mean over the ranks
+    and the guard's AND, by one collective; as given without a mesh."""
+    if _mesh.active() is None:
+        return grad, ok
+    if ok is None:
+        return _mesh.mean_of([grad])[0], None
+    grad, ok = _mesh.mean_of([grad, ok])
+    return grad, ok
 
 
 def flat_grad(params) -> torch.Tensor:
@@ -114,10 +127,17 @@ class SGD:
         return self.schedule(self.count)
 
     @torch.no_grad()
-    def step(self, ok: Optional[torch.Tensor] = None) -> None:
+    def step(self, ok: Optional[torch.Tensor] = None, reduce: bool = True, grad=None) -> None:
         """One update; with ``ok`` (a 0-dim bool tensor) only where it holds,
-        the parameters, momentum and count otherwise left as they were."""
-        grad = flat_grad(self.params)
+        the parameters, momentum and count otherwise left as they were.
+        Under a mesh the gradient and ``ok`` are first made global
+        (:func:`data_mean`) unless ``reduce`` is False (a method that reduced
+        them itself); ``grad``: a flat gradient given in place of the
+        parameters' (already global)."""
+        if grad is None:
+            grad = flat_grad(self.params)
+            if reduce:
+                grad, ok = data_mean(grad, ok)
         if self.weight_decay:
             grad = grad + self.weight_decay * self.flat
         trace = grad + self.momentum * self.trace
@@ -192,10 +212,14 @@ class Adam:
             p.grad = None
 
     @torch.no_grad()
-    def step(self, ok: Optional[torch.Tensor] = None) -> None:
+    def step(self, ok: Optional[torch.Tensor] = None, reduce: bool = True, grad=None) -> None:
         """One update; with ``ok`` (a 0-dim bool tensor) only where it holds,
-        the parameters, moments and count otherwise left as they were."""
-        grad = flat_grad(self.params)
+        the parameters, moments and count otherwise left as they were;
+        ``reduce`` and ``grad`` as :meth:`SGD.step`'s."""
+        if grad is None:
+            grad = flat_grad(self.params)
+            if reduce:
+                grad, ok = data_mean(grad, ok)
         if self.weight_decay:
             grad = grad + self.weight_decay * self.flat
         mu = (1 - self.b1) * grad + self.b1 * self.mu
@@ -253,9 +277,18 @@ class Split:
         self.main.zero_grad(set_to_none)
         self.mle.zero_grad(set_to_none)
 
-    def step(self, ok: Optional[torch.Tensor] = None) -> None:
-        self.main.step(ok)
-        self.mle.step(ok)
+    @torch.no_grad()
+    def step(self, ok: Optional[torch.Tensor] = None, reduce: bool = True) -> None:
+        """Both steps under one guard; under a mesh both gradients and the
+        guard made global by one collective (``reduce`` as
+        :meth:`SGD.step`'s)."""
+        main, mle = flat_grad(self.main.params), flat_grad(self.mle.params)
+        if reduce and _mesh.active() is not None:
+            parts = _mesh.mean_of([main, mle] + ([ok] if ok is not None else []))
+            main, mle = parts[:2]
+            ok = parts[2] if ok is not None else None
+        self.main.step(ok, grad=main)
+        self.mle.step(ok, grad=mle)
 
 
 def mle_split(mle_params: Iterable[torch.nn.Parameter], main: Callable, mle: Callable) -> Callable:

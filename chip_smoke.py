@@ -244,10 +244,24 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      with ``use_hmc_baseline`` at the Multi-X cut (1 epoch of 20 steps, 250
      images); the time of one full-batch gradient and one HMC iteration for
      each model;
- 16. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
+ 16. the multi-device phase (``parallel/mesh.py``, ``parallel/pipelines.py``),
+     in the first process once the second has ended: (a) configs/fmow.yaml's
+     SWAG_PODS row (``data_parallel``, ``ring_shard``, bf16 ring), cut as
+     phase 11 cuts it with ``device_data`` on, through ``run.main`` under
+     ``torchrun`` in a world of one NCCL rank (the epoch and eval runners
+     capture its all-reduces), against phase 11's unflagged run of the row;
+     (b) a world of two gloo ranks, both on the card (``mesh_rank``): K1 at
+     a rank's row offset, fp32 and bf16, forward and backward, and K3a/K3b,
+     fp32 and bf16, bit for bit the rows of the whole launch; then, each
+     against this process's one-rank step from the same state and batch, a
+     ResNet-20 BBB step at mc 2 (K1), a distilbert-base MCD step (K3), an
+     SVGD step with one particle a rank (K2 on the gathered block) and one
+     ``run_hmc`` iteration on the sharded full batch, within bounds of
+     reduction order;
+ 17. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
      UCI figures, the WILDS figures, the image, ResNet-50 and poverty
-     figures, the bnn-hmc figures and the staged-weight checks as JSON
-     lines, the card's name and power limit, one JSON line of kernel figures
+     figures, the bnn-hmc figures, the staged-weight checks and the
+     multi-device figures as JSON lines, the card's name and power limit, one JSON line of kernel figures
      (K1, K2, K3a, K3b), then the result line ``{"ok": true, "device":
      {...}}``.
 Every phase heading prints the seconds since the script started.
@@ -424,7 +438,7 @@ CPU_THREADS = 4
 # cache and retries at its cap), so that neither's cache starves the other:
 # the first's largest peak is a text row's, 27.8 GiB, the second's a poverty
 # row's, 17.7 GiB; what is left is the two CUDA contexts' and the kernels'
-MEMORY_FRACTION = {"first": 0.58, "second": 0.38}
+MEMORY_FRACTION = {"first": 0.58, "second": 0.38, "mesh": 0.15}
 
 
 def _signal_peer(sig):
@@ -1623,8 +1637,8 @@ def rest_card_vs_cpu(torch, cifar, NoiseSource):
             super().__init__(**kw)
             self.drawn = []
 
-        def normal(self, shape, device, train, freeze_on_eval):
-            eps = super().normal(shape, device, train, freeze_on_eval)
+        def normal(self, shape, device, train, freeze_on_eval, **kw):
+            eps = super().normal(shape, device, train, freeze_on_eval, **kw)
             self.drawn.append(eps.clone())
             return eps
 
@@ -3238,6 +3252,9 @@ IMAGE_K1_PER_FORWARD = {"camelyon17": 121, "fmow": 1, "iwildcam": 0, "rxrx1": 0,
 # warmup branch (lr 0) and the cosine (lr, then 3/4 and 1/4 of it) both run
 # on the card
 IMAGE_EXTRA = {"rxrx1": {"warmup_steps": 1}}
+# the row of the multi-device phase's world of one NCCL rank (phase 16 a),
+# which phase 11 runs with device_data on, unflagged
+MESH_ROW = ("fmow", "SWAG_PODS")
 # K2's shapes: SVGD's particles x the DenseNet-121 classifier's parameters
 K2_IMAGE_SHAPES = {"camelyon17": (3, 6_955_906), "fmow": (5, 7_017_406)}
 # the card-against-CPU steps: full width at this batch (at least 2: the
@@ -3258,6 +3275,9 @@ def image_sweep_file(task, path):
     if folds:  # poverty's five folds: the first
         cut["fold"] = folds[0]
     swag = {"swag_start_epoch": 0, "swag_updates": steps}
+    # the row the multi-device phase runs again under torchrun: its epoch
+    # and eval runners captured here as there
+    pods = {"device_data": True} if task == MESH_ROW[0] else {}
     print(f"{task} cut: epochs {default['params']['epochs']} -> 1, subsample -> {cut['subsample']} ({steps} steps of "
           f"{batch}), test_subsample -> {WILDS_TEST}, repetitions {default['repetitions']} -> 1 (MAP 2); SWAG {swag}; "
           + (f"folds {folds} -> {folds[0]}; " if folds else "")
@@ -3267,6 +3287,8 @@ def image_sweep_file(task, path):
         params = dict(doc["params"])
         if params["model"] in ("swag", "swag_ll"):
             params.update(swag)
+        if doc["name"] == MESH_ROW[1]:
+            params.update(pods)
         out.append({**doc, "params": params, **({"repetitions": 2} if doc["name"] == "MAP" else {})})
     with open(path, "w") as f:
         yaml.safe_dump_all(out, f)
@@ -3348,7 +3370,7 @@ def recorded_noise(torch, NoiseSource, seed):
     that the other device's run can be given the same ones."""
     source, gen = NoiseSource(given=[]), torch.Generator().manual_seed(seed)
 
-    def take(shape):
+    def take(shape, batch_axis=None):  # one process: no rows to cut
         eps = torch.randn(tuple(shape), generator=gen)
         source._given.append(eps)
         source.draws += 1
@@ -3578,6 +3600,9 @@ def image_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
         t0 = time.perf_counter()
         rows, results, row_figures = image_cli_rows(torch, task, kernels, out)
         figures["rows"][task] = row_figures
+        if task == MESH_ROW[0]:  # for the multi-device phase
+            figures["mesh_row"] = {"params": rows[MESH_ROW[1]], "result": results[MESH_ROW[1]],
+                                   "wall_s": row_figures[MESH_ROW[1]]["wall_s"]}
         figures["phases"][task] = wilds_phases(torch, task, rows, results, out)
         print(f"{task} rows and phases: {time.perf_counter() - t0:.1f} s [{CARD}]")
         release()
@@ -4708,6 +4733,332 @@ def bnn_hmc_phase(torch, kernels):
     return figures
 
 
+# The multi-device phase (phase 16), in the first process once the second
+# has ended: (a) a world of one NCCL rank through torchrun on MESH_ROW; (b) a
+# world of MESH_WORLD gloo ranks on the one card (``--mesh-rank``). NCCL
+# refuses two ranks on one card, so the ranks of (b) talk over gloo, which
+# stages card tensors through the host (``parallel/mesh.py``).
+MESH_WORLD = 2
+MESH_TIMEOUT_S = 300  # each spawned group's limit
+MESH_K1_SHAPES = ((128, 16, 32, 32), True), ((128, 32, 16, 16), False), ((128, 10), True)
+MESH_K3_SHAPE = K3_CIVIL_SHAPE
+MESH_K3_P = 0.1
+# a step's gradient (SGD's trace, Adam's first moment, after one update from
+# the same state and batch) or HMC's point: max |ranks - one rank| over max
+# |one rank|, and the loss's relative gap. The ranks sum a batch's rows in
+# another order (each its rows, then the mean of the ranks' means): a few
+# ulps of fp32 at the gradient's scale, far inside these
+MESH_STEP_BOUND = 1e-4
+MESH_LOSS_BOUND = 1e-5
+# (a): the flagged row's metrics against the unflagged row's. The arithmetic
+# is the same (a mean over one rank is a sum divided by one) but for cuDNN's
+# backward algorithms, which sum in an order of their own: equal up to that
+MESH_ROW_BOUND = {"rtol": 1e-3, "atol": 1e-5}
+MESH_HMC = {"n_iterations": 1, "burn_in": 0, "n_leapfrog": 5, "step_size": 1e-4, "seed": 0}
+MESH_HMC_EXAMPLES = 512
+
+
+def mesh_steps(torch, kernels, distributed):
+    """One update of each of the four main-path steps from a seeded state and
+    batch, through ``ParallelTrainer`` on this rank's mesh when
+    ``distributed`` (each rank its rows), else the method alone: the loss,
+    the tensor the comparison reads (CPU) and the kernels' launches."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.data import cifar as cifar_data
+    from beyond_deep_ensembles_tpu_torch.experiments import bnn_hmc, cifar, wilds_task
+    from beyond_deep_ensembles_tpu_torch.models import zoo
+    from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+    from beyond_deep_ensembles_tpu_torch.parallel import mesh
+    from beyond_deep_ensembles_tpu_torch.parallel.pipelines import ParallelTrainer
+
+    def run(built, n_members, batch, read):
+        update = built.method.update
+        if distributed:
+            grid = mesh.make_mesh(member_parallel=mesh.member_axis_size(mesh.world_size(), n_members))
+            trainer = ParallelTrainer(built.method, grid, n_members=n_members)
+            built.state = trainer.place_state(built.state)
+            update = trainer.update
+        _zero(kernels)
+        noise = NoiseSource(key=keys.as_key(keys.fold_in(0, 1), "cuda"))
+        built.state, metrics = update(built.state, noise, batch)
+        torch.cuda.synchronize()
+        return {"loss": float(metrics["loss"]), "tensor": read(built.state).detach().cpu(),
+                "launches": {k: fn.launches for k, fn in kernels.items()}}
+
+    gen = torch.Generator().manual_seed(1)
+    images = (torch.randn(128, 3, 32, 32, generator=gen).cuda(), torch.randint(0, 10, (128,), generator=gen).cuda())
+    out = {}
+    config = {**cifar.DEFAULT_CONFIG, **BBB_VARIANT, "dataset_size": 50_000}
+    built = cifar.build(config, torch.Generator().manual_seed(0), 390)
+    out["bbb"] = run(built, 1, images, lambda state: state.opt_state[0].trace)
+    del built
+    config = {**cifar.DEFAULT_CONFIG, **SVGD_VARIANT, "svgd_particles": MESH_WORLD, "dataset_size": 50_000}
+    built = cifar.build(config, torch.Generator().manual_seed(0), 390)
+    out["svgd"] = run(built, MESH_WORLD, images, lambda state: state.opt_state[0].trace)
+    del built
+    config = {**wilds_task.DEFAULT_CONFIG, **AMAZON_DEFAULT, **MCD_VARIANT, **BERT_SMOKE}
+    x, y, _, _, _ = wilds_task._load_task_data("amazon", config)
+    bs = config["batch_size"]
+    built = wilds_task.build("amazon", config, torch.Generator().manual_seed(config["seed"]))
+    reviews = (torch.from_numpy(x[:bs]).cuda(), torch.from_numpy(y[:bs]).cuda())
+    out["mcd"] = run(built, 1, reviews, lambda state: state.opt_state[0].mu)
+    del built
+    torch.cuda.empty_cache()
+    train = cifar_data.load_cifar10(True, subsample=MESH_HMC_EXAMPLES)
+    test = cifar_data.load_cifar10(False, subsample=64)
+    model = zoo.get_model("resnet20_frn_swish", 10, generator=torch.Generator().manual_seed(0))
+    _zero(kernels)
+    res = bnn_hmc.run_hmc(model, train, test, step_size_adaptation_speed=0.05, **MESH_HMC)
+    torch.cuda.synchronize()
+    m = res["metrics"][0]
+    out["hmc"] = {"loss": m["log_likelihood"], "tensor": res["state"].flat.detach().cpu(), "accepted": m["accepted"],
+                  "launches": {k: fn.launches for k, fn in kernels.items()}}
+    return out
+
+
+def mesh_offsets(torch, sampling, att, rank, world):
+    """K1 (fp32 and bf16 planes, forward and backward, a device seed) at
+    ResNet-20's layer shapes at batch 128, and K3a/K3b (fp32 and bf16,
+    p = 0.1, a device seed) at CivilComments' train shape: this rank's rows
+    launched at their offset against the same rows of the whole launch, bit
+    for bit (the largest gap printed; a gap above 0 fails)."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.ops.sampling import DeviceSeed
+
+    gaps = {}
+
+    def gap(a, b):
+        return float((a.detach().float() - b.detach().float()).abs().max()) if a.numel() else 0.0
+
+    seed = DeviceSeed(keys.as_key(123456789, "cuda"), 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, bias in MESH_K1_SHAPES:
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            planes = [t.to(dtype) for t in layer_planes(torch, gen, shape, bias, -3.0)]
+            n = shape[0] // world
+            rows = slice(rank * n, (rank + 1) * n)
+            whole = [t.clone().requires_grad_(True) for t in planes[:2]]
+            g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            out = sampling.gaussian_sample(*whole, *planes[2:], seed=seed)
+            out.backward(g)
+            part = [t[rows].clone().requires_grad_(True) for t in planes[:2]]
+            got = sampling.gaussian_sample(*part, *planes[2:], seed=seed, rows=(rank * n, shape[0]))
+            got.backward(g[rows])
+            label = f"K1 {str(dtype)[6:]} {shape}"
+            gaps[f"{label} forward"] = gap(got, out[rows])
+            gaps[f"{label} backward"] = gap(part[1].grad, whole[1].grad[rows])
+    b, h, l, d = MESH_K3_SHAPE
+    n = b // world
+    rows = slice(rank * n, (rank + 1) * n)
+    k3_seed = DeviceSeed(keys.as_key(4242, "cuda"), 1 << 20)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, mask = k3_inputs(torch, MESH_K3_SHAPE, 5)
+        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+        whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = att.fused_dropout_attention(*whole, mask, dropout_p=MESH_K3_P, seed=k3_seed)
+        out.backward(do)
+        part = [t[rows].clone().requires_grad_(True) for t in (q, k, v)]
+        got = att.fused_dropout_attention(*part, mask[rows], dropout_p=MESH_K3_P, seed=k3_seed, rows=(rank * n, b))
+        got.backward(do[rows])
+        label = f"K3 {str(dtype)[6:]} {MESH_K3_SHAPE}"
+        gaps[f"{label} output"] = gap(got, out[rows])
+        for name, gp, gw in zip(("dq", "dk", "dv"), part, whole):
+            gaps[f"{label} {name}"] = gap(gp.grad, gw.grad[rows])
+        with torch.no_grad():
+            if dtype == torch.float32:  # the kept probabilities K3a writes
+                _, probs = att.fused_dropout_attention_debug(*part, mask[rows], dropout_p=MESH_K3_P, seed=k3_seed,
+                                                            rows=(rank * n, b))
+                _, want = att.fused_dropout_attention_debug(q, k, v, mask, dropout_p=MESH_K3_P, seed=k3_seed)
+                gaps[f"{label} kept probabilities"] = gap(probs, want[rows])
+            else:  # the keep bits K3a leaves for K3b
+                bias = att.key_bias(mask)
+                drawn = att._forward(q, k, v, bias, MESH_K3_P, k3_seed, None, False, True)[3]
+                mine = att._forward(q[rows], k[rows], v[rows], bias[rows], MESH_K3_P,
+                                    att._shifted(k3_seed, rank * n * h), None, False, True)[3]
+                gaps[f"{label} keep bits"] = float((drawn.view(b, -1)[rows] != mine.view(n, -1)).sum())
+    return gaps
+
+
+def mesh_rank(torch, rank, world, ref_path):
+    """One rank of phase 16 b: the offsets, then the steps against the
+    one-rank references."""
+    from beyond_deep_ensembles_tpu_torch.ops import attention as att
+    from beyond_deep_ensembles_tpu_torch.ops import sampling, svgd_kernel
+
+    kernels = kernel_registry(sampling, svgd_kernel, att)
+    t0 = time.perf_counter()
+    offsets = mesh_offsets(torch, sampling, att, rank, world)
+    t1 = time.perf_counter()
+    steps = mesh_steps(torch, kernels, distributed=True)
+    t2 = time.perf_counter()
+    refs = torch.load(ref_path, weights_only=True)
+    gaps = {}
+    for name, got in steps.items():
+        want = refs[name]
+        scale = float(want["tensor"].abs().max())
+        gaps[name] = {"gap": float((got["tensor"] - want["tensor"]).abs().max()) / scale,
+                      "loss_gap": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                      "launches": got["launches"]}
+        if name == "hmc":
+            gaps[name]["accepted"] = [got["accepted"], want["accepted"]]
+    return {"rank": rank, "world": world, "backend": torch.distributed.get_backend(), "offsets": offsets, "steps": gaps,
+            "offsets_s": t1 - t0, "steps_s": t2 - t1}
+
+
+def mesh_rank_main(rank, world, store, out, ref_path, card) -> int:
+    """A rank of phase 16 b (this file with ``--mesh-rank``): joins the gloo
+    group through the file store, runs ``mesh_rank`` on the card and writes
+    its figures to ``<out>/rank<r>.json``."""
+    global CARD
+    import datetime
+
+    CARD = card
+    threading.Thread(target=_exit_with_parent, args=(os.getppid(),), daemon=True).start()
+    torch = setup("mesh")
+    if torch is None:
+        return 1
+    import torch.distributed as dist
+
+    from beyond_deep_ensembles_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda:0")  # both ranks on the one card, fp32 math pinned
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=int(rank), world_size=int(world),
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S // 2))
+    try:
+        figures = mesh_rank(torch, int(rank), int(world), ref_path)
+    finally:
+        dist.destroy_process_group()
+    path = os.path.join(out, f"rank{rank}.json")
+    with open(f"{path}.tmp", "w") as f:
+        json.dump(figures, f)
+    os.replace(f"{path}.tmp", path)
+    return 0
+
+
+def _wait_group(procs, logs, label, timeout=MESH_TIMEOUT_S):
+    """Waits for every process of a spawned group within ``timeout``; kills
+    them all and raises, the logs printed, when one fails or time runs
+    out."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for path in logs:
+        with open(path) as f:
+            text = f.read()
+        print(f"-- {label}: {os.path.relpath(path, ROOT)}\n{text[-6000:]}", end="" if text.endswith("\n") else "\n")
+    codes = [p.returncode for p in procs]
+    check(all(c == 0 for c in codes), f"{label}: every process exited 0 within {timeout} s (exit codes {codes})")
+
+
+def start_nccl_row(mesh_row, out):
+    """Phase 16 a: MESH_ROW's row, cut as phase 11 ran it, through
+    ``run.main`` under torchrun in a world of one NCCL rank, started in the
+    background; returns the process and its log."""
+    import yaml
+
+    sweep = os.path.join(out, "row.yaml")
+    with open(sweep, "w") as f:
+        yaml.safe_dump_all([{"name": "DEFAULT", "repetitions": 1, "params": mesh_row["params"]},
+                            {"name": MESH_ROW[1], "params": {}}], f)
+    log = os.path.join(out, "nccl_row.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+           "-m", "beyond_deep_ensembles_tpu_torch.run", MESH_ROW[0], sweep, "--name", MESH_ROW[1],
+           "--out", os.path.join(out, "nccl"), "--rep", "0"]
+    print("phase 16 a: " + " ".join(os.path.relpath(c, ROOT) if c.startswith(ROOT) else c for c in cmd[1:]))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT)
+    return proc, log
+
+
+def mesh_phase(torch, kernels, mesh_row):
+    """Phase 16: (a) in the background, the one-rank references, (b), then
+    (a)'s result; every check's gap printed with the world, the backend and
+    the card. Returns its figures."""
+    import gc
+    import shutil
+
+    t0 = time.perf_counter()
+    out = os.path.join(BUILD, "mesh")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    nccl, nccl_log = start_nccl_row(mesh_row, out)
+    t_a = time.perf_counter()
+
+    # (b): the one-rank references, then the world of two
+    refs = mesh_steps(torch, kernels, distributed=False)
+    ref_path = os.path.join(out, "references.pt")
+    torch.save(refs, ref_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    store = os.path.join(out, "store")
+    procs, logs = [], []
+    for r in range(MESH_WORLD):
+        logs.append(os.path.join(out, f"rank{r}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-u", os.path.abspath(__file__), "--mesh-rank", str(r), str(MESH_WORLD), store, out,
+                 ref_path, CARD], stdout=f, stderr=subprocess.STDOUT, cwd=ROOT))
+    _wait_group(procs, logs, f"phase 16 b, a world of {MESH_WORLD} gloo ranks on cuda:0")
+    t_b = time.perf_counter()
+    ranks = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for fig in ranks:
+        where = f"rank {fig['rank']} of {fig['world']}, {fig['backend']}"
+        worst = max(fig["offsets"].values())
+        check(worst == 0.0, f"{where}: K1 and K3 at the rank's row offset = the rows of the whole launch, bit for "
+                            f"bit ({len(fig['offsets'])} checks, largest gap {worst}) [{CARD}]")
+        for name, got in fig["steps"].items():
+            check(got["gap"] <= MESH_STEP_BOUND and got["loss_gap"] <= MESH_LOSS_BOUND,
+                  f"{where}: {name} step = the one-rank step (gap {got['gap']:.2e} <= {MESH_STEP_BOUND} of its "
+                  f"largest element, loss {got['loss_gap']:.2e} <= {MESH_LOSS_BOUND})")
+        hmc = fig["steps"]["hmc"]
+        check(hmc["accepted"][0] == hmc["accepted"][1], f"{where}: HMC's accept decision = the one-rank chain's")
+        print(f"{where}: offsets {fig['offsets_s']:.1f} s, steps {fig['steps_s']:.1f} s [{CARD}]")
+    steps = ranks[0]["steps"]
+    check(steps["bbb"]["launches"]["k1_gaussian_sample"] > 0 and steps["mcd"]["launches"]["k3a_attention_forward"] > 0
+          and steps["mcd"]["launches"]["k3b_attention_backward"] > 0 and steps["svgd"]["launches"]["k2_svgd_gram"] == 1,
+          f"the ranks' steps went through the kernels: {json.dumps({n: s['launches'] for n, s in steps.items()})}")
+
+    # (a): the flagged row in a world of one NCCL rank against the unflagged
+    _wait_group([nccl], [nccl_log], "phase 16 a, torchrun, a world of one NCCL rank")
+    t_end = time.perf_counter()
+    with open(os.path.join(out, "nccl", f"{MESH_ROW[1]}_0", "rep_0", "metrics.jsonl")) as f:
+        got = {k: v for k, v in json.loads(f.read().splitlines()[-1]).items() if not k.startswith("_")}
+    want = mesh_row["result"]
+    floats = [k for k, v in want.items() if isinstance(v, float)]
+    equal = got == want
+    worst = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in floats)
+    check(got.keys() == want.keys() and all(
+        abs(got[k] - want[k]) <= MESH_ROW_BOUND["atol"] + MESH_ROW_BOUND["rtol"] * abs(want[k]) for k in floats)
+        and all(got[k] == want[k] for k in want if k not in floats),
+          f"{MESH_ROW[0]} {MESH_ROW[1]} flagged through torchrun (one NCCL rank, runners captured) = the unflagged "
+          f"row of phase 11 (bit for bit: {equal}; largest relative gap {worst:.2e}, bound {MESH_ROW_BOUND})")
+    seconds = {"phase_s": t_end - t0, "references_s": t_ref - t_a, "world_of_2_s": t_b - t_ref,
+               "nccl_row_s": t_end - t_a, "unflagged_row_s": mesh_row["wall_s"]}
+    print(f"multi-device phase: {seconds['phase_s']:.1f} s (references {seconds['references_s']:.1f} s, world of "
+          f"{MESH_WORLD} {seconds['world_of_2_s']:.1f} s, the NCCL row {seconds['nccl_row_s']:.1f} s beside them; "
+          f"the unflagged row took {mesh_row['wall_s']:.1f} s in phase 11) [{CARD}]")
+    launches = {k: sum(fig["steps"][s]["launches"][k] for fig in ranks for s in fig["steps"]) for k in kernels}
+    return {"world": MESH_WORLD, "backend": ranks[0]["backend"], "ranks": ranks, "references": {
+        n: {"loss": r["loss"], "launches": r["launches"]} for n, r in refs.items()},
+            "row": {"bit_for_bit": equal, "largest_rel_gap": worst, "flagged": got, "unflagged": want},
+            "launches": launches, "seconds": seconds}
+
+
 def kernel_registry(sampling, svgd_kernel, att):
     """Every kernel wrapper of the port by the name its figures carry; each
     counts its own launches (``.launches``)."""
@@ -4926,6 +5277,8 @@ def main() -> int:
         return second_main(*sys.argv[2:4])
     if sys.argv[1:2] == ["--first"]:
         return first_process(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank_main(*sys.argv[2:8])
     return supervise()
 
 
@@ -5046,6 +5399,11 @@ def first_main(torch, t_start) -> int:
     uci, image, resnet, poverty, staged = (second[key] for key in ("uci", "image", "resnet", "poverty", "staged"))
     image_counts, resnet_counts, poverty_counts = (second["counts"][key] for key in ("image", "resnet", "poverty"))
 
+    phase(f"Multi-device: {MESH_ROW[0]} {MESH_ROW[1]} under torchrun (one NCCL rank); K1, K3 and four steps in a "
+          f"world of {MESH_WORLD} gloo ranks")
+    mesh = mesh_phase(torch, kernels, image["mesh_row"])
+    print(json.dumps({"card": CARD, "mesh": {k: v for k, v in mesh.items() if k != "ranks"}}))
+
     fp32_steps = {"amazon MAP fp32": wilds["steps"]["MAP"], "iwildcam MAP fp32": resnet["steps"]["iwildcam MAP"],
                   "CIFAR BBB fp32": bf16["steps"]["CIFAR BBB fp32"]}
     for label, fp32 in fp32_steps.items():
@@ -5080,6 +5438,10 @@ def first_main(torch, t_start) -> int:
             "frozen_eval_bound_ms": k1["frozen_eval_bound_ms"],
             "host_us": k1["host_us"],
             "backward_host_us": k1["backward_host_us"],
+            # the multi-device phase: launches of its ranks' four steps (the
+            # BBB step's at each rank's row offset, forward and backward)
+            "mesh_launches": mesh["launches"]["k1_gaussian_sample"],
+            "mesh_backward_launches": mesh["launches"]["k1_gaussian_sample_backward"],
             # the runner phase: host counts (warm-ups and captures) and, from
             # a profile, K1 launches per replayed BBB step (forward and backward)
             "runner_launches": runners["BBB"]["host_counts"]["k1_gaussian_sample"],
@@ -5148,6 +5510,9 @@ def first_main(torch, t_start) -> int:
             "bound_by": k2["bound_by"],
             "library_ms": k2["library_ms"],
             "host_us": k2["host_us"],
+            # the multi-device phase: its ranks' SVGD step, K2 on the
+            # particles gathered over the member axis
+            "mesh_launches": mesh["launches"]["k2_svgd_gram"],
             "runner_launches": runners["SVGD"]["host_counts"]["k2_svgd_gram"],
             "replay_launches_per_step": runners["SVGD"]["profiles"]["captured"]["launches"]["gram_kernel"],
             # the UCI phase: the CLI's svgd run (10 particles), launches per
@@ -5192,6 +5557,9 @@ def first_main(torch, t_start) -> int:
                 # the WILDS phase: host counts over both yamls' rows, K3 at
                 # CivilComments' train shape, key mode (a DeviceSeed)
                 "wilds_launches": wilds_counts[name],
+                # the multi-device phase: its ranks' MCD step at their row
+                # offset
+                "mesh_launches": mesh["launches"][name],
                 "civilcomments_shape": wilds["k3_civil"][key],
                 "key_mode_ms": wilds["k3_key_mode"]["forward_ms" if key == "K3a" else "backward_ms"],
                 # the remat check: launches in one amazon MAP update without

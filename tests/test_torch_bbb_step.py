@@ -135,14 +135,14 @@ def test_other_variants_not_ported(model, monkeypatch):
     """The other variants build since their port, at fp32, with ``bf16``
     (ported since, tests/test_torch_bf16_cli_cifar.py) and with
     ``use_hmc_baseline`` (ported since, tests/test_torch_wilson_cifar.py);
-    the option not ported with them still raises before any work is done
-    (``data_parallel`` where the process sees a second card: on one it is a
-    no-op)."""
+    and ``data_parallel`` where the process sees a second card and no
+    process group still raises before any work is done, naming the torchrun
+    line (on one card it is a no-op; under a group, the mesh path)."""
     cifar.build({**CONFIG, "model": model}, torch.Generator(), device="cpu")
     cifar.build({**CONFIG, "model": model, "bf16": True}, torch.Generator(), device="cpu")
     cifar.build({**CONFIG, "model": model, "use_hmc_baseline": True}, torch.Generator(), device="cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+    with pytest.raises(RuntimeError, match="data_parallel with 2 visible cards.*torchrun"):
         cifar.build({**CONFIG, "model": model, "data_parallel": True}, torch.Generator(), device="cpu")
 
 

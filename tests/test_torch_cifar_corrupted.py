@@ -180,8 +180,9 @@ def test_unported_keys_still_raise(monkeypatch):
     (``checkpoint_dir``, ``members`` > 1 and ``use_hmc_baseline`` are
     ported: see test_torch_checkpoint.py, test_torch_cifar_multix.py and
     test_torch_wilson_cifar.py; ``data_parallel`` where the process sees a
-    second card)."""
+    second card and no process group raises, naming the torchrun line)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    for config in ({"model": "bbb", "data_parallel": True}, {"model": "svgd", "members": 2}):
-        with pytest.raises(NotImplementedError):
-            cifar.run_single(config, device="cpu")
+    with pytest.raises(RuntimeError, match="torchrun"):
+        cifar.run_single({"model": "bbb", "data_parallel": True}, device="cpu")
+    with pytest.raises(NotImplementedError):
+        cifar.run_single({"model": "svgd", "members": 2}, device="cpu")

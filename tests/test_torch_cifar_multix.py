@@ -116,16 +116,17 @@ def test_unported_options_raise(monkeypatch):
     """Every model of configs/cifar.yaml is ported, and the bf16 key and
     the HMC baseline with them (tests/test_torch_bf16_cli_cifar.py,
     tests/test_torch_wilson_cifar.py: ``build`` takes ``use_hmc_baseline``,
-    which only ``run_single`` reads); data parallelism (where the process
-    sees a second card: on one it is a no-op) still raises, before any work
-    is done, in ``build`` and in the phases."""
+    which only ``run_single`` reads); data parallelism where the process
+    sees a second card and no process group (on one card it is a no-op,
+    under a group the mesh path) raises, naming the torchrun line, before
+    any work is done, in ``build`` and in the phases."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     base = {**cifar.DEFAULT_CONFIG, "dataset_size": 64}
     for model in ("map", "laplace", "ivon", "rank1", "sngp"):
-        with pytest.raises(NotImplementedError, match="data_parallel"):
+        with pytest.raises(RuntimeError, match="data_parallel.*torchrun"):
             cifar.build({**base, "model": model, "data_parallel": True}, torch.Generator(), device="cpu")
         cifar.build({**base, "model": model, "use_hmc_baseline": True}, torch.Generator(), device="cpu")
     with pytest.raises(ValueError):
         cifar.build({**base, "model": "nope"}, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+    with pytest.raises(RuntimeError, match="data_parallel.*torchrun"):
         cifar.fit_laplace_phase({"data_parallel": True}, "unused", device="cpu")

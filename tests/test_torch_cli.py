@@ -135,10 +135,10 @@ def test_logger_records(tmp_path, capsys):
 
 def test_unported_phases_and_missing_card(tmp_path, monkeypatch):
     log = VoidLog()
-    with monkeypatch.context() as m:  # data parallelism over two visible cards is not ported (bf16 is)
+    with monkeypatch.context() as m:  # data parallelism over two visible cards wants torchrun's process group
         m.setattr(torch.cuda, "device_count", lambda: 2)
         for phase in ("fit_laplace", "drop_rates", "eval", "multix"):
-            with pytest.raises(NotImplementedError, match="item 18"):
+            with pytest.raises(RuntimeError, match="torchrun"):
                 run.run_phase("poverty", phase, {"model": "map", "data_parallel": True}, [str(tmp_path)], log)
     with pytest.raises(ValueError, match="not supported"):
         run.run_phase("uci", "multix", {}, [str(tmp_path)], log)

@@ -171,5 +171,6 @@ def test_state_converted_mid_chain_continues_as_jax():
 
 
 def test_hmc_refuses_ring_sharding():
-    with pytest.raises(NotImplementedError, match="ring_sharding"):
+    # a sharding that is not a rings.RingSharding (the mesh path: tests/test_torch_mesh_methods.py)
+    with pytest.raises(TypeError, match="ring_sharding"):
         hmc.hmc_method(lambda *a: None, dataset_size=N, ring_sharding="data")

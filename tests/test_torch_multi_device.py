@@ -1,8 +1,9 @@
-"""PyTorch port, utils/device.py::refuse_multi_device: ``data_parallel`` and
-``ring_shard`` on one device. The JAX package gates every use of them on
-``jax.device_count() > 1``, so on one device a flagged row is the unflagged
-row; the port, which has no mesh yet, does the same and raises where the
-process sees more than one card (ROADMAP item 18).
+"""PyTorch port, ``data_parallel`` and ``ring_shard`` without a process
+group (``parallel/mesh.py::engine_mesh``). The JAX package gates every use
+of them on ``jax.device_count() > 1``, so on one device a flagged row is the
+unflagged row; the port does the same without a process group, and raises,
+naming the ``torchrun`` line, where the process sees more than one card and
+no group (the mesh paths themselves: tests/test_torch_mesh*.py).
 
 In CIFAR, UCI and WILDS: a flagged tiny row equals the unflagged one on the
 port bit for bit (state and metrics, one seed, one key), and the flagged
@@ -18,7 +19,8 @@ import _torch_uci_parity
 from _torch_parity import PARITY, assert_close, run_both
 from _torch_wilds_parity import check_row, yaml_row
 from beyond_deep_ensembles_tpu_torch.experiments import cifar, uci, wilds_task
-from beyond_deep_ensembles_tpu_torch.utils.device import device_count, refuse_multi_device
+from beyond_deep_ensembles_tpu_torch.parallel.mesh import engine_mesh
+from beyond_deep_ensembles_tpu_torch.utils.device import device_count
 
 def _flagged(monkeypatch, module, names, **flags):
     """The port's ``module.<names>`` run with ``flags`` set in their config."""
@@ -35,16 +37,21 @@ def _flagged(monkeypatch, module, names, **flags):
 
 
 def test_one_device_is_what_the_cpu_sees(monkeypatch):
+    """Without a process group the run is one device: the flags make no
+    mesh with at most one visible card, and raise, naming torchrun, with
+    several."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     assert device_count() == 1
-    refuse_multi_device({"data_parallel": True, "ring_shard": True})
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    refuse_multi_device({"data_parallel": True, "ring_shard": True})
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    refuse_multi_device({"data_parallel": False})
     for flag in ("data_parallel", "ring_shard"):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            refuse_multi_device({flag: True})
+        assert engine_mesh({flag: True}, flag) is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert engine_mesh({"data_parallel": True}, "data_parallel") is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert device_count() == 1
+    assert engine_mesh({"data_parallel": False}, "data_parallel") is None
+    for flag in ("data_parallel", "ring_shard"):
+        with pytest.raises(RuntimeError, match="torch.distributed.run"):
+            engine_mesh({flag: True}, flag)
 
 
 def _cifar_run(flags):
@@ -62,7 +69,7 @@ def test_cifar_flagged_row_is_the_unflagged_row(monkeypatch):
     assert all(torch.equal(got_state[k], v) for k, v in state.items())
     assert got_metrics == metrics
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+    with pytest.raises(RuntimeError, match="data_parallel with 2 visible cards and no process group.*torchrun"):
         _cifar_run({"data_parallel": True})
 
 

@@ -205,7 +205,7 @@ def test_sampled_mapping_runs_through_the_model():
 
 
 def test_ring_options():
-    with pytest.raises(NotImplementedError, match="ring_sharding"):
+    with pytest.raises(TypeError, match="ring_sharding"):  # not a rings.RingSharding
         swag_method(_port_loss, None, update_interval=1, ring_sharding=object())
     assert rings.pad_flat(torch.ones(5)).shape == (5,)
     stored = rings.store(torch.tensor([1.0 + 2**-10]), torch.bfloat16)

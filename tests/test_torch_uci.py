@@ -77,9 +77,9 @@ def test_refusals(monkeypatch):
         uci.build(config_for("hmc"), 32, torch.Generator(), device="cpu")
     built = uci.build(config_for("map"), 32, torch.Generator(), device="cpu")
     x = np.zeros((32, 6), np.float32)
-    with monkeypatch.context() as m:  # data_parallel raises where the process sees a second card
+    with monkeypatch.context() as m:  # data_parallel raises where the process sees a second card and no group
         m.setattr(torch.cuda, "device_count", lambda: 2)
-        with pytest.raises(NotImplementedError, match="item 18"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             uci.train(built, {**config_for("map"), "data_parallel": True}, x, x[:, :1])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -227,14 +227,16 @@ def test_build_heads_and_frozen_encoder():
     ],
 )
 def test_unported_options_raise(task, override, monkeypatch):
-    """``visible_cards``: the process sees that many cards (the multi-device
-    flags are no-ops on one, tests/test_torch_multi_device.py)."""
+    """``visible_cards``: the process sees that many cards and no process
+    group, where the multi-device flags raise, naming the torchrun line
+    (they are no-ops on one card, tests/test_torch_multi_device.py, and run
+    the mesh path under a group, tests/test_torch_mesh*.py)."""
     override = dict(override)
     cards = override.pop("visible_cards", None)
     if cards is not None:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     config = {**wilds_task.DEFAULT_CONFIG, **TINY, "model": "map", **override}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError) if cards is None else pytest.raises(RuntimeError, match="torchrun"):
         wilds_task.build(task, config, torch.Generator(), device="cpu")
 
 
