@@ -9,8 +9,9 @@ random crop (zero-pad 4) + horizontal flip as a batched tensor function
 device in key mode), and the numpy shuffle the JAX package's loader uses.
 Arrays come back as numpy NHWC float32, bit-equal to the JAX package's; the
 experiment moves them to the device as NCHW and gathers each batch there
-with the shuffle, so ``batch_iter`` has no counterpart. The native batcher
-is not ported.
+with the shuffle, so ``batch_iter`` and the native batcher have no
+counterpart here (``data/native_loader.py`` keeps the batcher's shuffle
+order).
 """
 from __future__ import annotations
 
@@ -54,17 +55,30 @@ def normalize(images_uint8_or_float: np.ndarray) -> np.ndarray:
     return (x - MEAN) / STD
 
 
-def _synthetic_cifar(n: int, seed: int, classes: int = 10):
-    """Class-structured blobs, the same arrays as the JAX package's default
-    (not its ``hard`` variant, which is not ported yet): class prototypes
-    from a FIXED rng shared by the splits, per-split noise from ``seed``."""
+def _synthetic_cifar(n: int, seed: int, classes: int = 10, hard: Optional[bool] = None):
+    """Class-structured blobs, the same arrays as the JAX package's: class
+    prototypes from a FIXED rng shared by the splits, per-split noise from
+    ``seed``. ``hard`` (default: ``BDE_SYNTH_HARD=1`` in the environment)
+    makes the task non-separable: each image mixes its class prototype
+    (weight 0.45-1) with another class's, and 10% of the labels are drawn
+    again uniformly, so accuracy 1.0 there is a fault."""
+    if hard is None:
+        hard = os.environ.get("BDE_SYNTH_HARD", "0") == "1"
     rng = np.random.RandomState(seed)
     y = rng.randint(0, classes, size=n)
     base = np.random.RandomState(1234).randn(classes, 4, 4, 3).astype(np.float32)
-    imgs = base[y].repeat(8, axis=1).repeat(8, axis=2)
+    imgs = base[y]
+    if hard:
+        other = base[(y + 1 + rng.randint(0, classes - 1, size=n)) % classes]
+        mix = rng.uniform(0.45, 1.0, size=(n, 1, 1, 1)).astype(np.float32)
+        imgs = mix * imgs + (np.float32(1.0) - mix) * other
+    imgs = imgs.repeat(8, axis=1).repeat(8, axis=2)
     noise = np.random.default_rng(seed + 1).standard_normal(size=(n, 32, 32, 3), dtype=np.float32)
     imgs = np.float32(0.5) + np.float32(0.15) * imgs + np.float32(0.1) * noise
     np.clip(imgs, 0, 1, out=imgs)
+    if hard:
+        flip = rng.rand(n) < 0.1
+        y = np.where(flip, rng.randint(0, classes, size=n), y)
     return imgs, y.astype(np.int64)
 
 

@@ -22,6 +22,14 @@ def bayesian_model_average(log_probs: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(log_probs, dim=0) - math.log(log_probs.shape[0])
 
 
+def binary_to_multiclass(outputs: torch.Tensor) -> torch.Tensor:
+    """``[..., 1]`` sigmoid probabilities -> ``[..., 2]`` class
+    probabilities ``(1 - p, p)`` (JAX ``binary_to_multiclass``, reference
+    multiclass_classification.py:178-180)."""
+    outputs = outputs[..., 0]
+    return torch.stack([1.0 - outputs, outputs], dim=-1)
+
+
 def analyze_output(log_marginal: torch.Tensor, target: torch.Tensor, baseline_log_marginal=None):
     """Per-point correctness / confidence / log-likelihood, plus agreement
     and total variation against a baseline predictive when given (reference

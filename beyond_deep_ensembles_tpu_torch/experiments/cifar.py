@@ -10,7 +10,8 @@ at eval, the clean test split and the corrupted splits of every intensity in
 (``swag_*``), ``bbb``, ``svgd``, ``rank1`` (``rank1_*``), ``ivon``
 (``ivon_*``), ``sngp`` (``sngp``, ``spectral_norm_bound``) and ``laplace``
 (``ll_hessian``) variants, each with ``members`` > 1 as a ``deep_ensemble``
-(``svgd`` with one member: its particles are its ensemble), periodic
+(``svgd`` ignores ``members``, as the JAX build does: its particles are its
+ensemble), periodic
 checkpoints with auto-resume and the ``{model}_final`` artifact
 (``checkpoint_dir``, ``checkpoint_interval``), ``fit_laplace_phase`` and
 ``multix_phase``, the ``bf16`` key (the ResNet-20's plain and BBB convs in
@@ -206,9 +207,6 @@ _PORTED = ("map", "mcd", "swag", "bbb", "svgd", "rank1", "ivon", "sngp", "laplac
 def _not_ported(config: dict) -> None:
     if config["model"] not in _PORTED:
         raise ValueError(f"unknown model {config['model']!r}")
-    if config["model"] == "svgd" and config.get("members", 1) != 1:
-        # the JAX build ignores members for svgd; the port refuses
-        raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
     mesh.check_flags(config, ("data_parallel",))
 
 

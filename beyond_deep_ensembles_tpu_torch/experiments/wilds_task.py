@@ -26,8 +26,8 @@ spectral DenseNet or ResNet-50 under the SNGP head for the images),
 ``laplace`` (``ll_hessian``) and the last-layer ``swag_ll``, ``ll_bbb``,
 ``ll_ivon`` and ``ll_svgd`` (``methods/last_layer.py``; the text head is both
 dense layers, the image head the backbone's ``Dense_0``), each with
-``members`` > 1 as a ``deep_ensemble`` (``svgd`` with one: its particles are
-its ensemble); ``ring_dtype``; DenseNet's ``conv_remat``,
+``members`` > 1 as a ``deep_ensemble`` (``svgd`` ignores it, as in JAX: its
+particles are its ensemble); ``ring_dtype``; DenseNet's ``conv_remat``,
 ``densenet_incremental_bn`` and ``densenet_concat_mode``; DistilBERT's
 ``bert_remat``; ResNet-50's ``torchvision_arch``; the staged weights the
 JAX package loads, ``$BDE_DATA_DIR/pretrained/resnet50.pth`` (iwildcam,
@@ -63,10 +63,17 @@ optimizer states and heads (JAX ``_compute_dtype``, :110-118): DistilBERT's
 encoder, the DenseNet's, ResNet-50's and ResNet-18's plain and BBB convs;
 the SNGP models stay fp32, as the JAX package passes them no dtype.
 
-Not ported yet, each raising ``NotImplementedError``: ResNet-50 remat, the DenseNet's running-statistics BatchNorm
-(``static_bn: false``) and the benchmark knob ``no_norm``. ``model: sngp``
-on poverty raises too: the JAX package's own run fails there (its SNGP
-head's one output meets the regression eval), so there is no reference.
+``static_bn: false`` gives the DenseNet tasks BatchNorm with running
+statistics (``nn/norm.py::BatchNorm``, JAX ``_BN``): every member and every
+SVGD particle steps its own ``mean`` and ``var`` buffers in training, and
+every eval, sample and Laplace fit reads them (``train=False``); on
+iwildcam and rxrx1 it selects FRN, as in JAX. ``no_norm`` (a benchmark knob
+of the JAX package) drops every norm of the DenseNet and ResNet-50, and
+``conv_remat`` (``none``, ``block``, ``stage``) rematerializes ResNet-50's
+bottlenecks or stages. ``model: sngp`` on poverty raises: the JAX
+package's own run fails there (its SNGP head's one output meets the
+regression eval), so there is no reference. ``svgd`` ignores ``members``,
+as the JAX build does: its particles are its ensemble.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed. The text data
 sets move to the device once and each step gathers its batch there; an image
@@ -200,9 +207,6 @@ def _not_ported(task: str, config: dict) -> None:
             "model 'sngp' on poverty: the JAX package's own run fails there (its SNGP head's single output "
             "meets the regression eval, which wants GaussLayer's (mean, std) pair: \"TypeError: sub got "
             "incompatible shapes for broadcasting: (8, 1), (2, 8)\"), so it has no reference to port")
-    if config["model"] == "svgd" and config.get("members", 1) != 1:
-        # the JAX build ignores members for svgd; the port refuses
-        raise NotImplementedError("members > 1 with svgd (an ensemble of particle sets): not ported yet")
     if config.get("lr_schedule_kind", "none") not in ("none", "exponential", "cosine_warmup"):
         raise ValueError(f"unknown lr_schedule_kind {config['lr_schedule_kind']!r}")
     mesh.check_flags(config)

@@ -70,12 +70,33 @@ class EnsembleState:
             member.load_state_dict({k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)})
 
 
+def load_stacked_buffers(modules: Sequence[nn.Module], model_state, stacked: bool) -> None:
+    """``model_state`` (``{buffer name: tensor}``) copied in place into the
+    buffers of each of ``modules``: row i of every tensor into module i
+    where ``stacked``, else every tensor into every module (JAX SVGD's
+    broadcast of an unstacked state). Every name must be a buffer of the
+    modules; buffers it does not name keep their values."""
+    for i, module in enumerate(modules):
+        buffers = dict(module.named_buffers())
+        unknown = sorted(set(model_state) - set(buffers))
+        if unknown:
+            raise KeyError(f"not buffers of the model: {unknown[:8]}")
+        with torch.no_grad():
+            for name, value in model_state.items():
+                buffers[name].copy_(torch.as_tensor(value)[i] if stacked else torch.as_tensor(value))
+
+
 def deep_ensemble(inner: PosteriorMethod, n_members: int) -> PosteriorMethod:
     """M independent members of ``inner`` (JAX ``deep_ensemble``, :26-63).
 
     init(params, model_state=None): ``params`` a sequence of M member
         modules (an ``nn.ModuleList``); each member's state is
-        ``inner.init(module, {})``.
+        ``inner.init(module, {})``. Each member keeps its own mutable
+        state (running statistics, SNGP's precision) in its module's
+        buffers, the port's form of JAX's ``stacked_model_state``; a given
+        ``model_state`` (``{buffer name: [M, ...]}``, stacked on the member
+        axis) is copied into them, member m taking row m
+        (:func:`load_stacked_buffers`).
     update: each member's ``inner.update`` under ``noise.member(m)``, m
         the member's index in the whole ensemble; the metrics are the
         members' means, and ``{k}_per_member`` the ``[M]`` values (of the
@@ -85,11 +106,11 @@ def deep_ensemble(inner: PosteriorMethod, n_members: int) -> PosteriorMethod:
     finalize_epoch: each member's."""
 
     def init(params: Sequence[nn.Module], model_state=None):
-        if model_state:
-            raise NotImplementedError("a stacked model state: not ported yet")
         params = list(params)
         if len(params) != n_members:
             raise ValueError(f"expected {n_members} members, got {len(params)}")
+        if model_state:
+            load_stacked_buffers(params, model_state, stacked=True)
         return EnsembleState([inner.init(p, {}) for p in params])
 
     def update(state: EnsembleState, noise, batch):

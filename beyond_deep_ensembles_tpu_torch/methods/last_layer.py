@@ -96,6 +96,26 @@ def perturbed_copy(layers: dict, generator: torch.Generator) -> dict:
     return out
 
 
+def split_params(params, mask: dict) -> tuple:
+    """``(backbone, head)``: the named parameters of ``params`` (a module or
+    a mapping) split by ``mask`` (name -> True for the head), each side a
+    dict over every name, the other side's entries zero-size placeholders
+    (JAX ``split_params``: their emptiness encodes the mask)."""
+    named = dict(params.named_parameters()) if isinstance(params, nn.Module) else dict(params)
+
+    def empty(p):
+        return torch.zeros((0,), dtype=p.dtype, device=p.device)
+
+    head = {k: p if mask[k] else empty(p) for k, p in named.items()}
+    backbone = {k: empty(p) if mask[k] else p for k, p in named.items()}
+    return backbone, head
+
+
+def merge_params(backbone: dict, head: dict) -> dict:
+    """The inverse of :func:`split_params`: each name's non-empty entry."""
+    return {k: head[k] if b.numel() == 0 else b for k, b in backbone.items()}
+
+
 @dataclasses.dataclass
 class LastLayerState:
     """``inner``: the inner method's state over the head view(s);

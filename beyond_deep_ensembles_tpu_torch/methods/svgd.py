@@ -35,8 +35,18 @@ every rank takes K2 on the same gathered ``[n, P]`` block and steps every
 particle alike. A member-split update needs per-particle sources (key mode,
 or given draws per particle) and raises otherwise.
 
-Only an empty model state is ported (FRN keeps none); a stacked per-particle
-state raises.
+Each particle keeps its own mutable model state (a running-statistics
+BatchNorm's ``mean`` and ``var``) in its module's buffers, which its own
+forwards step: the port's form of JAX's per-particle stacked
+``model_state``. ``init`` copies a given state into them, row p into
+particle p where it is stacked, else the one state into every particle
+(JAX :76-113, with its ``model_state_stacked`` knob). K2 and the Stein
+direction see the parameters only (``tree.ravel`` reads
+``named_parameters``), never the buffers.
+
+``SvgdState`` is the port's ``MethodState`` (JAX's ``SvgdState`` holds the
+same fields, its particles stacked where the port's are an
+``nn.ModuleList``).
 """
 from __future__ import annotations
 
@@ -50,6 +60,9 @@ from ..ops.svgd_kernel import _median_linear, rbf_phi
 from ..parallel import mesh as _mesh
 from ..tree import make_unravel, ravel
 from .api import LossFn, MethodState, PosteriorMethod, default_finalize_epoch, non_mle_mask
+from .ensemble import load_stacked_buffers
+
+SvgdState = MethodState
 
 
 def rbf(particles: torch.Tensor, h_override=None):
@@ -77,12 +90,22 @@ def svgd_method(
     dataset_size: int,
     l2_reg: float = 0.0,
     kernel_grad_scale: float = 1.0,
+    model_state_stacked: bool | None = None,
 ) -> PosteriorMethod:
     def init(params: nn.ModuleList, model_state=None):
+        """``model_state``: ``{buffer name: tensor}`` copied into the
+        particles' buffers, stacked on a leading particle axis where
+        ``model_state_stacked`` says so or, left None, where every tensor's
+        leading size is the particle count (JAX's rule), else one state
+        broadcast to every particle."""
         if len(params) != particle_count:
             raise ValueError(f"expected {particle_count} particles, got {len(params)}")
         if model_state:
-            raise NotImplementedError("a per-particle model state: not ported yet")
+            stacked = model_state_stacked
+            if stacked is None:
+                stacked = all(torch.as_tensor(v).ndim >= 1 and torch.as_tensor(v).shape[0] == particle_count
+                              for v in model_state.values())
+            load_stacked_buffers(params, model_state, stacked)
         return MethodState(params=params, model_state={}, opt_state=tx(params.parameters()))
 
     def update(state: MethodState, noise, batch):
@@ -124,6 +147,8 @@ def svgd_method(
             # svgd.py:78-79, GradScaler's inf check); the gradients are
             # global already
             optimizer.step(torch.isfinite(grad_mat).all(), reduce=False)
+            if mesh is not None and len(own) < particle_count:
+                _mesh.broadcast_member_buffers(mesh, particles, particle_count)
         state.step += 1
         # ``backbone_loss`` is the SUM over particles: under a last-layer
         # composition the reference's shared backbone accumulates every
@@ -133,7 +158,8 @@ def svgd_method(
 
     def sample(state: MethodState, noise=None, index=None):
         """Cycle through the particles (reference svgd.py:107-112): the
-        prediction index selects the particle."""
+        prediction index selects the particle, and with it the particle's
+        own buffers."""
         del noise
         return state.params[(index or 0) % particle_count], state.model_state
 

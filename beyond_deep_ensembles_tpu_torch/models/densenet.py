@@ -38,9 +38,15 @@ input's type, so the concatenated features (and the ``"buffer"``) are bf16,
 and :class:`DenseNetClassifier` casts the pooled features to fp32 for its
 head (JAX ``models/densenet.py:330``). Rank-1 and spectral convs get none.
 
-Options the yamls do not set raise: running statistics
-(``track_running_stats``, ``static_bn: false``) and ``norm_off`` (the JAX
-package's benchmark knob).
+``track_running_stats`` (``static_bn: false``) makes every norm a
+``BatchNorm`` with running statistics (``_BN_k/BatchNorm_0``, its ``mean``
+and ``var`` buffers the JAX ``batch_stats`` collection): batch statistics
+in training, each forward stepping the buffers, and the buffers at eval;
+``incremental_bn`` then does not apply (JAX :206-210), and a remat
+recompute steps no statistics (``models/layers.py::rematerialized``).
+Under bf16 these norms return fp32, as flax's ``BatchNorm`` does.
+``norm_off`` (the JAX package's benchmark knob) makes every norm the
+identity.
 """
 from __future__ import annotations
 
@@ -52,7 +58,7 @@ from torch import nn
 
 from ..nn.base import add_auto_named
 from ..nn.dropout import FixableDropout
-from ..nn.norm import StaticBatchNorm, channel_stats
+from ..nn.norm import BatchNorm, StaticBatchNorm, channel_stats
 from ..nn.sngp import SNGPHead
 from .layers import call_layer, kind_kwargs, make_conv, make_dense, rematerialized
 
@@ -61,14 +67,28 @@ CONCAT_MODES = ("concat", "buffer")
 
 
 class _BN(nn.Module):
-    """The JAX ``_BN`` scope around its ``StaticBatchNorm_0``."""
+    """The JAX ``_BN`` scope around its ``StaticBatchNorm_0``, its
+    ``BatchNorm_0`` (``track_running_stats``) or nothing (``off``)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, track_running_stats: bool = False, off: bool = False):
         super().__init__()
-        self.StaticBatchNorm_0 = StaticBatchNorm(features)
+        self.running = track_running_stats and not off
+        if off:
+            norm = None
+        elif track_running_stats:
+            norm = self.BatchNorm_0 = BatchNorm(features)
+        else:
+            norm = self.StaticBatchNorm_0 = StaticBatchNorm(features)
+        # a tuple keeps the reference out of the state_dict
+        self._norm = (norm,)
 
-    def forward(self, x, stats=None):
-        return self.StaticBatchNorm_0(x, stats)
+    def forward(self, x, train: bool = True, stats=None):
+        norm = self._norm[0]
+        if norm is None:
+            return x
+        if self.running:
+            return norm(x, train=train)
+        return norm(x, stats)
 
 
 def _drop(layer, h, noise, train: bool):
@@ -81,7 +101,8 @@ class DenseLayer(nn.Module):
 
     def __init__(self, in_features: int, growth_rate: int, bn_size: int, conv_kind: str = "plain",
                  components: int = 1, dropout_p: Optional[float] = None, dropout_freeze_eval: bool = True,
-                 dtype=None, *, generator: torch.Generator):
+                 dtype=None, track_running_stats: bool = False, norm_off: bool = False, *,
+                 generator: torch.Generator):
         super().__init__()
         mid = bn_size * growth_rate
         kw = kind_kwargs(conv_kind, dtype)
@@ -91,11 +112,11 @@ class DenseLayer(nn.Module):
                 return None
             return add_auto_named(self, FixableDropout(dropout_p, freeze_on_eval=dropout_freeze_eval))
 
-        bn1 = add_auto_named(self, _BN(in_features))
+        bn1 = add_auto_named(self, _BN(in_features, track_running_stats, norm_off))
         conv1 = add_auto_named(self, make_conv(conv_kind, in_features, mid, (1, 1), use_bias=False,
                                                components=components, generator=generator, **kw))
         drop1 = drop()
-        bn2 = add_auto_named(self, _BN(mid))
+        bn2 = add_auto_named(self, _BN(mid, track_running_stats, norm_off))
         conv2 = add_auto_named(self, make_conv(conv_kind, mid, growth_rate, (3, 3), padding=1, use_bias=False,
                                                components=components, generator=generator, **kw))
         drop2 = drop()
@@ -104,9 +125,9 @@ class DenseLayer(nn.Module):
 
     def forward(self, x, noise, train: bool = True, component=None, bn_stats=None):
         bn1, conv1, drop1, bn2, conv2, drop2 = self._layers
-        h = F.relu(bn1(x, bn_stats))
+        h = F.relu(bn1(x, train, bn_stats))
         h = _drop(drop1, call_layer(conv1, h, noise, train, component), noise, train)
-        h = F.relu(bn2(h))
+        h = F.relu(bn2(h, train))
         h = call_layer(conv2, h, noise, train, component)
         return _drop(drop2, h, noise, train)
 
@@ -141,20 +162,19 @@ class DenseNet(nn.Module):
         generator: torch.Generator,
     ):
         super().__init__()
-        if track_running_stats:
-            raise NotImplementedError("DenseNet BatchNorm with running statistics (static_bn: false): not ported yet")
-        if norm_off:
-            raise NotImplementedError("DenseNet norm_off (a benchmark knob of the JAX package): not ported")
         if remat not in REMAT_MODES:
             raise ValueError(f"remat {remat!r} (want one of {REMAT_MODES})")
         if concat_mode not in CONCAT_MODES:
             raise ValueError(f"concat_mode {concat_mode!r} (want one of {CONCAT_MODES})")
         self.growth_rate, self.block_config = growth_rate, tuple(block_config)
-        self.remat, self.incremental_bn, self.concat_mode = remat, incremental_bn, concat_mode
+        self.remat, self.concat_mode = remat, concat_mode
+        # the stats cache applies to the static norms only (JAX :206-210)
+        self.incremental_bn = incremental_bn and not track_running_stats and not norm_off
         kw = kind_kwargs(conv_kind, dtype)
+        norm = dict(track_running_stats=track_running_stats, off=norm_off)
         stem = add_auto_named(self, make_conv(conv_kind, in_channels, init_features, (7, 7), strides=2, padding=3,
                                               use_bias=False, components=components, generator=generator, **kw))
-        stem_bn = add_auto_named(self, _BN(init_features))
+        stem_bn = add_auto_named(self, _BN(init_features, **norm))
         stem_drop = None
         if dropout_p is not None:
             stem_drop = add_auto_named(self, FixableDropout(dropout_p, freeze_on_eval=dropout_freeze_eval))
@@ -164,16 +184,16 @@ class DenseNet(nn.Module):
             for _ in range(n_layers):
                 layers.append(add_auto_named(self, DenseLayer(
                     c, growth_rate, bn_size, conv_kind, components, dropout_p, dropout_freeze_eval, dtype,
-                    generator=generator)))
+                    track_running_stats, norm_off, generator=generator)))
                 c += growth_rate
             blocks.append(tuple(layers))
             if i != len(self.block_config) - 1:
-                bn = add_auto_named(self, _BN(c))
+                bn = add_auto_named(self, _BN(c, **norm))
                 conv = add_auto_named(self, make_conv(conv_kind, c, c // 2, (1, 1), use_bias=False,
                                                       components=components, generator=generator, **kw))
                 transitions.append((bn, conv))
                 c //= 2
-        final_bn = add_auto_named(self, _BN(c))
+        final_bn = add_auto_named(self, _BN(c, **norm))
         self.out_features = c
         # a tuple keeps the references out of the state_dict (one key per parameter)
         self._layers = (stem, stem_bn, stem_drop, tuple(blocks), tuple(transitions), final_bn)
@@ -192,14 +212,14 @@ class DenseNet(nn.Module):
             if remat_layers:
                 new = rematerialized(
                     lambda x, s, layer=layer: layer(x, noise, train=train, component=component, bn_stats=s),
-                    noise, cur, stats)
+                    noise, cur, stats, modules=(layer,))
             else:
                 new = layer(cur, noise, train=train, component=component, bn_stats=stats)
             if stats is not None:
                 nm, nv = channel_stats(new)
                 stats = (torch.cat([stats[0], nm]), torch.cat([stats[1], nv]))
             if buffer:
-                buf = buf.slice_scatter(new, dim=1, start=c, end=c + new.shape[1])
+                buf = buf.slice_scatter(new.to(buf.dtype), dim=1, start=c, end=c + new.shape[1])
             else:
                 h = torch.cat([h, new], dim=1)
             c += new.shape[1]
@@ -207,7 +227,7 @@ class DenseNet(nn.Module):
 
     def forward(self, x, noise, train: bool = True, component=None):
         stem, stem_bn, stem_drop, blocks, transitions, final_bn = self._layers
-        h = F.relu(stem_bn(call_layer(stem, x, noise, train, component)))
+        h = F.relu(stem_bn(call_layer(stem, x, noise, train, component), train))
         h = _drop(stem_drop, h, noise, train)
         h = F.max_pool2d(h, 3, stride=2, padding=1)
         remat = self.remat if train and component is None and torch.is_grad_enabled() else "none"
@@ -217,14 +237,14 @@ class DenseNet(nn.Module):
             if remat == "block":
                 h, stats = rematerialized(
                     lambda x, s, layers=layers: self._block(layers, False, noise, train, component, x, s),
-                    noise, h, stats0)
+                    noise, h, stats0, modules=layers)
             else:
                 h, stats = self._block(layers, remat == "layer", noise, train, component, h, stats0)
             if i < len(transitions):
                 bn, conv = transitions[i]
-                t = F.relu(bn(h, stats))
+                t = F.relu(bn(h, train, stats))
                 h = F.avg_pool2d(call_layer(conv, t, noise, train, component), 2, stride=2)
-        h = F.relu(final_bn(h, stats))
+        h = F.relu(final_bn(h, train, stats))
         return torch.mean(h, dim=(2, 3))
 
 

@@ -91,11 +91,37 @@ def params_from_jax(params: Mapping) -> dict:
 
 def buffers_from_jax(model_state: Mapping) -> dict:
     """A JAX model state (``{collection: tree}``: ``spectral_norm``,
-    ``sngp``, ``buffers``) -> the port's buffers, each tree's paths joined
-    with dots, layouts and dtypes kept (``seen_data`` int32)."""
+    ``sngp``, ``buffers``, ``batch_stats``) -> the port's buffers, each
+    tree's paths joined with dots, layouts and dtypes kept (``seen_data``
+    int32; a running-statistics norm's ``_BN_k/BatchNorm_0/{mean,var}``
+    are the port's ``BatchNorm`` buffers of those names)."""
     out = {}
     for tree in model_state.values():
         out.update(_convert(tree, lambda name, a: torch.from_numpy(np.array(a, order="C"))))
+    return out
+
+
+def stacked_buffers_from_jax(model_state: Mapping, n: int) -> list:
+    """A JAX model state stacked on a leading axis of ``n`` (an ensemble's
+    members, SVGD's particles) -> one buffer dict each."""
+    if not model_state:
+        return [{} for _ in range(n)]
+    return [buffers_from_jax(_index(model_state, i)) for i in range(n)]
+
+
+def batch_stats_to_jax(module: torch.nn.Module) -> dict:
+    """The port's running statistics back as a flax ``batch_stats``
+    collection (nested dicts of numpy): every buffer named ``mean`` or
+    ``var`` under its dotted path."""
+    out = {}
+    for name, buf in module.named_buffers():
+        *path, leaf = name.split(".")
+        if leaf not in ("mean", "var"):
+            continue
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = buf.detach().cpu().numpy().copy()
     return out
 
 
@@ -241,6 +267,9 @@ def state_from_jax(module: torch.nn.Module, state, lr: float = 0.0, var_lr: floa
     named = _named_from(params, stacked)
     if not stacked:
         named.update(buffers_from_jax(_numpy_tree(state.model_state or {})))
+    else:
+        for i, buffers in enumerate(stacked_buffers_from_jax(_numpy_tree(state.model_state or {}), len(module))):
+            named.update({f"{i}.{k}": v for k, v in buffers.items()})
 
     def flat_of(vector):
         return _port_flat(module, params_from_jax(_unravel_sorted(params, vector)))

@@ -9,6 +9,7 @@ DenseNet and DistilBERT.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Union
 
 import torch
@@ -17,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..nn.bbb import BBBConv, BBBDense
 from ..nn.convops import Padding
+from ..nn.norm import recomputing
 from ..nn.plain import Conv, Dense
 from ..nn.rank1 import Rank1Conv, Rank1Dense
 from ..nn.spectral_norm import SpectralNormConv, SpectralNormDense
@@ -98,18 +100,20 @@ def call_layer(layer: nn.Module, x, noise, train: bool, component=None):
     return layer(x, noise, train=train)
 
 
-def rematerialized(fn, noise, *args):
-    """``fn(*args)`` under a non-reentrant ``checkpoint`` (the DenseNet's
-    ``remat``, DistilBERT's ``remat``): the recompute in the backward draws
-    from ``noise`` what the forward drew (``NoiseSource.replay``)."""
+def rematerialized(fn, noise, *args, modules=()):
+    """``fn(*args)`` under a non-reentrant ``checkpoint`` (the DenseNet's and
+    ResNet-50's ``remat``, DistilBERT's ``remat``): the recompute in the
+    backward draws from ``noise`` what the forward drew
+    (``NoiseSource.replay``) and steps no running statistics of the
+    ``modules`` that ``fn`` runs (``nn/norm.py::recomputing``)."""
     mark = None if noise is None else noise.mark()
     calls = [0]
 
     def run(*a):
         calls[0] += 1
-        if calls[0] == 1 or noise is None:
+        if calls[0] == 1:
             return fn(*a)
-        with noise.replay(mark):
+        with recomputing(modules), (contextlib.nullcontext() if noise is None else noise.replay(mark)):
             return fn(*a)
 
     return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)

@@ -15,8 +15,10 @@ the skip's included). As in JAX, ResNet-20 has no norm after the stem, an
 8x8 average pool and a dense head of the conv kind, on 32x32 inputs;
 :class:`ResNet18` has a stride-1 stem, an unpadded max pool, a global mean
 and ``features_only``. :class:`WilsonResNet20` is the bnn-hmc ResNet-20 of
-the published Wilson et al. HMC samples. ``PreResNet20`` is not ported
-yet.
+the published Wilson et al. HMC samples. :class:`PreResNet20` is the
+reference's pre-activation ResNet-20 (:class:`PreBasicBlock`), which the
+JAX package exports and only its tests build. ResNet-20's and
+PreResNet-20's ``head_kind`` and ``features_only`` are JAX's.
 
 :class:`ResNet50` is the JAX package's corrected bottleneck ResNet-50 (a
 7x7 stride-2 stem, a 3x3 stride-2 max pool, ``stage_sizes`` bottlenecks of
@@ -28,9 +30,13 @@ activation after the stem, a norm after the projection: the topology a
 torchvision ``resnet50`` state dict loads into, ``models/torch_convert.py``).
 Submodules carry flax's scope names (``Conv_0``, ``_Norm_k/StaticBatchNorm_0``,
 ``Bottleneck_k`` numbered over the whole net, ``Dense_0``), so
-``models/jax_convert.py`` maps the JAX parameters by path. ``remat`` other
-than ``"none"`` and the norm ``"none"`` (a benchmark knob of the JAX package)
-raise.
+``models/jax_convert.py`` maps the JAX parameters by path. ``remat``
+``"block"`` or ``"stage"`` runs each bottleneck, or each stage, under
+``torch.utils.checkpoint`` (``models/layers.py::rematerialized``: the
+recompute replays the forward's draws, as the DenseNet's does), in a
+training forward under autograd without a mixture ``component`` (JAX
+skips it under one); the parameter names are those of ``"none"``. The norm
+``"none"`` (the JAX package's benchmark knob ``no_norm``) is the identity.
 
 ``dtype`` is the compute dtype (bf16: parameters stay fp32): as in JAX it
 reaches the plain and BBB convs only (``models/layers.py::kind_kwargs``),
@@ -63,8 +69,11 @@ from ..nn.frn import FilterResponseNorm, VariationalFilterResponseNorm
 from ..nn.norm import StaticBatchNorm
 from ..nn.plain import Conv, Dense
 from ..nn.sngp import SNGPHead
-from .layers import call_layer, kind_kwargs, make_conv, make_dense
+from .layers import call_layer, kind_kwargs, make_conv, make_dense, rematerialized
 from .lenet import flatten_nhwc
+
+
+RESNET50_REMAT_MODES = ("none", "block", "stage")
 
 
 def _activation(name: str):
@@ -76,8 +85,9 @@ def _activation(name: str):
 
 
 class _Norm(nn.Module):
-    """norm in {'batch_static', 'frn', 'frn_variational'} (reference
-    get_norm_layer, resnet.py:19-28); holds the norm under its flax name."""
+    """norm in {'batch_static', 'frn', 'frn_variational', 'none'} (reference
+    get_norm_layer, resnet.py:19-28; ``none`` the identity); holds the norm
+    under its flax name."""
 
     def __init__(self, kind: str, features: int, *, generator: torch.Generator):
         super().__init__()
@@ -88,17 +98,20 @@ class _Norm(nn.Module):
         elif kind == "frn_variational":
             layer = VariationalFilterResponseNorm(features, generator=generator)
         elif kind == "none":
-            raise NotImplementedError("norm 'none' (a benchmark knob of the JAX package, no_norm): not ported")
+            layer = None  # no norm: the JAX package's benchmark knob (no_norm)
         else:
             raise ValueError(f"unknown norm {kind!r}")
         self.static = kind == "batch_static"
         # a tuple keeps the reference out of the state_dict (one key per parameter)
-        self._layer = (add_auto_named(self, layer),)
+        self._layer = (None if layer is None else add_auto_named(self, layer),)
 
     def forward(self, x, noise, train: bool = True):
+        layer = self._layer[0]
+        if layer is None:
+            return x
         if self.static:
-            return self._layer[0](x)
-        return self._layer[0](x, noise, train=train)
+            return layer(x)
+        return layer(x, noise, train=train)
 
 
 def _norm_kind(norm: str, conv_kind: str) -> str:
@@ -167,11 +180,78 @@ def _drop(layer, h, noise, train: bool):
     return h if layer is None else layer(h, noise, train=train)
 
 
+class PreBasicBlock(nn.Module):
+    """Reference PreBasicBlock (resnet.py:217-242; JAX :128-180): the
+    pre-activation order norm-act-(dropout)-conv twice, and, when the
+    stride is not 1, a skip of dropout then a 1x1 stride-s conv without
+    bias; no activation after the sum. As in JAX the convs take no compute
+    dtype."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        stride: int,
+        activation: str,
+        norm: str,
+        conv_kind: str,
+        dropout_p: Optional[float] = None,
+        components: int = 1,
+        norm_bound: float = 6.0,
+        *,
+        generator: torch.Generator,
+    ):
+        super().__init__()
+        self.act = _activation(activation)
+        nk = _norm_kind(norm, conv_kind)
+        kw = kind_kwargs(conv_kind, None, norm_bound)
+
+        def conv(cin, kernel, s, padding, use_bias=True):
+            return add_auto_named(self, make_conv(
+                conv_kind, cin, features, (kernel, kernel), strides=s, padding=padding, use_bias=use_bias,
+                components=components, generator=generator, **kw))
+
+        def drop():
+            return None if dropout_p is None else add_auto_named(self, FixableDropout(dropout_p))
+
+        norm1 = add_auto_named(self, _Norm(nk, in_features, generator=generator))
+        drop1, conv1 = drop(), conv(in_features, 3, stride, 1)
+        norm2 = add_auto_named(self, _Norm(nk, features, generator=generator))
+        drop2, conv2 = drop(), conv(features, 3, 1, 1)
+        skip = drop3 = None
+        if stride != 1:
+            drop3, skip = drop(), conv(in_features, 1, stride, 0, use_bias=False)
+        # a tuple keeps the references out of the state_dict (one key per parameter)
+        self._layers = (norm1, drop1, conv1, norm2, drop2, conv2, drop3, skip)
+
+    def forward(self, x, noise, train: bool = True, component=None):
+        norm1, drop1, conv1, norm2, drop2, conv2, drop3, skip = self._layers
+        h = _drop(drop1, self.act(norm1(x, noise, train=train)), noise, train)
+        h = call_layer(conv1, h, noise, train, component)
+        h = _drop(drop2, self.act(norm2(h, noise, train=train)), noise, train)
+        h = call_layer(conv2, h, noise, train, component)
+        if skip is not None:
+            x = call_layer(skip, _drop(drop3, x, noise, train), noise, train, component)
+        return h + x
+
+
+def _head(parent, kind, classes, components, generator, features_only: bool):
+    """The dense head over the 64 pooled features, registered on ``parent``,
+    or None under ``features_only``."""
+    if features_only:
+        return None
+    return add_auto_named(parent, make_dense(kind, 64, classes, components=components, generator=generator))
+
+
 class ResNet20(nn.Module):
     """Reference ResNet20 (resnet.py:122-148); with norm='frn',
-    activation='swish' the Wilson-HMC CIFAR architecture, for 32x32
-    inputs. ``forward(x, noise, train, component)``: ``component`` is a
-    Rank-1 model's mixture component, the same for every layer."""
+    activation='swish' the Wilson-HMC CIFAR architecture.
+    ``forward(x, noise, train, component)``: ``component`` is a Rank-1
+    model's mixture component, the same for every layer. ``head_kind``
+    (default ``conv_kind``) is the head's kind; ``features_only`` returns
+    the features: pooled by 8x8 from 32 pixels up, below that unpooled and
+    flattened in NHWC order, as JAX does (the head takes the 64 pooled
+    features, so a 32-pixel input)."""
 
     def __init__(
         self,
@@ -182,6 +262,8 @@ class ResNet20(nn.Module):
         dropout_p: Optional[float] = None,
         components: int = 1,
         dtype=None,
+        head_kind: Optional[str] = None,
+        features_only: bool = False,
         *,
         generator: torch.Generator,
     ):
@@ -189,14 +271,59 @@ class ResNet20(nn.Module):
         stem = _stem(self, conv_kind, components, generator, **kind_kwargs(conv_kind, dtype))
         drop = None if dropout_p is None else add_auto_named(self, FixableDropout(dropout_p))
         blocks = _blocks(self, activation, norm, conv_kind, dropout_p, components, generator, dtype)
-        head = add_auto_named(self, make_dense(conv_kind, 64, classes, components=components, generator=generator))
+        head = _head(self, head_kind or conv_kind, classes, components, generator, features_only)
         # a tuple keeps the references out of the state_dict (one key per parameter)
         self._layers = (stem, drop, blocks, head)
 
     def forward(self, x, noise, train: bool = True, component=None):
         stem, drop, blocks, head = self._layers
         h = _drop(drop, call_layer(stem, x, noise, train, component), noise, train)
-        return call_layer(head, _features(blocks, h, noise, train, component), noise, train, component)
+        h = _features(blocks, h, noise, train, component)
+        return h if head is None else call_layer(head, h, noise, train, component)
+
+
+class PreResNet20(nn.Module):
+    """Reference PreResNet20 (resnet.py:244-272; JAX :365-405): the 3x3
+    stem, nine :class:`PreBasicBlock` of widths 16, 32, 64, a final norm and
+    activation, the 8x8 pool from 32 pixels up and a dense head of
+    ``head_kind`` (default ``conv_kind``), or the pooled features under
+    ``features_only`` (unpooled below 32 pixels, as ResNet-20's). No stem
+    dropout; the stem and blocks take no compute dtype, as in JAX."""
+
+    def __init__(
+        self,
+        classes: int,
+        activation: str = "relu",
+        norm: str = "batch_static",
+        dropout_p: Optional[float] = None,
+        conv_kind: str = "plain",
+        head_kind: Optional[str] = None,
+        components: int = 1,
+        features_only: bool = False,
+        *,
+        generator: torch.Generator,
+    ):
+        super().__init__()
+        self.act = _activation(activation)
+        stem = _stem(self, conv_kind, components, generator)
+        widths = [(16, 1), (16, 1), (16, 1), (32, 2), (32, 1), (32, 1), (64, 2), (64, 1), (64, 1)]
+        blocks, cin = [], 16
+        for features, stride in widths:
+            blocks.append(add_auto_named(self, PreBasicBlock(
+                cin, features, stride, activation, norm, conv_kind, dropout_p, components, generator=generator)))
+            cin = features
+        final = add_auto_named(self, _Norm(_norm_kind(norm, conv_kind), 64, generator=generator))
+        head = _head(self, head_kind or conv_kind, classes, components, generator, features_only)
+        # a tuple keeps the references out of the state_dict (one key per parameter)
+        self._layers = (stem, tuple(blocks), final, head)
+
+    def forward(self, x, noise, train: bool = True, component=None):
+        stem, blocks, final, head = self._layers
+        h = call_layer(stem, x, noise, train, component)
+        for block in blocks:
+            h = block(h, noise, train=train, component=component)
+        h = _pool(self.act(final(h, noise, train=train)), x.shape[2])
+        return h if head is None else call_layer(head, h, noise, train, component)
 
 
 def _stem(parent, conv_kind, components, generator, **kwargs):
@@ -219,9 +346,18 @@ def _blocks(parent, activation, norm, conv_kind, dropout_p, components, generato
 
 
 def _features(blocks, h, noise, train: bool, component=None):
+    size = h.shape[2]
     for block in blocks:
         h = block(h, noise, train=train, component=component)
-    return F.avg_pool2d(h, 8).flatten(1)  # [B, 64, 1, 1] -> [B, 64]
+    return _pool(h, size)
+
+
+def _pool(h, input_size: int):
+    """The 8x8 average pool from a 32-pixel input up (``[B, 64, 1, 1]`` ->
+    ``[B, 64]``), else the features flattened in JAX's NHWC order."""
+    if input_size >= 32:
+        return F.avg_pool2d(h, 8).flatten(1)
+    return h.permute(0, 2, 3, 1).flatten(1)
 
 
 class SNGPResNet20(nn.Module):
@@ -406,8 +542,9 @@ class ResNet50(nn.Module):
         generator: torch.Generator,
     ):
         super().__init__()
-        if remat != "none":
-            raise NotImplementedError(f"ResNet-50 remat {remat!r}: not ported yet (ROADMAP, queue 1, waiting)")
+        if remat not in RESNET50_REMAT_MODES:
+            raise ValueError(f"remat {remat!r} (want one of {RESNET50_REMAT_MODES})")
+        self.remat, self.stage_sizes = remat, tuple(stage_sizes)
         self.act = _activation(activation)
         stem = add_auto_named(self, make_conv(conv_kind, 3, 64, (7, 7), strides=2, padding=3,
                                               use_bias=not torchvision, components=components, generator=generator,
@@ -441,10 +578,26 @@ class ResNet50(nn.Module):
         if stem_norm is not None:
             h = self.act(stem_norm(h, noise, train=train))
         h = F.max_pool2d(_drop(drop, h, noise, train), 3, stride=2, padding=1)
-        for block in blocks:
-            h = block(h, noise, train=train, component=component)
+        remat = self.remat if train and component is None and torch.is_grad_enabled() else "none"
+        start = 0
+        for n_blocks in self.stage_sizes:
+            stage = blocks[start : start + n_blocks]
+            start += n_blocks
+            if remat == "stage":
+                h = rematerialized(lambda x, stage=stage: _run_blocks(stage, x, noise, train), noise, h, modules=stage)
+            elif remat == "block":
+                for block in stage:
+                    h = rematerialized(lambda x, block=block: block(x, noise, train=train), noise, h, modules=(block,))
+            else:
+                h = _run_blocks(stage, h, noise, train, component)
         h = torch.mean(h, dim=(2, 3))
         return h if head is None else call_layer(head, h, noise, train, component)
+
+
+def _run_blocks(blocks, h, noise, train: bool, component=None):
+    for block in blocks:
+        h = block(h, noise, train=train, component=component)
+    return h
 
 
 class ResNet50SNGP(nn.Module):

@@ -146,3 +146,38 @@ def load_torch_backbone(path: str, module: nn.Module) -> nn.Module:
     for name, value in convert_torch_state_dict(sd, module).items():
         params[name].copy_(value)
     return module
+
+
+def transplant_sngp_buffers(state_dict: Dict[str, torch.Tensor], module: nn.Module) -> nn.Module:
+    """Copies a reference ``SNGPWrapper`` state_dict's fixed random draws into
+    ``module``'s SNGP head in place (JAX ``transplant_sngp_buffers``,
+    :247-280): the random Fourier features' ``rff.W`` (``[D, R]``, used as
+    ``x @ W`` on both sides) and ``rff.b`` into every
+    ``RandomFourierFeatures`` ``W`` and ``b`` buffer, and the optional JL
+    ``random_matrix`` (the reference's ``[G, D]`` of ``F.linear``)
+    transposed into the head's ``[D, G]`` ``random_matrix``. A module
+    without those buffers, or a state_dict without those keys, is left as
+    it is. Returns ``module``."""
+    src = {}
+    for key, value in state_dict.items():
+        base = key.rsplit(".", 1)[-1]
+        value = torch.as_tensor(value).detach().to(torch.float32)
+        if ".rff." in key and base in ("W", "b"):
+            src[base] = value
+        elif base == "random_matrix":
+            src[base] = value.T
+    from ..nn.sngp import RandomFourierFeatures, SNGPHead
+
+    targets = []
+    for m in module.modules():
+        if isinstance(m, RandomFourierFeatures):
+            targets += [(m.W, "W"), (m.b, "b")]
+        elif isinstance(m, SNGPHead) and m.random_matrix is not None:
+            targets.append((m.random_matrix, "random_matrix"))
+    with torch.no_grad():
+        for buf, base in targets:
+            if base in src:
+                if buf.shape != src[base].shape:
+                    raise ValueError(f"{base}: {tuple(buf.shape)} against the state_dict's {tuple(src[base].shape)}")
+                buf.copy_(src[base])
+    return module

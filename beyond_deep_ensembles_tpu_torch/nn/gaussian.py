@@ -39,6 +39,16 @@ _BIG_STREAM = 3 << 30
 _PANEL_SHIFT = 20
 
 
+def blundell_mean_init(std: float = MEAN_STD_INIT) -> Callable:
+    """``init(shape, generator)``: N(0, std^2), the variational means' init
+    (JAX ``blundell_mean_init``)."""
+
+    def init(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+        return std * torch.randn(tuple(shape), generator=generator)
+
+    return init
+
+
 def sign_mean_init(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
     """+-1 with equal odds: the Rank-1 factors' mean init (JAX
     ``sign_mean_init``, reference util.py:165-168)."""
@@ -322,6 +332,20 @@ class NoiseSource:
         self.draws += 1
         return gaussian_sample(act_mean, act_var, b_mean, b_var, seed=seed, frozen=frozen,
                                rows=None if frozen else self.rows)
+
+    def parameter(self, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+        """One draw of a parameter, ``mean + sqrt(var) * z`` with a fresh z of
+        ``mean``'s shape at train and eval alike (a BBB layer's
+        ``sampling="parameters"``), through K1 (a 1-D parameter as one row):
+        a draw of parameters, never cut to ``rows``."""
+        flat = mean.reshape(1, -1) if mean.ndim == 1 else mean
+        var = var.reshape(flat.shape)
+        if self._given is not None:
+            eps = self._take(tuple(mean.shape), None).to(device=mean.device, dtype=torch.float32)
+            return gaussian_sample(flat, var, None, None, eps=eps.reshape(flat.shape).contiguous()).reshape(mean.shape)
+        seed = DeviceSeed(self.key, self.draws) if self.key is not None else self.seed()
+        self.draws += 1
+        return gaussian_sample(flat, var, None, None, seed=seed).reshape(mean.shape)
 
     def keep_mask(self, shape, device, rate: float, batch_axis: Optional[int] = None) -> torch.Tensor:
         """A dropout layer's keep mask of ``shape``: bool, each element kept

@@ -442,6 +442,18 @@ def fused_dropout_attention(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: 
                                    dropout_p=dropout_p)
 
 
+def fused_attention_available(L: int, device=None) -> bool:
+    """Whether the kernels take a sequence of ``L`` on ``device`` (default:
+    the current card): a CUDA device with a card present and L >= 1 (the
+    last tiles are ragged; the head dimension is fixed at
+    :data:`HEAD_DIM`). The JAX package's TPU kernels asked L % 128 == 0 and
+    L <= 1024. Where this is false a CUDA tensor raises in
+    :func:`fused_dropout_attention` rather than taking the plain version; a
+    CPU tensor takes the plain version by design."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    return L >= 1 and device.type == "cuda" and torch.cuda.is_available()
+
+
 def fused_dropout_attention_debug(q, k, v, key_mask, *, dropout_p: float = 0.0, seed: Optional[Seed] = None,
                                   keep: Optional[torch.Tensor] = None, rows=None):
     """Forward only, also returning the realized (dropped, normalized)

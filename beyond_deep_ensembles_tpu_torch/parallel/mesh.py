@@ -396,6 +396,22 @@ def member_range(mesh: Mesh, n_members: int) -> range:
     return range(start, start + per)
 
 
+def broadcast_member_buffers(mesh: Mesh, modules, n_members: int) -> None:
+    """Each of ``modules``' buffers (a running-statistics norm's ``mean``
+    and ``var``) made the one its owner on the member axis stepped (in
+    place): SVGD's particles are whole on every rank, but only the owner's
+    forwards step a particle's statistics."""
+    size = mesh.size(MEMBER_AXIS)
+    if size == 1 or n_members % size:
+        return
+    per = n_members // size
+    group, column = mesh.groups[MEMBER_AXIS], mesh.ranks[MEMBER_AXIS]
+    with torch.no_grad():
+        for m, module in enumerate(modules):
+            for t in module.buffers():
+                t.copy_(_broadcast(mesh, t, column[m // per], group))
+
+
 def shard_member_state(mesh: Mesh, state, n_members: int):
     """An ensemble state (``methods/ensemble.py::EnsembleState``) holding
     this rank's members of ``state``'s (the same member states, not

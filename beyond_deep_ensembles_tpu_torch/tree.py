@@ -64,6 +64,11 @@ def make_unravel(template: Tree) -> Callable[[torch.Tensor], Dict[str, torch.Ten
     return unravel
 
 
+def tree_cast(a, dtype: torch.dtype):
+    """Every leaf cast to ``dtype`` (a dict by name, or a tensor)."""
+    return tree_map(lambda x: x.to(dtype), a)
+
+
 def tree_where(pred: torch.Tensor, a, b):
     """Select a whole tree by a 0-dim bool tensor on the device (the NaN
     guards: a skipped step keeps the old parameters and optimizer buffers).

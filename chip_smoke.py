@@ -5,9 +5,9 @@ CUDA card: the quickest proof that the port still starts on the GPU.
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
 It runs as two processes on the one card (``supervise``): the first runs
-phases 1-8 and 10; once the kernels are built and timed (phases 2-5) it
-starts the second (this file with ``--second``), which runs phases 15, 9
-and 11-14 beside it, its output in ``build/chip_smoke_second.log`` (printed by
+phases 1-8 and 10; once the CUDA C++ kernels are built (phase 2) it
+starts the second (this file with ``--second``), which runs phases 15, 9,
+11-14 and 17 beside it, its output in ``build/chip_smoke_second.log`` (printed by
 the first when it ends) and its figures handed back in
 ``build/chip_smoke_second.json``. Every launch count is a process's own.
 A timed section (steady steps, CUDA-graph and event timings, profiles,
@@ -258,9 +258,24 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      SVGD step with one particle a rank (K2 on the gathered block) and one
      ``run_hmc`` iteration on the sharded full batch, within bounds of
      reduction order;
- 17. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
+ 17. running-statistics BatchNorm and the last models, last in the second
+     process (``running_bn_phase``): configs/camelyon.yaml's MAP, MultiSWAG
+     (5 members), BBB, SVGD and Laplace rows with ``static_bn: false`` at
+     DenseNet-121's full width through ``run.main`` (batch 32, 4 steps, 32
+     test images), counts exact (K1 121 a BBB forward, K2 once an SVGD
+     step); camelyon17 MAP and BBB captured = eager with the 242 running
+     statistics among the tensors compared; an update under remat
+     ``layer`` and ``block`` = one under ``none`` (the statistics stepped
+     once); K1 at the BBB row's 121 planes and K2 at (3, 6,955,906) against
+     their plain twins; one iwildcam ResNet-50 MAP update under
+     ``conv_remat`` ``block`` and ``stage`` = one under ``none``; one
+     full-width PreResNet-20 BBB update at batch 128 and one with every
+     layer on ``sampling="parameters"``, K1's counts exact and K1 held at
+     their planes; MidasTiramisu at ``features=256``, card against CPU and
+     a timed forward at 2x3x384x384; each part's wall time;
+ 18. the runner figures, the Multi-X figures, the rest-of-CIFAR figures, the
      UCI figures, the WILDS figures, the image, ResNet-50 and poverty
-     figures, the bnn-hmc figures, the staged-weight checks and the
+     figures, the bnn-hmc figures, the staged-weight checks, phase 17's and the
      multi-device figures as JSON lines, the card's name and power limit, one JSON line of kernel figures
      (K1, K2, K3a, K3b), then the result line ``{"ok": true, "device":
      {...}}``.
@@ -429,8 +444,8 @@ def noise_shapes(batch, train):
 # work already queued on the card gets SETTLE_S to drain first.
 PEER = {"pid": None, "lock": None, "depth": 0, "child": None}
 SETTLE_S = 0.1
-SECOND_PHASES = ("bnn-hmc, UCI, the WILDS image, ResNet-50 and poverty phases and the staged weights "
-                 "(15, 9, 11-14)")
+SECOND_PHASES = ("bnn-hmc, UCI, the WILDS image, ResNet-50 and poverty phases, the staged weights and the "
+                 "running statistics (15, 9, 11-14, 17)")
 # each process's CPU threads (torch's intra-op pool): half the host's cores
 # each, so that two CPU checks at once do not oversubscribe them
 CPU_THREADS = 4
@@ -3313,19 +3328,21 @@ def image_expected_counts(task, config, steps=None):
     }
 
 
-def image_cli_rows(torch, task, kernels, out, names=None):
+def image_cli_rows(torch, task, kernels, out, names=None, sweep_file=image_sweep_file, steps=None, second_map=True):
     """Every row of configs/<task>.yaml through ``run.main`` (``--name`` a
     row at a time), every count set to 0 just before and read just after:
     the counts exact (``image_expected_counts``), the metrics finite and in
     range, the wall time and peak device memory. Each row's checkpoints are
-    deleted after it but MAP's, MCD's and Laplace's, which the phases read."""
+    deleted after it but MAP's, MCD's and Laplace's, which the phases read.
+    ``sweep_file(task, path)`` writes the cut sweep (``steps`` steps a
+    row); ``second_map`` runs MAP's second repetition (multix's member)."""
     import shutil
 
     from beyond_deep_ensembles_tpu_torch import run
     from beyond_deep_ensembles_tpu_torch.experiments import wilds_task
 
     sweep = os.path.join(out, f"{task}.yaml")
-    rows = image_sweep_file(task, sweep)
+    rows = sweep_file(task, sweep)
     figures, results = {}, {}
     for name in names or IMAGE_ROWS[task]:
         config = {**wilds_task.DEFAULT_CONFIG, **rows[name]}
@@ -3338,7 +3355,7 @@ def image_cli_rows(torch, task, kernels, out, names=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in kernels.items()}
-        want = image_expected_counts(task, config)
+        want = image_expected_counts(task, config, steps)
         check(counts == want, f"{task} {name}: launch counts {counts} = {want}")
         run_dir = os.path.join(out, f"{name}_0", "rep_0")
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
@@ -3360,7 +3377,8 @@ def image_cli_rows(torch, task, kernels, out, names=None):
         print(f"{task} {name} through run.main: {wall:.1f} s, peak device memory {peak:.2f} GiB [{CARD}]")
         if name not in ("MAP", "MCD", "Laplace"):
             shutil.rmtree(os.path.join(out, f"{name}_0"), ignore_errors=True)
-    run.main([task, sweep, "--name", "MAP", "--out", out, "--rep", "1"])  # multix's second member
+    if second_map:
+        run.main([task, sweep, "--name", "MAP", "--out", out, "--rep", "1"])  # multix's second member
     return rows, results, figures
 
 
@@ -3474,41 +3492,15 @@ def image_card_vs_cpu(torch, wilds_task, NoiseSource, sampling, cases=None, widt
     return figures
 
 
-def image_k1_checks(torch, sampling, wilds_task, NoiseSource, task="camelyon17", row="BBB", extra=None, planes_want=121,
-                    what="camelyon17 BBB", layers="120 convs and the head"):
-    """K1 at the planes of one ``what`` train forward (by default camelyon17's
-    BBB: DenseNet-121, batch 32, 96x96: 120 convs and the head, 121
-    launches; the planes recorded from the model's own forward on the card,
-    row ``row`` of configs/<task>.yaml with ``extra``): outputs against
-    ``gaussian_sample_plain`` with given noise (1e-6 absolute), gradients
-    against the plain autograd (1e-5 relative), a DeviceSeed draw against
-    the same z given, bit for bit; then the 121 forward launches and the 121
-    backward launches, each in a CUDA graph, against the plain forward and
-    the byte bound (act_mean and act_var read, the output written: 12 B an
-    element; the backward reads g and act_var and writes d act_var)."""
-    from beyond_deep_ensembles_tpu_torch import keys
-
-    planes = []
-
-    class Recording(NoiseSource):
-        def gaussian(self, act_mean, act_var, b_mean, b_var, train, freeze_on_eval):
-            planes.append((act_mean.detach().clone(), act_var.detach().clone(),
-                           None if b_mean is None else b_mean.detach().clone(),
-                           None if b_var is None else b_var.detach().clone()))
-            return super().gaussian(act_mean, act_var, b_mean, b_var, train, freeze_on_eval)
-
-    built, config, batches = wilds_built(torch, wilds_task, task, row, **(extra or {}))
-    with torch.no_grad():
-        built.model.apply(built.state.params, {}, Recording(key=keys.as_key(1, "cuda")), batches[0][0], train=True)
-    batch = batches[0][0].shape[0]
-    del built, batches
-    torch.cuda.empty_cache()
-    check(len(planes) == planes_want, f"K1: one {what} train forward hands K1 {len(planes)} planes ({layers})")
-    n_elem = sum(m.numel() for m, _, _, _ in planes)
-    n_bytes = sum(12 * m.numel() + (8 * m.shape[1] if bm is not None else 0) for m, _, bm, _ in planes)
+def k1_hold(torch, sampling, planes, what):
+    """K1 on each of ``planes`` (``(mean, var, b_mean, b_var)``) against
+    ``gaussian_sample_plain`` with one z given (1e-6 of the largest output),
+    gradients against the plain autograd (1e-5 relative), a DeviceSeed draw
+    and its gradients against the same z given, bit for bit. These launches
+    compare, they are not counted."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(33)
-    key = torch.full((), 123_456_789, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(35)
+    key = torch.full((), 987_654_321, dtype=torch.int64, device=dev)
     worst, grad_worst, bitwise, scale = 0.0, 0.0, True, 1.0
     for i, layer in enumerate(planes):
         leaves = [t.clone().requires_grad_(True) if t is not None else None for t in layer]
@@ -3528,22 +3520,86 @@ def image_k1_checks(torch, sampling, wilds_task, NoiseSource, task="camelyon17",
         got = torch.autograd.grad((drawn * g).sum(), flat)
         bitwise &= torch.equal(drawn, given) and all(torch.equal(a, b) for a, b in zip(got, want))
     check(worst <= 1e-6 * scale and grad_worst <= 1e-5 and bitwise,
-          f"K1 at one {what} forward's {len(planes)} planes ([{batch}, C, H, W], {n_elem} elements) = plain (max abs err "
-          f"{worst:.3g} <= 1e-6 of the largest output, {scale:.3g}, as the planes' outputs exceed 1; gradients rel "
-          f"err {grad_worst:.3g} <= 1e-5); DeviceSeed draws and gradients = the same z given, bit for bit")
-    layers = planes
-    gs = [torch.randn_like(m) for m, _, _, _ in layers]
+          f"K1 at {what} ({len(planes)} launches) = plain (max abs err {worst:.3g} <= 1e-6 of the largest output, "
+          f"{scale:.3g}; gradients rel err {grad_worst:.3g} <= 1e-5); DeviceSeed draws and gradients = the same z "
+          f"given, bit for bit")
+    return {"launches": len(planes), "max_abs_err": worst, "largest_output": scale, "grad_rel_err": grad_worst}
+
+
+def recording_source(NoiseSource, planes):
+    """A key-mode NoiseSource class that keeps the K1 planes it is handed:
+    a BBB layer's activation planes (``gaussian``) and a parameter draw's
+    mean and variance (``parameter``, one row for a 1-D parameter)."""
+
+    class Recording(NoiseSource):
+        def gaussian(self, act_mean, act_var, b_mean, b_var, train, freeze_on_eval):
+            planes.append(tuple(None if t is None else t.detach().clone() for t in (act_mean, act_var, b_mean, b_var)))
+            return super().gaussian(act_mean, act_var, b_mean, b_var, train, freeze_on_eval)
+
+        def parameter(self, mean, var):
+            shape = (1, -1) if mean.ndim == 1 else mean.shape
+            planes.append((mean.detach().reshape(shape).clone(), var.detach().reshape(shape).clone(), None, None))
+            return super().parameter(mean, var)
+
+    return Recording
+
+
+def image_k1_held(torch, sampling, wilds_task, NoiseSource, task="camelyon17", row="BBB", extra=None, planes_want=121,
+                  what="camelyon17 BBB", layers="120 convs and the head"):
+    """The K1 planes of one ``what`` train forward, recorded from the
+    model's own forward on the card (row ``row`` of configs/<task>.yaml
+    with ``extra``), their count checked and each held against
+    ``gaussian_sample_plain`` (``k1_hold``): (the planes, the batch, the
+    hold's figures with the launches, elements and bytes)."""
+    from beyond_deep_ensembles_tpu_torch import keys
+
+    planes = []
+    built, config, batches = wilds_built(torch, wilds_task, task, row, **(extra or {}))
+    with torch.no_grad():
+        built.model.apply(built.state.params, {}, recording_source(NoiseSource, planes)(key=keys.as_key(1, "cuda")),
+                          batches[0][0], train=True)
+    batch = batches[0][0].shape[0]
+    del built, batches
+    torch.cuda.empty_cache()
+    check(len(planes) == planes_want, f"K1: one {what} train forward hands K1 {len(planes)} planes ({layers})")
+    n_elem = sum(m.numel() for m, _, _, _ in planes)
+    n_bytes = sum(12 * m.numel() + (8 * m.shape[1] if bm is not None else 0) for m, _, bm, _ in planes)
+    held = k1_hold(torch, sampling, planes, f"one {what} forward's planes ([{batch}, C, H, W], {n_elem} elements)")
+    figures = {"launches_per_forward": len(planes), "elements": n_elem, "bytes": n_bytes,
+               "max_abs_err": held["max_abs_err"], "largest_output": held["largest_output"],
+               "grad_rel_err": held["grad_rel_err"]}
+    return planes, batch, figures
+
+
+def image_k1_checks(torch, sampling, wilds_task, NoiseSource, task="camelyon17", row="BBB", extra=None, planes_want=121,
+                    what="camelyon17 BBB", layers="120 convs and the head"):
+    """K1 at the planes of one ``what`` train forward (by default camelyon17's
+    BBB: DenseNet-121, batch 32, 96x96: 120 convs and the head, 121
+    launches; the planes recorded from the model's own forward on the card,
+    row ``row`` of configs/<task>.yaml with ``extra``): outputs against
+    ``gaussian_sample_plain`` with given noise (1e-6 absolute), gradients
+    against the plain autograd (1e-5 relative), a DeviceSeed draw against
+    the same z given, bit for bit; then the 121 forward launches and the 121
+    backward launches, each in a CUDA graph, against the plain forward and
+    the byte bound (act_mean and act_var read, the output written: 12 B an
+    element; the backward reads g and act_var and writes d act_var)."""
+    planes, batch, figures = image_k1_held(torch, sampling, wilds_task, NoiseSource, task, row, extra, planes_want, what,
+                                           layers)
+    n_elem, n_bytes = figures["elements"], figures["bytes"]
+    dev = torch.device("cuda")
+    key = torch.full((), 123_456_789, dtype=torch.int64, device=dev)
+    gs = [torch.randn_like(m) for m, _, _, _ in planes]
 
     def kernel_forward():
-        for j, (m, v, bm, bv) in enumerate(layers):
+        for j, (m, v, bm, bv) in enumerate(planes):
             sampling.gaussian_sample(m, v, bm, bv, seed=sampling.DeviceSeed(key, j))
 
     def plain_forward():
-        for m, v, bm, bv in layers:
+        for m, v, bm, bv in planes:
             sampling.gaussian_sample_plain(m, v, bm, bv, torch.randn(m.shape, device=dev))
 
     def kernel_backward():
-        for (_, v, _, bv), g in zip(layers, gs):
+        for (_, v, _, bv), g in zip(planes, gs):
             sampling.gaussian_sample_backward(g, v, bv, seed=5)
 
     with torch.no_grad():
@@ -3552,12 +3608,10 @@ def image_k1_checks(torch, sampling, wilds_task, NoiseSource, task="camelyon17",
                           "backward": lambda: graph_ms(torch, kernel_backward, reps=10)}, rounds=1)
     bound = k1_bound_ms(n_elem, n_bytes)
     ms, plain_ms, back_ms = times["kernel"][0], times["plain"][0], times["backward"][0]
-    print(f"K1 one {what} train forward at batch {batch} ({len(layers)} launches, {n_elem} elements, {n_bytes} "
+    print(f"K1 one {what} train forward at batch {batch} ({len(planes)} launches, {n_elem} elements, {n_bytes} "
           f"bytes): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, backward kernels {back_ms:.4f} ms, bound "
           f"{bound:.4f} ms (forward at {100 * bound / ms:.0f}% of it, backward {100 * bound / back_ms:.0f}%) [{CARD}]")
-    return {"launches_per_forward": len(layers), "elements": n_elem, "bytes": n_bytes, "max_abs_err": worst,
-            "largest_output": scale,
-            "grad_rel_err": grad_worst, "ms": ms, "plain_ms": plain_ms, "backward_ms": back_ms, "bound_ms": bound,
+    return {**figures, "ms": ms, "plain_ms": plain_ms, "backward_ms": back_ms, "bound_ms": bound,
             "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_elem * K1_FLOPS_PER_ELEMENT / FP32_FLOPS_PER_S
             else "operations"}
 
@@ -5059,6 +5113,293 @@ def mesh_phase(torch, kernels, mesh_row):
             "launches": launches, "seconds": seconds}
 
 
+# phase 17: running-statistics BatchNorm (static_bn: false) on
+# camelyon17's DenseNet-121 through the CLI, then the last models. The rows
+# of configs/camelyon.yaml that carry K1 (BBB) and K2 (SVGD) and the state
+# of every member and particle, at full width and the yaml's batch 32, cut
+# to RUNNING_BN_STEPS steps and RUNNING_BN_TEST test images, one repetition
+RUNNING_BN_ROWS = ["MAP", "MultiSWAG", "BBB", "SVGD", "Laplace"]
+RUNNING_BN_STEPS = 4
+RUNNING_BN_TEST = 32
+# DenseNet-121's norms: the stem's, two in each of the 58 dense layers, three
+# transitions' and the last
+DENSENET121_NORMS = 1 + 2 * 58 + 3 + 1
+PRERESNET_BATCH = 128
+# MidasTiramisu at its default width: a timed forward at TIRAMISU_SIZE, and
+# card against CPU at TIRAMISU_CPU_SIZE (both multiples of 16)
+TIRAMISU_FEATURES, TIRAMISU_BATCH, TIRAMISU_SIZE, TIRAMISU_CPU_SIZE = 256, 2, 384, 32
+
+
+def running_bn_sweep_file(task, path):
+    """configs/camelyon.yaml's RUNNING_BN_ROWS with ``static_bn: false``, cut
+    to RUNNING_BN_STEPS steps of the yaml's batch and RUNNING_BN_TEST test
+    images, one repetition, SWAG collecting from the first step; written to
+    ``path``. Returns {row: its params, DEFAULT's merged under}."""
+    import yaml
+
+    docs = wilds_yaml_docs(task)
+    default = docs[0]
+    batch = default["params"]["batch_size"]
+    cut = {"epochs": 1, "subsample": RUNNING_BN_STEPS * batch, "test_subsample": RUNNING_BN_TEST, "static_bn": False}
+    swag = {"swag_start_epoch": 0, "swag_updates": RUNNING_BN_STEPS}
+    print(f"{task} running statistics: rows {RUNNING_BN_ROWS}, static_bn true -> false, epochs "
+          f"{default['params']['epochs']} -> 1, subsample -> {cut['subsample']} ({RUNNING_BN_STEPS} steps of {batch}), "
+          f"test_subsample -> {RUNNING_BN_TEST}, repetitions {default['repetitions']} -> 1; SWAG {swag}")
+    out = [{**default, "repetitions": 1, "params": {**default["params"], **cut}}]
+    for doc in docs[1:]:
+        if doc["name"] in RUNNING_BN_ROWS:
+            params = dict(doc["params"])
+            if params["model"] == "swag":
+                params.update(swag)
+            out.append({**doc, "params": params})
+    with open(path, "w") as f:
+        yaml.safe_dump_all(out, f)
+    return {d["name"]: {**out[0]["params"], **d["params"]} for d in out[1:]}
+
+
+def running_stats_steps(torch, wilds_task):
+    """camelyon17 MAP and BBB with ``static_bn: false`` at full width: every
+    one of DenseNet-121's 121 norms holds its running ``mean`` and ``var``,
+    which the update writes (``written_tensors``); COMPARE_STEPS captured
+    steps = as many eager ones, bit for bit, the statistics among the
+    tensors compared (``captured_vs_eager``), and the statistics moved."""
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    out = {}
+    for row in ("MAP", "BBB"):
+        built, config, batches = wilds_built(torch, wilds_task, "camelyon17", row, static_bn=False)
+        buffers = [b for _, b in built.state.params.named_buffers()]
+        written = {t.data_ptr() for t in multistep._written_tensors(built.state)}
+        check(len(buffers) == 2 * DENSENET121_NORMS and all(b.data_ptr() in written for b in buffers),
+              f"camelyon17 {row} static_bn false: {len(buffers)} running-statistics buffers (mean and var of "
+              f"{DENSENET121_NORMS} norms), every one among the tensors the update writes")
+        before = [b.clone() for b in buffers]
+        bitwise = captured_vs_eager(torch, built, batches, f"camelyon17 {row} static_bn false (running statistics)")
+        moved = sum(not torch.equal(a, b) for a, b in zip(before, buffers))
+        check(moved == len(buffers), f"camelyon17 {row}: {moved} of {len(buffers)} running statistics stepped")
+        out[row] = {"bitwise": bitwise, "buffers": len(buffers)}
+        del built, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def remat_against_none(torch, built, batch, modes, set_mode, label):
+    """One eager update from one state and key under each remat mode of
+    ``modes`` and under ``none`` (``set_mode(mode)``), on deterministic
+    cuDNN: every tensor the update writes (running statistics included)
+    within 1e-5 of ``none``'s, relative to each tensor's largest entry, the
+    loss equal; the peak device memory of each."""
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
+    from beyond_deep_ensembles_tpu_torch.parallel import multistep
+
+    torch.backends.cudnn.deterministic = True
+    written = multistep._written_tensors(built.state)
+    with torch.no_grad():
+        saved = [t.clone() for t in written]
+    step, runs = built.state.step, {}
+    for mode in ("none",) + tuple(modes):
+        with torch.no_grad():
+            for t, v in zip(written, saved):
+                t.copy_(v)
+        built.state.step = step
+        set_mode(mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        built.state, metrics = built.method.update(built.state, NoiseSource(key=keys.as_key(11, "cuda")), batch)
+        torch.cuda.synchronize()
+        runs[mode] = {"tensors": [t.clone() for t in written], "loss": float(metrics["loss"]),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": time.perf_counter() - t0}
+    torch.backends.cudnn.deterministic = False
+    set_mode("none")
+    ref, figures = runs["none"], {"none": {"peak_gib": runs["none"]["peak_gib"]}}
+    for mode in modes:
+        got = runs[mode]
+        err = max(float((a.double() - b.double()).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(got["tensors"], ref["tensors"]) if b.numel())
+        bitwise = all(torch.equal(a, b) for a, b in zip(got["tensors"], ref["tensors"]))
+        check(err <= 1e-5 and got["loss"] == ref["loss"] and math.isfinite(got["loss"]),
+              f"{label}: one update under remat {mode} = under none ({len(written)} written tensors, max rel err "
+              f"{err:.3g} <= 1e-5, bit for bit: {bitwise}; loss {got['loss']:.6g} equal)")
+        figures[mode] = {"max_rel_err": err, "bitwise": bitwise, "peak_gib": got["peak_gib"]}
+        print(f"{label} remat {mode}: peak {got['peak_gib']:.2f} GiB against none's {ref['peak_gib']:.2f} GiB [{CARD}]")
+    for run in runs.values():
+        del run["tensors"]
+    return figures
+
+
+def last_models_steps(torch, kernels, sampling, NoiseSource):
+    """A full-width PreResNet-20 BBB step (CIFAR, batch 128) and the same
+    net with every BBB layer on ``sampling="parameters"``: K1's host counts
+    exact (22 launches a forward and as many backward; a parameter draw per
+    kernel and bias), the loss finite, and K1 held against its plain twin at
+    each step's planes (``k1_hold``)."""
+    import torch.nn.functional as F
+
+    from beyond_deep_ensembles_tpu_torch import keys
+    from beyond_deep_ensembles_tpu_torch.data.cifar import load_cifar10
+    from beyond_deep_ensembles_tpu_torch.methods.api import GaussianPrior, LossOutput
+    from beyond_deep_ensembles_tpu_torch.methods.bbb import bbb_method
+    from beyond_deep_ensembles_tpu_torch.models.resnet import PreResNet20
+    from beyond_deep_ensembles_tpu_torch.nn.base import Model
+    from beyond_deep_ensembles_tpu_torch.nn.bbb import BBBConv, BBBDense
+    from beyond_deep_ensembles_tpu_torch.utils.optim import SGD
+
+    x, y = load_cifar10(True, subsample=PRERESNET_BATCH)
+    batch = (torch.from_numpy(x).cuda().permute(0, 3, 1, 2).contiguous(), torch.from_numpy(y).cuda())
+    figures = {}
+    for sampling_mode in ("activations", "parameters"):
+        net = PreResNet20(10, conv_kind="bbb", generator=torch.Generator().manual_seed(0)).cuda()
+        layers = [m for m in net.modules() if isinstance(m, (BBBConv, BBBDense))]
+        for m in layers:
+            m.sampling = sampling_mode
+        model = Model(net)
+
+        def loss_fn(params, model_state, noise, b, model=model):
+            out, kl, new_state = model.apply(params, model_state, noise, b[0], train=True)
+            return LossOutput(loss=F.cross_entropy(out, b[1]), kl=kl, model_state=new_state)
+
+        method = bbb_method(loss_fn, lambda ps: (SGD(ps, lr=0.05, momentum=0.9), None), GaussianPrior(0.0, 1.0),
+                            dataset_size=50_000)
+        state = method.init(net, {})
+        per_forward = len(layers) if sampling_mode == "activations" else sum(1 + m.use_bias for m in layers)
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = method.update(state, NoiseSource(key=keys.as_key(21, "cuda")), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        want = {name: 0 for name in kernels}
+        want.update(k1_gaussian_sample=per_forward, k1_gaussian_sample_backward=per_forward)
+        label = f"PreResNet-20 BBB, sampling={sampling_mode}"
+        check(counts == want and math.isfinite(float(metrics["loss"])),
+              f"{label}: one update at batch {PRERESNET_BATCH}: launch counts {counts} = {want} ({len(layers)} BBB "
+              f"layers), loss {float(metrics['loss']):.5g} finite, {wall:.2f} s [{CARD}]")
+        planes = []
+        with torch.no_grad():
+            model.apply(net, {}, recording_source(NoiseSource, planes)(key=keys.as_key(22, "cuda")), batch[0],
+                        train=True)
+        figures[sampling_mode] = {"counts": counts, "wall_s": wall, "loss": float(metrics["loss"]),
+                                  **k1_hold(torch, sampling, planes, f"{label}'s planes")}
+        del net, state, method, model
+        torch.cuda.empty_cache()
+    return figures
+
+
+def tiramisu_check(torch):
+    """MidasTiramisu at ``features=256``: the card's depth map against the
+    CPU's on the same weights at TIRAMISU_CPU_SIZE (1e-4 of its largest
+    value, TF32 off), then a forward at TIRAMISU_BATCH x TIRAMISU_SIZE^2
+    timed alone (``alone_section``), finite and of the expected shape."""
+    from beyond_deep_ensembles_tpu_torch.models.tiramisu import MidasTiramisu
+    from beyond_deep_ensembles_tpu_torch.utils.device import resolve_device
+
+    resolve_device(None)  # TF32 off, as every entry point sets it
+    net = MidasTiramisu(features=TIRAMISU_FEATURES, generator=torch.Generator().manual_seed(0))
+    small = torch.randn(1, 3, TIRAMISU_CPU_SIZE, TIRAMISU_CPU_SIZE, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = net(small)
+        net = net.cuda()
+        got = net(small.cuda()).cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(got.shape == (1, 1, TIRAMISU_CPU_SIZE, TIRAMISU_CPU_SIZE) and err <= 1e-4 * max(scale, 1e-30) and scale > 0,
+          f"MidasTiramisu(features={TIRAMISU_FEATURES}): card = CPU at 1x3x{TIRAMISU_CPU_SIZE}x{TIRAMISU_CPU_SIZE} "
+          f"(max abs err {err:.3g} <= 1e-4 of the largest depth {scale:.3g})")
+    x = torch.randn(TIRAMISU_BATCH, 3, TIRAMISU_SIZE, TIRAMISU_SIZE, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad(), alone_section():
+        net(x)
+        start.record()
+        out = net(x)
+        end.record()
+        end.synchronize()
+    ms = start.elapsed_time(end)
+    check(out.shape == (TIRAMISU_BATCH, 1, TIRAMISU_SIZE, TIRAMISU_SIZE) and bool(torch.isfinite(out).all()),
+          f"MidasTiramisu forward at {TIRAMISU_BATCH}x3x{TIRAMISU_SIZE}x{TIRAMISU_SIZE}: finite depth maps "
+          f"{tuple(out.shape)}, {ms:.2f} ms (CUDA events, warm, the other process stopped) [{CARD}]")
+    return {"max_abs_err": err, "largest": scale, "forward_ms": ms}
+
+
+def running_bn_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
+    """Phase 17: camelyon17's MAP, MultiSWAG, BBB, SVGD and Laplace rows with
+    running-statistics BatchNorm through ``run.main`` at DenseNet-121's full
+    width (exact launch counts: K1 121 a BBB forward, K2 once an SVGD step),
+    K1 and K2 held against their plain twins at those shapes (their times
+    there are phase 11's: the same planes and the same P), captured steps
+    against eager ones with the statistics among the tensors compared, a
+    remat step against a plain one (the statistics stepped once); one
+    iwildcam ResNet-50 MAP step under ``conv_remat`` ``block`` and
+    ``stage`` against ``none``; the last models' steps (PreResNet-20 BBB,
+    parameter sampling) and MidasTiramisu. Prints each part's wall time."""
+    import gc
+    import shutil
+
+    from beyond_deep_ensembles_tpu_torch.data.wilds import TASKS
+    from beyond_deep_ensembles_tpu_torch.models.densenet import DenseNetClassifier
+
+    figures, t_phase = {}, time.perf_counter()
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        figures[name] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 17 {name}: {time.perf_counter() - t0:.1f} s [{CARD}]")
+
+    out = os.path.join(BUILD, "running_bn_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    part("rows", lambda: image_cli_rows(torch, "camelyon17", kernels, out, RUNNING_BN_ROWS,
+                                        sweep_file=running_bn_sweep_file, steps=RUNNING_BN_STEPS,
+                                        second_map=False)[2])
+    shutil.rmtree(out, ignore_errors=True)
+    figures["counts"] = {name: sum(row["counts"][name] for row in figures["rows"].values()) for name in kernels}
+    part("steps", lambda: running_stats_steps(torch, wilds_task))
+
+    def densenet_remat():
+        built, _, batches = wilds_built(torch, wilds_task, "camelyon17", "MAP", n_batches=1, static_bn=False)
+        net = built.state.params.DenseNet_0
+        return remat_against_none(torch, built, batches[0], ("layer", "block"), lambda m: setattr(net, "remat", m),
+                                  "camelyon17 MAP static_bn false (DenseNet-121)")
+
+    part("densenet_remat", densenet_remat)
+
+    def resnet_remat():
+        built, _, batches = wilds_built(torch, wilds_task, "iwildcam", "MAP", n_batches=1)
+        net = built.state.params
+        return remat_against_none(torch, built, batches[0], ("block", "stage"), lambda m: setattr(net, "remat", m),
+                                  "iwildcam MAP (ResNet-50, batch 16, 448x448)")
+
+    part("resnet_remat", resnet_remat)
+    part("k1", lambda: image_k1_held(torch, sampling, wilds_task, NoiseSource, extra={"static_bn": False},
+                                     what="camelyon17 BBB static_bn false")[2])
+
+    def k2():
+        net = DenseNetClassifier(TASKS["camelyon17"].classes, track_running_stats=True, generator=torch.Generator())
+        p = sum(q.numel() for q in net.parameters())
+        stats = sum(b.numel() for b in net.buffers())
+        check(p == K2_IMAGE_SHAPES["camelyon17"][1] and stats > 0,
+              f"camelyon17 SVGD with running statistics: K2's P is the {p} parameters of a particle, none of its "
+              f"{stats} running-statistics elements")
+        n = K2_IMAGE_SHAPES["camelyon17"][0]
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        x = torch.randn(n, p, device="cuda", generator=gen) + torch.randn(1, p, device="cuda", generator=gen)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        err, share = k2_check(torch, svgd_kernel, x)
+        return {"shape": [n, p], "running_stats_elements": stats, "max_abs_err": err, "bound_share": share}
+
+    part("k2", k2)
+    part("last_models", lambda: last_models_steps(torch, kernels, sampling, NoiseSource))
+    part("tiramisu", lambda: tiramisu_check(torch))
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s [{CARD}]")
+    return figures
+
+
 def kernel_registry(sampling, svgd_kernel, att):
     """Every kernel wrapper of the port by the name its figures carry; each
     counts its own launches (``.launches``)."""
@@ -5070,7 +5411,7 @@ def kernel_registry(sampling, svgd_kernel, att):
 
 
 def second_phases(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource):
-    """Phases 15, 9 and 11-14, in the second process: their figures by
+    """Phases 15, 9, 11-14 and 17, in the second process: their figures by
     phase."""
     phase("bnn-hmc: HMC on the CNN-LSTM and WilsonResNet20, SG-MCMC, MFVI and SGD on LeNet-5, the Wilson baseline")
     bnn = bnn_hmc_phase(torch, kernels)
@@ -5108,8 +5449,19 @@ def second_phases(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource
     staged = {"remat": bert_remat_check(torch, wilds_task, NoiseSource, kernels),
               "weights": staged_weights_check(torch, wilds_task)}
     print(json.dumps({"card": CARD, "staged": staged}))
+
+    phase("Running-statistics BatchNorm (static_bn: false) on camelyon17 through the CLI; ResNet-50 remat; "
+          "PreResNet-20, parameter sampling, MidasTiramisu")
+    running_bn = running_bn_phase(torch, kernels, sampling, svgd_kernel, wilds_task, NoiseSource)
+    print(json.dumps({"card": CARD, "running_bn": running_bn}))
+    running_counts = running_bn["counts"]
+    check(running_counts["k3a_attention_forward"] == running_counts["k3b_attention_backward"] == 0
+          and running_counts["k1_gaussian_sample"] > 0 and running_counts["k2_svgd_gram"] > 0,
+          "phase 17's rows launched K1 (BBB) and K2 (SVGD), never K3")
     return {"bnn_hmc": bnn, "uci": uci, "image": image, "resnet": resnet, "poverty": poverty, "staged": staged,
-            "counts": {"image": image_counts, "resnet": resnet_counts, "poverty": poverty_counts}}
+            "running_bn": running_bn,
+            "counts": {"image": image_counts, "resnet": resnet_counts, "poverty": poverty_counts,
+                       "running_bn": running_counts}}
 
 
 def start_second():
@@ -5303,6 +5655,10 @@ def first_main(torch, t_start) -> int:
 
     phase("build")
     build_phase(torch, _cuda_build)
+    # the second process starts as soon as the CUDA C++ kernels are built:
+    # the timings of phases 3-5 are timed sections, which stop it while
+    # they run, and its first phase launches none of the port's kernels
+    start_second()
     phase("K1")
     k1 = kernel_phase(torch, sampling)
     phase("K2")
@@ -5312,7 +5668,6 @@ def first_main(torch, t_start) -> int:
     kernels = kernel_registry(sampling, svgd_kernel, att)
     no_k3 = {"k3a_attention_forward": (0, 0), "k3b_attention_backward": (0, 0)}
     no_k1 = {"k1_gaussian_sample": (0, 0), "k1_gaussian_sample_backward": (0, 0)}
-    start_second()
 
     phase("BBB slice, one update per call")
     built, bbb_counts, config, step = run_slice(torch, cifar, NoiseSource, kernels, BBB_VARIANT, "BBB")
@@ -5396,8 +5751,10 @@ def first_main(torch, t_start) -> int:
     bf16_counts = {name: sum(row["counts"][name] for row in bf16["rows"].values()) for name in kernels}
 
     second = finish_second()
-    uci, image, resnet, poverty, staged = (second[key] for key in ("uci", "image", "resnet", "poverty", "staged"))
-    image_counts, resnet_counts, poverty_counts = (second["counts"][key] for key in ("image", "resnet", "poverty"))
+    uci, image, resnet, poverty, staged, running_bn = (
+        second[key] for key in ("uci", "image", "resnet", "poverty", "staged", "running_bn"))
+    image_counts, resnet_counts, poverty_counts, running_counts = (
+        second["counts"][key] for key in ("image", "resnet", "poverty", "running_bn"))
 
     phase(f"Multi-device: {MESH_ROW[0]} {MESH_ROW[1]} under torchrun (one NCCL rank); K1, K3 and four steps in a "
           f"world of {MESH_WORLD} gloo ranks")
@@ -5496,6 +5853,16 @@ def first_main(torch, t_start) -> int:
             # 6 B an element
             "bf16": {"launches": bf16_counts["k1_gaussian_sample"],
                      "backward_launches": bf16_counts["k1_gaussian_sample_backward"], **bf16["k1"]},
+            # phase 17: host counts over camelyon17's static_bn false rows
+            # through run.main (BBB: 121 a forward, 121 backward a step, 121
+            # a forward of the eval runner's warm-up and capture), one BBB
+            # train forward's 121 planes there against the plain version and
+            # the byte bound, and the PreResNet-20 BBB and parameter-sampling
+            # updates (launches and their planes held against the plain twin)
+            "running_bn": {"launches": running_counts["k1_gaussian_sample"],
+                           "backward_launches": running_counts["k1_gaussian_sample_backward"],
+                           "forward": running_bn["k1"], "preresnet20": running_bn["last_models"]["activations"],
+                           "parameter_sampling": running_bn["last_models"]["parameters"]},
         },
         {
             "name": "k2_svgd_gram",
@@ -5538,6 +5905,11 @@ def first_main(torch, t_start) -> int:
             # a step) and K2 at its shape beside torch.mm
             "poverty_launches": poverty_counts["k2_svgd_gram"],
             "poverty_shapes": poverty["k2"],
+            # phase 17: camelyon17's SVGD row with running statistics (3
+            # particles, once a step; each particle's statistics its own,
+            # outside K2's P) and K2 at its shape beside torch.mm
+            "running_bn_launches": running_counts["k2_svgd_gram"],
+            "running_bn_shapes": running_bn["k2"],
         },
         *(
             {

@@ -148,7 +148,12 @@ def test_other_variants_not_ported(model, monkeypatch):
 
 @pytest.mark.parametrize("model", ["svgd"])
 def test_members_not_ported(model):
-    """An ensemble of SVGD particle sets (no configs/cifar.yaml row; the JAX
-    build ignores ``members`` there) raises; MultiBBB is ported."""
-    with pytest.raises(NotImplementedError, match="members"):
-        cifar.build({**CONFIG, "model": model, "members": 2}, torch.Generator(), device="cpu")
+    """SVGD with ``members`` > 1 (no configs/cifar.yaml row) builds one
+    particle set, as the JAX build, which ignores ``members`` there: the
+    same state as with one member (it raised before)."""
+    two = cifar.build({**CONFIG, "model": model, "members": 2}, torch.Generator().manual_seed(0), device="cpu")
+    one = cifar.build({**CONFIG, "model": model, "members": 1}, torch.Generator().manual_seed(0), device="cpu")
+    assert len(two.state.params) == CONFIG.get("svgd_particles", cifar.DEFAULT_CONFIG["svgd_particles"])
+    want = one.state.state_dict()
+    assert two.state.state_dict().keys() == want.keys()
+    assert all(torch.equal(v, want[k]) for k, v in two.state.state_dict().items())

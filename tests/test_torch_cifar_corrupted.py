@@ -176,13 +176,15 @@ def test_scan_steps_equal_single_steps_on_a_deterministic_run(no_data):
 
 
 def test_unported_keys_still_raise(monkeypatch):
-    """Options whose paths are not ported raise before any work is done
+    """``data_parallel`` where the process sees a second card and no process
+    group raises before any work is done, naming the torchrun line
     (``checkpoint_dir``, ``members`` > 1 and ``use_hmc_baseline`` are
     ported: see test_torch_checkpoint.py, test_torch_cifar_multix.py and
-    test_torch_wilson_cifar.py; ``data_parallel`` where the process sees a
-    second card and no process group raises, naming the torchrun line)."""
+    test_torch_wilson_cifar.py; ``svgd`` with ``members: 2`` builds one
+    particle set, as JAX's build ignores ``members`` there)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(RuntimeError, match="torchrun"):
         cifar.run_single({"model": "bbb", "data_parallel": True}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        cifar.run_single({"model": "svgd", "members": 2}, device="cpu")
+    config = {**cifar.DEFAULT_CONFIG, "model": "svgd", "members": 2, "dataset_size": 64}
+    built = cifar.build(config, torch.Generator(), 1, device="cpu")
+    assert len(built.state.params) == config["svgd_particles"]

@@ -109,8 +109,19 @@ def test_densenet_remat_draws_the_forwards_noise(remat, kind, dropout_p):
 
 @pytest.mark.parametrize("options", [{"static_bn": False}, {"norm_off": True}])
 def test_densenet_unported_options_raise(options):
+    """Both options, which raised before, build and run: running statistics
+    give every norm a ``BatchNorm_0`` with ``mean`` and ``var`` buffers
+    (tests/test_torch_running_bn.py holds it against JAX), ``norm_off``
+    leaves no norm at all."""
     kwargs = dict(options)
     if "static_bn" in kwargs:
         kwargs = {"track_running_stats": not kwargs.pop("static_bn")}
-    with pytest.raises(NotImplementedError):
-        DenseNetClassifier(CLASSES, generator=torch.Generator(), **TINY, **kwargs)
+    net = DenseNetClassifier(CLASSES, generator=torch.Generator(), **TINY, **kwargs)
+    names = list(net.state_dict())
+    if "track_running_stats" in kwargs:
+        assert any(k.endswith("BatchNorm_0.mean") for k in names)
+        assert not any("StaticBatchNorm" in k for k in names)
+    else:
+        assert not any("_BN_" in k for k in names)
+    out = net(torch.randn(2, 3, 32, 32), None, train=True)
+    assert out.shape == (2, CLASSES) and bool(torch.isfinite(out).all())

@@ -218,5 +218,11 @@ def test_ensemble_finalize_epoch_and_unported_arguments():
     assert [m.epoch for m in state.members] == [1, 1]
     with pytest.raises(ValueError):
         method.init(modules[:1])
-    with pytest.raises(NotImplementedError):
+    # a stacked model state loads into the members' buffers (each member its
+    # row); a name that is no buffer of theirs raises
+    with pytest.raises(KeyError):
         method.init(modules, model_state={"stacked": torch.zeros(2)})
+    for m in modules:
+        m.register_buffer("stats", torch.zeros(3))
+    method.init(modules, model_state={"stats": torch.arange(6.0).reshape(2, 3)})
+    assert [m.stats.tolist() for m in modules] == [[0.0, 1.0, 2.0], [3.0, 4.0, 5.0]]

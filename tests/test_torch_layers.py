@@ -20,6 +20,7 @@ from beyond_deep_ensembles_tpu.nn import bbb as jax_bbb
 from beyond_deep_ensembles_tpu.nn import frn as jax_frn
 from beyond_deep_ensembles_tpu_torch.models import layers
 from beyond_deep_ensembles_tpu_torch.nn import bbb, convops, frn
+from beyond_deep_ensembles_tpu_torch.nn.gaussian import NoiseSource
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GEN = torch.Generator().manual_seed(0)
@@ -107,8 +108,12 @@ def test_conv2d_padding_forms(padding, strides):
 
 
 def test_sampling_parameters_mode_not_ported():
-    with pytest.raises(NotImplementedError):
-        bbb.BBBDense(3, 2, sampling="parameters", generator=GEN)
+    """``sampling="parameters"`` builds and draws (held against JAX in
+    tests/test_torch_lowrank_params.py); an unknown mode raises."""
+    layer = bbb.BBBDense(3, 2, sampling="parameters", generator=GEN)
+    assert layer(torch.randn(4, 3), NoiseSource.seeded(0)).shape == (4, 2)
+    with pytest.raises(ValueError):
+        bbb.BBBDense(3, 2, sampling="weights", generator=GEN)
 
 
 PLAIN = {

@@ -78,9 +78,12 @@ def test_state_dict_keys_are_flax_paths(jax_model_and_params):
 
 def test_not_ported_kinds_raise():
     """relu and batch_static are ported with ResNet-50 (tests/test_torch_resnet50.py);
-    the norm 'none' (the JAX package's benchmark knob) and ResNet-50's remat are not."""
+    the norm 'none' (the JAX package's benchmark knob) and ResNet-50's remat,
+    which raised before, build (held in tests/test_torch_rest_helpers.py);
+    an unknown norm raises."""
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
-        ResNet20(10, "relu", "none", "rank1", components=4, generator=gen)
-    with pytest.raises(NotImplementedError):
-        ResNet50(10, stage_sizes=(1, 1), remat="stage", generator=gen)
+    net = ResNet20(10, "relu", "none", "rank1", components=4, generator=gen)
+    assert not any("Norm" in k for k in net.state_dict())
+    assert ResNet50(10, stage_sizes=(1, 1), remat="stage", generator=gen).remat == "stage"
+    with pytest.raises(ValueError):
+        ResNet20(10, "relu", "group", "plain", generator=gen)

@@ -80,12 +80,16 @@ def test_full_width_structure_matches_jax(kind, classes):
 
 
 def test_not_ported_options_raise():
+    """``remat`` ``block`` and the norm ``none`` build now (held against
+    ``none`` and JAX in tests/test_torch_rest_helpers.py); a remat mode JAX
+    has not raises."""
     gen = torch.Generator()
-    with pytest.raises(NotImplementedError):
-        ResNet50(5, stage_sizes=(1, 1), remat="block", generator=gen)
+    assert ResNet50(5, stage_sizes=(1, 1), remat="block", generator=gen).remat == "block"
+    with pytest.raises(ValueError):
+        ResNet50(5, stage_sizes=(1, 1), remat="layer", generator=gen)
     # a bf16 compute dtype is ported (tests/test_torch_bf16_models_resnet.py): it builds
     assert ResNet50(5, stage_sizes=(1, 1), dtype=torch.bfloat16, generator=gen).Conv_0.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        ResNet20(10, "swish", "none", "plain", generator=gen)
+    net = ResNet20(10, "swish", "none", "plain", generator=gen)
+    assert not any("Norm" in k for k in net.state_dict())
     with pytest.raises(ValueError):
         ResNet50(5, stage_sizes=(1, 1), activation="gelu", generator=gen)

@@ -230,14 +230,26 @@ def test_unported_options_raise(task, override, monkeypatch):
     """``visible_cards``: the process sees that many cards and no process
     group, where the multi-device flags raise, naming the torchrun line
     (they are no-ops on one card, tests/test_torch_multi_device.py, and run
-    the mesh path under a group, tests/test_torch_mesh*.py)."""
+    the mesh path under a group, tests/test_torch_mesh*.py). poverty's
+    ``sngp`` raises: the JAX package's own run fails there. The other
+    options, which raised before, build: ``no_norm``, ResNet-50's
+    ``conv_remat``, ``static_bn: false`` (tests/test_torch_running_bn*.py)
+    and ``svgd`` with ``members: 2``, one particle set as in JAX."""
     override = dict(override)
     cards = override.pop("visible_cards", None)
     if cards is not None:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
-    config = {**wilds_task.DEFAULT_CONFIG, **TINY, "model": "map", **override}
-    with pytest.raises(NotImplementedError) if cards is None else pytest.raises(RuntimeError, match="torchrun"):
-        wilds_task.build(task, config, torch.Generator(), device="cpu")
+    config = {**wilds_task.DEFAULT_CONFIG, **TINY, "model": "map", "dataset_size": 16, **override}
+    if cards is not None:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            wilds_task.build(task, config, torch.Generator(), device="cpu")
+    elif task == "poverty":
+        with pytest.raises(NotImplementedError):
+            wilds_task.build(task, config, torch.Generator(), device="cpu")
+    else:
+        built = wilds_task.build(task, config, torch.Generator(), device="cpu")
+        if config["model"] == "svgd":
+            assert len(built.state.params) == config["svgd_particles"]
 
 
 def test_pretrained_weights_on_disk_raise(tmp_path, monkeypatch):
