@@ -25,7 +25,9 @@ JAX layers' ``acc_t``): the kernels read them in their type, do the
 arithmetic in fp32 and round the sample once to the planes' type, the TPU
 kernel's rule (JAX ``ops/sampling.py:58-59``); z is fp32 either way. The
 backward reads g and ``act_var`` in their type and writes ``d act_var`` in
-it.
+it. fp32 planes go through the Triton kernels below; bf16 planes through
+the CUDA C++ kernels of ``csrc/gaussian_sample_bf16.cu`` (see "bf16
+planes").
 
 The seed of a draw is a host int, or a :class:`DeviceSeed`: an int64 key in
 device memory plus the draw's static index, which the kernel loads and adds
@@ -72,16 +74,46 @@ first and last programs masked at the shard's ends), so counter and lane
 come from the global index. The CPU path draws the global shape and takes
 the rows. A frozen draw is one row for every example and needs no offset.
 
+bf16 planes (``csrc/gaussian_sample_bf16.cu``, CUDA C++ for ``sm_90a``,
+built by ``ops/_cuda_build.py``). At 6 bytes an element the Triton kernel's
+issued instructions, not its bytes, set its time (four normals a Philox
+call, libdevice's precise log, sin and cos, a division for the channel);
+the bf16 kernels draw eight normals a call, at :func:`philox_slot_bf16`'s
+map: z_i is normal ``i % 8`` of the Philox-4x32-10 call at counter ``i //
+8`` (the seed's low and high 32 bits its key). Word ``w = i % 8 // 2`` is a
+Box-Muller pair split 20 / 12: its top 20 bits the radial uniform ``u = (k +
+1/2) 2^-20``, its low 12 the angle ``theta = 2 pi (j + 1/2) 2^-12 - pi``; z
+= r cos(theta) at an even i and r sin(theta) at an odd one, r = sqrt(-2 ln
+u). The smallest u, 2^-21, caps |z| at sqrt(42 ln 2) = 5.396 (the fp32
+draw's cap is 5.68, Triton's u >= 1e-7); 4096 angles of a continuous-looking
+radius match the Gaussian far below what a test of 10^7 draws sees. ln, the
+radius's sqrt, sin and cos are the special-function unit's approximations,
+within :func:`noise_bf16_tolerance` of the exact map, :func:`normals_bf16_plain`
+(the twin: Philox in torch integer ops, Box-Muller in float64, used by the
+tests and by ``chip_smoke.py``; never on the main path). A thread takes the
+8 elements of one call with 16-byte loads and stores; the channel comes from
+a host-made magic multiplier (:func:`_divider`). Frozen eval is a 2-D grid
+(:func:`frozen_plan_bf16`); a shard at an offset keeps the global index's
+groups of 8, the ragged ends element by element. :func:`noise_bf16` reads the
+kernel's own z back (its ``noise`` mode; not counted). The sample's
+arithmetic is the fp32 path's: the correctly rounded sqrt and one fused
+multiply-add forward; the backward multiplies by an approximate reciprocal
+square root, within one bf16 ulp of the plain division.
+
 The random stream differs from ``jax.random``, as the TPU kernel's did;
 both are iid N(0, 1), which is all the algorithms need.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from . import _cuda_build
 
 # G of the Philox map: a program of the train mode spans 4G elements, four
 # sub-blocks of G (8 warps: 2 contiguous fp32 a thread per sub-block). G
@@ -95,6 +127,15 @@ _FROZEN_PROGRAMS = 1024
 _MAX_GRID_Y = 65535
 _MAX_ELEMENTS = 2**31 - 4 * _GROUP  # int32 offsets, ragged program included
 PLANE_DTYPES = (torch.float32, torch.bfloat16)
+# the bf16 kernels (csrc/gaussian_sample_bf16.cu): a thread takes the 8
+# normals of one Philox call, a block of 256 threads 2048 elements
+_BF16_PER = 8
+_BF16_BLOCK = 256 * _BF16_PER
+_BF16_FORWARD, _BF16_BACKWARD, _BF16_NOISE, _BF16_WORDS = 0, 1, 2, 3
+# Philox-4x32-10's multipliers and key increments (Salmon et al., SC 2011)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
 
 # Bound to ``triton.language`` by ``_build`` before the kernels are
 # compiled: Triton resolves the kernels' globals from this module, and
@@ -126,6 +167,100 @@ def philox_slot(i):
     runs of G indices share a lane, so a program over 4G elements loads four
     coalesced sub-blocks."""
     return (i // (4 * _GROUP)) * _GROUP + i % _GROUP, (i // _GROUP) % 4
+
+
+def philox_slot_bf16(i):
+    """(counter, lane) of element index ``i`` in the bf16 kernels' draw: z_i
+    is normal ``lane`` of the Philox call at ``counter`` (word ``lane // 2``,
+    its cos at an even lane, its sin at an odd one). A thread's 8 contiguous
+    elements are one call."""
+    return i // _BF16_PER, i % _BF16_PER
+
+
+def frozen_plan_bf16(batch: int, row: int):
+    """The bf16 frozen launch: ``(row_chunks, per_program, batch_chunks)``.
+    Block (x, y) draws row positions ``[x 2048, (x + 1) 2048)`` (8 a thread,
+    the train draw of example 0) and applies them to examples ``[y
+    per_program, min((y + 1) per_program, batch))``."""
+    row_chunks = -(-row // _BF16_BLOCK)
+    per_program = max(1, batch * row_chunks // _FROZEN_PROGRAMS, -(-batch // _MAX_GRID_Y))
+    return row_chunks, per_program, -(-batch // per_program)
+
+
+def _divider(d: int):
+    """``(magic, shift)`` with ``n // d == (n * magic) >> shift`` for every
+    ``0 <= n < 2^31`` (Granlund and Montgomery: shift = 31 + ceil(log2 d),
+    magic = floor(2^shift / d) + 1 < 2^32): the bf16 kernels' channel
+    index, a multiply and a shift in place of a division."""
+    if d < 1:
+        raise ValueError(f"divisor {d} < 1")
+    shift = 31 + (d - 1).bit_length()
+    magic = (1 << shift) // d + 1
+    if magic >= 2**32:
+        raise ValueError(f"no 32-bit magic for {d}")
+    return magic, shift
+
+
+def _mulhilo(m: int, c: torch.Tensor):
+    """(high, low) 32 bits of the product of the 32-bit constant ``m`` and
+    ``c`` (an int64 tensor of 32-bit values), in 16-bit halves so that no
+    int64 product overflows."""
+    low_part = m * (c & 0xFFFF)
+    high_part = m * (c >> 16)
+    return (high_part + (low_part >> 16)) >> 16, (low_part + ((high_part & 0xFFFF) << 16)) & _U32
+
+
+def philox4x32_plain(c0, c1, c2, c3, k0, k1):
+    """Philox-4x32-10 in plain PyTorch integer ops: the four 32-bit output
+    words (int64 tensors) of counter (c0, c1, c2, c3) under key (k0, k1),
+    each an int or an int64 tensor of 32-bit values. Random123's round: the
+    products of c0 and c2 with the two multipliers, the high halves xored
+    with c1, c3 and the key, the key bumped between rounds."""
+    c0, c1, c2, c3, k0, k1 = (torch.as_tensor(v, dtype=torch.int64) for v in (c0, c1, c2, c3, k0, k1))
+    for round_ in range(10):
+        if round_:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _seed_value(seed: "Seed") -> int:
+    """The seed's value as the kernels read it: a host int, or a device
+    seed's key + index (the key read back)."""
+    return int(seed.key) + seed.index if isinstance(seed, DeviceSeed) else int(seed)
+
+
+def normals_bf16_plain(seed: "Seed", n: int, start: int = 0, device=None, with_radius: bool = False):
+    """The plain PyTorch twin of the bf16 kernels' draw: z at global element
+    indices ``[start, start + n)`` under ``seed``, fp32 (the Philox words in
+    torch integer ops, Box-Muller in float64 from the same bits); with
+    ``with_radius`` also each element's radius r (float64), which
+    :func:`noise_bf16_tolerance` takes. The kernels' z is within that
+    tolerance of it; a frozen row is ``n = row``, ``start = 0``."""
+    value = _seed_value(seed) & (2**64 - 1)
+    first, last = start // _BF16_PER, (start + n + _BF16_PER - 1) // _BF16_PER
+    counters = torch.arange(first, last, dtype=torch.int64, device=device)
+    words = torch.stack(philox4x32_plain(counters, 0, 0, 0, value & _U32, value >> 32), dim=-1)
+    u = ((words >> 12).double() + 0.5) * 2.0**-20
+    theta = 2.0 * math.pi * (((words & 0xFFF).double() + 0.5) * 2.0**-12) - math.pi
+    r = torch.sqrt(-2.0 * torch.log(u))
+    z = torch.stack((r * torch.cos(theta), r * torch.sin(theta)), dim=-1).reshape(-1)
+    cut = slice(start - first * _BF16_PER, start - first * _BF16_PER + n)
+    z = z[cut].float()
+    if not with_radius:
+        return z
+    return z, r.repeat_interleave(2, dim=-1).reshape(-1)[cut]
+
+
+def noise_bf16_tolerance(radius: torch.Tensor) -> torch.Tensor:
+    """The stated bound on |kernel z - :func:`normals_bf16_plain`'s z| for an
+    element of radius r: ``2^-21 / r + 2^-18 r``, about twice the errors the
+    PTX approximations are documented with (lg2: 2^-22 absolute near 1, which
+    moves r by ln 2 2^-22 / r; sqrt and the multiply: 2^-22 of r; the angle's
+    fp32 constants and sin / cos: 2^-20.9 absolute, times r)."""
+    return 2.0**-21 / radius + 2.0**-18 * radius
 
 
 def frozen_plan(batch: int, row: int):
@@ -315,16 +450,118 @@ def gaussian_sample_plain(act_mean, act_var, b_mean, b_var, z):
     return (mean + torch.sqrt(var) * z).to(act_mean.dtype)
 
 
-def _element_offset(rows, like) -> int:
+def _element_offset(rows, shape) -> int:
     """The global index of a shard's first element: ``offset * row`` for
-    ``rows = (offset, total)``, 0 for a whole batch."""
-    return 0 if rows is None else rows[0] * (like.numel() // like.shape[0])
+    ``rows = (offset, total)`` and planes of ``shape``, 0 for a whole
+    batch."""
+    return 0 if rows is None else rows[0] * math.prod(shape[1:])
+
+
+@functools.cache
+def _library_bf16() -> ctypes.CDLL:
+    lib = _cuda_build.load("gaussian_sample_bf16.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.k1_bf16.argtypes = [
+        i, i, i, i, p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, i, i, i, i, i,
+        ctypes.c_uint, i, ctypes.c_uint, i, ctypes.c_uint, i, i, i, p,
+    ]
+    lib.k1_bf16.restype = ctypes.c_int
+    lib.k1_bf16_error_string.argtypes = [i]
+    lib.k1_bf16_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _channel_run(hw: int) -> int:
+    """The bf16 kernels' bias run, the channels a vector group (8 elements
+    from a multiple of 8) spans: 3 (one) where hw % 8 == 0, 2 (at most two)
+    where hw >= 8, 1 (any) below; 0 is a plane without a bias."""
+    return 3 if hw % _BF16_PER == 0 else 2 if hw >= _BF16_PER else 1
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def _launch_bf16(mode, shape, a, act_var, b_mean, b_var, eps, seed, frozen, rows, out):
+    """One launch of the bf16 kernels (``csrc/gaussian_sample_bf16.cu``) on
+    planes of ``shape``: ``mode`` forward (``a`` = act_mean), backward (``a``
+    = g), noise (z, fp32) or words (each group's Philox words, int32 [groups,
+    4]), the last two reading no plane; writes ``out``."""
+    lib = _library_bf16()
+    if isinstance(seed, DeviceSeed):
+        key, value = seed.key.data_ptr(), seed.index
+    else:
+        key, value = None, ((0 if seed is None else seed) + 2**63) % 2**64 - 2**63
+    n = math.prod(shape)
+    batch, channels = shape[0], shape[1]
+    row = n // batch
+    hw = row // channels
+    has_bias = b_var is not None
+    if eps is None and frozen:
+        row_chunks, per_program, batch_chunks = frozen_plan_bf16(batch, row)
+        span, shift, group0, grid = row, 0, 0, (row_chunks, batch_chunks)
+        vec = row % _BF16_PER == 0
+    else:
+        group0, shift = divmod(_element_offset(rows, shape) if eps is None else 0, _BF16_PER)
+        span, per_program, grid = n, 1, (-(-(shift + n) // _BF16_BLOCK), 1)
+        vec = shift == 0
+    vec = vec and _aligned(a, act_var, eps, out)
+    eps_n = eps.numel() if eps is not None else n
+    with torch.cuda.device(out.device):
+        err = lib.k1_bf16(
+            mode, int(eps is None and frozen), int(has_bias), int(eps is not None),
+            None if a is None else a.data_ptr(), None if act_var is None else act_var.data_ptr(),
+            b_mean.data_ptr() if b_mean is not None else None, b_var.data_ptr() if has_bias else None,
+            None if eps is None else eps.data_ptr(), out.data_ptr(), key, value, span, shift, group0, eps_n,
+            hw, channels, batch, per_program, int(vec), _channel_run(hw) if has_bias else 0,
+            *_divider(hw), *_divider(channels), *_divider(eps_n), *grid,
+            torch.cuda.current_stream(out.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K1 bf16 launch failed: {lib.k1_bf16_error_string(err).decode()} ({err})")
+    return out
+
+
+def noise_bf16(like: torch.Tensor, seed: Seed, frozen: bool = False, rows: Optional[Rows] = None,
+               words: bool = False) -> torch.Tensor:
+    """The draw of the bf16 kernels for planes shaped as ``like`` (a CUDA
+    tensor) under ``seed``: z, fp32, of the full shape (one row if
+    ``frozen``; at ``rows = (offset, total)`` the rows of the whole batch's
+    draw); with ``words``, the Philox words of the draw's groups of 8 instead
+    (int64 [groups, 4] of 32-bit values, the groups holding the plane's
+    elements, from counter ``start // 8``). One launch of the kernels' noise
+    or words mode, which writes the draw where the sample would go; it
+    counts in no launch counter (a check's read-back, not the main path).
+    :func:`normals_bf16_plain` and :func:`philox4x32_plain` are its plain
+    twins."""
+    if not like.is_cuda:
+        raise ValueError("noise_bf16 reads the kernel's draw back: it needs a CUDA tensor")
+    shape = (1,) + tuple(like.shape[1:]) if frozen else tuple(like.shape)
+    rows = None if frozen else rows
+    if words:
+        shift = _element_offset(rows, shape) % _BF16_PER
+        out = torch.empty((-(-(shift + math.prod(shape)) // _BF16_PER), 4), dtype=torch.int32, device=like.device)
+        return _launch_bf16(_BF16_WORDS, shape, None, None, None, None, None, seed, False, rows, out).long() & _U32
+    out = torch.empty(shape, dtype=torch.float32, device=like.device)
+    _launch_bf16(_BF16_NOISE, shape, None, None, None, None, None, seed, False, rows, out)
+    return out[0] if frozen else out
 
 
 def _launch(a, act_var, b_mean, b_var, eps, seed, frozen, backward, rows=None):
     """One launch of the forward (``a`` = act_mean) or the backward (``a`` =
     g, no bias mean) kernel, a train-mode draw at ``rows``' offset; returns
-    the output plane."""
+    the output plane. bf16 planes go through the CUDA kernels, fp32 ones
+    through the Triton kernels."""
+    if a.dtype == torch.bfloat16:
+        mode = _BF16_BACKWARD if backward else _BF16_FORWARD
+        return _launch_bf16(mode, a.shape, a, act_var, b_mean, b_var, eps, seed, frozen, rows, torch.empty_like(a))
+    return _launch_triton(a, act_var, b_mean, b_var, eps, seed, frozen, backward, rows)
+
+
+def _launch_triton(a, act_var, b_mean, b_var, eps, seed, frozen, backward, rows=None):
+    """:func:`_launch` through the Triton kernels, for fp32 planes (they also
+    take bf16 ones, as before the bf16 kernels: ``chip_smoke.py`` times them
+    there beside the CUDA kernels)."""
     flat, frozen_kernel = _build()
     device_seed = isinstance(seed, DeviceSeed)
     seed_ptr, seed = (seed.key, seed.index) if device_seed else (a, seed)
@@ -343,7 +580,7 @@ def _launch(a, act_var, b_mean, b_var, eps, seed, frozen, backward, rows=None):
             DEVICE_SEED=device_seed, num_warps=_FROZEN_WARPS,
         )
     else:
-        start = _element_offset(rows, a) if eps is None else 0
+        start = _element_offset(rows, a.shape) if eps is None else 0
         blk0, shift = divmod(start, 4 * _GROUP)
         flat[(-(-(shift + n) // (4 * _GROUP)),)](
             a, act_var, bm, bv, eps if eps is not None else a, out, seed_ptr,
@@ -394,12 +631,15 @@ def gaussian_sample_backward(
     if g.is_cuda:
         out = _launch(g, act_var, None, b_var, eps, seed, frozen, backward=True, rows=rows)
         gaussian_sample_backward.launches += 1
+        gaussian_sample_backward.bf16_launches += int(g.dtype == torch.bfloat16)
         return out
     z = eps if eps is not None else _cpu_noise(g, seed, frozen, rows)
     return (_wide(g) * z * 0.5 / torch.sqrt(_add_bias(_wide(act_var), _wide(b_var)))).to(g.dtype)
 
 
 gaussian_sample_backward.launches = 0
+# of them, launches on bf16 planes (csrc/gaussian_sample_bf16.cu)
+gaussian_sample_backward.bf16_launches = 0
 
 
 class _GaussianSample(torch.autograd.Function):
@@ -408,6 +648,7 @@ class _GaussianSample(torch.autograd.Function):
         if act_mean.is_cuda:
             out = _launch(act_mean, act_var, b_mean, b_var, eps, seed, frozen, backward=False, rows=rows)
             gaussian_sample.launches += 1
+            gaussian_sample.bf16_launches += int(act_mean.dtype == torch.bfloat16)
         else:
             z = eps if eps is not None else _cpu_noise(act_mean, seed, frozen, rows)
             out = gaussian_sample_plain(act_mean, act_var, b_mean, b_var, z)
@@ -507,3 +748,5 @@ def gaussian_sample(
 
 
 gaussian_sample.launches = 0
+# of them, launches on bf16 planes (csrc/gaussian_sample_bf16.cu)
+gaussian_sample.bf16_launches = 0

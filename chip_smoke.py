@@ -17,9 +17,9 @@ and ``run_single`` calls are taken beside the other process.
 
 Phases (any failed check raises and exits non-zero; nothing is caught):
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. the CUDA C++ kernels K2, K3 and K3 on bf16 built at once (one nvcc each, by
-     ``ops/_cuda_build.py`` into ``build/kernels/``): build time and ptxas
-     report;
+  2. the CUDA C++ kernels K2, K3, K3 on bf16 and K1 on bf16 built at once
+     (one nvcc each, by ``ops/_cuda_build.py`` into ``build/kernels/``):
+     build time and ptxas report;
   3. K1 (``ops/sampling.py``, Triton, built at first use into ``build/``)
      against its plain PyTorch version at the main path's layer shapes:
      given noise, Philox moments, seeds, frozen rows (the train mode's draw
@@ -148,16 +148,29 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      under two keys, the eval runner against the host loop; 4 captured and
      2 eager steady steps of MAP, MCD, SVGD and LL_SVGD; one step of each
      new method on the card against the CPU at one layer of the same width;
-10b. bf16 compute, last in the first process (``bf16_phase``): K1 on the
-     bf16 planes of one poverty BBB and one camelyon17 BBB train forward
-     against its plain version within one bf16
-     ulp, forward and backward, timed against the byte bound at 6 B an
-     element; K3a and K3b on bf16 operands at (8, 12, 512, 64) and (16, 12,
+10b. bf16 compute, last in the first process (``bf16_phase``): K1 on bf16
+     planes (``csrc/gaussian_sample_bf16.cu``): the SASS instructions an
+     element of its CUDA kernels and of the Triton kernel on bf16 planes,
+     by part (``benchmarks_torch/k1_sass.py``); over 2^24 kernel draws the
+     Philox words equal to the plain twin's bit for bit, z within the
+     twin's stated tolerance, mean, variance, KS distance and the 3 and 4
+     sigma counts within their bounds, |z| at most its 5.396 cap; on the
+     planes of one poverty BBB, one camelyon17 BBB and one CIFAR BBB
+     ResNet-20 train forward at bf16 (recorded from the models on the card)
+     the kernel's z against the twin, the sample within one bf16 ulp of the
+     plain version given that z, forward and backward, the seeded draw and
+     its gradient = the same z given, the frozen row = one example's train
+     draw, shards at an offset = the whole draw's rows, all bit for bit;
+     those forwards' and backwards' launches timed in CUDA graphs against
+     the Triton kernel on the same planes, the plain version, the byte bound
+     at 6 B an element and the issue-rate floor of the SASS counts, and
+     CIFAR's frozen-eval forward at batch 500; K3a and K3b on bf16 operands at (8, 12, 512, 64) and (16, 12,
      300, 64) against the plain version (output 2^-7, gradients 2^-6 of
      their scale; Philox on the fp32 kernel's mask), timed against the bf16
      bound and SDPA at bf16; one row per backbone at ``compute_dtype: bf16``
      (CIFAR ``bf16: true``) through ``run.main``, 2 steps, exact counts
-     (amazon MCD, camelyon17 BBB, iwildcam MAP, poverty BBB, CIFAR BBB); a
+     (amazon MCD, camelyon17 BBB, iwildcam MAP, poverty BBB, CIFAR BBB; K1's
+     bf16 kernels every K1 launch of a BBB row but the fp32 head's); a
      captured amazon MCD bf16 step against an eager one bit for bit and its
      eval runner against the host loop; one bf16 BBB ResNet-20 update on the
      card against the CPU (within 3 x the CPU's own bf16 error from its fp32
@@ -277,7 +290,7 @@ Phases (any failed check raises and exits non-zero; nothing is caught):
      UCI figures, the WILDS figures, the image, ResNet-50 and poverty
      figures, the bnn-hmc figures, the staged-weight checks, phase 17's and the
      multi-device figures as JSON lines, the card's name and power limit, one JSON line of kernel figures
-     (K1, K2, K3a, K3b), then the result line ``{"ok": true, "device":
+     (K1, K1 on bf16 planes, K2, K3a, K3b), then the result line ``{"ok": true, "device":
      {...}}``.
 Every phase heading prints the seconds since the script started.
 Exits non-zero and prints no result without CUDA or without the package
@@ -302,6 +315,8 @@ T_START = time.perf_counter()  # reset when main starts
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
+SM_COUNT = 132
+SM_CLOCK_MHZ = 1980  # the largest SM clock (nvidia-smi clocks.max.sm), read again in the bf16 phase
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12  # tensor cores, dense
 # fp32 operations K1 does per element: two bias adds, sqrt, multiply, add,
@@ -2186,12 +2201,12 @@ def uci_phase(torch, kernels):
 
 
 def build_phase(torch, _cuda_build):
-    """The three CUDA C++ sources compiled at once, one nvcc each; their
-    build time and ptxas report (registers, spills). Triton compiles K1 at
-    first launch."""
+    """The four CUDA C++ sources compiled at once, one nvcc each; their
+    build time and ptxas report (registers, spills). Triton compiles K1's
+    fp32 kernels at first launch."""
     t0 = time.perf_counter()
-    _cuda_build.build("svgd_gram.cu", "dropout_attention.cu", "dropout_attention_bf16.cu")
-    print(f"K2, K3 and K3 bf16 built in {time.perf_counter() - t0:.2f} s (three nvcc processes at once)")
+    _cuda_build.build("svgd_gram.cu", "dropout_attention.cu", "dropout_attention_bf16.cu", "gaussian_sample_bf16.cu")
+    print(f"K2, K3, K3 bf16 and K1 bf16 built in {time.perf_counter() - t0:.2f} s (four nvcc processes at once)")
     for source, log in sorted(_cuda_build.build_logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -4014,42 +4029,268 @@ BF16_K3_SHAPES = [(8, 12, 512, 64), (16, 12, 300, 64)]
 BF16_PEAK_FLOPS_PER_S = 989e12  # tensor cores, bf16 dense
 
 
-def bf16_ulps(torch, got, want, terms=None):
+def bf16_ulps(torch, got, want, terms=None, where=False):
     """|got - want| in bf16 spacings of ``want``, less what the fp32 sums
     before the one rounding may differ by (the kernel's fused multiply-add
     against the plain version's rounded product: 2^-22 of ``terms``, the
-    magnitudes summed)."""
+    magnitudes summed); with ``where``, also the flat index of the largest.
+    The spacing is 2^(e - 8) for |want| = m 2^e, m in [0.5, 1), from
+    ``frexp``: log2 on the card reads a power of two as just below it."""
     got, want = got.detach().double(), want.detach().double()
-    spacing = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0**-126))) - 7)
+    spacing = torch.ldexp(torch.ones_like(want), torch.frexp(want.abs().clamp_min(2.0**-126))[1] - 8)
     err = (got - want).abs()
     if terms is not None:
         err = (err - 2.0**-22 * terms.detach().double()).clamp_min(0.0)
-    return float((err / spacing).max())
+    ulps = (err / spacing).flatten()
+    at = int(ulps.argmax())
+    return (float(ulps[at]), at) if where else float(ulps[at])
 
 
-def bf16_k1_checks(torch, sampling, wilds_task, NoiseSource, task, row, planes_want, what):
-    """K1 on the bf16 planes of one ``what`` train forward at
-    ``compute_dtype: bf16`` (recorded from the model's own forward on the
-    card): each plane's sample, given the z a DeviceSeed draws (read back
-    from the kernel at mean 0, variance 1), within one bf16 ulp of the plain
-    version (``bf16_ulps``), its variance gradient within one ulp of the
-    plain backward's, the seeded draw equal to the given one bit for bit;
-    then the forward's and the backward's launches in CUDA graphs against
-    the plain forward and the byte bound (6 B an element)."""
+# K1 on bf16 planes (csrc/gaussian_sample_bf16.cu): the device key of its
+# holds, the kernel draws of its distribution check, the frozen-eval batch
+K1_BF16_KEY = 987_654_321
+K1_BF16_DRAWS = 1 << 24
+BF16_FROZEN_BATCH = 500
+# the largest |z| the bf16 draw reaches: r at the smallest radial uniform, 2^-21
+K1_BF16_Z_CAP = math.sqrt(42.0 * math.log(2.0))
+
+
+def normal_draw_stats(torch, z):
+    """Distribution statistics of the draws ``z`` against N(0, 1), each with
+    its bound: the mean and the variance within 5 standard errors, the
+    Kolmogorov-Smirnov distance below its 1 % critical value (1.628 /
+    sqrt(n)), the counts beyond 3 and 4 sigma within 5 binomial standard
+    deviations of n p; and the largest |z|. Returns (figures, all held)."""
+    zd = z.detach().double().flatten()
+    n = zd.numel()
+    mean, var = float(zd.mean()), float(zd.var())
+    s = torch.sort(zd).values
+    cdf = 0.5 * torch.erfc(-s / math.sqrt(2.0))
+    i = torch.arange(1, n + 1, dtype=torch.float64, device=zd.device)
+    ks = float(torch.maximum(i / n - cdf, cdf - (i - 1) / n).max())
+    figures = {"n": n, "mean": mean, "mean_bound": 5.0 / math.sqrt(n), "var": var,
+               "var_bound": 5.0 * math.sqrt(2.0 / (n - 1)), "ks": ks, "ks_bound": 1.628 / math.sqrt(n),
+               "max_abs": float(zd.abs().max())}
+    held = abs(mean) <= figures["mean_bound"] and abs(var - 1.0) <= figures["var_bound"] and ks < figures["ks_bound"]
+    for t in (3, 4):
+        p = math.erfc(t / math.sqrt(2.0))
+        k = int((zd.abs() > t).sum())
+        bound = 5.0 * math.sqrt(n * p * (1.0 - p))
+        figures[f"beyond_{t}"], figures[f"beyond_{t}_expected"], figures[f"beyond_{t}_bound"] = k, n * p, bound
+        held &= abs(k - n * p) <= bound
+    return figures, held
+
+
+def k1_bf16_draw_checks(torch, sampling):
+    """The bf16 kernels' draw over K1_BF16_DRAWS elements (one [1, n] plane,
+    a DeviceSeed): its Philox words the twin's (``philox4x32_plain``) bit
+    for bit, its z within ``noise_bf16_tolerance`` of ``normals_bf16_plain``,
+    and the distribution statistics of ``normal_draw_stats``, |z| at most
+    the cap sqrt(42 ln 2) = 5.396 that its smallest radial uniform gives."""
+    dev = torch.device("cuda")
+    seed = sampling.DeviceSeed(torch.full((), K1_BF16_KEY, dtype=torch.int64, device=dev), 7)
+    like = torch.empty((1, K1_BF16_DRAWS), dtype=torch.bfloat16, device=dev)
+    words = sampling.noise_bf16(like, seed, words=True)
+    value = sampling._seed_value(seed)
+    counters = torch.arange(words.shape[0], dtype=torch.int64, device=dev)
+    want = torch.stack(sampling.philox4x32_plain(counters, 0, 0, 0, value & 0xFFFFFFFF, value >> 32), dim=-1)
+    words_equal = torch.equal(words, want)
+    z = sampling.noise_bf16(like, seed)[0]
+    twin, radius = sampling.normals_bf16_plain(seed, K1_BF16_DRAWS, device=dev, with_radius=True)
+    gap = (z.double() - twin.double()).abs()
+    tolerance = sampling.noise_bf16_tolerance(radius)
+    within = bool((gap <= tolerance).all())
+    stats, held = normal_draw_stats(torch, z)
+    stats["max_gap_to_twin"] = float(gap.max())
+    stats["max_gap_over_tolerance"] = float((gap / tolerance).max())
+    check(words_equal and within and held and stats["max_abs"] <= K1_BF16_Z_CAP,
+          f"K1 bf16 draw over {K1_BF16_DRAWS} elements: Philox words = the twin's bit for bit; z within "
+          f"2^-21 / r + 2^-18 r of the twin (largest gap {stats['max_gap_to_twin']:.3g}, "
+          f"{stats['max_gap_over_tolerance']:.3f} of its bound); mean {stats['mean']:.2e} (bound "
+          f"{stats['mean_bound']:.2e}), variance {stats['var']:.6f} (1 +- {stats['var_bound']:.2e}), KS "
+          f"{stats['ks']:.2e} < {stats['ks_bound']:.2e}, beyond 3 sigma {stats['beyond_3']} (expected "
+          f"{stats['beyond_3_expected']:.0f} +- {stats['beyond_3_bound']:.0f}), beyond 4 sigma {stats['beyond_4']} "
+          f"(expected {stats['beyond_4_expected']:.0f} +- {stats['beyond_4_bound']:.0f}), largest |z| "
+          f"{stats['max_abs']:.4f} <= {K1_BF16_Z_CAP:.4f} [{CARD}]")
+    del words, want, z, twin, radius, gap, tolerance
+    torch.cuda.empty_cache()
+    return stats
+
+
+def k1_bf16_hold(torch, sampling, planes, what):
+    """K1 on ``planes`` (``(act_mean, act_var, b_mean, b_var)``, bf16; an
+    fp32 head goes through the Triton kernel). On each bf16 plane, with a
+    DeviceSeed: the kernel's own z (``noise_bf16``) within
+    ``noise_bf16_tolerance`` of the twin and its Philox words the twin's bit
+    for bit; the sample given that z within one bf16 ulp of the plain
+    version beyond the fp32 sums' 2^-22 margin, d act_var within one ulp of
+    the plain backward's; the seeded draw and d act_var = the same z given,
+    bit for bit; the frozen row = example 0's train draw and the frozen
+    forward and backward = that row given, bit for bit; the rows [1, B) and
+    [B // 2, B) launched at their offset = those rows of the whole draw, bit
+    for bit. Comparisons, not counted."""
+    dev = torch.device("cuda")
+    key = torch.full((), K1_BF16_KEY, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    worst, worst_back, worst_z, max_abs, bitwise = 0.0, 0.0, 0.0, 0.0, True
+    worst_at = worst_back_at = ""
+
+    def describe(i, m, at, got, want, a, std, z):
+        """The element where a plane's largest gap lies, for the message."""
+        return (f"plane {i} {tuple(m.shape)} element {at}: got {float(got.flatten()[at]):.9g}, plain "
+                f"{float(want.flatten()[at]):.9g}, a {float(a.flatten()[at]):.9g}, std "
+                f"{float(std.flatten()[at]):.9g}, z {float(z.flatten()[at % z.numel()]):.9g}")
+
+    for i, (m, v, bm, bv) in enumerate(planes):
+        seed = sampling.DeviceSeed(key, i)
+        g = torch.randn(m.shape, device=dev, generator=gen).to(m.dtype)
+        if m.dtype == torch.bfloat16:
+            z = sampling.noise_bf16(m, seed)
+            twin, radius = sampling.normals_bf16_plain(seed, m.numel(), device=dev, with_radius=True)
+            worst_z = max(worst_z, float(((z.flatten() - twin).abs() / sampling.noise_bf16_tolerance(radius)).max()))
+            words = sampling.noise_bf16(m, seed, words=True)
+            value = sampling._seed_value(seed)
+            counters = torch.arange(words.shape[0], dtype=torch.int64, device=dev)
+            bitwise &= torch.equal(words, torch.stack(
+                sampling.philox4x32_plain(counters, 0, 0, 0, value & 0xFFFFFFFF, value >> 32), dim=-1))
+            del twin, radius, words, counters
+        else:  # the fp32 head: its z read back from the Triton kernel at mean 0, variance 1
+            zeros = torch.zeros(m.shape, device=dev)
+            z = sampling.gaussian_sample(zeros, torch.ones_like(zeros), seed=seed)
+        given = sampling.gaussian_sample(m, v, bm, bv, eps=z)
+        ref = sampling.gaussian_sample_plain(m, v, bm, bv, z)
+        a = sampling._add_bias(m.float(), None if bm is None else bm.float())
+        std = torch.sqrt(sampling._add_bias(v.float(), None if bv is None else bv.float()))
+        max_abs = max(max_abs, float((given.double() - ref.double()).abs().max()))
+        ulps, at = bf16_ulps(torch, given, ref, a.abs() + (std * z).abs(), where=True)
+        if ulps > worst:
+            worst, worst_at = ulps, describe(i, m, at, given, ref, a, std, z)
+        d_given = sampling.gaussian_sample_backward(g, v, bv, eps=z)
+        ref_var = (g.float() * z * 0.5 / std).to(m.dtype)
+        ulps, at = bf16_ulps(torch, d_given, ref_var, where=True)
+        if ulps > worst_back:
+            worst_back, worst_back_at = ulps, describe(i, m, at, d_given, ref_var, g, std, z)
+        bitwise &= torch.equal(sampling.gaussian_sample(m, v, bm, bv, seed=seed), given)
+        bitwise &= torch.equal(sampling.gaussian_sample_backward(g, v, bv, seed=seed), d_given)
+        del a, std, ref, ref_var
+        if m.dtype == torch.bfloat16:
+            row = sampling.noise_bf16(m, seed, frozen=True)
+            bitwise &= torch.equal(row, sampling.noise_bf16(m[:1], seed)[0])
+            bitwise &= torch.equal(sampling.gaussian_sample(m, v, bm, bv, seed=seed, frozen=True),
+                                   sampling.gaussian_sample(m, v, bm, bv, eps=row))
+            bitwise &= torch.equal(sampling.gaussian_sample_backward(g, v, bv, seed=seed, frozen=True),
+                                   sampling.gaussian_sample_backward(g, v, bv, eps=row))
+            b = m.shape[0]
+            for first in sorted({1 % b, b // 2}):
+                rows = (first, b)
+                part = sampling.gaussian_sample(m[first:].contiguous(), v[first:].contiguous(), bm, bv, seed=seed,
+                                                rows=rows)
+                bitwise &= torch.equal(part, given[first:])
+                part = sampling.gaussian_sample_backward(g[first:].contiguous(), v[first:].contiguous(), bv,
+                                                         seed=seed, rows=rows)
+                bitwise &= torch.equal(part, d_given[first:])
+        del z, given, d_given, g
+    torch.cuda.empty_cache()
+    check(worst <= 1.0 and worst_back <= 1.0 and worst_z <= 1.0 and bitwise,
+          f"K1 bf16 at {what}'s {len(planes)} planes: the kernel's z within the twin's tolerance (largest gap "
+          f"{worst_z:.3f} of it) and its Philox words the twin's bit for bit; = plain given that z within one bf16 "
+          f"ulp (forward {worst:.2f} ulp beyond the fp32 sums' 2^-22 margin, at {worst_at}; backward "
+          f"{worst_back:.2f} ulp, at {worst_back_at}); "
+          f"DeviceSeed draws and d act_var = the same z given, the frozen row = example 0's train draw, frozen "
+          f"= that row given, rows at an offset = the whole draw's, all bit for bit")
+    return {"max_ulp": worst, "backward_max_ulp": worst_back, "max_z_gap_over_tolerance": worst_z,
+            "max_abs_err": max_abs}
+
+
+def k1_bf16_times(torch, sampling, planes, what, frozen=False, sass=None):
+    """One forward's launches over ``planes`` in CUDA graphs, in turns: the
+    port's kernels (the CUDA ones on bf16 planes, a DeviceSeed each), the
+    Triton kernel on the same bf16 planes (the earlier bf16 path, through
+    ``_launch_triton``), the plain forward; then, unless ``frozen``, the
+    backward's launches both ways. Against the byte bound (6 B an element,
+    the fp32 head's 12) and, from ``sass`` (``benchmarks_torch/k1_sass.py``'s
+    counts), the issue-rate floor of the port's bf16 kernels: instructions
+    over 4 schedulers x 132 SMs x 32 lanes at the card's largest SM clock."""
+    dev = torch.device("cuda")
+    key = torch.full((), K1_BF16_KEY, dtype=torch.int64, device=dev)
+    seeds = [sampling.DeviceSeed(key, j) for j in range(len(planes))]
+    gs = [torch.randn_like(m) for m, _, _, _ in planes]
+    n_elem = sum(m.numel() for m, _, _, _ in planes)
+    n_bytes = sum(3 * m.element_size() * m.numel() + (2 * bm.element_size() * m.shape[1] if bm is not None else 0)
+                  for m, _, bm, _ in planes)
+
+    def ours():
+        for (m, v, bm, bv), seed in zip(planes, seeds):
+            sampling.gaussian_sample(m, v, bm, bv, seed=seed, frozen=frozen)
+
+    def triton():
+        for (m, v, bm, bv), seed in zip(planes, seeds):
+            sampling._launch_triton(m, v, bm, bv, None, seed, frozen, False)
+
+    def plain():
+        for m, v, bm, bv in planes:
+            sampling.gaussian_sample_plain(m, v, bm, bv, torch.randn(m.shape[1:] if frozen else m.shape, device=dev))
+
+    def ours_backward():
+        for (_, v, _, bv), g, seed in zip(planes, gs, seeds):
+            sampling.gaussian_sample_backward(g, v, bv, seed=seed)
+
+    def triton_backward():
+        for (_, v, _, bv), g, seed in zip(planes, gs, seeds):
+            sampling._launch_triton(g, v, None, bv, None, seed, False, True)
+
+    timers = {"kernel": lambda: graph_ms(torch, ours, reps=10), "triton": lambda: graph_ms(torch, triton, reps=10),
+              "plain": lambda: graph_ms(torch, plain, reps=5)}
+    if not frozen:
+        timers.update({"backward": lambda: graph_ms(torch, ours_backward, reps=10),
+                       "triton_backward": lambda: graph_ms(torch, triton_backward, reps=10)})
+    with torch.no_grad():
+        times = in_turns(timers, rounds=1)
+    bound = k1_bound_ms(n_elem, n_bytes)
+    fig = {"launches": len(planes), "elements": n_elem, "bytes": n_bytes, "bound_ms": bound,
+           "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_elem * K1_FLOPS_PER_ELEMENT / FP32_FLOPS_PER_S
+           else "operations",
+           **{f"{name}_ms": t[0] for name, t in times.items()}, **{f"{name}_max_ms": t[-1] for name, t in times.items()}}
+    fig["fixed_us_per_launch"] = 1e3 * (fig["kernel_ms"] - bound) / len(planes)
+    line = (f"K1 bf16, {what} ({len(planes)} launches, {n_elem} elements, {n_bytes} bytes): kernel "
+            f"{fig['kernel_ms']:.4f} ms ({100 * bound / fig['kernel_ms']:.0f}% of the {bound:.4f} ms bound), the "
+            f"Triton kernel on the same planes {fig['triton_ms']:.4f} ms, plain {fig['plain_ms']:.4f} ms")
+    if not frozen:
+        line += (f"; backward {fig['backward_ms']:.4f} ms ({100 * bound / fig['backward_ms']:.0f}%), Triton "
+                 f"{fig['triton_backward_ms']:.4f} ms")
+    line += f"; {fig['fixed_us_per_launch']:.2f} us a launch above the bound"
+    if sass:
+        clock_hz = SM_CLOCK_MHZ * 1e6
+        bf16_elem = sum(m.numel() for m, _, _, _ in planes if m.dtype == torch.bfloat16)
+        for label in ("forward",) if frozen else ("forward", "backward"):
+            counts = sass["after"][label]
+            fig[f"{label}_issue_floor_ms"] = 1e3 * counts["total"] * bf16_elem / (32 * 4 * SM_COUNT * clock_hz)
+            fig[f"{label}_special_function_floor_ms"] = (1e3 * counts["special_function"] * bf16_elem
+                                                        / (16 * SM_COUNT * clock_hz))
+            line += (f"; {label} issue floor {fig[f'{label}_issue_floor_ms']:.4f} ms ({counts['total']:.1f} "
+                     f"instructions an element at {SM_CLOCK_MHZ} MHz), special-function floor "
+                     f"{fig[f'{label}_special_function_floor_ms']:.4f} ms")
+    print(line + f" [{CARD}]")
+    return fig
+
+
+def record_planes(torch, NoiseSource, model, params, x, train):
+    """The K1 planes one forward of ``model`` hands its noise source (a
+    key-mode source), cloned."""
     from beyond_deep_ensembles_tpu_torch import keys
 
     planes = []
-
-    class Recording(NoiseSource):
-        def gaussian(self, act_mean, act_var, b_mean, b_var, train, freeze_on_eval):
-            planes.append((act_mean.detach().clone(), act_var.detach().clone(),
-                           None if b_mean is None else b_mean.detach().clone(),
-                           None if b_var is None else b_var.detach().clone()))
-            return super().gaussian(act_mean, act_var, b_mean, b_var, train, freeze_on_eval)
-
-    built, config, batches = wilds_built(torch, wilds_task, task, row, n_batches=1, compute_dtype="bf16")
     with torch.no_grad():
-        built.model.apply(built.state.params, {}, Recording(key=keys.as_key(1, "cuda")), batches[0][0], train=True)
+        model.apply(params, {}, recording_source(NoiseSource, planes)(key=keys.as_key(1, "cuda")), x, train=train)
+    return planes
+
+
+def bf16_k1_checks(torch, sampling, wilds_task, NoiseSource, task, row, planes_want, what, sass=None):
+    """K1 on the bf16 planes of one ``what`` train forward at
+    ``compute_dtype: bf16`` (recorded from the model's own forward on the
+    card): ``k1_bf16_hold``, then ``k1_bf16_times``."""
+    built, config, batches = wilds_built(torch, wilds_task, task, row, n_batches=1, compute_dtype="bf16")
+    planes = record_planes(torch, NoiseSource, built.model, built.state.params, batches[0][0], True)
     batch = batches[0][0].shape[0]
     del built, batches
     torch.cuda.empty_cache()
@@ -4057,59 +4298,62 @@ def bf16_k1_checks(torch, sampling, wilds_task, NoiseSource, task, row, planes_w
     check(len(planes) == planes_want and all(m.dtype == torch.bfloat16 for m, _, _, _ in planes[:-1])
           and planes[-1][0].dtype == torch.float32,
           f"K1 bf16: one {what} train forward hands K1 {len(planes) - 1} bf16 planes and the fp32 head's")
-    n_elem = sum(m.numel() for m, _, _, _ in planes)
-    n_bytes = sum(3 * m.element_size() * m.numel() + (2 * bm.element_size() * m.shape[1] if bm is not None else 0)
-                  for m, _, bm, _ in planes)
-    dev = torch.device("cuda")
-    key = torch.full((), 987_654_321, dtype=torch.int64, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(34)
-    worst, worst_back, bitwise = 0.0, 0.0, True
-    for i, (m, v, bm, bv) in enumerate(planes):
-        seed = sampling.DeviceSeed(key, i)
-        zeros = torch.zeros(m.shape, device=dev)
-        z = sampling.gaussian_sample(zeros, torch.ones_like(zeros), seed=seed)
-        given = sampling.gaussian_sample(m, v, bm, bv, eps=z)
-        ref = sampling.gaussian_sample_plain(m, v, bm, bv, z)
-        a = sampling._add_bias(m.float(), None if bm is None else bm.float())
-        std = torch.sqrt(sampling._add_bias(v.float(), None if bv is None else bv.float()))
-        worst = max(worst, bf16_ulps(torch, given, ref, a.abs() + (std * z).abs()))
-        g = torch.randn(m.shape, device=dev, generator=gen).to(m.dtype)
-        d_var = sampling.gaussian_sample_backward(g, v, bv, seed=seed)
-        ref_var = (g.float() * z * 0.5 / std).to(m.dtype)
-        worst_back = max(worst_back, bf16_ulps(torch, d_var, ref_var))
-        bitwise &= torch.equal(sampling.gaussian_sample(m, v, bm, bv, seed=seed), given)
-    check(worst <= 1.0 and worst_back <= 1.0 and bitwise,
-          f"K1 bf16 at one {what} forward's {len(planes)} planes ([{batch}, C, H, W], {n_elem} elements) = plain "
-          f"within one bf16 ulp (forward {worst:.2f} ulp beyond the fp32 sums' 2^-22 margin, backward "
-          f"{worst_back:.2f} ulp); DeviceSeed draws = the same z given, bit for bit")
-    gs = [torch.randn_like(m) for m, _, _, _ in planes]
+    held = k1_bf16_hold(torch, sampling, planes, f"one {what} train forward ([{batch}, C, H, W])")
+    return {"launches_per_forward": len(planes), **held,
+            **k1_bf16_times(torch, sampling, planes, f"one {what} train forward at batch {batch}", sass=sass)}
 
-    def kernel_forward():
-        for j, (m, v, bm, bv) in enumerate(planes):
-            sampling.gaussian_sample(m, v, bm, bv, seed=sampling.DeviceSeed(key, j))
 
-    def plain_forward():
-        for m, v, bm, bv in planes:
-            sampling.gaussian_sample_plain(m, v, bm, bv, torch.randn(m.shape, device=dev))
+def bf16_k1_cifar(torch, sampling, cifar, NoiseSource, sass=None):
+    """K1 on the planes of configs/cifar.yaml's BBB ResNet-20 at ``bf16:
+    true`` (the main path's configuration at bf16): one train forward at
+    batch 128 (21 bf16 planes and the fp32 head) held and timed as
+    ``bf16_k1_checks`` does, then one frozen-eval forward at batch 500 (the
+    eval batch: one noise row a plane for the whole batch) timed against the
+    Triton kernel and its bound."""
+    built, config, batches, (x_test, y_test) = _built(torch, cifar, BBB_VARIANT, steps=1, bf16=True)
+    train = record_planes(torch, NoiseSource, built.model, built.state.params, batches[0][0], True)
+    x_eval, _ = cifar._to_device(built, x_test[:BF16_FROZEN_BATCH], y_test[:BF16_FROZEN_BATCH])
+    frozen = record_planes(torch, NoiseSource, built.model, built.state.params, x_eval, False)
+    del built, batches, x_eval
+    torch.cuda.empty_cache()
+    per = len(bbb_shapes(1))
+    check(len(train) == per == len(frozen) and all(m.dtype == torch.bfloat16 for m, _, _, _ in train[:-1])
+          and train[-1][0].dtype == torch.float32,
+          f"K1 bf16: one CIFAR BBB ResNet-20 forward at bf16 hands K1 {per - 1} bf16 planes and the fp32 head's, "
+          f"train and eval")
+    held = k1_bf16_hold(torch, sampling, train, "one CIFAR BBB ResNet-20 bf16 train forward ([128, C, H, W])")
+    figures = {"launches_per_forward": per, **held,
+               **k1_bf16_times(torch, sampling, train, "one CIFAR BBB ResNet-20 bf16 train forward at batch 128",
+                               sass=sass)}
+    figures["frozen_eval"] = k1_bf16_times(
+        torch, sampling, frozen, f"one CIFAR BBB ResNet-20 bf16 frozen-eval forward at batch {BF16_FROZEN_BATCH}",
+        frozen=True, sass=sass)
+    return figures
 
-    def kernel_backward():
-        for (_, v, _, bv), g in zip(planes, gs):
-            sampling.gaussian_sample_backward(g, v, bv, seed=5)
 
-    with torch.no_grad():
-        times = in_turns({"kernel": lambda: graph_ms(torch, kernel_forward, reps=10),
-                          "plain": lambda: graph_ms(torch, plain_forward, reps=5),
-                          "backward": lambda: graph_ms(torch, kernel_backward, reps=10)}, rounds=1)
-    bound = k1_bound_ms(n_elem, n_bytes)
-    ms, plain_ms, back_ms = times["kernel"][0], times["plain"][0], times["backward"][0]
-    print(f"K1 bf16, one {what} train forward at batch {batch} ({len(planes)} launches, {n_elem} elements, "
-          f"{n_bytes} bytes: 6 B an element, the fp32 head's 12): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"backward kernels {back_ms:.4f} ms, bound {bound:.4f} ms (forward at {100 * bound / ms:.0f}% of it, backward "
-          f"{100 * bound / back_ms:.0f}%) [{CARD}]")
-    return {"launches_per_forward": len(planes), "elements": n_elem, "bytes": n_bytes, "max_ulp": worst,
-            "backward_max_ulp": worst_back, "ms": ms, "plain_ms": plain_ms, "backward_ms": back_ms,
-            "bound_ms": bound, "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S >= n_elem * K1_FLOPS_PER_ELEMENT
-            / FP32_FLOPS_PER_S else "operations"}
+def bf16_k1_phase(torch, sampling, wilds_task, cifar, NoiseSource):
+    """K1 on bf16 planes: the SASS counts of its kernels before and after
+    (``benchmarks_torch/k1_sass.py``), the draw's checks over
+    K1_BF16_DRAWS elements, then poverty's, camelyon17's and CIFAR's planes
+    held and timed."""
+    import importlib.util
+
+    global SM_CLOCK_MHZ
+    SM_CLOCK_MHZ = int(float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()))
+    spec = importlib.util.spec_from_file_location("k1_sass", os.path.join(ROOT, "benchmarks_torch", "k1_sass.py"))
+    k1_sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(k1_sass)
+    sass = k1_sass.k1_counts(torch, sampling)
+    k1_sass.print_counts(sass, CARD)
+    figures = {"sass": sass, "draw": k1_bf16_draw_checks(torch, sampling)}
+    figures["poverty"] = bf16_k1_checks(torch, sampling, wilds_task, NoiseSource, "poverty", "BBB", 21,
+                                        "poverty BBB (ResNet-18, 224x224x8)", sass=sass)
+    figures["camelyon17"] = bf16_k1_checks(torch, sampling, wilds_task, NoiseSource, "camelyon17", "BBB", 121,
+                                           "camelyon17 BBB (DenseNet-121, 96x96)", sass=sass)
+    figures["cifar"] = bf16_k1_cifar(torch, sampling, cifar, NoiseSource, sass=sass)
+    return figures
 
 
 def bf16_k3(torch, att, shape):
@@ -4290,22 +4534,31 @@ def bf16_rows(torch, kernels, out):
         sweep = os.path.join(out, f"bf16_{task}.yaml")
         row = bf16_sweep_file(task, name, sweep)
         config = {**(cifar.DEFAULT_CONFIG if task == "cifar" else wilds_task.DEFAULT_CONFIG), **row}
+        k1, k1_back = kernels["k1_gaussian_sample"], kernels["k1_gaussian_sample_backward"]
         for fn in kernels.values():
             fn.launches = 0
+        k1.bf16_launches = k1_back.bf16_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run.main([task, sweep, "--name", name, "--out", os.path.join(out, f"bf16_{task}"), "--rep", "0"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in kernels.items()}
+        bf16_counts = {"k1_gaussian_sample": k1.bf16_launches, "k1_gaussian_sample_backward": k1_back.bf16_launches}
         want = bf16_expected_counts(task, config)
         check(counts == want, f"bf16 {task} {name}: launch counts {counts} = {want}")
+        # a BBB model's layers but its fp32 head go through the bf16 kernels
+        per = (len(bbb_shapes(1)) if task == "cifar" else IMAGE_K1_PER_FORWARD.get(task, 0)) * (
+            config["model"] == "bbb")
+        want_bf16 = {k: counts[k] * (per - 1) // per if per else 0 for k in bf16_counts}
+        check(bf16_counts == want_bf16, f"bf16 {task} {name}: launches of K1's bf16 kernels {bf16_counts} = "
+              f"{want_bf16} (every K1 launch but the fp32 head's)")
         with open(os.path.join(out, f"bf16_{task}", f"{name}_0", "rep_0", "metrics.jsonl")) as f:
             record = {k: v for k, v in json.loads(f.read().splitlines()[-1]).items() if not k.startswith("_")}
         values = [x for v in record.values() for x in (v.values() if isinstance(v, dict) else [v])
                   if isinstance(x, (int, float))]
         check(values and all(math.isfinite(x) for x in values), f"bf16 {task} {name}: metrics finite")
-        figures[f"{task} {name}"] = {"wall_s": wall, "counts": counts}
+        figures[f"{task} {name}"] = {"wall_s": wall, "counts": counts, "bf16_counts": bf16_counts}
         print(f"bf16 {task} {name} through run.main: {wall:.1f} s [{CARD}]")
     return figures
 
@@ -4339,7 +4592,8 @@ def bf16_card_vs_cpu(torch, cifar, NoiseSource):
 
 
 def bf16_phase(torch, kernels, att, sampling, wilds_task, cifar, NoiseSource):
-    """bf16 compute: K1 on poverty's and camelyon17's bf16 planes, K3 on bf16
+    """bf16 compute: K1 on bf16 planes (``bf16_k1_phase``: its SASS counts,
+    its draw, poverty's, camelyon17's and CIFAR's planes), K3 on bf16
     operands (against their plain versions and bounds, K3 beside SDPA at
     bf16), one row per backbone through run.main with exact counts, a
     captured amazon MCD bf16 step against an eager one bit for bit and its
@@ -4352,12 +4606,8 @@ def bf16_phase(torch, kernels, att, sampling, wilds_task, cifar, NoiseSource):
     def part(name):
         print(f"bf16 phase: {name} (at {time.perf_counter() - T_START:.1f} s)")
 
-    figures = {"k1": {
-        "poverty": bf16_k1_checks(torch, sampling, wilds_task, NoiseSource, "poverty", "BBB", 21,
-                                  "poverty BBB (ResNet-18, 224x224x8)"),
-        "camelyon17": bf16_k1_checks(torch, sampling, wilds_task, NoiseSource, "camelyon17", "BBB", 121,
-                                     "camelyon17 BBB (DenseNet-121, 96x96)"),
-    }}
+    part("K1")
+    figures = {"k1": bf16_k1_phase(torch, sampling, wilds_task, cifar, NoiseSource)}
     part("K3")
     figures["k3"] = {str(shape): bf16_k3(torch, att, shape) for shape in BF16_K3_SHAPES}
     part("rows through run.main")
@@ -5749,6 +5999,9 @@ def first_main(torch, t_start) -> int:
     bf16 = bf16_phase(torch, kernels, att, sampling, wilds_task, cifar, NoiseSource)
     print(json.dumps({"card": CARD, "bf16": bf16}))
     bf16_counts = {name: sum(row["counts"][name] for row in bf16["rows"].values()) for name in kernels}
+    bf16_k1_counts = {name: sum(row["bf16_counts"][name] for row in bf16["rows"].values())
+                      for name in ("k1_gaussian_sample", "k1_gaussian_sample_backward")}
+    check(all(bf16_k1_counts.values()), f"K1's bf16 kernels launched on the bf16 rows' path: {bf16_k1_counts}")
 
     second = finish_second()
     uci, image, resnet, poverty, staged, running_bn = (
@@ -5847,12 +6100,11 @@ def first_main(torch, t_start) -> int:
             "poverty_backward_launches": poverty_counts["k1_gaussian_sample_backward"],
             "poverty_forward": poverty["k1"],
             # the bf16 phase: host counts over its rows through run.main
-            # (camelyon17, poverty and CIFAR BBB at compute_dtype bf16), and
-            # one bf16 train forward's planes of poverty (21) and camelyon17
-            # (121) against the plain version (ulps) and the byte bound at
-            # 6 B an element
+            # (camelyon17, poverty and CIFAR BBB at compute_dtype bf16), of
+            # which the bf16 planes' go through k1_gaussian_sample_bf16 below
+            # and the fp32 heads' through this kernel
             "bf16": {"launches": bf16_counts["k1_gaussian_sample"],
-                     "backward_launches": bf16_counts["k1_gaussian_sample_backward"], **bf16["k1"]},
+                     "backward_launches": bf16_counts["k1_gaussian_sample_backward"]},
             # phase 17: host counts over camelyon17's static_bn false rows
             # through run.main (BBB: 121 a forward, 121 backward a step, 121
             # a forward of the eval runner's warm-up and capture), one BBB
@@ -5863,6 +6115,30 @@ def first_main(torch, t_start) -> int:
                            "backward_launches": running_counts["k1_gaussian_sample_backward"],
                            "forward": running_bn["k1"], "preresnet20": running_bn["last_models"]["activations"],
                            "parameter_sampling": running_bn["last_models"]["parameters"]},
+        },
+        {
+            # K1 on bf16 planes: the same wrapper (gaussian_sample, its
+            # backward) launching the CUDA kernels; launches are the bf16
+            # phase's rows through run.main (their bf16 planes, not the fp32
+            # heads), the figures one CIFAR BBB ResNet-20 train forward at
+            # bf16: 21 bf16 planes and the fp32 head, batch 128
+            "name": "k1_gaussian_sample_bf16",
+            "route": "cuda",
+            "source": "beyond_deep_ensembles_tpu_torch/csrc/gaussian_sample_bf16.cu",
+            "replaces": "beyond_deep_ensembles_tpu/ops/sampling.py:46",
+            "launches": bf16_k1_counts["k1_gaussian_sample"],
+            "max_abs_err": bf16["k1"]["cifar"]["max_abs_err"],
+            "ms": bf16["k1"]["cifar"]["kernel_ms"],
+            "plain_ms": bf16["k1"]["cifar"]["plain_ms"],
+            "bound_ms": bf16["k1"]["cifar"]["bound_ms"],
+            "bound_by": bf16["k1"]["cifar"]["bound_by"],
+            "library_ms": None,
+            "backward_launches": bf16_k1_counts["k1_gaussian_sample_backward"],
+            # every figure of the phase: SASS counts before and after, the
+            # draw's checks, poverty's, camelyon17's and CIFAR's planes (with
+            # the Triton kernel on the same planes, in turns, and CIFAR's
+            # frozen eval at batch 500)
+            **bf16["k1"],
         },
         {
             "name": "k2_svgd_gram",

@@ -32,7 +32,7 @@ the same fraction of the terms they cancel (``_cancelled_scale``); K3b
 called alone, drawing the keep bits itself, equal to K3b in training, which
 reads K3a's, bit for bit. K1 on bf16 planes against its plain version within
 one bf16 ulp, forward and backward, with given noise and with Philox noise
-(the z of a seed read back from the fp32 kernel at mean 0 and variance 1); in
+(the z of a seed as the bf16 kernels draw it, read back by ``noise_bf16``); in
 the forward beyond what the fp32 sum may differ before its rounding (the
 kernel's fused multiply-add against the plain version's rounded product:
 2^-22 of |a| + |std z|, ``_bf16_ulps``)."""
@@ -389,7 +389,9 @@ def _bf16_ulps(got, want, terms=None):
     magnitude ``terms`` (|a| + |std z|); where they cancel, that is many
     bf16 spacings of the small result."""
     got, want = got.detach().double(), want.detach().double()
-    spacing = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0**-126))) - 7)
+    # 2^(e - 8) for |want| = m 2^e, m in [0.5, 1): log2 on the card reads a
+    # power of two as just below it, which halved the spacing there
+    spacing = torch.ldexp(torch.ones_like(want), torch.frexp(want.abs().clamp_min(2.0**-126))[1] - 8)
     err = (got - want).abs()
     if terms is not None:
         err = (err - 2.0**-22 * terms.double()).clamp_min(0.0)
@@ -411,10 +413,8 @@ def test_k1_bf16_kernel_within_one_ulp_of_plain(cuda_device, shape, bias, frozen
         z = torch.randn(shape[1:] if frozen else shape, device=cuda_device, generator=gen)
         kw = {"eps": z}
     else:
-        # z of seed 5 read back from the fp32 kernel at mean 0, variance 1
-        zeros = torch.zeros(shape, device=cuda_device)
-        z = sampling.gaussian_sample(zeros, torch.ones_like(zeros), seed=5, frozen=frozen)
-        z = z[0] if frozen else z
+        # z of seed 5 as the bf16 kernels draw it, read back from their noise mode
+        z = sampling.noise_bf16(mean, 5, frozen=frozen)
         kw = {"seed": 5, "frozen": frozen}
     planes = [t.clone().requires_grad_(True) for t in (mean, var)]
     before = sampling.gaussian_sample.launches, sampling.gaussian_sample_backward.launches
